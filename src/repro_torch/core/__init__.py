@@ -1,0 +1,10 @@
+"""ConnectIt core in PyTorch: primitives, the uf_sync finish, k-out sampling
+and the two-phase driver behind ``repro_torch.api``."""
+from . import driver, finish, primitives, sampling  # noqa: F401
+from .driver import (  # noqa: F401
+    ConnectivityStats,
+    run_connectivity,
+    run_connectivity_fused,
+)
+from .finish import make_finish  # noqa: F401
+from .sampling import make_kout  # noqa: F401

@@ -1,0 +1,177 @@
+"""ConnectIt two-phase driver (paper Algorithm 1).
+
+``run_connectivity(g, sampler_fn, finish_fn, generator)`` is the
+orchestrator behind ``repro_torch.api.ConnectIt``:
+
+  1. run the sampling phase → partial labeling P
+  2. identify L_max (most frequent label) and pin it to the virtual minimum
+     label -1 (Theorem 4's "smallest possible ID" relabeling)
+  3. *compact* the finish-phase edge list: edges internal to L_max are
+     dropped (the paper's m - X + Y edge saving), on the graph's device,
+     keeping edge order
+  4. run the finish phase on the compacted edges
+  5. compress + restore -1 → canonical min-vertex-id labels
+
+``run_connectivity_fused`` skips the compaction: L_max-internal edges stay
+in the list as no-ops under write_min. Both paths fill the same
+``ConnectivityStats``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from ..graphs.containers import Graph, round_up
+from .primitives import (
+    full_compress,
+    init_labels,
+    min_vertex_labels,
+    most_frequent,
+    relabel_lmax,
+    restore_lmax,
+)
+
+
+@dataclasses.dataclass
+class ConnectivityStats:
+    """Paper Figure 2 quantities; the fields of the JAX package's stats.
+
+    ``edges_finish`` is the number of *real* directed edges handed to the
+    finish phase (``edges_total`` when nothing was dropped), and
+    ``edges_finish_padded`` the padded finish-phase dispatch size."""
+
+    variant: str = ""          # canonical VariantSpec string
+    exec: str = "single"       # canonical ExecutionSpec string
+    placement: str = "single"  # single | replicated | sharded
+    devices: int = 1           # devices the dispatch ran on
+    edges_total: int = 0       # real directed edges in the input graph
+    edges_finish: int = 0      # real directed edges processed by finish
+    edges_finish_padded: int = 0  # padded finish-phase dispatch size
+    edges_per_device: tuple = ()  # real finish edges per edge shard
+    dispatch_sizes: tuple = ()    # padded dispatch size per edge shard
+    batch_shapes: tuple = ()      # streams: distinct batch shapes
+    lmax_count: int = 0        # vertices in L_max after sampling (0 = none)
+    finish_rounds: int = 0     # (outer) rounds the finish phase ran
+    fused: bool = False        # single: no host compaction
+    app: str = ""              # canonical AppSpec string ("" for core paths)
+    buckets: int = 0           # AMSF: weight buckets swept
+    edges_per_bucket: tuple = ()  # AMSF: in-bucket candidate edges
+    chunks: int = 0            # chunked ingest: edge chunks streamed
+    spills: int = 0            # chunked ingest: survivor-buffer flushes
+    survivor_ratio: float = 0.0  # chunked ingest: survivors / real edges
+
+
+def _finish_phase(P, senders, receivers, finish_fn):
+    P, rounds = finish_fn(P, senders, receivers)
+    P = full_compress(P)
+    return min_vertex_labels(restore_lmax(P)), rounds
+
+
+def _prep_sampled(P, senders, receivers):
+    n = P.shape[0] - 1
+    P = full_compress(P)
+    lmax, cnt = most_frequent(P)
+    # drop L_max-internal edges AND the dump-slot padding (senders == n) so
+    # the compacted list — and edges_finish — counts real edges only
+    s, r = senders.long(), receivers.long()
+    keep = ~((P[s] == lmax) & (P[r] == lmax)) & (senders < n)
+    return relabel_lmax(P, lmax), keep, lmax, cnt
+
+
+def bucket_size(k: int, *, pad: str = "pow2", pad_multiple: int = 8,
+                shards: int = 1, floor: int = 8) -> int:
+    """Static dispatch size for ``k`` real elements under a pad policy.
+
+    ``pow2`` buckets to the next power of two (at least ``floor``);
+    ``multiple`` rounds up to ``pad_multiple``. The result is always a
+    positive multiple of ``shards``."""
+    k = max(int(k), 1)
+    if pad == "pow2":
+        size = max(floor, 1 << (k - 1).bit_length())
+    else:
+        size = max(round_up(k, pad_multiple), pad_multiple)
+    return round_up(size, shards)
+
+
+def _compact(senders, receivers, keep, n_dump: int, pad_multiple: int = 8,
+             pad: str = "multiple"):
+    """Kept edges in their order, padded with dump-slot edges."""
+    s = senders[keep]
+    r = receivers[keep]
+    kept = int(s.shape[0])
+    m_pad = bucket_size(kept, pad=pad, pad_multiple=pad_multiple)
+    s_out = torch.full((m_pad,), n_dump, dtype=torch.int32, device=s.device)
+    r_out = torch.full((m_pad,), n_dump, dtype=torch.int32, device=s.device)
+    s_out[:kept] = s
+    r_out[:kept] = r
+    return s_out, r_out, kept
+
+
+def _default_generator(g: Graph, generator):
+    if generator is None:
+        generator = torch.Generator(device=g.device)
+        generator.manual_seed(0)
+    return generator
+
+
+def run_connectivity(
+    g: Graph,
+    sampler_fn: Optional[Callable],
+    finish_fn: Callable,
+    generator: Optional[torch.Generator] = None,
+    *,
+    variant: str = "",
+    compact_pad: int = 8,
+    pad: str = "multiple",
+) -> tuple[torch.Tensor, ConnectivityStats]:
+    """Two-phase connectivity on resolved callables → (labels, stats).
+
+    ``compact_pad``/``pad`` set the padding of the compacted finish-phase
+    edge list (see ``bucket_size``)."""
+    stats = ConnectivityStats(variant=variant, edges_total=g.m)
+    if sampler_fn is None:
+        P = init_labels(g.n, device=g.device)
+        senders, receivers = g.senders, g.receivers
+        stats.edges_finish = g.m
+        stats.edges_finish_padded = g.m_pad
+    else:
+        P = sampler_fn(g, _default_generator(g, generator))
+        P, keep, _, cnt = _prep_sampled(P, g.senders, g.receivers)
+        senders, receivers, kept = _compact(g.senders, g.receivers, keep, g.n,
+                                            compact_pad, pad)
+        stats.lmax_count = int(cnt)
+        stats.edges_finish = kept
+        stats.edges_finish_padded = int(senders.shape[0])
+    P, rounds = _finish_phase(P, senders, receivers, finish_fn)
+    stats.finish_rounds = int(rounds)
+    stats.edges_per_device = (stats.edges_finish,)
+    stats.dispatch_sizes = (stats.edges_finish_padded,)
+    return P[: g.n], stats
+
+
+def run_connectivity_fused(
+    g: Graph,
+    sampler_fn: Optional[Callable],
+    finish_fn: Callable,
+    generator: Optional[torch.Generator] = None,
+    *,
+    variant: str = "",
+) -> tuple[torch.Tensor, ConnectivityStats]:
+    """Connectivity with no compaction → (labels, stats)."""
+    stats = ConnectivityStats(variant=variant, edges_total=g.m, fused=True,
+                              edges_finish=g.m, edges_finish_padded=g.m_pad)
+    if sampler_fn is None:
+        P = init_labels(g.n, device=g.device)
+    else:
+        P = full_compress(sampler_fn(g, _default_generator(g, generator)))
+        lmax, cnt = most_frequent(P)
+        P = relabel_lmax(P, lmax)
+        stats.lmax_count = int(cnt)
+    P, rounds = _finish_phase(P, g.senders, g.receivers, finish_fn)
+    stats.finish_rounds = int(rounds)
+    stats.edges_per_device = (stats.edges_finish,)
+    stats.dispatch_sizes = (stats.edges_finish_padded,)
+    return P[: g.n], stats

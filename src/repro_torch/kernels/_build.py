@@ -1,0 +1,146 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with ctypes.
+
+Each source under ``csrc/`` is compiled on its own into a shared library
+with a plain ``extern "C"`` interface (no PyTorch headers, so a build takes
+seconds). All missing libraries are built together, one ``nvcc`` process
+per source started at once. Libraries land in ``build/kernels/`` at the
+root of the checkout, named by a hash of their sources and flags, so an
+edited source is rebuilt and an unchanged one is loaded as it is.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine need not have ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I32 = ctypes.c_int
+
+# source name -> {C function: argument types}; every function returns the
+# cudaError_t of its launches as an int
+SIGNATURES = {
+    "scatter_min": {"scatter_min_i32": (_P, _P, _P, _P, _I64, _I64, _P)},
+    "pointer_jump": {"pointer_jump_i32": (_P, _P, _I64, _I32, _P)},
+    "hook_compress": {
+        "hook_compress_i32": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _P)},
+}
+
+
+@dataclass(frozen=True)
+class BuildRecord:
+    """One library: where it is, and what building it took (0 s if cached)."""
+
+    name: str
+    path: Path
+    seconds: float
+    ptxas: tuple  # the compiler's register/spill lines, empty if cached
+
+
+_LIBS: dict = {}      # name -> loaded ctypes.CDLL
+_RECORDS: dict = {}   # name -> BuildRecord of this process's first load
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built at first use on a "
+            "machine with the CUDA toolkit")
+    return path
+
+
+def _library_path(name: str) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Build every library that is not built yet, all ``nvcc`` processes at
+    once; return ``{name: BuildRecord}`` for all sources."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    pending = {}
+    for name in SIGNATURES:
+        path = _library_path(name)
+        if path.exists():
+            _RECORDS.setdefault(name, BuildRecord(name, path, 0.0, ()))
+            continue
+        tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        pending[name] = (proc, path, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, path, tmp, t0) in pending.items():
+        out, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{out}")
+            continue
+        os.replace(tmp, path)
+        ptxas = tuple(line.strip() for line in out.splitlines()
+                      if "ptxas info" in line or "spill" in line)
+        _RECORDS[name] = BuildRecord(name, path, seconds, ptxas)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return dict(_RECORDS)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        if name not in _RECORDS:
+            build_all()
+        lib = ctypes.CDLL(str(_RECORDS[name].path))
+        for fn, argtypes in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        _LIBS[name] = lib
+    return _LIBS[name]
+
+
+def check_args(what: str, labels, *edge_arrays) -> None:
+    """Validate a kernel call: 1-D contiguous int32 tensors on one CUDA
+    device, with the edge-indexed arrays all of one length."""
+    tensors = (labels, *edge_arrays)
+    for t in tensors:
+        if t.dtype != torch.int32:
+            raise TypeError(f"{what}: the CUDA kernel takes int32, got {t.dtype}")
+        if t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{what}: needs 1-D contiguous tensors, got "
+                             f"shape {tuple(t.shape)}")
+        if t.device.type != "cuda" or t.device != labels.device:
+            raise ValueError(f"{what}: needs tensors on one CUDA device, got "
+                             f"{[str(x.device) for x in tensors]}")
+    if len({t.shape[0] for t in edge_arrays}) > 1:
+        raise ValueError(f"{what}: edge arrays differ in length: "
+                         f"{[t.shape[0] for t in edge_arrays]}")
+
+
+def stream_of(t) -> int:
+    """The handle of PyTorch's current stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc}")

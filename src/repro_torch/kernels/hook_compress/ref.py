@@ -1,0 +1,36 @@
+"""Plain PyTorch version of the fused hook+compress kernel.
+
+One synchronous ``uf_sync`` round (ConnectIt's union-find hook rule plus
+per-round compression, paper §3.3 / Appendix A):
+
+  1. gather round-start parents ``pu = P[s]``, ``pv = P[r]``;
+  2. root-mask: hook only when ``pu`` is a round-start root and ``pv < pu``;
+  3. scatter-min the winning proposals into the label array (writeMin);
+  4. ``k`` chained shortcut hops through the *hooked* array snapshot.
+
+``-1`` (the virtual minimum pinning L_max) is a fixed point of every phase.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..pointer_jump.ref import pointer_jump_ref
+
+
+def hook_compress_ref(labels: torch.Tensor, senders: torch.Tensor,
+                      receivers: torch.Tensor, *, k: int = 1) -> torch.Tensor:
+    """labels (L,) int; senders/receivers (m,) int in [0, L).
+
+    Padded edges must point at a self-labeled dump slot."""
+    big = torch.iinfo(labels.dtype).max
+    dump = labels.shape[0] - 1
+    pu = labels[senders.long()]
+    pv = labels[receivers.long()]
+    ppu = torch.where(pu < 0, pu, labels[pu.clamp_min(0).long()])
+    ok = (pu >= 0) & (ppu == pu) & (pv < pu)
+    tgt = torch.where(ok, pu, dump)
+    val = torch.where(ok, pv, big)
+    hooked = labels.scatter_reduce(0, tgt.long(), val, "amin",
+                                   include_self=True)
+    return pointer_jump_ref(hooked, k=k)

@@ -1,0 +1,113 @@
+"""Dispatch layer for the connectivity hot-path kernels.
+
+Every hot-path primitive has two implementations with identical semantics:
+a plain PyTorch version (``*/ref.py``) and a CUDA kernel written by hand
+(``csrc/*.cu``, wrapped in ``*/kernel.py``). The tensor's device picks one:
+
+    CPU tensor   the plain version
+    CUDA tensor  the CUDA kernel; a call it cannot take raises
+
+There is no policy knob and no fallback from the kernel to the plain
+version.
+
+This layer owns the contract between core label arrays and the kernels:
+
+  * **dump-slot semantics** — label arrays are ``(n + 1,)`` with dump row
+    ``n``; negative / masked / out-of-range scatter targets are dumped onto
+    it with the dtype's max sentinel, so the scatter is a no-op whatever the
+    target buffer holds;
+  * **-1 virtual-minimum fixed points** — the ``-1`` label pinning L_max
+    never hooks, wins every min, and stops every pointer chain, in both
+    implementations of every op.
+
+The CUDA kernels mask their ragged tails themselves, so nothing is padded.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .hook_compress import kernel as _hook_compress_kernel
+from .hook_compress.ref import hook_compress_ref
+from .pointer_jump import kernel as _pointer_jump_kernel
+from .pointer_jump.ref import pointer_jump_ref
+from .scatter_min import kernel as _scatter_min_kernel
+from .scatter_min.ref import scatter_min_ref
+
+__all__ = ["scatter_min", "pointer_jump", "hook_compress", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
+
+# the CUDA wrappers, each with its ``launches`` counter
+KERNELS = {
+    "hook_compress": _hook_compress_kernel.hook_compress,
+    "pointer_jump": _pointer_jump_kernel.pointer_jump,
+    "scatter_min": _scatter_min_kernel.scatter_min,
+}
+
+
+def launch_counts() -> dict:
+    """``{kernel name: launches since the last reset}``."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}; have cpu and cuda")
+
+
+def scatter_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``P[idx] = min(P[idx], vals)`` — the paper's writeMin (Appendix A).
+
+    Negative, masked, and out-of-range targets are dumped (no-op scatter of
+    the dtype's max sentinel), so ``P``'s dump row and any non-label buffer
+    (e.g. a forest edge-id buffer) are safe targets."""
+    n = P.shape[0] - 1
+    big = torch.iinfo(P.dtype).max
+    ok = (idx >= 0) & (idx <= n)
+    if mask is not None:
+        ok = ok & mask
+    idx = torch.where(ok, idx, n).to(torch.int32)
+    vals = torch.where(ok, vals.to(P.dtype), big)
+    if _on_cuda(P):
+        return _scatter_min_kernel.scatter_min(P, idx, vals)
+    return scatter_min_ref(P, idx, vals)
+
+
+def pointer_jump(labels: torch.Tensor, *, k: int = 1) -> torch.Tensor:
+    """``k`` chained shortcut hops through the round-start snapshot.
+
+    ``k=1`` is exactly one ``P ← P[P]`` round; chained hops compose, so
+    ``k=3`` in one call equals two successive rounds (FindHalve). ``-1``
+    labels and self-labeled slots are fixed points."""
+    if _on_cuda(labels):
+        return _pointer_jump_kernel.pointer_jump(labels, k=k)
+    return pointer_jump_ref(labels, k=k)
+
+
+def hook_compress(P: torch.Tensor, senders: torch.Tensor,
+                  receivers: torch.Tensor, *, k: int = 1,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One fused uf_sync round: root-masked min-hook + ``k`` shortcut hops.
+
+    Equivalent to ``write_min(P, P[s], P[r], root-mask)`` followed by
+    ``pointer_jump(·, k)`` on the hooked array. ``mask=False`` edges are
+    rewritten onto the dump row first (a no-op hook under the dump-slot
+    contract)."""
+    if mask is not None:
+        dump = P.shape[0] - 1
+        senders = torch.where(mask, senders, dump).to(senders.dtype)
+        receivers = torch.where(mask, receivers, dump).to(receivers.dtype)
+    if _on_cuda(P):
+        return _hook_compress_kernel.hook_compress(P, senders, receivers, k=k)
+    return hook_compress_ref(P, senders, receivers, k=k)

@@ -10,6 +10,11 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; the test skips itself without one")
+
+
 @pytest.fixture(autouse=True)
 def _clear_jax_caches():
     """Keep the jit-compilation cache from exhausting memory across the

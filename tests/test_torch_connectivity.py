@@ -1,0 +1,314 @@
+"""The port's static connectivity slice against the JAX package.
+
+One graph, built by ``repro.graphs`` and carried across verbatim with
+``graph_from_arrays``, goes through ``repro.api.ConnectIt`` and
+``repro_torch.api.ConnectIt`` (on the CPU). Labels must be bit-identical for
+every variant; ``ConnectivityStats`` must be equal where no random stream
+enters (``none+…`` and ``kout_afforest``). The primitives, the uf_sync finish
+and the k-out edge selection are held against their JAX counterparts the same
+way. Every comparison is exact integer equality.
+
+The last test scans the port's sources: nothing in ``src/repro_torch`` or
+``chip_smoke.py`` may import ``jax`` or ``repro``.
+"""
+
+import ast
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import variant_grid_graphs
+from repro import api as japi
+from repro.core import primitives as jprim
+from repro.core.finish import make_finish as j_make_finish
+from repro.core.sampling import _select_kout_edges as j_select_kout
+from repro.graphs import generators as jgen
+from repro_torch import api as tapi
+from repro_torch.core import primitives as tprim
+from repro_torch.core.finish import make_finish
+from repro_torch.core.sampling import _select_kout_edges
+from repro_torch.graphs import graph_from_arrays
+
+REPO = Path(__file__).resolve().parents[1]
+RNG = np.random.default_rng(3)
+
+VARIANTS = ("none+uf_sync_naive", "none+uf_sync_halve", "none+uf_sync_full",
+            "kout_afforest_k2+uf_sync_full", "kout_hybrid_k2+uf_sync_full")
+DETERMINISTIC = VARIANTS[:4]
+STATS_FIELDS = ("variant", "exec", "placement", "devices", "edges_total",
+                "edges_finish", "edges_finish_padded", "edges_per_device",
+                "dispatch_sizes", "lmax_count", "finish_rounds", "fused")
+
+
+@pytest.fixture(autouse=True)
+def _clear_jax_caches():
+    """Shadow conftest's per-test cache clearing: every test here runs the
+    same few JAX programs at one small shape. Cleared once per module."""
+    yield
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _clear_jax_caches_once():
+    yield
+    jax.clear_caches()
+
+
+def _graphs():
+    gs = dict(variant_grid_graphs())
+    gs["rmat"] = jgen.rmat(256, 1024, seed=2)
+    return gs
+
+
+GRAPHS = _graphs()
+
+
+def _port(jg):
+    return graph_from_arrays(jg.senders, jg.receivers, jg.indptr, jg.indices,
+                             jg.n, jg.m, device="cpu")
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+# ---------------------------------------------------------------------------
+# The slice end to end.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fused", [False, True], ids=["compacted", "fused"])
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_connectivity_matches_jax(variant, fused):
+    jci = japi.ConnectIt(variant)
+    tci = tapi.ConnectIt(variant, device="cpu")
+    for name, jg in GRAPHS.items():
+        want, jstats = jci.connectivity(jg, fused=fused, return_stats=True)
+        got, tstats = tci.connectivity(_port(jg), fused=fused,
+                                       return_stats=True)
+        assert got.dtype == torch.int32 and tci.stats is tstats
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want),
+                                      err_msg=f"{variant} on {name}")
+        fields = (STATS_FIELDS if variant in DETERMINISTIC
+                  else ("variant", "exec", "edges_total", "fused"))
+        for f in fields:
+            assert getattr(tstats, f) == getattr(jstats, f), (f, name)
+        assert 0 <= tstats.edges_finish <= tstats.edges_finish_padded
+
+
+def test_random_columns_come_from_the_generator():
+    """kout_hybrid's labels do not depend on the draw; its stats may."""
+    jg = GRAPHS["rmat"]
+    ci = tapi.ConnectIt("kout_hybrid_k2+uf_sync_full", device="cpu")
+    outs = []
+    for seed in (0, 1, 2):
+        gen = torch.Generator().manual_seed(seed)
+        outs.append(ci.connectivity(_port(jg), generator=gen))
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+# ---------------------------------------------------------------------------
+# Finish, sampler, primitives.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compress", ["naive", "halve", "full"])
+@pytest.mark.parametrize("max_rounds", [2, 1 << 20])
+def test_uf_sync_labels_and_rounds_match_jax(compress, max_rounds):
+    jg = jgen.path(40)  # long chains: several rounds, and the cap binds at 2
+    P0 = np.arange(jg.n + 1, dtype=np.int32)
+    jP, jrounds = j_make_finish("uf_sync", compress=compress)(
+        jnp.asarray(P0), jg.senders, jg.receivers, max_rounds=max_rounds)
+    tP, trounds = make_finish("uf_sync", compress=compress)(
+        _t(P0), _t(jg.senders), _t(jg.receivers), max_rounds=max_rounds)
+    assert trounds == int(jrounds)
+    np.testing.assert_array_equal(tP.numpy(), np.asarray(jP))
+
+
+def test_make_finish_is_memoized_and_refuses_other_methods():
+    assert make_finish("uf_sync", compress="full") is make_finish(
+        "uf_sync", compress="full")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        make_finish("label_prop")
+
+
+@pytest.mark.parametrize("variant", ["afforest", "hybrid", "maxdeg", "pure"])
+@pytest.mark.parametrize("gname", ["random", "star", "rmat"])
+def test_kout_selection_matches_jax(variant, gname):
+    jg = GRAPHS[gname]
+    k = 3
+    js, jr = j_select_kout(jg, jax.random.PRNGKey(0), k, variant)
+    ts, tr = _select_kout_edges(_port(jg), torch.Generator().manual_seed(0), k,
+                                variant)
+    n = jg.n
+    np.testing.assert_array_equal(ts.numpy() < n, np.asarray(js) < n)
+    # deterministic columns match exactly; random columns must be real edges
+    det = {"afforest": k, "hybrid": 1, "maxdeg": 1, "pure": 0}[variant]
+    np.testing.assert_array_equal(tr.numpy()[: det * n],
+                                  np.asarray(jr)[: det * n])
+    edges = set(map(tuple, np.stack([np.asarray(jg.senders)[: jg.m],
+                                     np.asarray(jg.receivers)[: jg.m]], 1)
+                    .tolist()))
+    for s, r in zip(ts.tolist(), tr.tolist()):
+        assert (s, r) in edges or s == r == n
+
+
+def _compressible(n: int) -> np.ndarray:
+    P = np.minimum(RNG.integers(0, n, n + 1), np.arange(n + 1))
+    P[n] = n
+    return P.astype(np.int32)
+
+
+@pytest.mark.parametrize("max_rounds", [1, 2, 64])
+def test_full_compress_matches_jax(max_rounds):
+    P = _compressible(500)
+    for jumps in (1, 3):
+        want = jprim.full_compress(jnp.asarray(P), max_rounds, jumps=jumps)
+        got = tprim.full_compress(_t(P), max_rounds, jumps=jumps)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_iterate_to_fixpoint_counts_rounds_as_jax():
+    P = _compressible(300)
+    step_j = lambda p: jprim.jump_round(p, 1)  # noqa: E731
+    step_t = lambda p: tprim.jump_round(p, 1)  # noqa: E731
+    for cap in (1, 3, 1 << 20):
+        _, jr = jprim.iterate_to_fixpoint(step_j, jnp.asarray(P), cap)
+        _, tr = tprim.iterate_to_fixpoint(step_t, _t(P), cap)
+        assert tr == int(jr)
+    # a tuple state converges on any changed tensor
+    _, rounds = tprim.iterate_to_fixpoint(
+        lambda st: (tprim.jump_round(st[0]), st[1]), (_t(P), _t(P)))
+    assert rounds == int(jr)
+
+
+def test_label_primitives_match_jax():
+    P = jprim.full_compress(jnp.asarray(_compressible(400)))
+    tP = _t(P)
+    jl, jc = jprim.most_frequent(P)
+    tl, tc = tprim.most_frequent(tP)
+    assert (int(tl), int(tc)) == (int(jl), int(jc))
+    assert int(tprim.num_components(tP)) == int(jprim.num_components(P))
+    np.testing.assert_array_equal(tprim.count_labels(tP).numpy(),
+                                  np.asarray(jprim.count_labels(P)))
+    np.testing.assert_array_equal(tprim.is_root(tP).numpy(),
+                                  np.asarray(jprim.is_root(P)))
+    jpin = jprim.relabel_lmax(P, jl)
+    tpin = tprim.relabel_lmax(tP, tl)
+    np.testing.assert_array_equal(tpin.numpy(), np.asarray(jpin))
+    np.testing.assert_array_equal(tprim.restore_lmax(tpin).numpy(),
+                                  np.asarray(jprim.restore_lmax(jpin)))
+    np.testing.assert_array_equal(tprim.min_vertex_labels(tpin).numpy(),
+                                  np.asarray(jprim.min_vertex_labels(jpin)))
+    raw = _compressible(400)
+    np.testing.assert_array_equal(
+        tprim.canonical_labels(_t(raw)).numpy(),
+        np.asarray(jprim.canonical_labels(jnp.asarray(raw))))
+    x = _t(RNG.integers(-1, 401, 50).astype(np.int32))
+    np.testing.assert_array_equal(
+        tprim.parents_of(tP, x).numpy(),
+        np.asarray(jprim.parents_of(P, jnp.asarray(x.numpy()))))
+
+
+def test_most_frequent_ties_go_to_the_first_label():
+    P = _t(np.array([3, 3, 1, 1, 0, 5, 6], np.int32))  # n = 6, dump last
+    label, count = tprim.most_frequent(P)
+    jl, jc = jprim.most_frequent(jnp.asarray(P.numpy()))
+    assert (int(label), int(count)) == (int(jl), int(jc)) == (1, 2)
+
+
+# ---------------------------------------------------------------------------
+# The spec grammar: round-trips as repro.api prints, the rest refuses.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("text", [
+    "none+uf_sync_naive", "uf_sync", "uf_sync_full", "none+uf_sync_halve",
+    "kout_afforest_k2+uf_sync_full", "kout_k3_pure+uf_sync_naive",
+    "kout_hybrid+uf_sync_full", "kout_maxdeg_k1+uf_sync", "kout+uf_sync_halve",
+])
+def test_spec_strings_round_trip_as_jax(text):
+    t = tapi.VariantSpec.parse(text)
+    j = japi.VariantSpec.parse(text)
+    assert str(t) == str(j)
+    assert tapi.VariantSpec.parse(str(t)) == t
+    assert str(t.sampling) == str(j.sampling)
+    assert str(t.finish) == str(j.finish)
+
+
+@pytest.mark.parametrize("text,item", [
+    ("bfs_c3+uf_sync_full", "Queue 1 item 6"),
+    ("ldd_b0.2+uf_sync_full", "Queue 1 item 6"),
+    ("none+shiloach_vishkin", "Queue 1 item 6"),
+    ("none+label_prop", "Queue 1 item 6"),
+    ("stergiou", "Queue 1 item 6"),
+    ("kout_hybrid_k2+liu_tarjan_CRFA", "Queue 1 item 6"),
+    ("auto", "Queue 1 item 14"),
+])
+def test_unported_specs_name_their_queue_item(text, item):
+    with pytest.raises(NotImplementedError, match=item):
+        tapi.VariantSpec.parse(text)
+
+
+def test_unported_surfaces_name_their_queue_item():
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        tapi.ConnectIt("uf_sync", exec="sharded(x)", device="cpu")
+    ci = tapi.ConnectIt("kout_hybrid_k2+uf_sync_full", device="cpu")
+    for call, item in [
+        (lambda: ci.spanning_forest(None), "item 7"),
+        (lambda: ci.stream(8), "items 8 and 10"),
+        (lambda: ci.from_chunks(None), "item 9"),
+        (lambda: ci.amsf(None, None), "item 11"),
+        (lambda: ci.scan(None, None), "item 11"),
+        (lambda: ci.serve(8), "item 12"),
+    ]:
+        with pytest.raises(NotImplementedError, match=item):
+            call()
+
+
+def test_bad_specs_raise_value_errors():
+    for text in ("kout_bogus_k2+uf_sync_full", "none+uf_sync_bogus",
+                 "frobnicate+uf_sync", "none+nonsense"):
+        with pytest.raises(ValueError):
+            tapi.VariantSpec.parse(text)
+
+
+def test_session_refuses_a_graph_on_another_device():
+    jg = GRAPHS["path"]
+    g = _port(jg)
+    ci = tapi.ConnectIt("uf_sync", device="cpu")
+    ci.device = torch.device("meta")
+    with pytest.raises(ValueError, match="graph lives on"):
+        ci.connectivity(g)
+
+
+def test_default_session_device_is_the_card():
+    if torch.cuda.is_available():
+        assert tapi.ConnectIt().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="cuda"):
+            tapi.ConnectIt()
+
+
+# ---------------------------------------------------------------------------
+# Import isolation.
+# ---------------------------------------------------------------------------
+
+def _imported_roots(path: Path) -> set:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_neither_jax_nor_repro():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    assert len(files) > 15
+    for path in files:
+        bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+        assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -1,0 +1,273 @@
+"""The port's kernels against the JAX package.
+
+Each plain PyTorch version (``repro_torch.kernels.*.ref``) is held against
+the JAX Pallas kernel run with ``interpret=True`` and against the JAX
+``*_ref``; the dispatch layer (``repro_torch.kernels.ops``) against
+``repro.kernels.ops`` under the ``ref`` policy. Inputs are made with numpy
+from a seed and handed to both packages. Every comparison is exact integer
+equality: all values are int32 (or int16) labels and indices.
+
+Tests marked ``gpu`` hold the CUDA kernels against the plain versions on
+the card, exactly; they skip without one.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.hook_compress.kernel import hook_compress as j_hook_compress
+from repro.kernels.hook_compress.ref import hook_compress_ref as j_hook_ref
+from repro.kernels.pointer_jump.kernel import pointer_jump as j_pointer_jump
+from repro.kernels.pointer_jump.ref import pointer_jump_ref as j_jump_ref
+from repro.kernels.scatter_min.kernel import scatter_min as j_scatter_min
+from repro.kernels.scatter_min.ref import scatter_min_ref as j_scatter_ref
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
+from repro_torch.kernels.scatter_min.ref import scatter_min_ref
+
+RNG = np.random.default_rng(11)
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _labels_with_virtual_min(n_pad: int, dtype=np.int32) -> np.ndarray:
+    """A labeling with chains, roots, and sprinkled -1 virtual minimums."""
+    lab = np.minimum(RNG.integers(0, n_pad, n_pad), np.arange(n_pad))
+    lab[RNG.random(n_pad) < 0.1] = -1
+    return lab.astype(dtype)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.array(x))
+
+
+def _assert_same(got: torch.Tensor, *want) -> None:
+    for w in want:
+        w = np.asarray(w)
+        assert got.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(got.numpy(), w)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions vs the Pallas kernels (interpret) and the jnp refs, over the
+# shapes of tests/test_kernels.py.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_pad,m_pad,block_m", [
+    (128, 256, 64), (1024, 4096, 1024), (512, 512, 512), (64, 64, 64),
+])
+@pytest.mark.parametrize("dtype", [np.int32, np.int16])
+def test_scatter_min_plain_matches_jax(n_pad, m_pad, block_m, dtype):
+    P = RNG.permutation(n_pad).astype(dtype)
+    idx = RNG.integers(0, n_pad, m_pad).astype(np.int32)
+    vals = RNG.integers(-1, n_pad, m_pad).astype(dtype)
+    pallas = j_scatter_min(jnp.asarray(P), jnp.asarray(idx),
+                           jnp.asarray(vals), block_m=block_m, interpret=True)
+    ref = j_scatter_ref(jnp.asarray(P), jnp.asarray(idx), jnp.asarray(vals))
+    _assert_same(scatter_min_ref(_t(P), _t(idx), _t(vals)), pallas, ref)
+
+
+@pytest.mark.parametrize("n_pad,block,k", [
+    (128, 64, 1), (1024, 256, 2), (512, 512, 3), (2048, 128, 4),
+])
+def test_pointer_jump_plain_matches_jax(n_pad, block, k):
+    P = _labels_with_virtual_min(n_pad)
+    pallas = j_pointer_jump(jnp.asarray(P), k=k, block=block, interpret=True)
+    ref = j_jump_ref(jnp.asarray(P), k=k)
+    _assert_same(pointer_jump_ref(_t(P), k=k), pallas, ref)
+
+
+@pytest.mark.parametrize("n_pad,m_pad,block_m", [
+    (128, 256, 64), (1024, 4096, 1024), (256, 512, 512), (64, 64, 64),
+])
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_hook_compress_plain_matches_jax(n_pad, m_pad, block_m, k):
+    P = _labels_with_virtual_min(n_pad)
+    s = RNG.integers(0, n_pad, m_pad).astype(np.int32)
+    r = RNG.integers(0, n_pad, m_pad).astype(np.int32)
+    pallas = j_hook_compress(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r),
+                             k=k, block_m=block_m, interpret=True)
+    ref = j_hook_ref(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r), k=k)
+    _assert_same(hook_compress_ref(_t(P), _t(s), _t(r), k=k), pallas, ref)
+
+
+def test_pointer_jump_three_hops_is_two_rounds():
+    P = _t(_labels_with_virtual_min(256))
+    two = pointer_jump_ref(pointer_jump_ref(P, k=1), k=1)
+    assert torch.equal(pointer_jump_ref(P, k=3), two)
+    assert torch.equal(pointer_jump_ref(P, k=3)[P == -1], P[P == -1])
+
+
+# ---------------------------------------------------------------------------
+# The dispatch layer vs repro.kernels.ops under the ref policy: dump-slot
+# sanitization, masks, -1 fixed points, arbitrary (n + 1,) lengths.
+# ---------------------------------------------------------------------------
+
+def _labels_with_dump(n: int) -> np.ndarray:
+    P = np.minimum(RNG.integers(-1, n, n + 1), np.arange(n + 1))
+    P[n] = n
+    return P.astype(np.int32)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_scatter_min_sanitization_matches_jax(masked):
+    n = 150
+    P = _labels_with_dump(n)
+    idx = RNG.integers(-9, n + 9, 400).astype(np.int32)
+    vals = RNG.integers(-1, n, 400).astype(np.int32)
+    mask = RNG.random(400) < 0.5 if masked else None
+    want = jops.scatter_min(
+        jnp.asarray(P), jnp.asarray(idx), jnp.asarray(vals),
+        None if mask is None else jnp.asarray(mask), policy="ref")
+    got = ops.scatter_min(_t(P), _t(idx), _t(vals),
+                          None if mask is None else _t(mask))
+    _assert_same(got, want)
+
+
+def test_scatter_min_all_false_mask_is_identity():
+    n = 64
+    P = _labels_with_dump(n)
+    idx = RNG.integers(-3, n + 3, 100).astype(np.int32)
+    vals = RNG.integers(-1, n, 100).astype(np.int32)
+    got = ops.scatter_min(_t(P), _t(idx), _t(vals), torch.zeros(100, dtype=bool))
+    assert torch.equal(got, _t(P))
+
+
+@pytest.mark.parametrize("n", [5, 127, 128, 300])
+def test_ops_match_jax_on_arbitrary_label_shapes(n):
+    P = _labels_with_dump(n)
+    s = RNG.integers(0, n + 1, 77).astype(np.int32)
+    r = RNG.integers(0, n + 1, 77).astype(np.int32)
+    mask = RNG.random(77) < 0.7
+    jP, js, jr = jnp.asarray(P), jnp.asarray(s), jnp.asarray(r)
+    for k in (1, 3):
+        _assert_same(ops.pointer_jump(_t(P), k=k),
+                     jops.pointer_jump(jP, k=k, policy="ref"))
+        _assert_same(ops.hook_compress(_t(P), _t(s), _t(r), k=k),
+                     jops.hook_compress(jP, js, jr, k=k, policy="ref"))
+        _assert_same(
+            ops.hook_compress(_t(P), _t(s), _t(r), k=k, mask=_t(mask)),
+            jops.hook_compress(jP, js, jr, k=k, mask=jnp.asarray(mask),
+                               policy="ref"))
+
+
+def test_cpu_tensors_take_the_plain_path():
+    before = ops.launch_counts()
+    P = _t(_labels_with_dump(40))
+    s = _t(RNG.integers(0, 41, 50).astype(np.int32))
+    ops.scatter_min(P, s, s)
+    ops.pointer_jump(P, k=3)
+    ops.hook_compress(P, s, s, k=1)
+    assert ops.launch_counts() == before
+    assert set(before) == {"hook_compress", "pointer_jump", "scatter_min"}
+
+
+def test_reset_launch_counts_zeroes_every_counter():
+    for fn in ops.KERNELS.values():
+        fn.launches += 3
+    ops.reset_launch_counts()
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+
+
+def test_unsupported_device_raises():
+    P = torch.empty(8, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.pointer_jump(P)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA wrappers: what they refuse is checked before any CUDA call, so it
+# is testable here; the sources and the build are checked statically.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+def test_kernel_wrappers_reject_what_they_cannot_take(name):
+    fn = ops.KERNELS[name]
+    before = fn.launches
+    lab = torch.arange(9, dtype=torch.int32)
+    edges = torch.zeros(6, dtype=torch.int32)
+
+    def call(P, e=edges, e2=edges):
+        if name == "pointer_jump":
+            return fn(P)
+        if name == "scatter_min":
+            return fn(P, e, e2)
+        return fn(P, e, e2, k=1)
+
+    with pytest.raises(TypeError, match="int32"):
+        call(lab.to(torch.int16))
+    with pytest.raises(ValueError, match="CUDA device"):
+        call(lab)                      # int32, but on the CPU
+    with pytest.raises(ValueError, match="contiguous"):
+        call(torch.arange(18, dtype=torch.int32)[::2])
+    if name != "pointer_jump":
+        with pytest.raises(ValueError):
+            call(lab, edges, edges[:5])
+    assert fn.launches == before  # a refused call launches nothing
+
+
+def test_each_c_entry_point_is_defined_in_its_source():
+    for name, fns in _build.SIGNATURES.items():
+        src = (_build.CSRC / f"{name}.cu").read_text()
+        for fn, argtypes in fns.items():
+            m = re.search(rf'extern "C" int {fn}\(([^)]*)\)', src)
+            assert m, f"{fn} not found in {name}.cu"
+            assert len(m.group(1).split(",")) == len(argtypes), fn
+        assert "sm_90a" in " ".join(_build.NVCC_FLAGS)
+
+
+def test_build_directory_is_ignored_and_inside_the_checkout():
+    assert _build.BUILD_DIR.is_relative_to(REPO)
+    ignored = (REPO / ".gitignore").read_text().split()
+    assert "build/" in ignored
+
+
+def test_library_name_follows_the_sources():
+    names = {_build._library_path(n).name for n in _build.SIGNATURES}
+    assert len(names) == len(_build.SIGNATURES)
+    assert all(re.fullmatch(r"[a-z_]+-[0-9a-f]{16}\.so", x) for x in names)
+
+
+# ---------------------------------------------------------------------------
+# On the card: each CUDA kernel against its plain version, exactly.
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_hook_compress_kernel_matches_plain_on_card(cuda, k):
+    P = _t(_labels_with_virtual_min(4097)).to(cuda)
+    s = _t(RNG.integers(0, 4097, 50_000).astype(np.int32)).to(cuda)
+    r = _t(RNG.integers(0, 4097, 50_000).astype(np.int32)).to(cuda)
+    got = ops.KERNELS["hook_compress"](P, s, r, k=k)
+    assert torch.equal(got, hook_compress_ref(P, s, r, k=k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3])
+def test_pointer_jump_kernel_matches_plain_on_card(cuda, k):
+    P = _t(_labels_with_virtual_min(100_003)).to(cuda)
+    assert torch.equal(ops.KERNELS["pointer_jump"](P, k=k),
+                       pointer_jump_ref(P, k=k))
+
+
+@pytest.mark.gpu
+def test_scatter_min_kernel_matches_plain_on_card(cuda):
+    n = 30_000
+    P = _t(_labels_with_dump(n)).to(cuda)
+    idx = _t(RNG.integers(-5, n + 5, 200_000).astype(np.int32)).to(cuda)
+    vals = _t(RNG.integers(-1, n, 200_000).astype(np.int32)).to(cuda)
+    mask = _t(RNG.random(200_000) < 0.8).to(cuda)
+    want = ops.scatter_min(P.cpu(), idx.cpu(), vals.cpu(), mask.cpu())
+    assert torch.equal(ops.scatter_min(P, idx, vals, mask).cpu(), want)
