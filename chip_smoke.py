@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py                         # RMAT n=2^22, 2^25 edges
     python3 chip_smoke.py --log-n 14 --log-m 17   # a short compile check
@@ -11,18 +11,26 @@ Phases, in order; any failure exits non-zero:
               (one process per source, all at once) into build/kernels/;
   3. graph    an RMAT graph, paper parameters (a,b,c) = (0.5, 0.1, 0.1),
               generated on the host from the seed and built on the card;
-  4. kernels  each kernel at the main path's shapes against its plain
+  4. kernels  each kernel at the main paths' shapes against its plain
               PyTorch version on the same inputs (exact: all int32), with
               its time, the plain version's, one PyTorch call's where one
               computes the same function, and the bound;
-  5. small    every variant of the slice on a small graph, on the card,
-              against the CPU path and scipy;
-  6. main     ConnectIt("kout_hybrid_k2+uf_sync_full").connectivity(g),
-              compacted and fused, each against scipy, with each kernel's
-              launch count (must be > 0), wall time and peak memory;
+  5. small    every variant of enumerate_variants() (148) on a small graph,
+              compacted and fused, on the card, against the CPU path and
+              scipy;
+  6. paths    on the big graph, each against the scipy oracle (computed
+              once), with wall time, stats, peak memory and each kernel's
+              launch count; each path names the kernels it must launch:
+                kout_hybrid_k2+uf_sync_full      compacted, fused (the main path)
+                kout_hybrid_k2+liu_tarjan_PUFA   compacted, fused
+                kout_hybrid_k2+liu_tarjan_CRFA   compacted, fused
+                none+stergiou
+                ldd_b0.2+uf_sync_full
   7. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
-              share (torch.profiler).
+              share (torch.profiler); then the same trace of none+stergiou
+              and of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round
+              state compares run over the whole edge list).
 
 The line before the last holds the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -40,9 +48,23 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 MAIN_VARIANT = "kout_hybrid_k2+uf_sync_full"
-SLICE_VARIANTS = ("none+uf_sync_naive", "none+uf_sync_halve",
-                  "none+uf_sync_full", "kout_afforest_k2+uf_sync_full",
-                  MAIN_VARIANT)
+UF_KERNELS = ("hook_compress", "pointer_jump", "scatter_min")
+# (variant, fused modes, kernels the run must launch); the first is the main
+# path, whose launches the per-kernel JSON reports for its three kernels
+PATHS = (
+    (MAIN_VARIANT, (False, True), UF_KERNELS),
+    ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True),
+     UF_KERNELS + ("edge_relabel", "edge_rewrite")),
+    ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True),
+     UF_KERNELS + ("edge_rewrite",)),
+    ("none+stergiou", (False,),
+     ("edge_relabel", "edge_rewrite", "pointer_jump", "scatter_min")),
+    ("ldd_b0.2+uf_sync_full", (False,), UF_KERNELS),
+)
+# the path whose compacted run reports the two edge kernels' launches
+EDGE_PATH = "kout_hybrid_k2+liu_tarjan_PUFA"
+# samplings whose stats take no random draw, so the card's equal the CPU's
+DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
@@ -133,9 +155,27 @@ def _labels_with_virtual_min(torch, L: int, gen):
     return lab.to(torch.int32)
 
 
+def _max_abs_err(torch, got, want) -> int:
+    """Largest |got - want| over the (tuple of) outputs; -1 if any output's
+    shape or dtype differs from the plain version's."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0
+    for a, b in zip(got, want, strict=True):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return -1
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
 def phase_kernels(torch, g) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main paths' shapes."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.edge_relabel.ref import (
+        edge_relabel_ref,
+        edge_rewrite_ref,
+    )
     from repro_torch.kernels.hook_compress.ref import hook_compress_ref
     from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
     from repro_torch.kernels.scatter_min.ref import scatter_min_ref
@@ -155,13 +195,21 @@ def phase_kernels(torch, g) -> dict:
     dumped = torch.rand(L, generator=gen, device="cuda") < 0.1
     idx[dumped] = L - 1
     vals[dumped] = INT32_MAX
+    # the graph's edges with ~10% of the endpoints -1, as Liu-Tarjan's alter
+    # step leaves them once L_max is pinned
+    s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, s).to(torch.int32)
+    r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, r).to(torch.int32)
+    edge_sets = {"graph": (s, r), "neg": (s_neg, r_neg)}
 
-    # per kernel: the hop counts swept (main_k is the main path's), the CUDA
-    # wrapper and the plain version, bytes and operations for the bound, and
-    # the one PyTorch call that computes the same function, where there is one
+    # per kernel: the settings swept (hop counts, or edge input sets; "main"
+    # is the one the JSON reports), the CUDA wrapper and the plain version,
+    # bytes and operations for the bound, and the one PyTorch call that
+    # computes the same function, where there is one
     cases = {
         "hook_compress": {
-            "k": (1, 3), "main_k": 3,
+            "sweep": (1, 3), "main": 3,
             "kernel": lambda k: ops.KERNELS["hook_compress"](P, s, r, k=k),
             "plain": lambda k: hook_compress_ref(P, s, r, k=k),
             "bytes": 4 * (2 * L + 2 * m),
@@ -172,7 +220,7 @@ def phase_kernels(torch, g) -> dict:
             "shapes": f"labels ({L},) edges ({m},)",
         },
         "pointer_jump": {
-            "k": (1, 3), "main_k": 1,
+            "sweep": (1, 3), "main": 1,
             "kernel": lambda k: ops.KERNELS["pointer_jump"](P, k=k),
             "plain": lambda k: pointer_jump_ref(P, k=k),
             "bytes": 4 * 2 * L,
@@ -183,42 +231,63 @@ def phase_kernels(torch, g) -> dict:
             "shapes": f"labels ({L},)",
         },
         "scatter_min": {
-            "k": (None,), "main_k": None,
-            "kernel": lambda k: ops.KERNELS["scatter_min"](P, idx, vals),
-            "plain": lambda k: scatter_min_ref(P, idx, vals),
+            "sweep": (None,), "main": None,
+            "kernel": lambda _: ops.KERNELS["scatter_min"](P, idx, vals),
+            "plain": lambda _: scatter_min_ref(P, idx, vals),
             "bytes": 4 * (2 * L + 2 * L),
-            "ops": lambda k: L,
+            "ops": lambda _: L,
             "library": lambda idx_long=idx.long(): P.scatter_reduce(
                 0, idx_long, vals, "amin", include_self=True),
             "source": "src/repro_torch/kernels/csrc/scatter_min.cu",
             "replaces": "src/repro/kernels/scatter_min/kernel.py:45",
             "shapes": f"labels ({L},) idx/vals ({L},)",
         },
+        "edge_relabel": {
+            "sweep": tuple(edge_sets), "main": "graph",
+            "kernel": lambda e: ops.KERNELS["edge_relabel"](P, *edge_sets[e]),
+            "plain": lambda e: edge_relabel_ref(P, *edge_sets[e]),
+            "bytes": 4 * (2 * L + 2 * m),
+            "ops": lambda _: 4 * m,
+            "library": None,
+            "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
+            "replaces": "src/repro/kernels/edge_relabel/kernel.py:63",
+            "shapes": f"labels ({L},) edges ({m},)",
+        },
+        "edge_rewrite": {
+            "sweep": tuple(edge_sets), "main": "graph",
+            "kernel": lambda e: ops.KERNELS["edge_rewrite"](P, *edge_sets[e]),
+            "plain": lambda e: edge_rewrite_ref(P, *edge_sets[e]),
+            "bytes": 4 * (L + 4 * m),
+            "ops": lambda _: 2 * m,
+            "library": None,
+            "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
+            "replaces": "src/repro/kernels/edge_relabel/kernel.py:96",
+            "shapes": f"labels ({L},) edges ({m},), two outputs",
+        },
     }
     results = {}
     for name, c in cases.items():
-        for k in c["k"]:
-            got = c["kernel"](k)
-            want = c["plain"](k)
+        for x in c["sweep"]:
+            got = c["kernel"](x)
+            want = c["plain"](x)
             torch.cuda.synchronize()
-            require(got.shape == want.shape and got.dtype == want.dtype,
-                    f"{name} k={k}: shape/dtype differ from the plain version")
-            err = int((got.long() - want.long()).abs().max())
-            require(err == 0 and torch.equal(got, want),
-                    f"{name} k={k}: kernel disagrees with its plain version "
-                    f"(max_abs_err={err})")
-            ms = time_ms(torch, lambda: c["kernel"](k), iters=20)
-            plain_ms = time_ms(torch, lambda: c["plain"](k), iters=5)
+            err = _max_abs_err(torch, got, want)
+            require(err == 0, f"{name} {x}: kernel disagrees with its plain "
+                    f"version (max_abs_err={err}; -1 is a shape or dtype "
+                    f"mismatch)")
+            ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
+            plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
             lib_ms = (time_ms(torch, c["library"], iters=20)
                       if c["library"] is not None else None)
-            b_ms, b_by = bound_ms(c["bytes"], c["ops"](k))
-            ktxt = "" if k is None else f" k={k}"
-            print(f"[kernels] {name}{ktxt} {c['shapes']}: exact match; "
+            b_ms, b_by = bound_ms(c["bytes"], c["ops"](x))
+            label = {None: "", "graph": " graph edges",
+                     "neg": " ~10% -1 endpoints"}.get(x, f" k={x}")
+            print(f"[kernels] {name}{label} {c['shapes']}: exact match; "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                   f"bound_ms={b_ms:.4f} ({b_by}, {c['bytes']} bytes at "
                   f"3.35 TB/s)")
-            if k == c["main_k"]:
+            if x == c["main"]:
                 results[name] = {
                     "name": name, "route": "cuda", "source": c["source"],
                     "replaces": c["replaces"], "launches": 0,
@@ -228,15 +297,18 @@ def phase_kernels(torch, g) -> dict:
 
 
 def phase_small(torch) -> None:
-    """The slice's variants on a small graph: card vs CPU vs scipy."""
+    """The whole variant grid on a small graph: card vs CPU vs scipy."""
     import numpy as np
 
-    from repro_torch import ConnectIt
+    from repro_torch import ConnectIt, enumerate_variants
     from repro_torch.graphs import components_oracle, generators as gen
     g_cpu = gen.rmat(1 << 12, 1 << 15, seed=1, device="cpu")
     g_gpu = gen.rmat(1 << 12, 1 << 15, seed=1, device="cuda")
     expect = components_oracle(g_cpu)
-    for variant in SLICE_VARIANTS:
+    variants = [str(v) for v in enumerate_variants()]
+    t0 = time.perf_counter()
+    for variant in variants:
+        deterministic = variant.split("+")[0] in DETERMINISTIC_SAMPLINGS
         for fused in (False, True):
             a, sa = ConnectIt(variant, device="cpu").connectivity(
                 g_cpu, fused=fused, return_stats=True)
@@ -246,14 +318,19 @@ def phase_small(torch) -> None:
                     f"small {variant} fused={fused}: CPU path != scipy")
             require(np.array_equal(b.cpu().numpy(), expect),
                     f"small {variant} fused={fused}: card != scipy")
-            if not variant.startswith("kout_hybrid"):  # random columns differ
-                require(sa == sb, f"small {variant} fused={fused}: stats "
-                        f"differ: cpu {sa} card {sb}")
-    print(f"[small] {len(SLICE_VARIANTS)} variants x compacted/fused on rmat "
-          f"n=2^12: card == CPU path == scipy")
+            # the random draws (k-out columns, BFS sources, LDD shifts) of
+            # the CPU and CUDA generators differ, and so may those stats
+            require(not deterministic or sa == sb,
+                    f"small {variant} fused={fused}: stats differ: cpu {sa} "
+                    f"card {sb}")
+    print(f"[small] all {len(variants)} variants of enumerate_variants() x "
+          f"compacted/fused on rmat n=2^12: card == CPU path == scipy, stats "
+          f"equal on the deterministic ones ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_main(torch, g, results: dict) -> None:
+def phase_paths(torch, g, results: dict) -> None:
+    """Each path of PATHS on the big graph against the scipy oracle, with
+    the kernels it must launch."""
     import numpy as np
 
     from repro_torch import ConnectIt
@@ -262,37 +339,50 @@ def phase_main(torch, g, results: dict) -> None:
 
     t0 = time.perf_counter()
     expect = components_oracle(g)
-    print(f"[main] scipy oracle on the host: {time.perf_counter() - t0:.2f} s, "
-          f"{len(np.unique(expect))} components")
-    session = ConnectIt(MAIN_VARIANT, device="cuda")
-    for fused in (False, True):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        labels, stats = session.connectivity(g, fused=fused, return_stats=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated()
-        path = "fused" if fused else "compacted"
-        require(labels.shape == (g.n,) and labels.dtype == torch.int32,
-                f"main {path}: labels shape {tuple(labels.shape)}")
-        require(np.array_equal(labels.cpu().numpy(), expect),
-                f"main {path}: labels differ from the scipy oracle")
-        for name, cnt in counts.items():
-            require(cnt > 0, f"main {path}: kernel {name} never launched")
-        print(f"[main] {MAIN_VARIANT} {path}: labels == scipy oracle; "
-              f"wall {wall:.4f} s; peak device memory {peak} bytes; "
-              f"launches {json.dumps(counts)}")
-        print(f"[main]   stats {stats}")
-        if not fused:
-            for name, cnt in counts.items():
-                results[name]["launches"] = cnt
+    print(f"[paths] scipy oracle on the host: {time.perf_counter() - t0:.2f} "
+          f"s, {len(np.unique(expect))} components")
+    for variant, modes, required in PATHS:
+        session = ConnectIt(variant, device="cuda")
+        for fused in modes:
+            path = "fused" if fused else "compacted"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            labels, stats = session.connectivity(g, fused=fused,
+                                                 return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            require(labels.shape == (g.n,) and labels.dtype == torch.int32,
+                    f"{variant} {path}: labels shape {tuple(labels.shape)}")
+            require(np.array_equal(labels.cpu().numpy(), expect),
+                    f"{variant} {path}: labels differ from the scipy oracle")
+            for name in required:
+                require(counts[name] > 0,
+                        f"{variant} {path}: kernel {name} never launched")
+            print(f"[paths] {variant} {path}: labels == scipy oracle; "
+                  f"wall {wall:.4f} s; finish_rounds {stats.finish_rounds}; "
+                  f"peak device memory {peak} bytes; launches "
+                  f"{json.dumps(counts)}")
+            print(f"[paths]   stats {stats}")
+            if not fused and variant == MAIN_VARIANT:
+                for name in UF_KERNELS:
+                    results[name]["launches"] = counts[name]
+            if not fused and variant == EDGE_PATH:
+                for name in ("edge_relabel", "edge_rewrite"):
+                    results[name]["launches"] = counts[name]
+        if variant == MAIN_VARIANT:
+            _canonicalization_scatter_min(torch, labels)
 
-    # the canonicalization's own scatter_min call (min_vertex_labels): one
-    # component holds most vertices, so most proposals hit one slot
-    n = g.n
+
+def _canonicalization_scatter_min(torch, labels) -> None:
+    """The canonicalization's own scatter_min call (min_vertex_labels): one
+    component holds most vertices, so most proposals hit one slot."""
+    from repro_torch.kernels import ops
+
+    n = labels.shape[0]
     ext = torch.cat([labels, labels.new_tensor([n])])
     ids = torch.arange(n + 1, dtype=torch.int32, device="cuda")
     idx = torch.where(ids < n, ext, n)
@@ -308,15 +398,40 @@ def phase_main(torch, g, results: dict) -> None:
     lib_ms = time_ms(torch, lambda: base.scatter_reduce(
         0, idx_long, vals, "amin", include_self=True), iters=20)
     top = int(torch.bincount(labels.long()).max())
-    print(f"[main] scatter_min on the canonicalization's inputs ({top} of {n} "
-          f"vertices in one component): kernel_ms={ms:.4f} "
+    print(f"[paths] scatter_min on the canonicalization's inputs ({top} of "
+          f"{n} vertices in one component): kernel_ms={ms:.4f} "
           f"library_ms={lib_ms:.4f}")
+
+
+def _trace(torch, tag: str, fn) -> None:
+    """One run of ``fn`` under torch.profiler: wall time, the device's busy
+    share and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies, fills): the CPU ops that
+    # launched them report the same time again
+    rows = sorted(((ev.device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"[profile] {tag}: traced wall {wall:.4f} s; device busy "
+          f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%")
+    for dev_us, key, count in rows[:15]:
+        print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 def phase_profile(torch, g) -> None:
     """Where the compacted main path's time goes: wall time per driver step
-    (host clock around synchronized work), then one run under
-    torch.profiler for device time by kernel and the device's busy share."""
+    (host clock around synchronized work), then one traced run of it, one of
+    none+stergiou and one of the fused PUFA path."""
     from repro_torch import ConnectIt
     from repro_torch.core import driver
 
@@ -345,26 +460,12 @@ def phase_profile(torch, g) -> None:
     for name, sec in steps.items():
         print(f"[profile] {name}: {sec:.4f} s ({100 * sec / total:.1f}%)")
     print(f"[profile] kept {kept} of {g.m} edges for the finish phase")
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        session.connectivity(g)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies, fills): the CPU ops that
-    # launched them report the same time again
-    rows = sorted(((ev.device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    print(f"[profile] traced wall {wall:.4f} s; device busy {busy:.4f} s "
-          f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%")
-    for dev_us, key, count in rows[:15]:
-        print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    _trace(torch, MAIN_VARIANT, lambda: session.connectivity(g))
+    stergiou = ConnectIt("none+stergiou", device="cuda")
+    _trace(torch, "none+stergiou", lambda: stergiou.connectivity(g))
+    pufa = ConnectIt(EDGE_PATH, device="cuda")
+    _trace(torch, f"{EDGE_PATH} fused",
+           lambda: pufa.connectivity(g, fused=True))
 
 
 def main() -> int:
@@ -391,7 +492,7 @@ def main() -> int:
         g = phase_graph(torch, args.log_n, args.log_m, args.seed)
         results = phase_kernels(torch, g)
         phase_small(torch)
-        phase_main(torch, g, results)
+        phase_paths(torch, g, results)
         phase_profile(torch, g)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -11,6 +11,12 @@ kernel on a CUDA tensor and its plain PyTorch version on a CPU tensor.
     labels = ConnectIt("kout_hybrid_k2+uf_sync_full").connectivity(g)
 """
 
-from .api import ConnectIt, FinishSpec, SamplingSpec, VariantSpec  # noqa: F401
+from .api import (  # noqa: F401
+    ConnectIt,
+    FinishSpec,
+    SamplingSpec,
+    VariantSpec,
+    enumerate_variants,
+)
 from .core.driver import ConnectivityStats  # noqa: F401
 from .graphs import build_graph, components_oracle, graph_from_arrays  # noqa: F401

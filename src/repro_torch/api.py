@@ -1,50 +1,79 @@
 """``VariantSpec`` / ``ConnectIt``: the declarative front-end of the port.
 
-    ci = ConnectIt("kout_hybrid_k2+uf_sync_full")        # runs on the card
+    ci = ConnectIt("kout_hybrid_k2+liu_tarjan_CRFA")     # runs on the card
     labels = ci.connectivity(g)                          # g on the same device
     ci.stats
 
 The grammar is the JAX package's (``repro.api``); canonical strings
 round-trip, ``VariantSpec.parse(str(s)) == s``, and print as ``repro.api``
-prints them. This slice of the port covers:
+prints them:
 
     variant  := sampling "+" finish
-    sampling := "none" | "kout_" kvariant "_k" INT
+    sampling := "none"
+              | "kout_" kvariant "_k" INT
+              | "bfs_c" INT ["_t" FLOAT]
+              | "ldd_b" FLOAT
     kvariant := "afforest" | "pure" | "hybrid" | "maxdeg"
     finish   := "uf_sync_" compress          (bare "uf_sync" = naive)
+              | "shiloach_vishkin" | "label_prop" | "stergiou"
+              | "liu_tarjan_" LTCODE          (bare "liu_tarjan" = CRFA)
     compress := "naive" | "halve" | "full"
 
-and the ``single`` placement. Every other part of the reference's surface
-raises ``NotImplementedError`` naming the ROADMAP queue item that ports it.
+``enumerate_variants()`` gives the paper's sampling × finish grid, 148
+variants, in the reference's order. Only the ``single`` placement is
+ported; "auto", the other placements, the forest, streams, chunked ingest,
+the apps and serving raise ``NotImplementedError`` naming the ROADMAP queue
+item that ports them.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Union
+from typing import Optional, Sequence, Union
 
 import torch
 
 from .core import driver
-from .core.finish import COMPRESS_MODES, make_finish
-from .core.sampling import KOUT_VARIANTS, make_kout
+from .core.finish import (
+    COMPRESS_MODES,
+    LIU_TARJAN_VARIANTS,
+    METHODS,
+    make_finish,
+)
+from .core.sampling import KOUT_VARIANTS, make_sampler
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "ConnectIt",
-           "KOUT_VARIANTS", "COMPRESS_MODES"]
+           "enumerate_variants", "is_compatible", "default_sampling_grid",
+           "default_finish_grid", "KOUT_VARIANTS", "COMPRESS_MODES",
+           "LIU_TARJAN_VARIANTS"]
 
-SAMPLING_SCHEMES = ("none", "kout")
-# the reference's other schemes and methods, and where the port takes them up
-_LATER_SCHEMES = {"bfs": "Queue 1 item 6", "ldd": "Queue 1 item 6"}
-_LATER_METHODS = {
-    "shiloach_vishkin": "Queue 1 item 6", "label_prop": "Queue 1 item 6",
-    "stergiou": "Queue 1 item 6", "liu_tarjan": "Queue 1 item 6",
+CONNECT_RULES = ("connect", "parent", "extended")
+SHORTCUT_RULES = ("S", "F")
+
+# reverse map: Liu–Tarjan rule options -> code ("CRFA", ...)
+_LT_CODE_BY_OPTS = {opts: code for code, opts in LIU_TARJAN_VARIANTS.items()}
+
+# the SamplingSpec knobs each scheme uses; the rest are pinned to their
+# defaults, so equality and string round-trips are canonical
+_SAMPLING_FIELDS = {
+    "none": (),
+    "kout": ("k", "variant"),
+    "bfs": ("num_sources", "threshold"),
+    "ldd": ("beta",),
 }
+SAMPLING_SCHEMES = tuple(_SAMPLING_FIELDS)
+_SAMPLING_DEFAULTS: dict = {}  # filled from the dataclass fields below
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to repro_torch yet (ROADMAP {item})")
+
+
+def _fmt_float(x: float) -> str:
+    # repr round-trips exactly through float(); "%g" would not
+    return repr(float(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,105 +83,192 @@ class SamplingSpec:
     scheme: str = "none"
     k: int = 2                 # kout: edges selected per vertex
     variant: str = "hybrid"    # kout: afforest | pure | hybrid | maxdeg
+    beta: float = 0.2          # ldd: exponential-shift parameter
+    num_sources: int = 3       # bfs: max sources tried
+    threshold: float = 0.1     # bfs: coverage accept-gate fraction
 
     def __post_init__(self):
-        if self.scheme in _LATER_SCHEMES:
-            raise _not_ported(f"sampling scheme {self.scheme!r}",
-                              _LATER_SCHEMES[self.scheme])
         if self.scheme not in SAMPLING_SCHEMES:
             raise ValueError(f"unknown sampling scheme {self.scheme!r}; "
                              f"have {SAMPLING_SCHEMES}")
-        if int(self.k) != self.k:
-            raise ValueError(f"k must be an integer, got {self.k!r}")
-        object.__setattr__(self, "k", int(self.k))
+        for name in ("k", "num_sources"):
+            v = getattr(self, name)
+            if int(v) != v:
+                raise ValueError(f"{name} must be an integer, got {v!r}")
+            object.__setattr__(self, name, int(v))
+        object.__setattr__(self, "beta", float(self.beta))
+        object.__setattr__(self, "threshold", float(self.threshold))
         if self.scheme == "kout":
             if self.variant not in KOUT_VARIANTS:
                 raise ValueError(f"unknown k-out variant {self.variant!r}; "
                                  f"have {KOUT_VARIANTS}")
             if not 1 <= self.k <= 64:
                 raise ValueError(f"kout k must be in [1, 64], got {self.k}")
-        else:  # canonicalize: knobs 'none' does not use keep their defaults
-            object.__setattr__(self, "k", 2)
-            object.__setattr__(self, "variant", "hybrid")
+        if self.scheme == "ldd" and not self.beta > 0.0:
+            raise ValueError(f"ldd beta must be > 0, got {self.beta}")
+        if self.scheme == "bfs":
+            if self.num_sources < 1:
+                raise ValueError(
+                    f"bfs num_sources must be >= 1, got {self.num_sources}")
+            if not 0.0 < self.threshold <= 1.0:
+                raise ValueError(
+                    f"bfs threshold must be in (0, 1], got {self.threshold}")
+        live = _SAMPLING_FIELDS[self.scheme]
+        for name, default in _SAMPLING_DEFAULTS.items():
+            if name not in live:
+                object.__setattr__(self, name, default)
 
     @property
     def enabled(self) -> bool:
         return self.scheme != "none"
 
+    def factory_kwargs(self) -> dict:
+        """kwargs for ``core.sampling.make_sampler(self.scheme, ...)``."""
+        return {name: getattr(self, name)
+                for name in _SAMPLING_FIELDS[self.scheme]}
+
     def build(self):
-        """The sampler callable, or None for 'none'."""
+        """The memoized sampler callable, or None for 'none'."""
         if not self.enabled:
             return None
-        return make_kout(k=self.k, variant=self.variant)
+        return make_sampler(self.scheme, **self.factory_kwargs())
 
     def __str__(self) -> str:
         if self.scheme == "none":
             return "none"
-        return f"kout_{self.variant}_k{self.k}"
+        if self.scheme == "kout":
+            return f"kout_{self.variant}_k{self.k}"
+        if self.scheme == "bfs":
+            s = f"bfs_c{self.num_sources}"
+            if self.threshold != _SAMPLING_DEFAULTS["threshold"]:
+                s += f"_t{_fmt_float(self.threshold)}"
+            return s
+        return f"ldd_b{_fmt_float(self.beta)}"
 
     @classmethod
     def parse(cls, text: str) -> "SamplingSpec":
         t = text.strip()
         if t in ("", "none"):
             return cls()
-        parts = t.split("_")
-        if parts[0] in _LATER_SCHEMES:
-            raise _not_ported(f"sampling scheme {parts[0]!r}",
-                              _LATER_SCHEMES[parts[0]])
-        if parts[0] != "kout":
+        scheme, *parts = t.split("_")
+        kw: dict = {}
+        if scheme == "kout":
+            for p in parts:
+                if p in KOUT_VARIANTS:
+                    kw["variant"] = p
+                elif p[:1] == "k" and p[1:].isdigit():
+                    kw["k"] = int(p[1:])
+                else:
+                    raise ValueError(f"bad kout token {p!r} in {text!r}")
+        elif scheme == "bfs":
+            for p in parts:
+                if p[:1] == "c" and p[1:].isdigit():
+                    kw["num_sources"] = int(p[1:])
+                elif p[:1] == "t":
+                    kw["threshold"] = float(p[1:])
+                else:
+                    raise ValueError(f"bad bfs token {p!r} in {text!r}")
+        elif scheme == "ldd":
+            for p in parts:
+                if p[:1] != "b":
+                    raise ValueError(f"bad ldd token {p!r} in {text!r}")
+                kw["beta"] = float(p[1:])
+        else:
             raise ValueError(f"unknown sampling scheme in {text!r}; "
                              f"have {SAMPLING_SCHEMES}")
-        kw: dict = {}
-        for p in parts[1:]:
-            if p in KOUT_VARIANTS:
-                kw["variant"] = p
-            elif p[:1] == "k" and p[1:].isdigit():
-                kw["k"] = int(p[1:])
-            else:
-                raise ValueError(f"bad kout token {p!r} in {text!r}")
-        return cls("kout", **kw)
+        return cls(scheme, **kw)
+
+
+_SAMPLING_DEFAULTS.update({
+    f.name: f.default for f in dataclasses.fields(SamplingSpec)
+    if f.name != "scheme"
+})
 
 
 @dataclasses.dataclass(frozen=True)
 class FinishSpec:
-    """Declarative finish-phase configuration (paper §3.3): the uf_sync
-    family, with ``compress`` selecting FindNaive/FindHalve/FindCompress."""
+    """Declarative finish-phase configuration (paper §3.3).
+
+    ``compress`` selects FindNaive/FindHalve/FindCompress of the uf_sync
+    family and is pinned to its default for the other methods. The
+    Liu–Tarjan rule options live on ``VariantSpec``."""
 
     method: str = "uf_sync"
     compress: str = "naive"
 
     def __post_init__(self):
-        if self.method in _LATER_METHODS:
-            raise _not_ported(f"finish method {self.method!r}",
-                              _LATER_METHODS[self.method])
-        if self.method != "uf_sync":
-            raise ValueError(f"unknown finish method {self.method!r}")
-        if self.compress not in COMPRESS_MODES:
-            raise ValueError(f"unknown compress mode {self.compress!r}; "
-                             f"have {COMPRESS_MODES}")
+        if self.method not in METHODS:
+            raise ValueError(f"unknown finish method {self.method!r}; "
+                             f"have {METHODS}")
+        if self.method == "uf_sync":
+            if self.compress not in COMPRESS_MODES:
+                raise ValueError(f"unknown compress mode {self.compress!r}; "
+                                 f"have {COMPRESS_MODES}")
+        else:
+            object.__setattr__(self, "compress", "naive")
 
     def __str__(self) -> str:
-        return f"uf_sync_{self.compress}"
+        if self.method == "uf_sync":
+            return f"uf_sync_{self.compress}"
+        return self.method
 
-    @classmethod
-    def parse(cls, text: str) -> "FinishSpec":
-        t = text.strip()
-        if t == "uf_sync":  # alias: FindNaive analogue
-            return cls("uf_sync", "naive")
-        if t.startswith("uf_sync_"):
-            return cls("uf_sync", t[len("uf_sync_"):])
-        for method, item in _LATER_METHODS.items():
-            if t == method or t.startswith(method + "_"):
-                raise _not_ported(f"finish method {t!r}", item)
-        raise ValueError(f"unknown finish method in {text!r}")
+
+def _parse_finish_part(text: str) -> tuple[FinishSpec, dict]:
+    """finish token -> (FinishSpec, Liu–Tarjan option overrides)."""
+    t = text.strip()
+    if t == "uf_sync":  # alias: FindNaive analogue
+        return FinishSpec("uf_sync", "naive"), {}
+    if t.startswith("uf_sync_"):
+        return FinishSpec("uf_sync", t[len("uf_sync_"):]), {}
+    if t in ("shiloach_vishkin", "label_prop", "stergiou"):
+        return FinishSpec(t), {}
+    if t == "liu_tarjan":  # alias: the paper-fastest LT variant
+        t = "liu_tarjan_CRFA"
+    if t.startswith("liu_tarjan_"):
+        code = t[len("liu_tarjan_"):]
+        if code not in LIU_TARJAN_VARIANTS:
+            raise ValueError(f"unknown Liu-Tarjan code {code!r}; "
+                             f"have {sorted(LIU_TARJAN_VARIANTS)}")
+        connect, rootup, shortcut, alter = LIU_TARJAN_VARIANTS[code]
+        return FinishSpec("liu_tarjan"), dict(
+            connect=connect, rootup=rootup, shortcut=shortcut, alter=alter)
+    raise ValueError(f"unknown finish method in {text!r}")
 
 
 @dataclasses.dataclass(frozen=True)
 class VariantSpec:
-    """One point of the paper's sampling × finish space."""
+    """One point of the paper's sampling × finish × compression space."""
 
     sampling: SamplingSpec = SamplingSpec()
     finish: FinishSpec = FinishSpec()
+    # Liu–Tarjan rule options (paper §3.3.2 / Appendix D.4); meaningful only
+    # when finish.method == "liu_tarjan", pinned to defaults otherwise. The
+    # defaults spell CRFA, as the bare "liu_tarjan" alias does.
+    connect: str = "connect"   # Connect | ParentConnect | ExtendedConnect
+    rootup: bool = True        # update roots only (R) vs unconditional (U)
+    shortcut: str = "F"        # one jump round (S) vs compress to fixpoint (F)
+    alter: bool = True         # rewrite edge endpoints to parent ids
+
+    def __post_init__(self):
+        if self.finish.method == "liu_tarjan":
+            if self.connect not in CONNECT_RULES:
+                raise ValueError(f"unknown connect rule {self.connect!r}; "
+                                 f"have {CONNECT_RULES}")
+            if self.shortcut not in SHORTCUT_RULES:
+                raise ValueError(f"unknown shortcut rule {self.shortcut!r}; "
+                                 f"have {SHORTCUT_RULES}")
+            opts = (self.connect, bool(self.rootup), self.shortcut,
+                    bool(self.alter))
+            if opts not in _LT_CODE_BY_OPTS:
+                raise ValueError(
+                    f"Liu-Tarjan rule combination {opts} is not one of the "
+                    f"paper's valid variants (Table 1); valid codes: "
+                    f"{sorted(LIU_TARJAN_VARIANTS)}")
+        else:
+            object.__setattr__(self, "connect", "connect")
+            object.__setattr__(self, "rootup", True)
+            object.__setattr__(self, "shortcut", "F")
+            object.__setattr__(self, "alter", True)
 
     @classmethod
     def parse(cls, text: str) -> "VariantSpec":
@@ -161,21 +277,91 @@ class VariantSpec:
             raise _not_ported("'auto' variant resolution (the tuned "
                               "selection cache)", "Queue 1 item 14")
         if "+" in text:
+            # split on the LAST '+': finish tokens never contain one, while
+            # a float sampling parameter may (repr(1e16) == '1e+16')
             samp_part, fin_part = text.rsplit("+", 1)
         else:
             samp_part, fin_part = "none", text
-        return cls(sampling=SamplingSpec.parse(samp_part),
-                   finish=FinishSpec.parse(fin_part))
+        finish, lt_opts = _parse_finish_part(fin_part)
+        return cls(sampling=SamplingSpec.parse(samp_part), finish=finish,
+                   **lt_opts)
+
+    @classmethod
+    def liu_tarjan(cls, code: str,
+                   sampling: SamplingSpec = SamplingSpec()) -> "VariantSpec":
+        """The variant of one Liu–Tarjan code ("CRFA", ...)."""
+        finish, lt_opts = _parse_finish_part(f"liu_tarjan_{code}")
+        return cls(sampling=sampling, finish=finish, **lt_opts)
+
+    @property
+    def lt_code(self) -> Optional[str]:
+        if self.finish.method != "liu_tarjan":
+            return None
+        return _LT_CODE_BY_OPTS[(self.connect, self.rootup, self.shortcut,
+                                 self.alter)]
 
     @property
     def finish_str(self) -> str:
+        if self.finish.method == "liu_tarjan":
+            return f"liu_tarjan_{self.lt_code}"
         return str(self.finish)
 
+    def finish_kwargs(self) -> dict:
+        """kwargs for ``core.finish.make_finish(self.finish.method, ...)``."""
+        if self.finish.method == "uf_sync":
+            return dict(compress=self.finish.compress)
+        if self.finish.method == "liu_tarjan":
+            return dict(variant=self.lt_code)
+        return {}
+
     def build_finish(self):
-        return make_finish(self.finish.method, compress=self.finish.compress)
+        """The memoized finish callable."""
+        return make_finish(self.finish.method, **self.finish_kwargs())
 
     def __str__(self) -> str:
         return f"{self.sampling}+{self.finish_str}"
+
+
+# ---------------------------------------------------------------------------
+# Variant-space enumeration (paper §3, Table 1 cross-product).
+# ---------------------------------------------------------------------------
+
+def is_compatible(sampling: SamplingSpec, finish_str: str) -> bool:
+    """The paper's composition rule: Stergiou's two-array algorithm starts
+    from the identity labeling (paper B.2.5), so no sampler precedes it.
+    Invalid Liu–Tarjan rule mixes are not representable at all."""
+    return not (sampling.enabled and finish_str == "stergiou")
+
+
+def default_sampling_grid() -> list[SamplingSpec]:
+    """The paper's sampling schemes at their Table-1 parameterizations."""
+    return ([SamplingSpec()]
+            + [SamplingSpec("kout", k=2, variant=v) for v in KOUT_VARIANTS]
+            + [SamplingSpec("bfs"), SamplingSpec("ldd")])
+
+
+def default_finish_grid() -> list[str]:
+    """Every finish × compression parameterization the paper evaluates."""
+    return ([f"uf_sync_{c}" for c in COMPRESS_MODES]
+            + ["shiloach_vishkin", "label_prop", "stergiou"]
+            + [f"liu_tarjan_{code}" for code in sorted(LIU_TARJAN_VARIANTS)])
+
+
+def enumerate_variants(
+    samplings: Optional[Sequence[SamplingSpec]] = None,
+    finishes: Optional[Sequence[str]] = None,
+) -> list[VariantSpec]:
+    """The sampling × finish cross-product without the incompatible pairs:
+    with the default grids, 7 samplings × 22 finishes − 6 = 148 variants."""
+    samplings = default_sampling_grid() if samplings is None else samplings
+    finishes = default_finish_grid() if finishes is None else finishes
+    out = []
+    for s in samplings:
+        for f in finishes:
+            if is_compatible(s, f):
+                finish, lt_opts = _parse_finish_part(f)
+                out.append(VariantSpec(sampling=s, finish=finish, **lt_opts))
+    return out
 
 
 SpecLike = Union[str, VariantSpec]
@@ -214,8 +400,9 @@ class ConnectIt:
                      fused: bool = False, return_stats: bool = False):
         """Canonical min-vertex-id connectivity labels of ``g``, ``(n,)``
         int32 on the session's device. ``fused`` skips the compaction of
-        L_max-internal edges. ``generator`` draws the random k-out columns
-        (seeded 0 when None)."""
+        L_max-internal edges. ``generator`` draws the sampler's random
+        numbers: k-out columns, BFS sources, LDD shifts (seeded 0 when
+        None)."""
         if g.device != self.device:
             raise ValueError(f"graph lives on {g.device}, session on "
                              f"{self.device}")

@@ -1,4 +1,4 @@
-"""ConnectIt core in PyTorch: primitives, the uf_sync finish, k-out sampling
+"""ConnectIt core in PyTorch: primitives, the finish methods, the samplers
 and the two-phase driver behind ``repro_torch.api``."""
 from . import driver, finish, primitives, sampling  # noqa: F401
 from .driver import (  # noqa: F401
@@ -7,4 +7,4 @@ from .driver import (  # noqa: F401
     run_connectivity_fused,
 )
 from .finish import make_finish  # noqa: F401
-from .sampling import make_kout  # noqa: F401
+from .sampling import make_sampler  # noqa: F401

@@ -1,13 +1,19 @@
-"""ConnectIt finish methods (paper §3.3): the synchronous union-find family.
+"""ConnectIt finish methods (paper §3.3).
 
 Every finish method has the signature::
 
     finish(P, senders, receivers) -> (P, rounds)
 
 on a ``(n + 1,)`` label tensor (see primitives.py) and padded COO edge
-tensors (padded edges point at the dump slot ``n``). ``uf_sync`` is
-min-based (labels only decrease) and tolerates the ``-1`` virtual-minimum
-label of L_max skipping, so it composes with any sampling scheme.
+tensors (padded edges point at the dump slot ``n``). All methods are
+min-based (labels only decrease) and tolerate the ``-1`` virtual-minimum
+label of L_max skipping, so any of them composes with any sampling scheme.
+
+``make_finish(method, **params)`` maps a method name and its parameters to a
+memoized callable::
+
+    make_finish("uf_sync", compress="full")
+    make_finish("liu_tarjan", variant="CRFA")
 
 One uf_sync round is one fused hook+compress call (gather parents →
 root-mask → min-hook → shortcut hops), and the paper's find options map onto
@@ -16,28 +22,89 @@ the hop count of that call:
     FindNaive   → compress='naive' (one shortcut hop)
     FindHalve   → compress='halve' (two shortcut rounds, chained hops)
     FindCompress→ compress='full'  (the same call, then jumps to fixpoint)
+
+Shiloach–Vishkin, the Liu–Tarjan framework, Stergiou and label propagation
+are synchronous algorithms already and port rule for rule.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable
+
+import torch
 
 from .primitives import (
     DEFAULT_MAX_ROUNDS,
     full_compress,
     hook_compress,
     iterate_to_fixpoint,
+    jump_round,
+    parents_of,
+    relabel_round,
+    rewrite_edges,
+    write_min,
 )
 
 FinishFn = Callable[..., tuple]
 
 COMPRESS_MODES = ("naive", "halve", "full")
-METHODS = ("uf_sync",)
 
 # shortcut hops fused into the hook+compress call per compress mode: k
 # chained hops compose as H^(k+1), so k=3 ≡ two P←P[P] rounds (halve);
 # 'full' runs the same fused call, then pointer-jumps to fixpoint
 _HOOK_JUMPS = {"naive": 1, "halve": 3, "full": 3}
+
+
+# ---------------------------------------------------------------------------
+# Label propagation (paper B.2.6): frontier-based scatter-min.
+# ---------------------------------------------------------------------------
+
+def label_prop(P, senders, receivers, *, max_rounds: int = DEFAULT_MAX_ROUNDS):
+    """Its own loop: a round runs while some label changed in the last one
+    (the frontier) and fewer than ``max_rounds`` ran; the dump row is never
+    in the frontier."""
+    n = P.shape[0] - 1
+    big = torch.iinfo(P.dtype).max
+    s = senders.long()
+    frontier = torch.ones(n + 1, dtype=torch.bool, device=P.device)
+    frontier[n] = False
+    rounds = 0
+    while rounds < max_rounds and bool(frontier.any()):
+        act = frontier[s]
+        cand = torch.where(act, P[s], big)
+        P2 = write_min(P, receivers, cand, act)
+        frontier = P2 != P
+        P = P2
+        rounds += 1
+    return P, rounds
+
+
+# ---------------------------------------------------------------------------
+# Shiloach–Vishkin (paper B.2.4): min-hook roots + full compression per round.
+# ---------------------------------------------------------------------------
+
+def shiloach_vishkin(P, senders, receivers, *,
+                     max_rounds: int = DEFAULT_MAX_ROUNDS):
+    def body(P):
+        P = hook_compress(P, senders, receivers, jumps=_HOOK_JUMPS["full"])
+        return full_compress(P)
+
+    return iterate_to_fixpoint(body, P, max_rounds)
+
+
+# ---------------------------------------------------------------------------
+# UF-Sync family.
+# ---------------------------------------------------------------------------
+
+def _compress(P, how: str):
+    if how == "naive":
+        return jump_round(P)
+    if how == "halve":
+        return jump_round(P, 3)  # ≡ two P←P[P] rounds
+    if how == "full":
+        return full_compress(P)
+    raise ValueError(how)
 
 
 def make_uf_sync(compress: str = "naive") -> FinishFn:
@@ -59,16 +126,152 @@ def make_uf_sync(compress: str = "naive") -> FinishFn:
     return uf_sync
 
 
-_FINISHES: dict = {}  # (method, compress) -> finish callable
+# ---------------------------------------------------------------------------
+# Liu–Tarjan rule framework (paper §3.3.2 + Appendix D.4): 16 valid variants.
+# connect ∈ {C: Connect, P: ParentConnect, E: ExtendedConnect}
+# root-up ∈ {U: unconditional, R: only roots updated}
+# shortcut ∈ {S: one round, F: to fixpoint}
+# alter    ∈ {A: rewrite edges to parent ids, -: keep}
+# The combinations not listed are the paper's documented-invalid rule mixes
+# (Table 1).
+# ---------------------------------------------------------------------------
+
+LIU_TARJAN_VARIANTS: dict[str, tuple[str, bool, str, bool]] = {
+    # name: (connect, rootup, shortcut, alter)
+    "CUSA": ("connect", False, "S", True),
+    "CRSA": ("connect", True, "S", True),
+    "PUSA": ("parent", False, "S", True),
+    "PRSA": ("parent", True, "S", True),
+    "PUS": ("parent", False, "S", False),
+    "PRS": ("parent", True, "S", False),
+    "EUSA": ("extended", False, "S", True),
+    "EUS": ("extended", False, "S", False),
+    "CUFA": ("connect", False, "F", True),
+    "CRFA": ("connect", True, "F", True),
+    "PUFA": ("parent", False, "F", True),
+    "PRFA": ("parent", True, "F", True),
+    "PUF": ("parent", False, "F", False),
+    "PRF": ("parent", True, "F", False),
+    "EUFA": ("extended", False, "F", True),
+    "EUF": ("extended", False, "F", False),
+}
 
 
-def make_finish(method: str, *, compress: str = "naive") -> FinishFn:
-    """The memoized finish callable of one parameterization."""
-    if method not in METHODS:
-        raise NotImplementedError(
-            f"finish method {method!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 6); have {METHODS}")
-    key = (method, compress)
-    if key not in _FINISHES:
-        _FINISHES[key] = make_uf_sync(compress)
-    return _FINISHES[key]
+def _lt_connect(P, u, v, connect: str, rootup: bool):
+    """One connect phase. u/v may be altered labels (possibly -1).
+
+    RootUp ("update the parent value of a vertex iff it is a tree-root at the
+    start of the round"): the write target is redirected to the endpoint's
+    round-start root, and writes to slots that were not roots at round start
+    are masked. The endpoints' parents are gathered only by the rules that
+    read them: each gather is a pass over the edge list."""
+    P0 = P  # round-start snapshot: all gathers/masks read it
+
+    def put(P, tgt, val):
+        if rootup:
+            tgt = parents_of(P0, tgt)  # redirect to round-start root
+            mask = parents_of(P0, tgt) == tgt
+        else:
+            mask = None
+        return write_min(P, tgt, val, mask)
+
+    if connect == "connect":
+        P = put(P, u, v)
+        P = put(P, v, u)
+    elif connect == "parent":
+        if rootup:
+            P = put(P, u, parents_of(P0, v))
+            P = put(P, v, parents_of(P0, u))
+        else:
+            # unmasked ParentConnect is exactly one edge-relabel round: both
+            # gather-min-scatter directions in one kernel call
+            P = relabel_round(P, u, v)
+    elif connect == "extended":
+        pu = parents_of(P0, u)
+        pv = parents_of(P0, v)
+        P = put(P, u, pv)
+        P = put(P, v, pu)
+        P = put(P, pu, pv)
+        P = put(P, pv, pu)
+    else:
+        raise ValueError(connect)
+    return P
+
+
+def make_liu_tarjan(variant: str = "CRFA") -> FinishFn:
+    if variant not in LIU_TARJAN_VARIANTS:
+        raise ValueError(f"unknown Liu-Tarjan variant {variant!r}; "
+                         f"have {sorted(LIU_TARJAN_VARIANTS)}")
+    connect, rootup, shortcut, alter = LIU_TARJAN_VARIANTS[variant]
+    how = "full" if shortcut == "F" else "naive"
+
+    def liu_tarjan(P, senders, receivers, *,
+                   max_rounds: int = DEFAULT_MAX_ROUNDS):
+        def step(st):
+            P, u, v = st
+            P2 = _compress(_lt_connect(P, u, v, connect, rootup), how)
+            if alter:
+                # altered edges are part of the state: a round that only
+                # rewrites endpoints has not converged yet
+                u, v = rewrite_edges(P2, u, v)
+            return P2, u, v
+
+        st0 = (P, senders.to(P.dtype), receivers.to(P.dtype))
+        (P, _, _), rounds = iterate_to_fixpoint(step, st0, max_rounds)
+        return P, rounds
+
+    liu_tarjan.__name__ = f"liu_tarjan_{variant}"
+    return liu_tarjan
+
+
+# ---------------------------------------------------------------------------
+# Stergiou (paper B.2.5): ParentConnect with a two-array (prev/cur) labeling.
+# ---------------------------------------------------------------------------
+
+def stergiou(P, senders, receivers, *, max_rounds: int = DEFAULT_MAX_ROUNDS):
+    def step(prev):
+        # ParentConnect on the parent-rewritten edges: rewrite endpoints to
+        # prev[e], then one edge-relabel round proposes each rewritten
+        # endpoint's parent to the other — two kernel calls
+        s2, r2 = rewrite_edges(prev, senders, receivers)
+        cur = relabel_round(prev, s2, r2)
+        return jump_round(cur)
+
+    return iterate_to_fixpoint(step, P, max_rounds)
+
+
+# ---------------------------------------------------------------------------
+# The registry: method name -> factory, memoized per parameterization.
+# ---------------------------------------------------------------------------
+
+def memoized_factory(kind: str, factories: dict) -> Callable:
+    """``make(name, **params)`` over ``factories``, memoized per
+    parameterization. Parameters are normalized with the factory's defaults,
+    so ``make("uf_sync")`` and ``make("uf_sync", compress="naive")`` are one
+    callable."""
+    instances: dict = {}  # (name, normalized params) -> callable
+
+    def make(name: str, **params) -> Callable:
+        if name not in factories:
+            raise ValueError(f"unknown {kind} {name!r}; "
+                             f"have {tuple(sorted(factories))}")
+        bound = inspect.signature(factories[name]).bind(**params)
+        bound.apply_defaults()
+        key = (name, tuple(sorted(bound.arguments.items())))
+        if key not in instances:
+            instances[key] = factories[name](**bound.arguments)
+        return instances[key]
+
+    return make
+
+
+_FACTORIES: dict = {
+    "uf_sync": make_uf_sync,
+    "liu_tarjan": make_liu_tarjan,
+    "shiloach_vishkin": lambda: shiloach_vishkin,
+    "label_prop": lambda: label_prop,
+    "stergiou": lambda: stergiou,
+}
+METHODS = tuple(sorted(_FACTORIES))
+# make_finish(method, **params) -> the memoized finish callable
+make_finish = memoized_factory("finish method", _FACTORIES)

@@ -53,12 +53,29 @@ def hook_compress(P: torch.Tensor, senders: torch.Tensor,
     return ops.hook_compress(P, senders, receivers, k=jumps)
 
 
+def relabel_round(P: torch.Tensor, senders: torch.Tensor,
+                  receivers: torch.Tensor) -> torch.Tensor:
+    """One edge-relabel round: each endpoint proposes its label to the other
+    (scatter-min merge). Negative endpoints propose ``-1`` but are dumped as
+    targets — the Liu–Tarjan ParentConnect rule on (possibly altered) edges."""
+    return ops.edge_relabel(P, senders, receivers)
+
+
+def rewrite_edges(P: torch.Tensor, senders: torch.Tensor,
+                  receivers: torch.Tensor):
+    """Rewrite both edge endpoints to their parents, ``e ← P[e]`` (``-1``
+    fixed) — the Liu–Tarjan alter step."""
+    return ops.edge_rewrite(P, senders, receivers)
+
+
 def _leaves(state):
     return state if isinstance(state, (tuple, list)) else (state,)
 
 
 def _any_leaf_changed(old, new) -> bool:
-    return any(not torch.equal(a, b)
+    # a leaf the step handed back as it was (the edges of a Liu–Tarjan
+    # variant without alter) has not changed: skip its comparison
+    return any(a is not b and not torch.equal(a, b)
                for a, b in zip(_leaves(old), _leaves(new)))
 
 

@@ -1,19 +1,28 @@
-"""ConnectIt k-out sampling (paper §3.2, Algorithm 4, Appendix C.5).
+"""ConnectIt sampling phase (paper §3.2, Appendix C.5).
 
-A sampler returns a *partial* connectivity labeling (Def. 3.1): it selects
-about ``k`` edges per vertex and runs uf_sync(full) over them.
+Three schemes, each returning a *partial* connectivity labeling (Def. 3.1):
 
-Four selection variants:
+  * k-out   — per-vertex edge selection, four variants (Appendix C.5):
+              afforest | pure | hybrid (paper default, k=2) | maxdeg
+  * BFS     — label-spreading BFS from ≤ num_sources random sources, accept
+              when the discovered component covers > threshold of vertices
+  * LDD     — one round of Miller–Peng–Xu with exponential shifts (β)
+
+k-out selects about ``k`` edges per vertex and runs uf_sync(full) over them:
 
     afforest  the first k edges of each row (deterministic)
     pure      k uniformly random edges of each row
     hybrid    the first edge plus k - 1 random ones (the paper's default)
     maxdeg    the neighbor of maximum degree plus k - 1 random ones
 
-The random columns are drawn from a ``torch.Generator``, which gives other
-numbers than the JAX package's ``jax.random`` key; the labels after the
-finish phase are the same all the same, since canonical min-vertex labels
-are unique for a partition.
+``make_sampler(scheme, **params)`` returns the memoized sampler of one
+parameterization; a sampler is called as ``sampler(g, generator)``.
+
+The random numbers (k-out columns, BFS sources, LDD shifts) come from a
+``torch.Generator``, which gives other numbers than the JAX package's
+``jax.random`` key; the labels after the finish phase are the same all the
+same, since canonical min-vertex labels are unique for a partition. The
+frontier loops check their condition on the host once a round.
 """
 
 from __future__ import annotations
@@ -23,8 +32,8 @@ from typing import Callable, Optional
 import torch
 
 from ..graphs.containers import Graph
-from .finish import make_finish
-from .primitives import full_compress, init_labels
+from .finish import make_finish, memoized_factory
+from .primitives import DEFAULT_MAX_ROUNDS, INT_MAX, full_compress, init_labels
 
 SamplerFn = Callable[..., torch.Tensor]  # (g, generator) -> labels
 
@@ -105,3 +114,110 @@ def make_kout(k: int = 2, variant: str = "hybrid") -> SamplerFn:
 
     kout.__name__ = f"kout_{variant}_k{k}"
     return kout
+
+
+# ---------------------------------------------------------------------------
+# BFS sampling (Algorithm 5): label-spreading BFS + coverage gate.
+# ---------------------------------------------------------------------------
+
+def _bfs_from(g: Graph, src: torch.Tensor, *,
+              max_rounds: int = DEFAULT_MAX_ROUNDS) -> torch.Tensor:
+    """Frontier BFS from the 0-d vertex tensor ``src``; returns the
+    ``(n + 1,)`` visited mask."""
+    n = g.n
+    s, r = g.senders.long(), g.receivers.long()
+    visited = init_labels(n, device=g.device) == src
+    frontier = visited
+    rounds = 0
+    while rounds < max_rounds and bool(frontier.any()):
+        act = frontier[s]
+        # discovery: the min sender reaches each new vertex first
+        prop = torch.where(act & ~visited[r], g.senders, INT_MAX)
+        buf = torch.full((n + 1,), INT_MAX, dtype=torch.int32,
+                         device=g.device).scatter_reduce(0, r, prop, "amin")
+        frontier = (buf < INT_MAX) & ~visited
+        visited = visited | frontier
+        rounds += 1
+    return visited
+
+
+def make_bfs(num_sources: int = 3, threshold: float = 0.1) -> SamplerFn:
+    """BFS sampler: try up to ``num_sources`` random sources in the order
+    drawn, accept the first whose component covers more than
+    ``int(threshold * n)`` vertices; without one, the identity labeling."""
+    if num_sources < 1:
+        raise ValueError(f"bfs needs num_sources >= 1, got {num_sources}")
+    if not 0.0 < threshold <= 1.0:
+        raise ValueError(f"bfs threshold must be in (0, 1], got {threshold}")
+
+    def bfs(g: Graph, generator: Optional[torch.Generator] = None):
+        n = g.n
+        ids = init_labels(n, device=g.device)
+        min_cover = int(threshold * n)
+        sources = torch.randint(0, n, (num_sources,), generator=generator,
+                                device=g.device, dtype=torch.int32)
+        for src in sources:
+            visited = _bfs_from(g, src)
+            if int(visited[:n].sum()) > min_cover:
+                P = torch.where(visited, src, ids)
+                P[n] = n
+                return P
+        return ids
+
+    bfs.__name__ = f"bfs_c{num_sources}"
+    return bfs
+
+
+# ---------------------------------------------------------------------------
+# LDD sampling (Algorithm 6): MPX with exponential shifts, ties by min center.
+# ---------------------------------------------------------------------------
+
+def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
+             ) -> SamplerFn:
+    if not beta > 0.0:
+        raise ValueError(f"ldd needs beta > 0, got {beta}")
+
+    def ldd(g: Graph, generator: Optional[torch.Generator] = None):
+        n = g.n
+        dev = g.device
+        s, r = g.senders.long(), g.receivers.long()
+        shifts = torch.empty(n, dtype=torch.float32, device=dev).exponential_(
+            generator=generator) / beta
+        shifts = shifts.clamp_max(float(max_rounds - 2))
+        # MPX: vertex v starts its own cluster at time δ_max − δ_v (the
+        # LARGEST shift races first; most vertices are covered before they
+        # ever wake)
+        wake = torch.floor(shifts.max() - shifts).to(torch.int32)
+        wake = torch.cat([wake, wake.new_tensor([INT_MAX])])
+        P = torch.full((n + 1,), INT_MAX, dtype=torch.int32, device=dev)
+        P[n] = n
+        ids = init_labels(n, device=dev)
+        real = ids < n
+        frontier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+        rounds = 0
+        while rounds < max_rounds and bool((P[:n] == INT_MAX).any()):
+            # uncovered vertices whose shift has elapsed become centers
+            start = (P == INT_MAX) & (wake <= rounds) & real
+            P = torch.where(start, ids, P)
+            frontier = frontier | start
+            # grow all clusters one hop; the min center id wins a vertex
+            act = frontier[s]
+            prop = torch.where(act & (P[r] == INT_MAX), P[s], INT_MAX)
+            buf = torch.full((n + 1,), INT_MAX, dtype=torch.int32,
+                             device=dev).scatter_reduce(0, r, prop, "amin")
+            frontier = (buf < INT_MAX) & (P == INT_MAX)
+            P = torch.where(frontier, buf, P)
+            rounds += 1
+        return P
+
+    ldd.__name__ = f"ldd_b{beta:g}"
+    return ldd
+
+
+# ---------------------------------------------------------------------------
+# The registry: scheme name -> factory, memoized per parameterization.
+# ---------------------------------------------------------------------------
+
+_FACTORIES: dict = {"kout": make_kout, "bfs": make_bfs, "ldd": make_ldd}
+# make_sampler(scheme, **params) -> the memoized sampler callable
+make_sampler = memoized_factory("sampling scheme", _FACTORIES)

@@ -40,6 +40,9 @@ SIGNATURES = {
     "pointer_jump": {"pointer_jump_i32": (_P, _P, _I64, _I32, _P)},
     "hook_compress": {
         "hook_compress_i32": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _P)},
+    "edge_relabel": {
+        "edge_relabel_i32": (_P, _P, _P, _P, _I64, _I64, _P),
+        "edge_rewrite_i32": (_P, _P, _P, _P, _P, _I64, _I64, _P)},
 }
 
 

@@ -1,0 +1,45 @@
+"""Plain PyTorch versions of the edge_relabel kernel pair.
+
+``edge_relabel_ref`` — one bulk-synchronous relabel round: gather the
+round-start labels at both edge endpoints, propose each endpoint's label to
+the other, merge with min. Jacobi semantics: every gather reads the *input*
+labeling. A negative endpoint (Liu–Tarjan altered edges carry the ``-1``
+virtual minimum) *proposes* its own value but is never a scatter target: it
+is dumped onto the last slot with the dtype's max sentinel.
+
+``edge_rewrite_ref`` — the Liu–Tarjan *alter* step: rewrite both endpoints
+of every edge to their current parent (negative endpoints are fixed).
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _gather_label(labels: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """``labels[e]`` with negative ``e`` kept as it is."""
+    return torch.where(e < 0, e.to(labels.dtype),
+                       labels[e.clamp_min(0).long()])
+
+
+def edge_relabel_ref(labels: torch.Tensor, senders: torch.Tensor,
+                     receivers: torch.Tensor) -> torch.Tensor:
+    """labels (L,); senders/receivers (m,) in {-1} ∪ [0, L).
+
+    ``out = labels; out[r] min= labels[s]; out[s] min= labels[r]``."""
+    big = torch.iinfo(labels.dtype).max
+    dump = labels.shape[0] - 1
+    ls = _gather_label(labels, senders)
+    lr = _gather_label(labels, receivers)
+    out = labels.scatter_reduce(
+        0, torch.where(receivers < 0, dump, receivers).long(),
+        torch.where(receivers < 0, big, ls), "amin", include_self=True)
+    return out.scatter_reduce(
+        0, torch.where(senders < 0, dump, senders).long(),
+        torch.where(senders < 0, big, lr), "amin", include_self=True)
+
+
+def edge_rewrite_ref(labels: torch.Tensor, senders: torch.Tensor,
+                     receivers: torch.Tensor):
+    """Rewrite edge endpoints to their parents: ``e ← P[e]`` (-1 fixed)."""
+    return _gather_label(labels, senders), _gather_label(labels, receivers)

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from .edge_relabel import kernel as _edge_relabel_kernel
+from .edge_relabel.ref import edge_relabel_ref, edge_rewrite_ref
 from .hook_compress import kernel as _hook_compress_kernel
 from .hook_compress.ref import hook_compress_ref
 from .pointer_jump import kernel as _pointer_jump_kernel
@@ -36,14 +38,16 @@ from .pointer_jump.ref import pointer_jump_ref
 from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
 
-__all__ = ["scatter_min", "pointer_jump", "hook_compress", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+__all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
+           "edge_rewrite", "launch_counts", "reset_launch_counts", "KERNELS"]
 
 # the CUDA wrappers, each with its ``launches`` counter
 KERNELS = {
     "hook_compress": _hook_compress_kernel.hook_compress,
     "pointer_jump": _pointer_jump_kernel.pointer_jump,
     "scatter_min": _scatter_min_kernel.scatter_min,
+    "edge_relabel": _edge_relabel_kernel.edge_relabel,
+    "edge_rewrite": _edge_relabel_kernel.edge_rewrite,
 }
 
 
@@ -111,3 +115,22 @@ def hook_compress(P: torch.Tensor, senders: torch.Tensor,
     if _on_cuda(P):
         return _hook_compress_kernel.hook_compress(P, senders, receivers, k=k)
     return hook_compress_ref(P, senders, receivers, k=k)
+
+
+def edge_relabel(labels: torch.Tensor, senders: torch.Tensor,
+                 receivers: torch.Tensor) -> torch.Tensor:
+    """One relabel round: propose each endpoint's label to the other, merge
+    with scatter-min (the Liu–Tarjan ParentConnect rule). Negative endpoints
+    propose their value but are never targets."""
+    if _on_cuda(labels):
+        return _edge_relabel_kernel.edge_relabel(labels, senders, receivers)
+    return edge_relabel_ref(labels, senders, receivers)
+
+
+def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
+                 receivers: torch.Tensor):
+    """Rewrite edge endpoints to their parents (the Liu–Tarjan alter step):
+    ``e ← P[e]`` with ``-1`` fixed points."""
+    if _on_cuda(labels):
+        return _edge_relabel_kernel.edge_rewrite(labels, senders, receivers)
+    return edge_rewrite_ref(labels, senders, receivers)

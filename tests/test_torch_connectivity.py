@@ -4,15 +4,17 @@ One graph, built by ``repro.graphs`` and carried across verbatim with
 ``graph_from_arrays``, goes through ``repro.api.ConnectIt`` and
 ``repro_torch.api.ConnectIt`` (on the CPU). Labels must be bit-identical for
 every variant; ``ConnectivityStats`` must be equal where no random stream
-enters (``none+…`` and ``kout_afforest``). The primitives, the uf_sync finish
-and the k-out edge selection are held against their JAX counterparts the same
-way. Every comparison is exact integer equality.
+enters (``none+…`` and ``kout_afforest``). The primitives, every finish
+method, the k-out edge selection and the BFS traversal are held against
+their JAX counterparts the same way. Every comparison is exact integer
+equality. The whole variant grid runs in test_torch_variants.py.
 
 The last test scans the port's sources: nothing in ``src/repro_torch`` or
 ``chip_smoke.py`` may import ``jax`` or ``repro``.
 """
 
 import ast
+import functools
 from pathlib import Path
 
 import jax
@@ -25,13 +27,15 @@ from conftest import variant_grid_graphs
 from repro import api as japi
 from repro.core import primitives as jprim
 from repro.core.finish import make_finish as j_make_finish
+from repro.core.sampling import _bfs_from as j_bfs_from
 from repro.core.sampling import _select_kout_edges as j_select_kout
+from repro.core.sampling import make_sampler as j_make_sampler
 from repro.graphs import generators as jgen
 from repro_torch import api as tapi
 from repro_torch.core import primitives as tprim
-from repro_torch.core.finish import make_finish
-from repro_torch.core.sampling import _select_kout_edges
-from repro_torch.graphs import graph_from_arrays
+from repro_torch.core.finish import _compress, make_finish
+from repro_torch.core.sampling import _bfs_from, _select_kout_edges, make_sampler
+from repro_torch.graphs import components_oracle, graph_from_arrays
 
 REPO = Path(__file__).resolve().parents[1]
 RNG = np.random.default_rng(3)
@@ -98,16 +102,22 @@ def test_connectivity_matches_jax(variant, fused):
         assert 0 <= tstats.edges_finish <= tstats.edges_finish_padded
 
 
-def test_random_columns_come_from_the_generator():
-    """kout_hybrid's labels do not depend on the draw; its stats may."""
+@pytest.mark.parametrize("variant", ["kout_hybrid_k2+uf_sync_full",
+                                     "bfs_c3+liu_tarjan_PUFA",
+                                     "ldd_b0.2+uf_sync_full"])
+def test_random_columns_come_from_the_generator(variant):
+    """A sampler's draws (k-out columns, BFS sources, LDD shifts) come from
+    the generator: its labels do not depend on the draw; its stats may."""
     jg = GRAPHS["rmat"]
-    ci = tapi.ConnectIt("kout_hybrid_k2+uf_sync_full", device="cpu")
+    ci = tapi.ConnectIt(variant, device="cpu")
     outs = []
     for seed in (0, 1, 2):
         gen = torch.Generator().manual_seed(seed)
         outs.append(ci.connectivity(_port(jg), generator=gen))
     for out in outs[1:]:
         assert torch.equal(out, outs[0])
+    np.testing.assert_array_equal(outs[0].numpy(),
+                                  components_oracle(_port(jg)))
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +140,125 @@ def test_uf_sync_labels_and_rounds_match_jax(compress, max_rounds):
 def test_make_finish_is_memoized_and_refuses_other_methods():
     assert make_finish("uf_sync", compress="full") is make_finish(
         "uf_sync", compress="full")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        make_finish("label_prop")
+    assert make_finish("uf_sync") is make_finish("uf_sync", compress="naive")
+    assert make_finish("liu_tarjan") is make_finish("liu_tarjan",
+                                                    variant="CRFA")
+    for method in ("shiloach_vishkin", "label_prop", "stergiou"):
+        assert make_finish(method) is make_finish(method)
+    assert make_finish("liu_tarjan", variant="PUS") is not make_finish(
+        "liu_tarjan", variant="PUF")
+    with pytest.raises(ValueError, match="unknown finish method"):
+        make_finish("frobnicate")
+    with pytest.raises(ValueError, match="Liu-Tarjan"):
+        make_finish("liu_tarjan", variant="CUS")
+
+
+def _pinned_start(jg) -> np.ndarray:
+    """A sampled start as the driver hands it to a finish: the afforest
+    k-out labeling, compressed, with L_max pinned to -1 (made by repro)."""
+    P = jprim.full_compress(j_make_sampler("kout", k=2, variant="afforest")(
+        jg, jax.random.PRNGKey(0)))
+    lmax, _ = jprim.most_frequent(P)
+    return np.asarray(jprim.relabel_lmax(P, lmax))
+
+
+FINISH_GRAPHS = {"path": jgen.path(40), "rmat": GRAPHS["rmat"]}
+FINISH_STARTS = {
+    (name, start): (np.arange(jg.n + 1, dtype=np.int32) if start == "identity"
+                    else _pinned_start(jg))
+    for name, jg in FINISH_GRAPHS.items() for start in ("identity", "pinned")}
+
+
+@functools.lru_cache(maxsize=None)
+def _j_finish(finish: str, max_rounds: int):
+    """repro's finish of one grid string, jitted once per shape."""
+    fn = japi.VariantSpec.parse(finish).build_finish()
+    return jax.jit(functools.partial(fn, max_rounds=max_rounds))
+
+
+@pytest.mark.parametrize("max_rounds", [2, 1 << 20])
+@pytest.mark.parametrize("finish", japi.default_finish_grid())
+def test_finish_labels_and_rounds_match_jax(finish, max_rounds):
+    """Each of the 22 finishes on a path and an RMAT graph, from the
+    identity and from an L_max-pinned (-1) start: labels and rounds exactly
+    equal to repro's, under a binding and a free round cap."""
+    tfn = tapi.VariantSpec.parse(finish).build_finish()
+    for (name, start), P0 in FINISH_STARTS.items():
+        jg = FINISH_GRAPHS[name]
+        jP, jrounds = _j_finish(finish, max_rounds)(
+            jnp.asarray(P0), jg.senders, jg.receivers)
+        tP, trounds = tfn(_t(P0), _t(jg.senders), _t(jg.receivers),
+                          max_rounds=max_rounds)
+        assert trounds == int(jrounds), (name, start)
+        np.testing.assert_array_equal(tP.numpy(), np.asarray(jP),
+                                      err_msg=f"{finish} {name} {start}")
+
+
+def test_compress_helper_matches_jax():
+    """``_compress`` (naive/halve/full) equals repro's exactly."""
+    from repro.core.finish import _compress as j_compress
+    P = _compressible(300)
+    for how in ("naive", "halve", "full"):
+        np.testing.assert_array_equal(
+            _compress(_t(P), how).numpy(),
+            np.asarray(j_compress(jnp.asarray(P), how)))
+    with pytest.raises(ValueError):
+        _compress(_t(P), "bogus")
+
+
+def test_make_sampler_is_memoized_and_refuses_other_schemes():
+    assert make_sampler("kout") is make_sampler("kout", k=2, variant="hybrid")
+    assert make_sampler("bfs") is make_sampler("bfs", num_sources=3,
+                                               threshold=0.1)
+    assert make_sampler("ldd") is make_sampler("ldd", beta=0.2)
+    assert make_sampler("ldd", beta=0.5) is not make_sampler("ldd")
+    with pytest.raises(ValueError, match="unknown sampling scheme"):
+        make_sampler("frobnicate")
+    for scheme, kw in [("bfs", {"num_sources": 0}), ("bfs", {"threshold": 0}),
+                       ("ldd", {"beta": 0.0}), ("kout", {"k": 0})]:
+        with pytest.raises(ValueError):
+            make_sampler(scheme, **kw)
+
+
+@pytest.mark.parametrize("gname", ["random", "path", "star", "two_clique",
+                                   "rmat"])
+def test_bfs_traversal_matches_jax(gname):
+    """The visited mask from a given source equals repro's exactly."""
+    jg = GRAPHS[gname]
+    for src in (0, 3, jg.n - 1):
+        want, _ = j_bfs_from(jg, jnp.int32(src), jnp.bool_(True))
+        got = _bfs_from(_port(jg), torch.tensor(src, dtype=torch.int32))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_bfs_accepts_the_first_source_over_the_threshold():
+    """Two 10-cliques: at threshold 0.1 the first source is accepted and
+    labels its clique; at 1.0 none is, and the labeling stays the identity."""
+    g = _port(GRAPHS["two_clique"])
+    ids = torch.arange(g.n + 1, dtype=torch.int32)
+    P = make_sampler("bfs", threshold=0.1)(g, torch.Generator().manual_seed(0))
+    src = int(P[(P != ids)][0])
+    clique = (torch.arange(g.n) < 10) == (src < 10)
+    assert torch.equal(P[: g.n][clique], torch.full((10,), src,
+                                                    dtype=torch.int32))
+    assert torch.equal(P[: g.n][~clique], ids[: g.n][~clique])
+    assert int(P[g.n]) == g.n
+    P = make_sampler("bfs", threshold=1.0)(g, torch.Generator().manual_seed(0))
+    assert torch.equal(P, ids)
+
+
+@pytest.mark.parametrize("gname", ["random", "star", "two_clique", "rmat"])
+def test_ldd_clusters_every_vertex_inside_its_component(gname):
+    """Every vertex lands in a cluster whose center labels itself and lies
+    in the same component (exact integer checks against scipy)."""
+    g = _port(GRAPHS[gname])
+    P = make_sampler("ldd")(g, torch.Generator().manual_seed(0))
+    n = g.n
+    assert int(P[n]) == n and bool((P[:n] >= 0).all() & (P[:n] < n).all())
+    centers = P[:n].long()
+    assert torch.equal(P[centers], P[:n])
+    comp = components_oracle(g)
+    np.testing.assert_array_equal(comp[centers.numpy()], comp)
 
 
 @pytest.mark.parametrize("variant", ["afforest", "hybrid", "maxdeg", "pure"])
@@ -227,6 +354,11 @@ def test_most_frequent_ties_go_to_the_first_label():
     "none+uf_sync_naive", "uf_sync", "uf_sync_full", "none+uf_sync_halve",
     "kout_afforest_k2+uf_sync_full", "kout_k3_pure+uf_sync_naive",
     "kout_hybrid+uf_sync_full", "kout_maxdeg_k1+uf_sync", "kout+uf_sync_halve",
+    "bfs_c3+uf_sync_full", "ldd_b0.2+uf_sync_full", "none+shiloach_vishkin",
+    "none+label_prop", "stergiou", "kout_hybrid_k2+liu_tarjan_CRFA",
+    "liu_tarjan", "bfs+liu_tarjan_PUS", "ldd_b1e+16+uf_sync_full",
+    "bfs_c2_t0.30000000000000004+liu_tarjan_PRF", "bfs_c5_t0.1+label_prop",
+    "ldd+stergiou",
 ])
 def test_spec_strings_round_trip_as_jax(text):
     t = tapi.VariantSpec.parse(text)
@@ -235,15 +367,44 @@ def test_spec_strings_round_trip_as_jax(text):
     assert tapi.VariantSpec.parse(str(t)) == t
     assert str(t.sampling) == str(j.sampling)
     assert str(t.finish) == str(j.finish)
+    assert t.finish_str == j.finish_str and t.lt_code == j.lt_code
+    assert t.finish_kwargs() == j.finish_kwargs()
+    assert t.sampling.factory_kwargs() == j.sampling.factory_kwargs()
+
+
+def test_enumerate_variants_matches_jax():
+    """The same 148 strings in the same order, each round-tripping, and the
+    grid pieces equal to repro's."""
+    got = [str(v) for v in tapi.enumerate_variants()]
+    assert got == [str(v) for v in japi.enumerate_variants()]
+    assert len(got) == 148
+    for v in tapi.enumerate_variants():
+        assert tapi.VariantSpec.parse(str(v)) == v
+    assert tapi.default_finish_grid() == japi.default_finish_grid()
+    assert ([str(s) for s in tapi.default_sampling_grid()]
+            == [str(s) for s in japi.default_sampling_grid()])
+    for code in tapi.LIU_TARJAN_VARIANTS:
+        t = tapi.VariantSpec.liu_tarjan(code)
+        assert str(t) == str(japi.VariantSpec.liu_tarjan(code))
+        assert t.lt_code == code
+    assert not tapi.is_compatible(tapi.SamplingSpec("bfs"), "stergiou")
+    assert tapi.is_compatible(tapi.SamplingSpec(), "stergiou")
+
+
+def test_invalid_liu_tarjan_rule_mixes_raise():
+    """Rule mixes outside the 16 valid codes are not representable."""
+    with pytest.raises(ValueError, match="not one of the paper's valid"):
+        tapi.VariantSpec(finish=tapi.FinishSpec("liu_tarjan"),
+                         connect="connect", rootup=True, shortcut="S",
+                         alter=False)
+    with pytest.raises(ValueError, match="unknown Liu-Tarjan code"):
+        tapi.VariantSpec.parse("liu_tarjan_CUS")
+    with pytest.raises(ValueError, match="connect rule"):
+        tapi.VariantSpec(finish=tapi.FinishSpec("liu_tarjan"),
+                         connect="bogus")
 
 
 @pytest.mark.parametrize("text,item", [
-    ("bfs_c3+uf_sync_full", "Queue 1 item 6"),
-    ("ldd_b0.2+uf_sync_full", "Queue 1 item 6"),
-    ("none+shiloach_vishkin", "Queue 1 item 6"),
-    ("none+label_prop", "Queue 1 item 6"),
-    ("stergiou", "Queue 1 item 6"),
-    ("kout_hybrid_k2+liu_tarjan_CRFA", "Queue 1 item 6"),
     ("auto", "Queue 1 item 14"),
 ])
 def test_unported_specs_name_their_queue_item(text, item):
@@ -269,7 +430,8 @@ def test_unported_surfaces_name_their_queue_item():
 
 def test_bad_specs_raise_value_errors():
     for text in ("kout_bogus_k2+uf_sync_full", "none+uf_sync_bogus",
-                 "frobnicate+uf_sync", "none+nonsense"):
+                 "frobnicate+uf_sync", "none+nonsense", "bfs_x3+uf_sync",
+                 "ldd_q0.2+uf_sync", "ldd_b0+uf_sync", "bfs_t1.5+uf_sync"):
         with pytest.raises(ValueError):
             tapi.VariantSpec.parse(text)
 

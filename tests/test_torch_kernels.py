@@ -20,6 +20,10 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops
+from repro.kernels.edge_relabel.kernel import edge_relabel as j_edge_relabel
+from repro.kernels.edge_relabel.kernel import edge_rewrite as j_edge_rewrite
+from repro.kernels.edge_relabel.ref import edge_relabel_ref as j_relabel_ref
+from repro.kernels.edge_relabel.ref import edge_rewrite_ref as j_rewrite_ref
 from repro.kernels.hook_compress.kernel import hook_compress as j_hook_compress
 from repro.kernels.hook_compress.ref import hook_compress_ref as j_hook_ref
 from repro.kernels.pointer_jump.kernel import pointer_jump as j_pointer_jump
@@ -27,6 +31,10 @@ from repro.kernels.pointer_jump.ref import pointer_jump_ref as j_jump_ref
 from repro.kernels.scatter_min.kernel import scatter_min as j_scatter_min
 from repro.kernels.scatter_min.ref import scatter_min_ref as j_scatter_ref
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels.edge_relabel.ref import (
+    edge_relabel_ref,
+    edge_rewrite_ref,
+)
 from repro_torch.kernels.hook_compress.ref import hook_compress_ref
 from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
 from repro_torch.kernels.scatter_min.ref import scatter_min_ref
@@ -96,6 +104,63 @@ def test_hook_compress_plain_matches_jax(n_pad, m_pad, block_m, k):
     _assert_same(hook_compress_ref(_t(P), _t(s), _t(r), k=k), pallas, ref)
 
 
+def _endpoints(n_pad: int, m_pad: int, negative: bool) -> np.ndarray:
+    """Edge endpoints in [0, n_pad), or in {-1} ∪ [0, n_pad) with ~10% -1
+    as Liu–Tarjan altered edges carry."""
+    e = RNG.integers(0, n_pad, m_pad)
+    if negative:
+        e[RNG.random(m_pad) < 0.1] = -1
+    return e.astype(np.int32)
+
+
+@pytest.mark.parametrize("n_pad,m_pad,block_m", [
+    (128, 256, 64), (1024, 4096, 1024), (512, 512, 512), (256, 1024, 128),
+    (64, 64, 64),
+])
+@pytest.mark.parametrize("negative", [False, True], ids=["real", "neg"])
+def test_edge_relabel_plain_matches_jax(n_pad, m_pad, block_m, negative):
+    """Exact int32 equality with the Pallas kernel (interpret) and jnp ref,
+    on permutation labels (real endpoints) or -1-sprinkled labels and
+    endpoints."""
+    P = (_labels_with_virtual_min(n_pad) if negative
+         else RNG.permutation(n_pad).astype(np.int32))
+    s = _endpoints(n_pad, m_pad, negative)
+    r = _endpoints(n_pad, m_pad, negative)
+    pallas = j_edge_relabel(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r),
+                            block_m=block_m, interpret=True)
+    ref = j_relabel_ref(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r))
+    _assert_same(edge_relabel_ref(_t(P), _t(s), _t(r)), pallas, ref)
+
+
+@pytest.mark.parametrize("n_pad,m_pad,block_m", [
+    (128, 256, 64), (512, 2048, 512), (64, 64, 64),
+])
+def test_edge_rewrite_plain_matches_jax(n_pad, m_pad, block_m):
+    """Exact int32 equality of both outputs, with -1 labels and endpoints."""
+    P = _labels_with_virtual_min(n_pad)
+    s = _endpoints(n_pad, m_pad, True)
+    r = _endpoints(n_pad, m_pad, True)
+    ps, pr = j_edge_rewrite(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r),
+                            block_m=block_m, interpret=True)
+    es, er = j_rewrite_ref(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r))
+    got_s, got_r = edge_rewrite_ref(_t(P), _t(s), _t(r))
+    _assert_same(got_s, ps, es)
+    _assert_same(got_r, pr, er)
+
+
+def test_edge_relabel_negative_endpoints_propose_but_never_receive():
+    """-1 endpoints propose the virtual minimum; they are never targets
+    (exact equality with the JAX ref)."""
+    P = np.arange(8, dtype=np.int32)
+    s = np.array([-1, 3], np.int32)
+    r = np.array([5, -1], np.int32)
+    out = edge_relabel_ref(_t(P), _t(s), _t(r))
+    assert out[5] == -1 and out[3] == -1   # proposals from -1 endpoints
+    assert (out >= -1).all()               # nothing scattered off-array
+    _assert_same(out, j_relabel_ref(jnp.asarray(P), jnp.asarray(s),
+                                    jnp.asarray(r)))
+
+
 def test_pointer_jump_three_hops_is_two_rounds():
     P = _t(_labels_with_virtual_min(256))
     two = pointer_jump_ref(pointer_jump_ref(P, k=1), k=1)
@@ -156,6 +221,22 @@ def test_ops_match_jax_on_arbitrary_label_shapes(n):
                                policy="ref"))
 
 
+@pytest.mark.parametrize("n", [5, 127, 300])
+def test_edge_ops_match_jax(n):
+    """The dispatch layer's edge_relabel/edge_rewrite equal repro's under
+    the ref policy exactly, with -1 labels and -1 endpoints."""
+    P = _labels_with_dump(n)
+    s = _endpoints(n + 1, 91, True)
+    r = _endpoints(n + 1, 91, True)
+    jP, js, jr = jnp.asarray(P), jnp.asarray(s), jnp.asarray(r)
+    _assert_same(ops.edge_relabel(_t(P), _t(s), _t(r)),
+                 jops.edge_relabel(jP, js, jr, policy="ref"))
+    got = ops.edge_rewrite(_t(P), _t(s), _t(r))
+    want = jops.edge_rewrite(jP, js, jr, policy="ref")
+    _assert_same(got[0], want[0])
+    _assert_same(got[1], want[1])
+
+
 def test_cpu_tensors_take_the_plain_path():
     before = ops.launch_counts()
     P = _t(_labels_with_dump(40))
@@ -163,8 +244,11 @@ def test_cpu_tensors_take_the_plain_path():
     ops.scatter_min(P, s, s)
     ops.pointer_jump(P, k=3)
     ops.hook_compress(P, s, s, k=1)
+    ops.edge_relabel(P, s, s)
+    ops.edge_rewrite(P, s, s)
     assert ops.launch_counts() == before
-    assert set(before) == {"hook_compress", "pointer_jump", "scatter_min"}
+    assert set(before) == {"hook_compress", "pointer_jump", "scatter_min",
+                           "edge_relabel", "edge_rewrite"}
 
 
 def test_reset_launch_counts_zeroes_every_counter():
@@ -195,7 +279,7 @@ def test_kernel_wrappers_reject_what_they_cannot_take(name):
     def call(P, e=edges, e2=edges):
         if name == "pointer_jump":
             return fn(P)
-        if name == "scatter_min":
+        if name in ("scatter_min", "edge_relabel", "edge_rewrite"):
             return fn(P, e, e2)
         return fn(P, e, e2, k=1)
 
@@ -271,3 +355,26 @@ def test_scatter_min_kernel_matches_plain_on_card(cuda):
     mask = _t(RNG.random(200_000) < 0.8).to(cuda)
     want = ops.scatter_min(P.cpu(), idx.cpu(), vals.cpu(), mask.cpu())
     assert torch.equal(ops.scatter_min(P, idx, vals, mask).cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("negative", [False, True], ids=["real", "neg"])
+def test_edge_relabel_kernel_matches_plain_on_card(cuda, negative):
+    n_pad = 100_003
+    P = _t(_labels_with_virtual_min(n_pad)).to(cuda)
+    s = _t(_endpoints(n_pad, 400_000, negative)).to(cuda)
+    r = _t(_endpoints(n_pad, 400_000, negative)).to(cuda)
+    assert torch.equal(ops.KERNELS["edge_relabel"](P, s, r),
+                       edge_relabel_ref(P, s, r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("negative", [False, True], ids=["real", "neg"])
+def test_edge_rewrite_kernel_matches_plain_on_card(cuda, negative):
+    n_pad = 100_003
+    P = _t(_labels_with_virtual_min(n_pad)).to(cuda)
+    s = _t(_endpoints(n_pad, 400_000, negative)).to(cuda)
+    r = _t(_endpoints(n_pad, 400_000, negative)).to(cuda)
+    got = ops.KERNELS["edge_rewrite"](P, s, r)
+    want = edge_rewrite_ref(P, s, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
