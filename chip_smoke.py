@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
-    python3 chip_smoke.py                         # RMAT n=2^22, 2^25 edges
+    python3 chip_smoke.py                         # RMAT n=2^22, 2^25 edges;
+                                                  # DLRM-RM2 at full width
     python3 chip_smoke.py --log-n 14 --log-m 17   # a short compile check
+                                                  # (DLRM vocab, batches and
+                                                  # candidates cut to 2^14)
 
 Phases, in order; any failure exits non-zero:
 
@@ -12,9 +15,14 @@ Phases, in order; any failure exits non-zero:
   3. graph    an RMAT graph, paper parameters (a,b,c) = (0.5, 0.1, 0.1),
               generated on the host from the seed and built on the card;
   4. kernels  each kernel at the main paths' shapes against its plain
-              PyTorch version on the same inputs (exact: all int32), with
-              its time, the plain version's, one PyTorch call's where one
-              computes the same function, and the bound;
+              PyTorch version on the same inputs (the int32 kernels exactly,
+              embedding_bag within BAG_TOL), with its time, the plain
+              version's, one PyTorch call's where one computes the same
+              function, and the bound; embedding_bag on a
+              1,000,448 x 64 table at RM2's serve_bulk shape (B=262144,
+              L=1, zipfian ids) and a multi-hot one (B=65536, L=8, ~10% on
+              the dump row, and with wrapped and clamped ids), sum / mean /
+              max, float32 / bfloat16;
   5. small    every variant of enumerate_variants() (148) on a small graph,
               compacted and fused, on the card, against the CPU path and
               scipy;
@@ -26,11 +34,18 @@ Phases, in order; any failure exits non-zero:
                 kout_hybrid_k2+liu_tarjan_CRFA   compacted, fused
                 none+stergiou
                 ldd_b0.2+uf_sync_full
-  7. profile  where the compacted main path's time goes: wall time per
+  7. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+              float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
+              (B=262144) and retrieval_cand (10^6 candidates), each through
+              the embedding_bag kernel and held against the same model
+              through the plain version, with step times, peak memory and
+              launches per step;
+  8. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
-              share (torch.profiler); then the same trace of none+stergiou
-              and of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round
-              state compares run over the whole edge list).
+              share (torch.profiler); then the same trace of none+stergiou,
+              of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
+              compares run over the whole edge list) and of one DLRM-RM2
+              serve_bulk and one serve_p99 step.
 
 The line before the last holds the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
@@ -69,6 +84,13 @@ DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
 INT32_MAX = 2**31 - 1
+# DLRM-RM2 (src/repro_torch/configs/legacy/dlrm_rm2.py) at full width
+RM2_VOCAB = 1_000_000
+BAG_MODES = ("sum", "mean", "max")
+# embedding_bag against its plain version: a one-row float32 bag is a copy
+# (exact); longer bags sum in another order (the reference test's
+# tolerances, rtol = atol)
+BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
 
 
 class SmokeFailure(Exception):
@@ -169,7 +191,7 @@ def _max_abs_err(torch, got, want) -> int:
     return err
 
 
-def phase_kernels(torch, g) -> dict:
+def phase_kernels(torch, g, cap: int) -> dict:
     """Each kernel against its plain version at the main paths' shapes."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.edge_relabel.ref import (
@@ -293,7 +315,113 @@ def phase_kernels(torch, g) -> dict:
                     "replaces": c["replaces"], "launches": 0,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    results["embedding_bag"] = _embedding_bag_cases(torch, cap)
     return results
+
+
+def _embedding_bag_cases(torch, cap: int) -> dict:
+    """embedding_bag against its plain version on one RM2-width table."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.legacy import embedding_bag
+    from repro_torch.kernels.legacy.embedding_bag.ref import (
+        embedding_bag_ref,
+        wrap_and_clamp,
+    )
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models.dlrm import table_rows
+
+    vocab = min(RM2_VOCAB, cap)
+    rows, D = table_rows(vocab), 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    table = torch.randn(rows, D, generator=gen, device="cuda") / 8.0
+    table[vocab:] = 0.0  # RM2's zero pad rows; the last is the dump row
+
+    def zipf_ids(batch: int, bag: int):
+        s = RecsysStream(batch=batch, n_dense=13, n_sparse=1, vocab=vocab,
+                         multi_hot=bag, seed=2).batch_at(0, device="cuda")
+        return s["sparse"][:, 0].contiguous()
+
+    bulk = zipf_ids(min(262144, cap), 1)
+    multi = zipf_ids(min(65536, cap), 8)
+    multi[torch.rand(multi.shape, generator=gen, device="cuda") < 0.1] = (
+        rows - 1)
+    wrapped = multi.clone()
+    u = torch.rand(wrapped.shape, generator=gen, device="cuda")
+    wrapped[u < 0.01] = -1
+    wrapped[(u >= 0.01) & (u < 0.02)] = -rows - 2
+    wrapped[(u >= 0.02) & (u < 0.03)] = rows + 3
+    id_sets = {"serve_bulk": bulk, "multi_hot": multi, "wrapped": wrapped}
+    tables = {"float32": table, "bfloat16": table.to(torch.bfloat16)}
+    main = None
+    for ids_name, ids in id_sets.items():
+        B, L = ids.shape
+        ids_long = ids.long()
+        # the bound reads each distinct row the bags need once; zipfian ids
+        # repeat, so that is fewer rows than the B*L gathered
+        distinct = int(torch.unique(wrap_and_clamp(ids, rows)).numel())
+        for dtype, tab in tables.items():
+            size = tab.element_size()
+            nbytes = distinct * D * size + B * L * 4 + B * D * size
+            gathered_ms = (B * L * D * size + B * L * 4 + B * D * size
+                           ) / HBM_BYTES_PER_S * 1e3
+            for mode in BAG_MODES:
+                got = ops.KERNELS["embedding_bag"](tab, ids, mode=mode)
+                want = embedding_bag_ref(tab, ids, mode=mode)
+                torch.cuda.synchronize()
+                require(got.shape == want.shape and got.dtype == want.dtype,
+                        f"embedding_bag {ids_name} {dtype} {mode}: shape or "
+                        f"dtype differs from the plain version")
+                err = float((got.float() - want.float()).abs().max())
+                tol = BAG_TOL[dtype]
+                if dtype == "float32" and L == 1:
+                    require(torch.equal(got, want),
+                            f"embedding_bag {ids_name} {dtype} {mode}: a "
+                            f"one-row bag is not a copy (max_abs_err={err})")
+                else:
+                    require(torch.allclose(got.float(), want.float(),
+                                           rtol=tol, atol=tol),
+                            f"embedding_bag {ids_name} {dtype} {mode}: kernel "
+                            f"disagrees with its plain version "
+                            f"(max_abs_err={err}, rtol=atol={tol})")
+                ms = time_ms(torch, lambda: embedding_bag(tab, ids, mode=mode),
+                             iters=20)
+                plain_ms = time_ms(
+                    torch, lambda: embedding_bag_ref(tab, ids, mode=mode),
+                    iters=5)
+                # F.embedding_bag skips padding_idx rows, so it computes this
+                # function for in-range ids in sum and mean (max differs on
+                # all-dump bags)
+                lib_ms = None
+                if mode != "max" and ids_name != "wrapped":
+                    def lib():
+                        return F.embedding_bag(ids_long, tab, mode=mode,
+                                               padding_idx=rows - 1)
+                    require(torch.allclose(lib().float(), want.float(),
+                                           rtol=tol, atol=tol),
+                            f"F.embedding_bag {ids_name} {dtype} {mode} "
+                            f"differs from the plain version")
+                    lib_ms = time_ms(torch, lib, iters=20)
+                b_ms, b_by = bound_ms(nbytes, B * L * D)
+                print(f"[kernels] embedding_bag {ids_name} {dtype} {mode} "
+                      f"table ({rows}, {D}) ids ({B}, {L}): max_abs_err={err} "
+                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+                      f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
+                      f"3.35 TB/s: {distinct} distinct rows) "
+                      f"gathered_rows_bound_ms={gathered_ms:.4f}")
+                if (ids_name, dtype, mode) == ("serve_bulk", "float32", "sum"):
+                    main = {
+                        "name": "embedding_bag", "route": "cuda",
+                        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                        "replaces":
+                            "src/repro/kernels/legacy/embedding_bag/kernel.py:47",
+                        "launches": 0, "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms,
+                        "bound_by": b_by, "library_ms": lib_ms}
+    return main
 
 
 def phase_small(torch) -> None:
@@ -403,6 +531,126 @@ def _canonicalization_scatter_min(torch, labels) -> None:
           f"library_ms={lib_ms:.4f}")
 
 
+def phase_dlrm(torch, cap: int, seed: int, results: dict):
+    """DLRM-RM2 serving on the card: each cell through the embedding_bag
+    kernel against the same model through the plain version. Returns the
+    model and each cell's inputs, for the profile phase."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models import dlrm as dlrm_mod
+
+    arch = get_arch("dlrm-rm2")
+    cfg = arch.model
+    vocab = min(RM2_VOCAB, cap)
+    if vocab < RM2_VOCAB:
+        cfg = dataclasses.replace(cfg, vocab_sizes=(vocab,) * cfg.n_sparse)
+    precision = torch.get_float32_matmul_precision()
+    require(precision == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+            f"float32 matmuls must run in full float32, got {precision!r}")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = dlrm_mod.init_dlrm(cfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    table_bytes = sum(t.numel() * t.element_size() for t in model.tables)
+    print(f"[dlrm] {cfg.name}: {cfg.n_sparse} tables of "
+          f"{tuple(model.tables[0].shape)} float32 = {table_bytes} bytes, "
+          f"built on the card from seed {seed} in "
+          f"{time.perf_counter() - t0:.2f} s; float32 matmul precision "
+          f"{precision!r}, TF32 off")
+
+    def plain(fn, *args):
+        with mock.patch.object(dlrm_mod, "embedding_bag", embedding_bag_ref):
+            return fn(model, *args)
+
+    def wall_ms(fn, steps: int) -> list:
+        fn()  # warm
+        out = []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return sorted(out)
+
+    def pct(xs: list, q: float) -> float:
+        return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+    serve_inputs = {}
+    for shape, steps in (("serve_p99", 50), ("serve_bulk", 10),
+                         ("retrieval_cand", 20)):
+        cell = build_cell(arch, shape)
+        B = min(cell.args[0].shape[0], cap)
+        batch = RecsysStream(batch=B, n_dense=cfg.n_dense,
+                             n_sparse=cfg.n_sparse, vocab=vocab,
+                             multi_hot=cfg.multi_hot,
+                             seed=seed).batch_at(0, device="cuda")
+        inputs = [batch["dense"], batch["sparse"]]
+        if shape == "retrieval_cand":
+            n_cand = min(cell.args[2].shape[0], cap)
+            inputs.append(torch.randn(n_cand, cfg.embed_dim, generator=gen,
+                                      device="cuda"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        got = cell.fn(model, *inputs)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        require(counts["embedding_bag"] == cfg.n_sparse and
+                sum(counts.values()) == cfg.n_sparse,
+                f"dlrm {shape}: launches {counts}, want {cfg.n_sparse} of "
+                f"embedding_bag and nothing else")
+        want = plain(cell.fn, *inputs)
+        if shape == "retrieval_cand":
+            (vals, idx), (want_vals, want_idx) = got, want
+            require(vals.shape == (100,) and bool(torch.isfinite(vals).all()),
+                    f"dlrm {shape}: top-k values {tuple(vals.shape)}")
+            require(torch.equal(idx, want_idx),
+                    f"dlrm {shape}: top-100 indices differ from the plain "
+                    f"path's")
+            err = float((vals - want_vals).abs().max())
+            require(err <= 1e-6, f"dlrm {shape}: top-100 values differ by "
+                    f"{err}")
+            check = f"top-100 indices equal, values within {err}"
+        else:
+            require(got.shape == (B,) and bool(torch.isfinite(got).all())
+                    and bool(((got >= 0) & (got <= 1)).all()),
+                    f"dlrm {shape}: probabilities {tuple(got.shape)}")
+            with torch.inference_mode():
+                logits = model(*inputs)
+                want_logits = plain(lambda m, *a: m(*a), *inputs)
+            require(torch.equal(logits, want_logits) and torch.equal(got, want),
+                    f"dlrm {shape}: logits differ from the plain path's at L=1")
+            check = "logits and probabilities equal to the plain path's"
+        ms = wall_ms(lambda: cell.fn(model, *inputs), steps)
+        plain_ms = wall_ms(lambda: plain(cell.fn, *inputs), 3)
+        rate = ""
+        if shape == "serve_bulk":
+            rate = f"; {B / (sum(ms) / len(ms) / 1e3):.1f} samples/s"
+            results["embedding_bag"]["launches"] = counts["embedding_bag"]
+        serve_inputs[shape] = inputs
+        print(f"[dlrm] {shape} B={B}"
+              + (f" candidates={inputs[2].shape[0]}" if len(inputs) > 2
+                 else "")
+              + f": {check}; wall per step over {steps} warm steps p50 "
+              f"{pct(ms, 0.5):.4f} ms, p99 {pct(ms, 0.99):.4f} ms, mean "
+              f"{sum(ms) / len(ms):.4f} ms{rate}; plain path p50 "
+              f"{pct(plain_ms, 0.5):.4f} ms; peak device memory {peak} "
+              f"bytes; embedding_bag launches per step "
+              f"{counts['embedding_bag']}; cell meta {cell.meta}")
+    return model, serve_inputs
+
+
 def _trace(torch, tag: str, fn) -> None:
     """One run of ``fn`` under torch.profiler: wall time, the device's busy
     share and device time by kernel."""
@@ -428,10 +676,13 @@ def _trace(torch, tag: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def phase_profile(torch, g) -> None:
+def phase_profile(torch, g, model, serve_inputs) -> None:
     """Where the compacted main path's time goes: wall time per driver step
     (host clock around synchronized work), then one traced run of it, one of
-    none+stergiou and one of the fused PUFA path."""
+    none+stergiou, one of the fused PUFA path, and one DLRM-RM2 serve_bulk
+    and one serve_p99 step."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import serve_step
     from repro_torch import ConnectIt
     from repro_torch.core import driver
 
@@ -466,6 +717,12 @@ def phase_profile(torch, g) -> None:
     pufa = ConnectIt(EDGE_PATH, device="cuda")
     _trace(torch, f"{EDGE_PATH} fused",
            lambda: pufa.connectivity(g, fused=True))
+    for shape in ("serve_bulk", "serve_p99"):
+        inputs = serve_inputs[shape]
+        ops.reset_launch_counts()
+        _trace(torch, f"dlrm-rm2 {shape} B={inputs[0].shape[0]}",
+               lambda: serve_step(model, *inputs))
+        print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
 
 
 def main() -> int:
@@ -490,10 +747,15 @@ def main() -> int:
         device = phase_device(torch)
         phase_build()
         g = phase_graph(torch, args.log_n, args.log_m, args.seed)
-        results = phase_kernels(torch, g)
+        # the DLRM phases' size cap: at the default 2^22 it cuts nothing, so
+        # RM2 runs at its published widths; a short check cuts vocab,
+        # batches and candidates to 2^log_n
+        cap = 1 << args.log_n
+        results = phase_kernels(torch, g, cap)
         phase_small(torch)
         phase_paths(torch, g, results)
-        phase_profile(torch, g)
+        model, serve_inputs = phase_dlrm(torch, cap, args.seed, results)
+        phase_profile(torch, g, model, serve_inputs)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

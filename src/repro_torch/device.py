@@ -21,3 +21,12 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
         # the index tensors report, so that devices compare equal
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+def on_cuda(t: torch.Tensor) -> bool:
+    """Whether ``t`` takes a CUDA kernel (True) or a plain version (False)."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no kernel for device {t.device}; have cpu and cuda")

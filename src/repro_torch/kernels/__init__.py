@@ -1,1 +1,2 @@
-"""Connectivity kernels: plain PyTorch versions and hand-written CUDA."""
+"""The port's kernels (connectivity, and the ML-era ``legacy`` embedding_bag):
+plain PyTorch versions and hand-written CUDA."""

@@ -43,6 +43,9 @@ SIGNATURES = {
     "edge_relabel": {
         "edge_relabel_i32": (_P, _P, _P, _P, _I64, _I64, _P),
         "edge_rewrite_i32": (_P, _P, _P, _P, _P, _I64, _I64, _P)},
+    "embedding_bag": {
+        "embedding_bag_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
+        "embedding_bag_bf16": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P)},
 }
 
 
@@ -136,6 +139,27 @@ def check_args(what: str, labels, *edge_arrays) -> None:
     if len({t.shape[0] for t in edge_arrays}) > 1:
         raise ValueError(f"{what}: edge arrays differ in length: "
                          f"{[t.shape[0] for t in edge_arrays]}")
+
+
+def check_table_args(what: str, table, idx, *, dtypes: tuple) -> None:
+    """Validate a table-gather call: a 2-D contiguous ``table`` of one of
+    ``dtypes`` with at least one row, and a 2-D contiguous int32 ``idx``,
+    both on one CUDA device."""
+    if table.dtype not in dtypes:
+        raise TypeError(f"{what}: the CUDA kernel takes a table of "
+                        f"{[str(d) for d in dtypes]}, got {table.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{what}: the CUDA kernel takes int32 ids, got "
+                        f"{idx.dtype}")
+    for t in (table, idx):
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{what}: needs 2-D contiguous tensors, got "
+                             f"shape {tuple(t.shape)}")
+    if table.shape[0] == 0:
+        raise ValueError(f"{what}: the table has no rows")
+    if table.device.type != "cuda" or idx.device != table.device:
+        raise ValueError(f"{what}: needs tensors on one CUDA device, got "
+                         f"{[str(t.device) for t in (table, idx)]}")
 
 
 def stream_of(t) -> int:

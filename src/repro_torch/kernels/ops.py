@@ -21,25 +21,32 @@ This layer owns the contract between core label arrays and the kernels:
     implementations of every op.
 
 The CUDA kernels mask their ragged tails themselves, so nothing is padded.
+
+``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper, dispatched in
+``kernels/legacy``, so that ``launch_counts()`` covers every kernel.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
 
+from ..device import on_cuda
 from .edge_relabel import kernel as _edge_relabel_kernel
 from .edge_relabel.ref import edge_relabel_ref, edge_rewrite_ref
 from .hook_compress import kernel as _hook_compress_kernel
 from .hook_compress.ref import hook_compress_ref
+from .legacy.embedding_bag import kernel as _embedding_bag_kernel
 from .pointer_jump import kernel as _pointer_jump_kernel
 from .pointer_jump.ref import pointer_jump_ref
 from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
-           "edge_rewrite", "launch_counts", "reset_launch_counts", "KERNELS"]
+           "edge_rewrite", "embedding_bag", "launch_counts",
+           "reset_launch_counts", "KERNELS"]
 
 # the CUDA wrappers, each with its ``launches`` counter
 KERNELS = {
@@ -48,6 +55,7 @@ KERNELS = {
     "scatter_min": _scatter_min_kernel.scatter_min,
     "edge_relabel": _edge_relabel_kernel.edge_relabel,
     "edge_rewrite": _edge_relabel_kernel.edge_rewrite,
+    "embedding_bag": _embedding_bag_kernel.embedding_bag,
 }
 
 
@@ -59,14 +67,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-
-
-def _on_cuda(t: torch.Tensor) -> bool:
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"no kernel for device {t.device}; have cpu and cuda")
 
 
 def scatter_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
@@ -83,7 +83,7 @@ def scatter_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
         ok = ok & mask
     idx = torch.where(ok, idx, n).to(torch.int32)
     vals = torch.where(ok, vals.to(P.dtype), big)
-    if _on_cuda(P):
+    if on_cuda(P):
         return _scatter_min_kernel.scatter_min(P, idx, vals)
     return scatter_min_ref(P, idx, vals)
 
@@ -94,7 +94,7 @@ def pointer_jump(labels: torch.Tensor, *, k: int = 1) -> torch.Tensor:
     ``k=1`` is exactly one ``P ← P[P]`` round; chained hops compose, so
     ``k=3`` in one call equals two successive rounds (FindHalve). ``-1``
     labels and self-labeled slots are fixed points."""
-    if _on_cuda(labels):
+    if on_cuda(labels):
         return _pointer_jump_kernel.pointer_jump(labels, k=k)
     return pointer_jump_ref(labels, k=k)
 
@@ -112,7 +112,7 @@ def hook_compress(P: torch.Tensor, senders: torch.Tensor,
         dump = P.shape[0] - 1
         senders = torch.where(mask, senders, dump).to(senders.dtype)
         receivers = torch.where(mask, receivers, dump).to(receivers.dtype)
-    if _on_cuda(P):
+    if on_cuda(P):
         return _hook_compress_kernel.hook_compress(P, senders, receivers, k=k)
     return hook_compress_ref(P, senders, receivers, k=k)
 
@@ -122,7 +122,7 @@ def edge_relabel(labels: torch.Tensor, senders: torch.Tensor,
     """One relabel round: propose each endpoint's label to the other, merge
     with scatter-min (the Liu–Tarjan ParentConnect rule). Negative endpoints
     propose their value but are never targets."""
-    if _on_cuda(labels):
+    if on_cuda(labels):
         return _edge_relabel_kernel.edge_relabel(labels, senders, receivers)
     return edge_relabel_ref(labels, senders, receivers)
 
@@ -131,6 +131,19 @@ def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
                  receivers: torch.Tensor):
     """Rewrite edge endpoints to their parents (the Liu–Tarjan alter step):
     ``e ← P[e]`` with ``-1`` fixed points."""
-    if _on_cuda(labels):
+    if on_cuda(labels):
         return _edge_relabel_kernel.edge_rewrite(labels, senders, receivers)
     return edge_rewrite_ref(labels, senders, receivers)
+
+
+def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
+                  mode: str = "sum") -> torch.Tensor:
+    """Deprecated: the ML-era kernel lives in ``repro_torch.kernels.legacy``
+    (its consumer is the DLRM model in ``repro_torch.legacy``). Import
+    ``embedding_bag`` from there directly."""
+    warnings.warn(
+        "ops.embedding_bag is deprecated — the kernel moved to "
+        "repro_torch.kernels.legacy (no connectivity consumer)",
+        DeprecationWarning, stacklevel=2)
+    from .legacy import embedding_bag as _embedding_bag
+    return _embedding_bag(table, idx, mode=mode)

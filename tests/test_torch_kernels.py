@@ -5,7 +5,10 @@ the JAX Pallas kernel run with ``interpret=True`` and against the JAX
 ``*_ref``; the dispatch layer (``repro_torch.kernels.ops``) against
 ``repro.kernels.ops`` under the ``ref`` policy. Inputs are made with numpy
 from a seed and handed to both packages. Every comparison is exact integer
-equality: all values are int32 (or int16) labels and indices.
+equality: all values are int32 (or int16) labels and indices, except
+embedding_bag's float rows, held at the reference test's tolerances (rtol
+and atol 1e-6 in float32, 3e-2 in bfloat16: sums in another order, and
+bfloat16 rounded at other places).
 
 Tests marked ``gpu`` hold the CUDA kernels against the plain versions on
 the card, exactly; they skip without one.
@@ -26,6 +29,12 @@ from repro.kernels.edge_relabel.ref import edge_relabel_ref as j_relabel_ref
 from repro.kernels.edge_relabel.ref import edge_rewrite_ref as j_rewrite_ref
 from repro.kernels.hook_compress.kernel import hook_compress as j_hook_compress
 from repro.kernels.hook_compress.ref import hook_compress_ref as j_hook_ref
+from repro.kernels.legacy.embedding_bag.kernel import (
+    embedding_bag as j_embedding_bag,
+)
+from repro.kernels.legacy.embedding_bag.ref import (
+    embedding_bag_ref as j_bag_ref,
+)
 from repro.kernels.pointer_jump.kernel import pointer_jump as j_pointer_jump
 from repro.kernels.pointer_jump.ref import pointer_jump_ref as j_jump_ref
 from repro.kernels.scatter_min.kernel import scatter_min as j_scatter_min
@@ -36,6 +45,8 @@ from repro_torch.kernels.edge_relabel.ref import (
     edge_rewrite_ref,
 )
 from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+from repro_torch.kernels.legacy import embedding_bag
+from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
 from repro_torch.kernels.scatter_min.ref import scatter_min_ref
 
@@ -237,6 +248,83 @@ def test_edge_ops_match_jax(n):
     _assert_same(got[1], want[1])
 
 
+# embedding_bag: the plain version against the Pallas kernel (interpret) and
+# the jnp ref over tests/test_kernels.py's sweep, then the id contract.
+_BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
+
+
+def _bag_inputs(V: int, D: int, B: int, L: int) -> tuple:
+    """A (V + 1, D) normal table with a zero dump row V, and ids in [0, V]."""
+    tab = np.zeros((V + 1, D), np.float32)
+    tab[:V] = RNG.normal(size=(V, D))
+    return tab, RNG.integers(0, V + 1, (B, L)).astype(np.int32)
+
+
+def _assert_bag_close(got: torch.Tensor, want, dtype: str) -> None:
+    assert str(got.dtype) == f"torch.{dtype}"
+    if isinstance(want, torch.Tensor):
+        want = want.float().cpu().numpy()
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=_BAG_TOL[dtype], atol=_BAG_TOL[dtype])
+
+
+@pytest.mark.parametrize("V,D,B,L,bb,mode", [
+    (100, 16, 64, 4, 32, "sum"), (50, 64, 128, 8, 64, "mean"),
+    (200, 32, 32, 3, 32, "max"), (33, 8, 16, 1, 16, "sum"),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_plain_matches_jax(V, D, B, L, bb, mode, dtype):
+    tab, idx = _bag_inputs(V, D, B, L)
+    jtab = jnp.asarray(tab, dtype)
+    pallas = j_embedding_bag(jtab, jnp.asarray(idx), mode=mode, block_b=bb,
+                             interpret=True)
+    ref = j_bag_ref(jtab, jnp.asarray(idx), mode=mode)
+    got = embedding_bag_ref(_t(tab).to(getattr(torch, dtype)), _t(idx),
+                            mode=mode)
+    _assert_bag_close(got, pallas, dtype)
+    _assert_bag_close(got, ref, dtype)
+
+
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_wraps_and_clamps_as_jax(mode, dtype):
+    """-1 reads the dump row and counts as valid; rows + 3 reads the dump
+    row and does not; -rows - 2 wraps to -2 and clamps to row 0."""
+    V, D = 9, 8
+    rows = V + 1
+    tab, _ = _bag_inputs(V, D, 1, 1)
+    idx = np.array([[-1, 3], [-rows - 2, 3], [rows + 3, 3], [3, 5],
+                    [-1, -1], [rows + 3, rows + 3], [V, -rows - 2]],
+                   np.int32)
+    jtab = jnp.asarray(tab, dtype)
+    got = embedding_bag_ref(_t(tab).to(getattr(torch, dtype)), _t(idx),
+                            mode=mode)
+    _assert_bag_close(got, j_bag_ref(jtab, jnp.asarray(idx), mode=mode),
+                      dtype)
+    _assert_bag_close(got, j_embedding_bag(jtab, jnp.asarray(idx), mode=mode,
+                                           block_b=7, interpret=True), dtype)
+    # the same through the dispatcher, on the CPU
+    _assert_bag_close(embedding_bag(_t(tab).to(getattr(torch, dtype)),
+                                    _t(idx), mode=mode), got, dtype)
+
+
+def test_embedding_bag_refuses_an_unknown_mode():
+    with pytest.raises(ValueError, match="mode"):
+        embedding_bag(torch.ones(4, 2), torch.zeros(1, 1, dtype=torch.int32),
+                      mode="min")
+
+
+def test_ops_embedding_bag_shim_warns_and_dispatches():
+    table = torch.ones(8, 4)
+    idx = torch.zeros(2, 3, dtype=torch.int32)
+    before = ops.launch_counts()
+    with pytest.warns(DeprecationWarning, match="legacy"):
+        out = ops.embedding_bag(table, idx)
+    assert torch.equal(out, embedding_bag_ref(table, idx))
+    assert ops.launch_counts() == before
+
+
 def test_cpu_tensors_take_the_plain_path():
     before = ops.launch_counts()
     P = _t(_labels_with_dump(40))
@@ -246,9 +334,10 @@ def test_cpu_tensors_take_the_plain_path():
     ops.hook_compress(P, s, s, k=1)
     ops.edge_relabel(P, s, s)
     ops.edge_rewrite(P, s, s)
+    embedding_bag(torch.ones(8, 4), s.reshape(5, 10), mode="mean")
     assert ops.launch_counts() == before
     assert set(before) == {"hook_compress", "pointer_jump", "scatter_min",
-                           "edge_relabel", "edge_rewrite"}
+                           "edge_relabel", "edge_rewrite", "embedding_bag"}
 
 
 def test_reset_launch_counts_zeroes_every_counter():
@@ -269,7 +358,7 @@ def test_unsupported_device_raises():
 # is testable here; the sources and the build are checked statically.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(ops.KERNELS))
+@pytest.mark.parametrize("name", sorted(set(ops.KERNELS) - {"embedding_bag"}))
 def test_kernel_wrappers_reject_what_they_cannot_take(name):
     fn = ops.KERNELS[name]
     before = fn.launches
@@ -293,6 +382,26 @@ def test_kernel_wrappers_reject_what_they_cannot_take(name):
         with pytest.raises(ValueError):
             call(lab, edges, edges[:5])
     assert fn.launches == before  # a refused call launches nothing
+
+
+def test_embedding_bag_wrapper_rejects_what_it_cannot_take():
+    fn = ops.KERNELS["embedding_bag"]
+    before = fn.launches
+    table = torch.zeros(10, 4)
+    idx = torch.zeros(3, 2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="table"):
+        fn(table.to(torch.float16), idx)
+    with pytest.raises(TypeError, match="int32"):
+        fn(table, idx.long())
+    with pytest.raises(ValueError, match="2-D"):
+        fn(table, idx.reshape(-1))
+    with pytest.raises(ValueError, match="contiguous"):
+        fn(torch.zeros(4, 10).t(), idx)
+    with pytest.raises(ValueError, match="no rows"):
+        fn(torch.zeros(0, 4), idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fn(table, idx)                 # right types, but on the CPU
+    assert fn.launches == before
 
 
 def test_each_c_entry_point_is_defined_in_its_source():
@@ -378,3 +487,23 @@ def test_edge_rewrite_kernel_matches_plain_on_card(cuda, negative):
     got = ops.KERNELS["edge_rewrite"](P, s, r)
     want = edge_rewrite_ref(P, s, r)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [8, 13, 16, 32, 64, 200])
+@pytest.mark.parametrize("mode", ["sum", "mean", "max"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_embedding_bag_kernel_matches_plain_on_card(cuda, D, mode, dtype):
+    """Any D (13: no vector loads; 200: more than one column chunk), ids
+    on the dump row and wrapped and clamped ids among them."""
+    V, B, L = 5_000, 3_001, 5
+    tab, idx = _bag_inputs(V, D, B, L)
+    idx[RNG.random((B, L)) < 0.02] = -1
+    idx[RNG.random((B, L)) < 0.02] = V + 7
+    idx[RNG.random((B, L)) < 0.02] = -V - 9
+    table = _t(tab).to(getattr(torch, dtype)).to(cuda)
+    ids = _t(idx).to(cuda)
+    before = ops.KERNELS["embedding_bag"].launches
+    got = embedding_bag(table, ids, mode=mode)
+    assert ops.KERNELS["embedding_bag"].launches == before + 1
+    _assert_bag_close(got, embedding_bag_ref(table, ids, mode=mode), dtype)
