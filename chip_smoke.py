@@ -11,14 +11,26 @@ Phases, in order; any failure exits non-zero:
 
   1. device   the card's name and power limit (nvidia-smi);
   2. build    nvcc builds every CUDA kernel from src/repro_torch/kernels/csrc
-              (one process per source, all at once) into build/kernels/;
+              (one process per source, all at once) into build/kernels/,
+              with each kernel's registers, shared memory and spills;
   3. graph    an RMAT graph, paper parameters (a,b,c) = (0.5, 0.1, 0.1),
               generated on the host from the seed and built on the card;
   4. kernels  each kernel at the main paths' shapes against its plain
               PyTorch version on the same inputs (the int32 kernels exactly,
               embedding_bag within BAG_TOL), with its time, the plain
               version's, one PyTorch call's where one computes the same
-              function, and the bound; embedding_bag on a
+              function, and the bound. hook_compress and scatter_min also
+              run on the main path's own inputs: the hook on the graph
+              edges with (a) the phase's labels, (b) all labels -1 (the
+              pass's floor), (c) identity labels, and (d) the first round
+              of the sampler, of the compacted finish and of the fused
+              finish, at k = 0 and 3; scatter_min on uniform targets, on a
+              synthetic hub taking ~98% of them, on min_vertex_labels' call
+              after the main path, and on every finish call of
+              kout_hybrid_k2+liu_tarjan_CRFA and kout_hybrid_k2+label_prop,
+              compacted and fused (recorded from real runs; timed as one
+              run's calls back to back). Bounds count the bytes this run's
+              data needs. embedding_bag on a
               1,000,448 x 64 table at RM2's serve_bulk shape (B=262144,
               L=1, zipfian ids) and a multi-hot one (B=65536, L=8, ~10% on
               the dump row, and with wrapped and clamped ids), sum / mean /
@@ -28,7 +40,9 @@ Phases, in order; any failure exits non-zero:
               scipy;
   6. paths    on the big graph, each against the scipy oracle (computed
               once), with wall time, stats, peak memory and each kernel's
-              launch count; each path names the kernels it must launch:
+              launch count; each path names its launches per kernel and
+              finish rounds on the default graph, asserted there (LDD's
+              follow the random stream and are printed):
                 kout_hybrid_k2+uf_sync_full      compacted, fused (the main path)
                 kout_hybrid_k2+liu_tarjan_PUFA   compacted, fused
                 kout_hybrid_k2+liu_tarjan_CRFA   compacted, fused
@@ -64,18 +78,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 MAIN_VARIANT = "kout_hybrid_k2+uf_sync_full"
 UF_KERNELS = ("hook_compress", "pointer_jump", "scatter_min")
-# (variant, fused modes, kernels the run must launch); the first is the main
-# path, whose launches the per-kernel JSON reports for its three kernels
+PATH_KERNELS = UF_KERNELS + ("edge_relabel", "edge_rewrite")
+# (variant, fused modes, launches of PATH_KERNELS per run and finish rounds
+# on the default graph, which no change inside a kernel may alter); the
+# first is the main path, whose launches the per-kernel JSON
+# reports for its three kernels. A run must launch each kernel with a count
+# above 0, at any size.
 PATHS = (
-    (MAIN_VARIANT, (False, True), UF_KERNELS),
-    ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True),
-     UF_KERNELS + ("edge_relabel", "edge_rewrite")),
-    ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True),
-     UF_KERNELS + ("edge_rewrite",)),
-    ("none+stergiou", (False,),
-     ("edge_relabel", "edge_rewrite", "pointer_jump", "scatter_min")),
-    ("ldd_b0.2+uf_sync_full", (False,), UF_KERNELS),
+    (MAIN_VARIANT, (False, True), (7, 12, 1, 0, 0), 3),
+    ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True), (4, 15, 1, 3, 3), 3),
+    ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True), (4, 16, 9, 0, 4), 4),
+    ("none+stergiou", (False,), (0, 5, 1, 4, 4), 4),
+    ("ldd_b0.2+uf_sync_full", (False,), (2, 4, 1, 0, 0), 2),
 )
+# paths whose counts follow the random stream (LDD's shifts): printed, not
+# asserted
+RANDOM_STREAM_PATHS = ("ldd_b0.2+uf_sync_full",)
+DEFAULT_GRAPH = (22, 25, 0)  # log n, log m, seed
 # the path whose compacted run reports the two edge kernels' launches
 EDGE_PATH = "kout_hybrid_k2+liu_tarjan_PUFA"
 # samplings whose stats take no random draw, so the card's equal the CPU's
@@ -145,10 +164,33 @@ def phase_build() -> None:
           f"{time.perf_counter() - t0:.2f} s (wall, parallel nvcc)")
     for rec in records.values():
         print(f"[build] {rec.name}: {rec.seconds:.2f} s -> {rec.path.name}")
-        for line in rec.ptxas:
-            print(f"[build]   {line}")
+        for entry in _ptxas_summary(rec.ptxas):
+            print(f"[build]   {entry}")
     for name in _build.SIGNATURES:
         _build.load(name)
+
+
+def _ptxas_summary(lines) -> list:
+    """One line per compiled kernel of ``nvcc -Xptxas -v``'s output:
+    registers, shared memory and spills."""
+    import re
+    out, kernel, spills = [], None, "spills not reported"
+    for line in lines:
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            name = re.search(r"\d([a-z_]+_kernel)", m.group(1))
+            vec = re.search(r"ILi(\d+)E", m.group(1))
+            kernel = ((name.group(1) if name else m.group(1))
+                      + (f"<{vec.group(1)}>" if vec else ""))
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        elif kernel and (m := re.search(r"Used (\d+) registers", line)):
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{kernel}: {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} bytes shared memory, "
+                       f"{spills}")
+            kernel, spills = None, "spills not reported"
+    return out
 
 
 def phase_graph(torch, log_n: int, log_m: int, seed: int):
@@ -191,8 +233,127 @@ def _max_abs_err(torch, got, want) -> int:
     return err
 
 
+def _main_path_inputs(torch, g) -> dict:
+    """What the main path really hands its two accumulating kernels:
+    hook_compress's first round in the sampler (identity labels, the ~2n
+    k-out edges), in the compacted finish (the kept edges on relabel_lmax's
+    output) and in the fused finish (all edges on the pinned labels); and
+    scatter_min's call in min_vertex_labels (every vertex's id to its
+    component's slot)."""
+    from repro_torch import ConnectIt
+    from repro_torch.core import driver
+    from repro_torch.core.primitives import init_labels
+    from repro_torch.core.sampling import _select_kout_edges
+
+    session = ConnectIt(MAIN_VARIANT, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    s_k, r_k = _select_kout_edges(g, gen, 2, "hybrid")
+    gen.manual_seed(0)
+    P_sampled = session._sampler(g, gen)
+    P_pinned, keep, _, _ = driver._prep_sampled(P_sampled, g.senders,
+                                                g.receivers)
+    s_c, r_c, _ = driver._compact(g.senders, g.receivers, keep, g.n,
+                                  pad="pow2")
+    labels = session.connectivity(g)
+    n = labels.shape[0]
+    ext = torch.cat([labels, labels.new_tensor([n])])
+    ids = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+    canon = (torch.full_like(ext, n), torch.where(ids < n, ext, n),
+             torch.where(ids < n, ids, INT32_MAX))
+    top = int(torch.bincount(labels.long()).max())
+    print(f"[kernels] main-path inputs: sampled {s_k.shape[0]} k-out edges; "
+          f"compacted {s_c.shape[0]} edges ({int(keep.sum())} kept); fused "
+          f"{g.m_pad} edges, {int((P_pinned < 0).sum())} of {n + 1} labels "
+          f"pinned to -1; canonicalization {top} of {n} vertices in one "
+          f"component")
+    return {"sampled": (init_labels(g.n, device="cuda"), s_k, r_k),
+            "compacted": (P_pinned, s_c, r_c),
+            "fused": (P_pinned, g.senders, g.receivers),
+            "canonicalization": canon}
+
+
+# paths whose finish sends scatter_min its heaviest traffic: Liu-Tarjan
+# connect's write_min over the edge list (8 of CRFA's 9 launches) and label
+# propagation's, each compacted and fused
+SCATTER_PATHS = ("kout_hybrid_k2+liu_tarjan_CRFA", "kout_hybrid_k2+label_prop")
+
+
+def _recorded_scatter_calls(torch, g, variant: str, fused: bool) -> tuple:
+    """The (labels, idx, vals) of every scatter_min call of one run of
+    ``variant``'s finish, as ops.scatter_min hands them to the kernel; the
+    run's last call, the canonicalization's, is left out (it has its own
+    input)."""
+    from types import SimpleNamespace
+    from unittest import mock
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+
+    calls = []
+    launch = ops.KERNELS["scatter_min"]
+
+    def record(labels, idx, vals):
+        calls.append((labels, idx, vals))
+        return launch(labels, idx, vals)
+
+    # ops reaches the wrapper through its module; the wrapper itself, and
+    # its launch count, stay as they are
+    with mock.patch.object(ops, "_scatter_min_kernel",
+                           SimpleNamespace(scatter_min=record)):
+        ConnectIt(variant, device="cuda").connectivity(g, fused=fused)
+    return tuple(calls[:-1])
+
+
+def accumulating_inputs(torch, g, gen) -> tuple:
+    """(P, hook_sets, scatter_sets): the phase's labels P (chains, roots,
+    ~10% -1) and the named inputs the two accumulating kernels are timed
+    on, each a tuple of (labels, edge-indexed arrays) calls. The hook pass:
+    (a) "graph", P on the graph edges; (b) "floor", all labels -1 (a
+    streamed read and one gather, no hook); (c) "identity", each edge
+    proposing to its own sender with no slot contended; (d) the main path's
+    first rounds. scatter_min on (n+1,) sanitized targets, ~10% carrying
+    the dump sentinel as masked entries do: "uniform"; a synthetic "hub"
+    taking ~98% of them with random values, which no path produces (the
+    worst case for one slot); the canonicalization's own call; and every
+    finish call of the SCATTER_PATHS runs. Also used by compare_kernels.py."""
+    L = g.n + 1
+    P = _labels_with_virtual_min(torch, L, gen)
+    idx = torch.randint(0, L, (L,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randint(-1, L, (L,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    dumped = torch.rand(L, generator=gen, device="cuda") < 0.1
+    idx[dumped] = L - 1
+    vals[dumped] = INT32_MAX
+    hub = torch.where(torch.rand(L, generator=gen, device="cuda") < 0.98,
+                      L // 3, idx).to(torch.int32)
+    hub[dumped] = L - 1
+    main = _main_path_inputs(torch, g)
+    s, r = g.senders, g.receivers
+    hook_sets = {"graph": (P, s, r),
+                 "floor": (torch.full_like(P, -1), s, r),
+                 "identity": (torch.arange(L, dtype=torch.int32,
+                                           device="cuda"), s, r),
+                 **{x: main[x] for x in ("sampled", "compacted", "fused")}}
+    scatter_sets = {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
+                    "canonicalization": (main["canonicalization"],)}
+    for variant in SCATTER_PATHS:
+        finish = variant.split("+")[1]
+        for fused in (False, True):
+            calls = _recorded_scatter_calls(torch, g, variant, fused)
+            live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
+            name = f"{finish} {'fused' if fused else 'compacted'}"
+            print(f"[kernels] {name}: {len(calls)} scatter_min calls of "
+                  f"{calls[0][1].shape[0]} entries each, {live} entries "
+                  f"not dumped in all")
+            scatter_sets[name] = calls
+    return P, hook_sets, scatter_sets
+
+
 def phase_kernels(torch, g, cap: int) -> dict:
-    """Each kernel against its plain version at the main paths' shapes."""
+    """Each kernel against its plain version at the main paths' shapes,
+    the two accumulating kernels also on the main path's own inputs."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.edge_relabel.ref import (
         edge_relabel_ref,
@@ -206,17 +367,8 @@ def phase_kernels(torch, g, cap: int) -> dict:
     gen.manual_seed(0)
     L = g.n + 1
     m = g.m_pad
-    P = _labels_with_virtual_min(torch, L, gen)
+    P, hook_sets, scatter_sets = accumulating_inputs(torch, g, gen)
     s, r = g.senders, g.receivers
-    # scatter_min on the main path (min_vertex_labels) takes (n+1,) sanitized
-    # targets; ~10% carry the dump sentinel, as masked entries do
-    idx = torch.randint(0, L, (L,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    vals = torch.randint(-1, L, (L,), generator=gen, device="cuda",
-                         dtype=torch.int32)
-    dumped = torch.rand(L, generator=gen, device="cuda") < 0.1
-    idx[dumped] = L - 1
-    vals[dumped] = INT32_MAX
     # the graph's edges with ~10% of the endpoints -1, as Liu-Tarjan's alter
     # step leaves them once L_max is pinned
     s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
@@ -225,70 +377,105 @@ def phase_kernels(torch, g, cap: int) -> dict:
                         -1, r).to(torch.int32)
     edge_sets = {"graph": (s, r), "neg": (s_neg, r_neg)}
 
-    # per kernel: the settings swept (hop counts, or edge input sets; "main"
-    # is the one the JSON reports), the CUDA wrapper and the plain version,
-    # bytes and operations for the bound, and the one PyTorch call that
-    # computes the same function, where there is one
+    def hook_bytes(x):
+        # labels read and the result written once, every sender read, and a
+        # receiver only where its sender's label is a slot that can take a
+        # hook (a -1 label never hooks)
+        lab, e, _ = hook_sets[x[0]]
+        pu = lab[e.long()]
+        hooks = int(((pu >= 0) & (pu < lab.shape[0])).sum())
+        return 4 * (2 * lab.shape[0] + e.shape[0] + hooks)
+
+    def scatter_live(x):
+        return sum(int((v != INT32_MAX).sum()) for _, _, v in scatter_sets[x])
+
+    def scatter_bytes(x):
+        # per call: labels read and written once, every value read, and an
+        # index only where its value is not the dump sentinel
+        return sum(4 * (2 * lab.shape[0] + v.shape[0])
+                   for lab, _, v in scatter_sets[x]) + 4 * scatter_live(x)
+
+    def scatter_library(x):
+        calls = [(base, i.long(), v) for base, i, v in scatter_sets[x]]
+        return lambda: tuple(base.scatter_reduce(0, i, v, "amin",
+                                                 include_self=True)
+                             for base, i, v in calls)
+
+    # per kernel: the settings swept (input sets and hop counts; "main" is
+    # the one the JSON's top-level numbers report, as earlier runs did), the
+    # CUDA wrapper and the plain version, bytes and operations for the
+    # bound, and the one PyTorch call that computes the same function,
+    # where there is one
     cases = {
         "hook_compress": {
-            "sweep": (1, 3), "main": 3,
-            "kernel": lambda k: ops.KERNELS["hook_compress"](P, s, r, k=k),
-            "plain": lambda k: hook_compress_ref(P, s, r, k=k),
-            "bytes": 4 * (2 * L + 2 * m),
-            "ops": lambda k: 4 * m + k * L,
+            "sweep": (("graph", 0), ("graph", 1), ("graph", 3),
+                      *((x, k) for x in ("floor", "identity", "sampled",
+                                         "compacted", "fused")
+                        for k in (0, 3))),
+            "main": ("graph", 3),
+            "kernel": lambda x: ops.KERNELS["hook_compress"](
+                *hook_sets[x[0]], k=x[1]),
+            "plain": lambda x: hook_compress_ref(*hook_sets[x[0]], k=x[1]),
+            "bytes": hook_bytes,
+            "ops": lambda x: 4 * hook_sets[x[0]][1].shape[0] + x[1] * L,
             "library": None,
             "source": "src/repro_torch/kernels/csrc/hook_compress.cu",
             "replaces": "src/repro/kernels/hook_compress/kernel.py:68",
-            "shapes": f"labels ({L},) edges ({m},)",
+            "shapes": lambda x: (f"labels ({L},) edges "
+                                 f"({hook_sets[x[0]][1].shape[0]},)"),
         },
         "pointer_jump": {
             "sweep": (1, 3), "main": 1,
             "kernel": lambda k: ops.KERNELS["pointer_jump"](P, k=k),
             "plain": lambda k: pointer_jump_ref(P, k=k),
-            "bytes": 4 * 2 * L,
+            "bytes": lambda _: 4 * 2 * L,
             "ops": lambda k: k * L,
             "library": None,
             "source": "src/repro_torch/kernels/csrc/pointer_jump.cu",
             "replaces": "src/repro/kernels/pointer_jump/kernel.py:38",
-            "shapes": f"labels ({L},)",
+            "shapes": lambda _: f"labels ({L},)",
         },
         "scatter_min": {
-            "sweep": (None,), "main": None,
-            "kernel": lambda _: ops.KERNELS["scatter_min"](P, idx, vals),
-            "plain": lambda _: scatter_min_ref(P, idx, vals),
-            "bytes": 4 * (2 * L + 2 * L),
-            "ops": lambda _: L,
-            "library": lambda idx_long=idx.long(): P.scatter_reduce(
-                0, idx_long, vals, "amin", include_self=True),
+            "sweep": tuple(scatter_sets), "main": "uniform",
+            "kernel": lambda x: tuple(ops.KERNELS["scatter_min"](*c)
+                                      for c in scatter_sets[x]),
+            "plain": lambda x: tuple(scatter_min_ref(*c)
+                                     for c in scatter_sets[x]),
+            "bytes": scatter_bytes,
+            "ops": scatter_live,
+            "library": scatter_library,
             "source": "src/repro_torch/kernels/csrc/scatter_min.cu",
             "replaces": "src/repro/kernels/scatter_min/kernel.py:45",
-            "shapes": f"labels ({L},) idx/vals ({L},)",
+            "shapes": lambda x: (f"{len(scatter_sets[x])} x labels "
+                                 f"({scatter_sets[x][0][0].shape[0]},) "
+                                 f"idx/vals ({scatter_sets[x][0][1].shape[0]},)"),
         },
         "edge_relabel": {
             "sweep": tuple(edge_sets), "main": "graph",
             "kernel": lambda e: ops.KERNELS["edge_relabel"](P, *edge_sets[e]),
             "plain": lambda e: edge_relabel_ref(P, *edge_sets[e]),
-            "bytes": 4 * (2 * L + 2 * m),
+            "bytes": lambda _: 4 * (2 * L + 2 * m),
             "ops": lambda _: 4 * m,
             "library": None,
             "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
             "replaces": "src/repro/kernels/edge_relabel/kernel.py:63",
-            "shapes": f"labels ({L},) edges ({m},)",
+            "shapes": lambda _: f"labels ({L},) edges ({m},)",
         },
         "edge_rewrite": {
             "sweep": tuple(edge_sets), "main": "graph",
             "kernel": lambda e: ops.KERNELS["edge_rewrite"](P, *edge_sets[e]),
             "plain": lambda e: edge_rewrite_ref(P, *edge_sets[e]),
-            "bytes": 4 * (L + 4 * m),
+            "bytes": lambda _: 4 * (L + 4 * m),
             "ops": lambda _: 2 * m,
             "library": None,
             "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
             "replaces": "src/repro/kernels/edge_relabel/kernel.py:96",
-            "shapes": f"labels ({L},) edges ({m},), two outputs",
+            "shapes": lambda _: f"labels ({L},) edges ({m},), two outputs",
         },
     }
     results = {}
     for name, c in cases.items():
+        inputs = {}
         for x in c["sweep"]:
             got = c["kernel"](x)
             want = c["plain"](x)
@@ -299,22 +486,40 @@ def phase_kernels(torch, g, cap: int) -> dict:
                     f"mismatch)")
             ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
             plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
-            lib_ms = (time_ms(torch, c["library"], iters=20)
-                      if c["library"] is not None else None)
-            b_ms, b_by = bound_ms(c["bytes"], c["ops"](x))
-            label = {None: "", "graph": " graph edges",
-                     "neg": " ~10% -1 endpoints"}.get(x, f" k={x}")
-            print(f"[kernels] {name}{label} {c['shapes']}: exact match; "
+            lib_ms = None
+            if c["library"] is not None:
+                lib = c["library"](x)
+                require(_max_abs_err(torch, lib(), want) == 0,
+                        f"{name} {x}: the library call differs from the "
+                        f"plain version")
+                lib_ms = time_ms(torch, lib, iters=20)
+            nbytes = c["bytes"](x)
+            b_ms, b_by = bound_ms(nbytes, c["ops"](x))
+            label = (f"{x[0]} k={x[1]}" if isinstance(x, tuple)
+                     else f"k={x}" if isinstance(x, int) else x)
+            print(f"[kernels] {name} {label} {c['shapes'](x)}: exact match; "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, {c['bytes']} bytes at "
-                  f"3.35 TB/s)")
+                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
+                  f"3.35 TB/s) kernel/bound={ms / b_ms:.2f}")
+            inputs[label] = {"ms": ms, "plain_ms": plain_ms,
+                             "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by, "max_abs_err": err}
             if x == c["main"]:
                 results[name] = {
                     "name": name, "route": "cuda", "source": c["source"],
                     "replaces": c["replaces"], "launches": 0,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                    "main": label}
+        results[name]["inputs"] = inputs
+    hook = results["hook_compress"]["inputs"]
+    a, b, c0 = (hook[f"{x} k=0"]["ms"] for x in ("graph", "floor", "identity"))
+    print(f"[kernels] hook pass (k=0: copy + hook) on the graph edges: "
+          f"(a) phase labels {a:.4f} ms, (b) all -1 {b:.4f} ms, (c) identity "
+          f"{c0:.4f} ms; (c) - (b) = {c0 - b:.4f} ms of label gathers and "
+          f"uncontended proposals, (a) - (c) = {a - c0:.4f} ms of what the "
+          f"phase labels add")
     results["embedding_bag"] = _embedding_bag_cases(torch, cap)
     return results
 
@@ -456,9 +661,10 @@ def phase_small(torch) -> None:
           f"equal on the deterministic ones ({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_paths(torch, g, results: dict) -> None:
+def phase_paths(torch, g, results: dict, exact: bool) -> None:
     """Each path of PATHS on the big graph against the scipy oracle, with
-    the kernels it must launch."""
+    the kernels it must launch; on the default graph (``exact``) also its
+    launch counts and finish rounds."""
     import numpy as np
 
     from repro_torch import ConnectIt
@@ -469,7 +675,7 @@ def phase_paths(torch, g, results: dict) -> None:
     expect = components_oracle(g)
     print(f"[paths] scipy oracle on the host: {time.perf_counter() - t0:.2f} "
           f"s, {len(np.unique(expect))} components")
-    for variant, modes, required in PATHS:
+    for variant, modes, want_counts, want_rounds in PATHS:
         session = ConnectIt(variant, device="cuda")
         for fused in modes:
             path = "fused" if fused else "compacted"
@@ -487,9 +693,22 @@ def phase_paths(torch, g, results: dict) -> None:
                     f"{variant} {path}: labels shape {tuple(labels.shape)}")
             require(np.array_equal(labels.cpu().numpy(), expect),
                     f"{variant} {path}: labels differ from the scipy oracle")
-            for name in required:
-                require(counts[name] > 0,
+            got_counts = tuple(counts[k] for k in PATH_KERNELS)
+            for name, want in zip(PATH_KERNELS, want_counts):
+                require(want == 0 or counts[name] > 0,
                         f"{variant} {path}: kernel {name} never launched")
+            same = (got_counts == want_counts
+                    and stats.finish_rounds == want_rounds)
+            if exact and variant not in RANDOM_STREAM_PATHS:
+                require(same, f"{variant} {path}: launches {got_counts} and "
+                        f"finish_rounds {stats.finish_rounds}, want "
+                        f"{want_counts} and {want_rounds}")
+            elif not same:
+                print(f"[paths] {variant} {path}: launches {got_counts} and "
+                      f"finish_rounds {stats.finish_rounds} differ from the "
+                      f"default graph's {want_counts} and {want_rounds} "
+                      f"(not asserted: "
+                      f"{'random stream' if exact else 'another graph'})")
             print(f"[paths] {variant} {path}: labels == scipy oracle; "
                   f"wall {wall:.4f} s; finish_rounds {stats.finish_rounds}; "
                   f"peak device memory {peak} bytes; launches "
@@ -501,34 +720,6 @@ def phase_paths(torch, g, results: dict) -> None:
             if not fused and variant == EDGE_PATH:
                 for name in ("edge_relabel", "edge_rewrite"):
                     results[name]["launches"] = counts[name]
-        if variant == MAIN_VARIANT:
-            _canonicalization_scatter_min(torch, labels)
-
-
-def _canonicalization_scatter_min(torch, labels) -> None:
-    """The canonicalization's own scatter_min call (min_vertex_labels): one
-    component holds most vertices, so most proposals hit one slot."""
-    from repro_torch.kernels import ops
-
-    n = labels.shape[0]
-    ext = torch.cat([labels, labels.new_tensor([n])])
-    ids = torch.arange(n + 1, dtype=torch.int32, device="cuda")
-    idx = torch.where(ids < n, ext, n)
-    vals = torch.where(ids < n, ids, INT32_MAX)
-    base = torch.full_like(ext, n)
-    idx_long = idx.long()
-    got = ops.KERNELS["scatter_min"](base, idx, vals)
-    want = base.scatter_reduce(0, idx_long, vals, "amin", include_self=True)
-    require(torch.equal(got, want), "scatter_min on the canonicalization's "
-            "inputs disagrees with scatter_reduce")
-    ms = time_ms(torch, lambda: ops.KERNELS["scatter_min"](base, idx, vals),
-                 iters=20)
-    lib_ms = time_ms(torch, lambda: base.scatter_reduce(
-        0, idx_long, vals, "amin", include_self=True), iters=20)
-    top = int(torch.bincount(labels.long()).max())
-    print(f"[paths] scatter_min on the canonicalization's inputs ({top} of "
-          f"{n} vertices in one component): kernel_ms={ms:.4f} "
-          f"library_ms={lib_ms:.4f}")
 
 
 def phase_dlrm(torch, cap: int, seed: int, results: dict):
@@ -753,7 +944,8 @@ def main() -> int:
         cap = 1 << args.log_n
         results = phase_kernels(torch, g, cap)
         phase_small(torch)
-        phase_paths(torch, g, results)
+        phase_paths(torch, g, results,
+                    (args.log_n, args.log_m, args.seed) == DEFAULT_GRAPH)
         model, serve_inputs = phase_dlrm(torch, cap, args.seed, results)
         phase_profile(torch, g, model, serve_inputs)
     except SmokeFailure as e:

@@ -1,0 +1,152 @@
+#!/usr/bin/env python3
+"""Time scatter_min and hook_compress, and the paths that run them, built
+from several kernel source trees in turns.
+
+    python3 compare_kernels.py [NAME=]CSRC [[NAME=]CSRC ...]
+                               [--log-n 22 --log-m 25] [--paths] [--reps 3]
+
+Each CSRC is a ``kernels/csrc`` directory (for a parent commit: ``git
+archive`` it into a git-ignored directory of this checkout). Each tree's
+``scatter_min.cu`` and ``hook_compress.cu`` are built by ``_build`` into a
+directory of their own, and the port's own wrappers call them, one tree's
+libraries swapped in at a time. The inputs are ``chip_smoke.py``'s kernel
+phase's (``chip_smoke.accumulating_inputs``): the hook pass (k = 0 and 3)
+on the graph edges with the phase's labels, all labels -1 and identity
+labels, and on the main path's first sampled, compacted and fused rounds;
+scatter_min on uniform targets, a synthetic hub, the canonicalization's
+call and the recorded finish calls of CRFA and label propagation. Every
+output is held against the plain version; each case is timed with the
+trees in order, then in reverse (CUDA-event means over 20 launches), and a
+tree's time is the mean of its two. ``--paths`` also runs every path of
+``chip_smoke.PATHS`` ``--reps`` times per tree in the same turns (host wall
+time of a synchronized ``connectivity`` call, median), checking that every
+tree gives the same labels, launches and finish rounds. Needs one CUDA
+card; exits 1 without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+KERNELS = ("scatter_min", "hook_compress")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="[NAME=]path to a csrc directory")
+    ap.add_argument("--log-n", type=int, default=22)
+    ap.add_argument("--log-m", type=int, default=25)
+    ap.add_argument("--paths", action="store_true")
+    ap.add_argument("--reps", type=int, default=3)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("compare_kernels: needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+    from repro_torch.kernels.scatter_min.ref import scatter_min_ref
+
+    cs.phase_device(torch)
+    trees = {}
+    for i, arg in enumerate(args.trees):
+        name, _, path = arg.rpartition("=")
+        name = name or f"tree{i}"
+        out = ROOT / "build" / "compare" / name
+        t0 = time.perf_counter()
+        recs = _build.build_all(Path(path).resolve(), out, names=KERNELS)
+        print(f"[build] {name} ({path}): {time.perf_counter() - t0:.1f} s")
+        trees[name] = {k: _build.open_library(rec) for k, rec in recs.items()}
+    names = list(trees)
+    turns = names + names[::-1]
+
+    def use(tree: str) -> None:
+        _build._LIBS.update(trees[tree])
+
+    g = cs.phase_graph(torch, args.log_n, args.log_m, 0)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    _, hook_sets, scatter_sets = cs.accumulating_inputs(torch, g, gen)
+    cases = []
+    for x, (lab, a, b) in hook_sets.items():
+        for k in (0, 3):
+            cases.append((f"hook_compress {x} k={k}",
+                          lambda lab=lab, a=a, b=b, k=k: (
+                              ops.KERNELS["hook_compress"](lab, a, b, k=k),),
+                          lambda lab=lab, a=a, b=b, k=k: (
+                              hook_compress_ref(lab, a, b, k=k),)))
+    for x, calls in scatter_sets.items():
+        cases.append((f"scatter_min {x}",
+                      lambda calls=calls: tuple(ops.KERNELS["scatter_min"](*c)
+                                                for c in calls),
+                      lambda calls=calls: tuple(scatter_min_ref(*c)
+                                                for c in calls)))
+
+    print(f"[kernels] ms per case, each tree the mean of its two turns; "
+          f"ratio to {names[0]}")
+    print(f"{'case':40s} " + " ".join(f"{n:>10s}" for n in names))
+    for label, kernel, plain in cases:
+        want = plain()
+        times = {n: [] for n in names}
+        for tree in turns:
+            use(tree)
+            got = kernel()
+            torch.cuda.synchronize()
+            cs.require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                       f"{label}: tree {tree} disagrees with the plain "
+                       f"version")
+            times[tree].append(cs.time_ms(torch, kernel, iters=20))
+        mean = {n: sum(t) / len(t) for n, t in times.items()}
+        print(f"{label:40s} " + " ".join(f"{mean[n]:10.4f}" for n in names)
+              + "   " + " ".join(f"{mean[n] / mean[names[0]]:.3f}"
+                                 for n in names[1:]))
+
+    if args.paths:
+        from repro_torch import ConnectIt
+        print(f"[paths] host wall ms of a synchronized connectivity call, "
+              f"median of {2 * args.reps} runs per tree")
+        for variant, modes, _, _ in cs.PATHS:
+            session = ConnectIt(variant, device="cuda")
+            for fused in modes:
+                walls = {n: [] for n in names}
+                first = None
+                for _ in range(args.reps):
+                    for tree in turns:
+                        use(tree)
+                        ops.reset_launch_counts()
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        labels, stats = session.connectivity(
+                            g, fused=fused, return_stats=True)
+                        torch.cuda.synchronize()
+                        walls[tree].append((time.perf_counter() - t0) * 1e3)
+                        seen = (labels, ops.launch_counts(),
+                                stats.finish_rounds)
+                        if first is None:
+                            first = seen
+                        cs.require(torch.equal(seen[0], first[0])
+                                   and seen[1:] == first[1:],
+                                   f"{variant} fused={fused}: tree {tree} "
+                                   f"differs in labels, launches or rounds")
+                med = {n: statistics.median(w) for n, w in walls.items()}
+                print(f"[paths] {variant} "
+                      f"{'fused' if fused else 'compacted':9s} "
+                      + " ".join(f"{n}={med[n]:.3f}" for n in names)
+                      + f"  (all runs: "
+                      + "; ".join(f"{n} " + ",".join(f"{w:.2f}" for w in
+                                                     sorted(walls[n]))
+                                  for n in names) + ")")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -56,7 +56,7 @@ class BuildRecord:
     name: str
     path: Path
     seconds: float
-    ptxas: tuple  # the compiler's register/spill lines, empty if cached
+    ptxas: tuple  # the compiler's register/spill lines, kept beside the library
 
 
 _LIBS: dict = {}      # name -> loaded ctypes.CDLL
@@ -72,25 +72,35 @@ def _nvcc() -> str:
     return path
 
 
-def _library_path(name: str) -> Path:
+def _library_path(name: str, csrc: Path = CSRC,
+                  build_dir: Path = BUILD_DIR) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+    for src in (*sorted(csrc.glob("*.cuh")), csrc / f"{name}.cu"):
         h.update(src.read_bytes())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return build_dir / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict:
-    """Build every library that is not built yet, all ``nvcc`` processes at
-    once; return ``{name: BuildRecord}`` for all sources."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    pending = {}
-    for name in SIGNATURES:
-        path = _library_path(name)
+def _ptxas_log(path: Path) -> Path:
+    return path.with_suffix(".ptxas.txt")
+
+
+def build_all(csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+              names=tuple(SIGNATURES)) -> dict:
+    """Build each library of ``names`` from the sources in ``csrc`` that is
+    not built yet in ``build_dir``, all ``nvcc`` processes at once; return
+    ``{name: BuildRecord}``. Another source tree (a parent commit's, say)
+    builds beside this checkout's without touching what ``load`` uses."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    records, pending = {}, {}
+    for name in names:
+        path = _library_path(name, csrc, build_dir)
         if path.exists():
-            _RECORDS.setdefault(name, BuildRecord(name, path, 0.0, ()))
+            log = _ptxas_log(path)
+            ptxas = tuple(log.read_text().splitlines()) if log.exists() else ()
+            records[name] = BuildRecord(name, path, 0.0, ptxas)
             continue
         tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         pending[name] = (proc, path, tmp, time.perf_counter())
@@ -101,13 +111,27 @@ def build_all() -> dict:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{out}")
             continue
-        os.replace(tmp, path)
         ptxas = tuple(line.strip() for line in out.splitlines()
                       if "ptxas info" in line or "spill" in line)
-        _RECORDS[name] = BuildRecord(name, path, seconds, ptxas)
+        _ptxas_log(path).write_text("\n".join(ptxas))
+        os.replace(tmp, path)
+        records[name] = BuildRecord(name, path, seconds, ptxas)
     if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return dict(_RECORDS)
+        raise RuntimeError(f"nvcc failed in {csrc} for " + "\n".join(failed))
+    if csrc == CSRC and build_dir == BUILD_DIR:
+        # the first record of a name stays: it says what this process built
+        for name, rec in records.items():
+            _RECORDS.setdefault(name, rec)
+    return records
+
+
+def open_library(rec: BuildRecord) -> ctypes.CDLL:
+    """Load a built library with its entry points' argument types set."""
+    lib = ctypes.CDLL(str(rec.path))
+    for fn, argtypes in SIGNATURES[rec.name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -115,11 +139,7 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         if name not in _RECORDS:
             build_all()
-        lib = ctypes.CDLL(str(_RECORDS[name].path))
-        for fn, argtypes in SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIBS[name] = lib
+        _LIBS[name] = open_library(_RECORDS[name])
     return _LIBS[name]
 
 

@@ -7,7 +7,7 @@
 // blocks, so the round is three steps on one stream:
 //   (a) copy labels -> hooked;
 //   (b) hook kernel: gathers read the *input* labels (the round-start
-//       snapshot), proposals atomicMin into `hooked`;
+//       snapshot), proposals min into `hooked`;
 //   (c) hop kernel: a second launch, so it starts only after every hook has
 //       landed, reads `hooked` and writes a third buffer.
 // Fusing (b) and (c) without a grid-wide barrier, or hopping in place, would
@@ -15,26 +15,64 @@
 // this order the output equals hook_compress_ref bit for bit.
 //
 // Bound: bytes. Per edge: two endpoint reads and up to three label gathers;
-// per slot: one copy, one hop pass. Hooks that converge on an RMAT hub's
-// root serialise on its atomicMin; that contention is left as it is.
+// per slot: one copy, one hop pass. The hook pass streams the edges (8
+// bytes an edge, read once) with 16-byte evict-first loads, so that they do
+// not evict the label array (16.8 MB at n = 2^22) from the 50 MB L2 while
+// its random gathers run. Hooks that converge on one root (an RMAT hub's)
+// go through warp_min.cuh, which folds, combines and drops them before the
+// atomic. `hooked` is read only there, by the relaxed load that decides
+// whether an atomic can win; every gather reads `labels`.
 #include "hops.cuh"
+#include "warp_min.cuh"
 
 namespace {
 
-__global__ void hook_kernel(const int* __restrict__ labels,
-                            const int* __restrict__ senders,
-                            const int* __restrict__ receivers,
-                            int* __restrict__ hooked, int64_t L, int64_t m) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < m; e += stride) {
-    const int pu = labels[connectit::clamp_index(senders[e], L)];
-    if (pu < 0 || static_cast<int64_t>(pu) >= L) continue;  // -1 never hooks
-    const int pv = labels[connectit::clamp_index(receivers[e], L)];
-    if (pv >= pu) continue;                                 // min-based union
-    if (labels[pu] != pu) continue;                         // roots only
-    atomicMin(hooked + pu, pv);
+struct HookStep {
+  const int* __restrict__ labels;
+  const int* __restrict__ senders;
+  const int* __restrict__ receivers;
+  int* hooked;
+  int64_t L;
+
+  template <int W>
+  __device__ __forceinline__ void run(int64_t j, bool in) {
+    int s[W] = {};
+    if (in) connectit::load_stream<W>(senders, j, s);
+    int slot[W];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const int pu = in ? __ldg(labels + connectit::clamp_index(s[q], L)) : -1;
+      slot[q] = pu >= 0 && static_cast<int64_t>(pu) < L ? pu : -1;  // -1 never hooks
+      any = any || slot[q] >= 0;
+    }
+    // the receivers are read only where a sender can hook: with L_max
+    // pinned to -1 most edges stop at their sender
+    int r[W] = {};
+    if (any) connectit::load_stream<W>(receivers, j, r);
+    int val[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      val[q] = slot[q] >= 0
+                   ? __ldg(labels + connectit::clamp_index(r[q], L)) : 0;
+      if (val[q] >= slot[q]) slot[q] = -1;                   // min-based union
+    }
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      if (slot[q] >= 0 && __ldg(labels + slot[q]) != slot[q]) slot[q] = -1;  // roots only
+    }
+    connectit::commit_min<W>(hooked, slot, val);
   }
+};
+
+template <int V>
+__global__ void __launch_bounds__(connectit::kThreads)
+    hook_kernel(const int* __restrict__ labels,
+                const int* __restrict__ senders,
+                const int* __restrict__ receivers, int* hooked, int64_t L,
+                int64_t m, int64_t head) {
+  HookStep step{labels, senders, receivers, hooked, L};
+  connectit::stream_steps<V>(m, head, step);
 }
 
 }  // namespace
@@ -49,9 +87,20 @@ extern "C" int hook_compress_i32(const void* labels, const void* senders,
                                     cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0) {
-    hook_kernel<<<connectit::grid_for(m), connectit::kThreads, 0, st>>>(
-        static_cast<const int*>(labels), static_cast<const int*>(senders),
-        static_cast<const int*>(receivers), static_cast<int*>(hooked), L, m);
+    const connectit::PairLayout lay =
+        connectit::pair_layout(senders, receivers, m);
+    const int* lab = static_cast<const int*>(labels);
+    const int* s = static_cast<const int*>(senders);
+    const int* r = static_cast<const int*>(receivers);
+    int* h = static_cast<int*>(hooked);
+    const unsigned grid = connectit::grid_for(lay.items);
+    if (lay.vec) {
+      hook_kernel<4><<<grid, connectit::kThreads, 0, st>>>(lab, s, r, h, L, m,
+                                                          lay.head);
+    } else {
+      hook_kernel<1><<<grid, connectit::kThreads, 0, st>>>(lab, s, r, h, L, m,
+                                                          0);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }

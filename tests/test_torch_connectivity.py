@@ -9,8 +9,9 @@ method, the k-out edge selection and the BFS traversal are held against
 their JAX counterparts the same way. Every comparison is exact integer
 equality. The whole variant grid runs in test_torch_variants.py.
 
-The last test scans the port's sources: nothing in ``src/repro_torch`` or
-``chip_smoke.py`` may import ``jax`` or ``repro``.
+The last test scans the port's sources: nothing in ``src/repro_torch``,
+``chip_smoke.py`` or ``compare_kernels.py`` may import ``jax`` or
+``repro``.
 """
 
 import ast
@@ -469,7 +470,7 @@ def _imported_roots(path: Path) -> set:
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    files += [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
     assert len(files) > 15
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}

@@ -14,6 +14,7 @@ Tests marked ``gpu`` hold the CUDA kernels against the plain versions on
 the card, exactly; they skip without one.
 """
 
+import functools
 import re
 from pathlib import Path
 
@@ -54,10 +55,10 @@ RNG = np.random.default_rng(11)
 REPO = Path(__file__).resolve().parents[1]
 
 
-def _labels_with_virtual_min(n_pad: int, dtype=np.int32) -> np.ndarray:
+def _labels_with_virtual_min(n_pad: int, dtype=np.int32, rng=RNG) -> np.ndarray:
     """A labeling with chains, roots, and sprinkled -1 virtual minimums."""
-    lab = np.minimum(RNG.integers(0, n_pad, n_pad), np.arange(n_pad))
-    lab[RNG.random(n_pad) < 0.1] = -1
+    lab = np.minimum(rng.integers(0, n_pad, n_pad), np.arange(n_pad))
+    lab[rng.random(n_pad) < 0.1] = -1
     return lab.astype(dtype)
 
 
@@ -172,6 +173,134 @@ def test_edge_relabel_negative_endpoints_propose_but_never_receive():
                                     jnp.asarray(r)))
 
 
+# ---------------------------------------------------------------------------
+# Hub shapes: most proposals converge on one slot, as on RMAT graphs. The
+# same builders make the card's inputs below, at 2^20 slots and more.
+# ---------------------------------------------------------------------------
+
+INT32_MAX = np.iinfo(np.int32).max
+SCATTER_HUBS = ("one_slot", "min_vertex_labels", "neg_mix")
+HOOK_HUBS = ("star", "hub_root", "csr_runs", "neg_mix")
+
+
+def _hub_components(n: int, rng) -> np.ndarray:
+    """Compressed labels (n + 1,) of a graph whose one component holds ~96%
+    of the vertices; ~2% are -1 (a pinned L_max); dump row n."""
+    comp = np.where(rng.random(n) < 0.96, int(rng.integers(0, n)),
+                    rng.integers(0, n, n))
+    comp[rng.random(n) < 0.02] = -1
+    return np.append(comp, n).astype(np.int32)
+
+
+def _hub_scatter_inputs(shape: str, n: int, rng) -> tuple:
+    """(labels (n + 1,), idx, vals), idx sanitized into [0, n] with the dump
+    row n carrying the int32 max, as ops.scatter_min hands them over."""
+    L = n + 1
+    if shape == "min_vertex_labels":
+        # min_vertex_labels' own call: base all n, every real vertex's id to
+        # its component's slot
+        P = _hub_components(n, rng)
+        ids = np.arange(L, dtype=np.int32)
+        real = (P >= 0) & (ids < n)
+        return (np.full(L, n, np.int32), np.where(real, P, n).astype(np.int32),
+                np.where(real, ids, INT32_MAX).astype(np.int32))
+    m = 3 * n + 5
+    P = _labels_with_dump(n, rng)
+    if shape == "one_slot":
+        idx = np.full(m, int(rng.integers(0, n)), np.int32)
+        vals = rng.integers(-1, n, m).astype(np.int32)
+    else:  # neg_mix: -1 labels and values, ~70% of the targets on one slot
+        P[rng.random(L) < 0.3] = -1
+        P[n] = n
+        idx = np.where(rng.random(m) < 0.7, int(rng.integers(0, n)),
+                       rng.integers(0, L, m)).astype(np.int32)
+        vals = np.where(rng.random(m) < 0.3, -1,
+                        rng.integers(0, n, m)).astype(np.int32)
+    dumped = (rng.random(m) < 0.05) | (idx == n)
+    return (P, np.where(dumped, n, idx).astype(np.int32),
+            np.where(dumped, INT32_MAX, vals).astype(np.int32))
+
+
+def _hub_hook_inputs(shape: str, n: int, rng) -> tuple:
+    """(labels (n + 1,), senders, receivers) whose hooks converge on one
+    root; edges in CSR order (sorted by sender) unless said otherwise."""
+    L = n + 1
+    ids = np.arange(L, dtype=np.int32)
+    if shape == "star":
+        # identity labels, hub n - 1 joined to every other vertex both ways:
+        # each hub -> leaf edge hooks the leaf into the hub's root
+        leaves = np.arange(n - 1, dtype=np.int32)
+        hub = np.full(n - 1, n - 1, np.int32)
+        return ids, np.concatenate([leaves, hub]), np.concatenate([hub, leaves])
+    m = 4 * n + 3
+    if shape == "csr_runs":
+        # chains and -1s; each sender's edges form one run
+        P = _labels_with_virtual_min(L, rng=rng)
+        s = np.repeat(ids[:n], rng.geometric(0.1, n))[:m]
+        return P, s.astype(np.int32), rng.integers(0, L, s.shape[0]).astype(np.int32)
+    # hub_root: ~96% of the vertices hang off root n - 2, the rest on small
+    # roots below it, so their edges propose smaller labels to the hub;
+    # neg_mix: the same with ~40% of the labels -1
+    P = np.minimum(rng.integers(0, n, L), ids)
+    P[rng.random(L) < 0.96] = n - 2
+    P[n - 2] = n - 2
+    if shape == "neg_mix":
+        P[rng.random(L) < 0.4] = -1
+    P[n] = n
+    s = np.sort(rng.integers(0, L, m))
+    return P.astype(np.int32), s.astype(np.int32), rng.integers(0, L, m).astype(np.int32)
+
+
+def _pad_to(block: int, fill: int, *arrays) -> list:
+    """Each array padded with ``fill`` to a multiple of ``block`` (the
+    Pallas kernels take whole blocks)."""
+    m = arrays[0].shape[0]
+    pad = -m % block
+    return [np.concatenate([a, np.full(pad, f, a.dtype)])
+            for a, f in zip(arrays, fill)]
+
+
+@pytest.mark.parametrize("shape", SCATTER_HUBS)
+def test_scatter_min_plain_matches_jax_on_hubs(shape):
+    P, idx, vals = _hub_scatter_inputs(shape, 1000, np.random.default_rng(21))
+    n = P.shape[0] - 1
+    idx, vals = _pad_to(256, (n, INT32_MAX), idx, vals)
+    pallas = j_scatter_min(jnp.asarray(P), jnp.asarray(idx), jnp.asarray(vals),
+                           block_m=256, interpret=True)
+    ref = j_scatter_ref(jnp.asarray(P), jnp.asarray(idx), jnp.asarray(vals))
+    got = scatter_min_ref(_t(P), _t(idx), _t(vals))
+    _assert_same(got, pallas, ref)
+    hit = np.bincount(idx[vals != INT32_MAX], minlength=n + 1).max()
+    assert hit > 0.6 * (vals != INT32_MAX).sum()  # one slot takes most
+
+
+def test_min_vertex_labels_matches_jax_on_a_hub():
+    """The canonicalization itself, one component over 95% of the vertices."""
+    from repro.core.primitives import min_vertex_labels as j_min_vertex_labels
+
+    from repro_torch.core.primitives import min_vertex_labels
+
+    P = _hub_components(1000, np.random.default_rng(22))
+    _assert_same(min_vertex_labels(_t(P)), j_min_vertex_labels(jnp.asarray(P)))
+
+
+@pytest.mark.parametrize("shape", HOOK_HUBS)
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_hook_compress_plain_matches_jax_on_hubs(shape, k):
+    P, s, r = _hub_hook_inputs(shape, 1000, np.random.default_rng(23))
+    n = P.shape[0] - 1
+    s, r = _pad_to(256, (n, n), s, r)
+    jP, js, jr = jnp.asarray(P), jnp.asarray(s), jnp.asarray(r)
+    pallas = j_hook_compress(jP, js, jr, k=k, block_m=256, interpret=True)
+    ref = j_hook_ref(jP, js, jr, k=k)
+    got = hook_compress_ref(_t(P), _t(s), _t(r), k=k)
+    _assert_same(got, pallas, ref)
+    if shape == "star":  # every leaf hooked into the hub's root
+        hooked = hook_compress_ref(_t(P), _t(s), _t(r), k=0)
+        assert int(hooked[n - 1]) == 0 and torch.equal(hooked[:n - 1],
+                                                       _t(P)[:n - 1])
+
+
 def test_pointer_jump_three_hops_is_two_rounds():
     P = _t(_labels_with_virtual_min(256))
     two = pointer_jump_ref(pointer_jump_ref(P, k=1), k=1)
@@ -184,8 +313,8 @@ def test_pointer_jump_three_hops_is_two_rounds():
 # sanitization, masks, -1 fixed points, arbitrary (n + 1,) lengths.
 # ---------------------------------------------------------------------------
 
-def _labels_with_dump(n: int) -> np.ndarray:
-    P = np.minimum(RNG.integers(-1, n, n + 1), np.arange(n + 1))
+def _labels_with_dump(n: int, rng=RNG) -> np.ndarray:
+    P = np.minimum(rng.integers(-1, n, n + 1), np.arange(n + 1))
     P[n] = n
     return P.astype(np.int32)
 
@@ -426,6 +555,35 @@ def test_library_name_follows_the_sources():
     assert all(re.fullmatch(r"[a-z_]+-[0-9a-f]{16}\.so", x) for x in names)
 
 
+def test_another_source_tree_builds_apart(tmp_path, monkeypatch):
+    """A second csrc tree (a parent commit's, say) is named by its own
+    sources and kept in its own directory; what is built there already is
+    reported, ptxas lines included, without nvcc and without touching what
+    ``load`` uses."""
+    import shutil
+
+    csrc, out = tmp_path / "csrc", tmp_path / "out"
+    shutil.copytree(_build.CSRC, csrc)
+    names = ("scatter_min", "hook_compress")
+    same = {n: _build._library_path(n, csrc, out) for n in names}
+    assert all(same[n].name == _build._library_path(n).name for n in names)
+    assert all(path.parent == out for path in same.values())
+    with open(csrc / "warp_min.cuh", "a") as f:
+        f.write("// edited\n")
+    edited = {n: _build._library_path(n, csrc, out) for n in names}
+    assert all(edited[n] != same[n] for n in names)
+    out.mkdir()
+    for n, path in edited.items():
+        path.write_bytes(b"")
+        path.with_suffix(".ptxas.txt").write_text(f"ptxas info {n}")
+    monkeypatch.setattr(_build, "_nvcc", lambda: pytest.fail("nvcc called"))
+    records_before = dict(_build._RECORDS)
+    recs = _build.build_all(csrc, out, names=names)
+    assert {n: (r.path, r.seconds, r.ptxas) for n, r in recs.items()} == {
+        n: (edited[n], 0.0, (f"ptxas info {n}",)) for n in names}
+    assert _build._RECORDS == records_before
+
+
 # ---------------------------------------------------------------------------
 # On the card: each CUDA kernel against its plain version, exactly.
 # ---------------------------------------------------------------------------
@@ -507,3 +665,71 @@ def test_embedding_bag_kernel_matches_plain_on_card(cuda, D, mode, dtype):
     got = embedding_bag(table, ids, mode=mode)
     assert ops.KERNELS["embedding_bag"].launches == before + 1
     _assert_bag_close(got, embedding_bag_ref(table, ids, mode=mode), dtype)
+
+
+# Card inputs of the hub shapes, made once per shape: (2^20 + 1,) labels.
+@functools.lru_cache(maxsize=None)
+def _card_scatter_inputs(shape: str) -> tuple:
+    return _hub_scatter_inputs(shape, 1 << 20, np.random.default_rng(31))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_hook_inputs(shape: str) -> tuple:
+    return _hub_hook_inputs(shape, 1 << 20, np.random.default_rng(32))
+
+
+LAYOUTS = ("aligned", "ragged", "offset", "mixed", "empty")
+
+
+def _edge_layout(cuda, layout: str, a, b) -> tuple:
+    """Two edge-indexed arrays on the card: as allocated; cut to a length
+    m with m % 8 == 5; both 4 bytes past a 16-byte boundary; only the
+    first so; or empty."""
+    a, b = _t(a).to(cuda), _t(b).to(cuda)
+    assert a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0
+    if layout == "ragged":
+        m = a.shape[0] - (a.shape[0] - 5) % 8
+        return a[:m], b[:m]
+    if layout == "empty":
+        return a[:0], b[:0]
+
+    def offset(x):
+        buf = torch.empty(x.shape[0] + 1, dtype=x.dtype, device=cuda)
+        buf[1:] = x
+        assert buf[1:].data_ptr() % 16 == 4
+        return buf[1:]
+
+    if layout == "offset":
+        return offset(a), offset(b)
+    if layout == "mixed":
+        return offset(a), b
+    return a, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", SCATTER_HUBS)
+def test_scatter_min_kernel_matches_plain_on_hubs(cuda, shape, layout):
+    P, idx, vals = _card_scatter_inputs(shape)
+    P = _t(P).to(cuda)
+    idx, vals = _edge_layout(cuda, layout, idx, vals)
+    fn = ops.KERNELS["scatter_min"]
+    before = fn.launches
+    got = fn(P, idx, vals)
+    assert fn.launches == before + 1
+    assert torch.equal(got, scatter_min_ref(P, idx, vals))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 1, 3])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", HOOK_HUBS)
+def test_hook_compress_kernel_matches_plain_on_hubs(cuda, shape, layout, k):
+    P, s, r = _card_hook_inputs(shape)
+    P = _t(P).to(cuda)
+    s, r = _edge_layout(cuda, layout, s, r)
+    fn = ops.KERNELS["hook_compress"]
+    before = fn.launches
+    got = fn(P, s, r, k=k)
+    assert fn.launches == before + 1
+    assert torch.equal(got, hook_compress_ref(P, s, r, k=k))
