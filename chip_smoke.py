@@ -19,18 +19,25 @@ Phases, in order; any failure exits non-zero:
               PyTorch version on the same inputs (the int32 kernels exactly,
               embedding_bag within BAG_TOL), with its time, the plain
               version's, one PyTorch call's where one computes the same
-              function, and the bound. hook_compress and scatter_min also
-              run on the main path's own inputs: the hook on the graph
-              edges with (a) the phase's labels, (b) all labels -1 (the
-              pass's floor), (c) identity labels, and (d) the first round
-              of the sampler, of the compacted finish and of the fused
+              function, and the bound. The connectivity kernels also run on
+              what the paths really hand them: the hook of hook_compress on
+              the graph edges with (a) the phase's labels, (b) all labels -1
+              (the pass's floor), (c) identity labels, and (d) the first
+              round of the sampler, of the compacted finish and of the fused
               finish, at k = 0 and 3; scatter_min on uniform targets, on a
               synthetic hub taking ~98% of them, on min_vertex_labels' call
-              after the main path, and on every finish call of
+              after the main path; edge_relabel on the graph edges with the
+              phase's labels and with ~10% -1 endpoints; pointer_jump on the
+              phase's labels at k = 1 and 3. Then every call, recorded from
+              real runs (RECORDED) and timed as one run's calls back to
+              back: scatter_min's finish calls of
               kout_hybrid_k2+liu_tarjan_CRFA and kout_hybrid_k2+label_prop,
-              compacted and fused (recorded from real runs; timed as one
-              run's calls back to back). Bounds count the bytes this run's
-              data needs. embedding_bag on a
+              compacted and fused; edge_relabel's of
+              kout_hybrid_k2+liu_tarjan_PUFA, compacted and fused (3 each),
+              and of none+stergiou (4, on the rewritten endpoints), with
+              their count of live proposals; pointer_jump's of the main
+              path, compacted and fused (12 each). Bounds count the bytes
+              this run's data needs. embedding_bag on a
               1,000,448 x 64 table at RM2's serve_bulk shape (B=262144,
               L=1, zipfian ids) and a multi-hot one (B=65536, L=8, ~10% on
               the dump row, and with wrapped and clamped ids), sum / mean /
@@ -273,17 +280,28 @@ def _main_path_inputs(torch, g) -> dict:
             "canonicalization": canon}
 
 
-# paths whose finish sends scatter_min its heaviest traffic: Liu-Tarjan
-# connect's write_min over the edge list (8 of CRFA's 9 launches) and label
-# propagation's, each compacted and fused
-SCATTER_PATHS = ("kout_hybrid_k2+liu_tarjan_CRFA", "kout_hybrid_k2+label_prop")
+# runs whose calls of a kernel are recorded, and the kernel is timed on
+# them: scatter_min on the heaviest finish traffic, Liu-Tarjan connect's
+# write_min over the edge list (8 of CRFA's 9 launches) and label
+# propagation's; edge_relabel on Liu-Tarjan PUFA's connect rounds (fused:
+# the whole edge list, mostly -1 endpoints) and Stergiou's rounds (the
+# rewritten endpoints prev[s], prev[r]); pointer_jump on the main path's
+# calls. (kernel, variant, fused modes)
+RECORDED = (
+    ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", (False, True)),
+    ("scatter_min", "kout_hybrid_k2+label_prop", (False, True)),
+    ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", (False, True)),
+    ("edge_relabel", "none+stergiou", (False,)),
+    ("pointer_jump", MAIN_VARIANT, (False, True)),
+)
 
 
-def _recorded_scatter_calls(torch, g, variant: str, fused: bool) -> tuple:
-    """The (labels, idx, vals) of every scatter_min call of one run of
-    ``variant``'s finish, as ops.scatter_min hands them to the kernel; the
-    run's last call, the canonicalization's, is left out (it has its own
-    input)."""
+def _recorded_calls(torch, g, name: str, variant: str, fused: bool) -> tuple:
+    """The arguments of every call of kernel ``name`` in one run of
+    ``variant``, as ops hands them to the kernel's wrapper: (labels, idx,
+    vals) for scatter_min, (labels, senders, receivers) for edge_relabel,
+    (labels, k) for pointer_jump. scatter_min's last call, the
+    canonicalization's, is left out (it has its own input)."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -291,33 +309,49 @@ def _recorded_scatter_calls(torch, g, variant: str, fused: bool) -> tuple:
     from repro_torch.kernels import ops
 
     calls = []
-    launch = ops.KERNELS["scatter_min"]
+    launch = ops.KERNELS[name]
 
-    def record(labels, idx, vals):
-        calls.append((labels, idx, vals))
-        return launch(labels, idx, vals)
+    def record(*args, **kw):
+        calls.append((*args, *kw.values()))
+        return launch(*args, **kw)
 
-    # ops reaches the wrapper through its module; the wrapper itself, and
-    # its launch count, stay as they are
-    with mock.patch.object(ops, "_scatter_min_kernel",
-                           SimpleNamespace(scatter_min=record)):
+    # ops reaches the wrapper through its module at call time: ops's name
+    # for that module is patched, so the wrapper itself, and its launch
+    # count, stay as they are
+    module = sys.modules[launch.__module__]
+    attr = next(k for k, v in vars(ops).items() if v is module)
+    with mock.patch.object(ops, attr,
+                           SimpleNamespace(**{**vars(module), name: record})):
         ConnectIt(variant, device="cuda").connectivity(g, fused=fused)
-    return tuple(calls[:-1])
+    return tuple(calls[:-1] if name == "scatter_min" else calls)
 
 
-def accumulating_inputs(torch, g, gen) -> tuple:
-    """(P, hook_sets, scatter_sets): the phase's labels P (chains, roots,
-    ~10% -1) and the named inputs the two accumulating kernels are timed
-    on, each a tuple of (labels, edge-indexed arrays) calls. The hook pass:
-    (a) "graph", P on the graph edges; (b) "floor", all labels -1 (a
-    streamed read and one gather, no hook); (c) "identity", each edge
-    proposing to its own sender with no slot contended; (d) the main path's
-    first rounds. scatter_min on (n+1,) sanitized targets, ~10% carrying
-    the dump sentinel as masked entries do: "uniform"; a synthetic "hub"
-    taking ~98% of them with random values, which no path produces (the
-    worst case for one slot); the canonicalization's own call; and every
-    finish call of the SCATTER_PATHS runs. Also used by compare_kernels.py."""
+def run_calls(name: str, fn, calls) -> tuple:
+    """``fn``, a kernel's wrapper or its plain version, on each of
+    ``calls`` in turn (pointer_jump's hop count is a call's last item)."""
+    if name == "pointer_jump":
+        return tuple(fn(lab, k=k) for lab, k in calls)
+    return tuple(fn(*c) for c in calls)
+
+
+def kernel_inputs(torch, g, gen) -> tuple:
+    """(P, sets): the phase's labels P (chains, roots, ~10% -1) and, per
+    kernel, the named inputs it is timed on. hook_compress: one (labels,
+    senders, receivers) each, (a) "graph", P on the graph edges; (b)
+    "floor", all labels -1 (a streamed read and one gather, no hook); (c)
+    "identity", each edge proposing to its own sender with no slot
+    contended; (d) the main path's first rounds. The others: a tuple of
+    calls each. scatter_min on (n+1,) sanitized targets, ~10% carrying the
+    dump sentinel as masked entries do: "uniform"; a synthetic "hub" taking
+    ~98% of them with random values, which no path produces (the worst case
+    for one slot); the canonicalization's own call. edge_relabel on the
+    graph edges with P ("graph") and with ~10% of the endpoints -1 ("neg",
+    as the alter step leaves them). pointer_jump on P at k = 1 and 3. Then
+    every call of the RECORDED runs. Also used by compare_kernels.py."""
+    from repro_torch.kernels.edge_relabel.ref import edge_rewrite_ref
+
     L = g.n + 1
+    m = g.m_pad
     P = _labels_with_virtual_min(torch, L, gen)
     idx = torch.randint(0, L, (L,), generator=gen, device="cuda",
                         dtype=torch.int32)
@@ -329,31 +363,51 @@ def accumulating_inputs(torch, g, gen) -> tuple:
     hub = torch.where(torch.rand(L, generator=gen, device="cuda") < 0.98,
                       L // 3, idx).to(torch.int32)
     hub[dumped] = L - 1
-    main = _main_path_inputs(torch, g)
     s, r = g.senders, g.receivers
-    hook_sets = {"graph": (P, s, r),
-                 "floor": (torch.full_like(P, -1), s, r),
-                 "identity": (torch.arange(L, dtype=torch.int32,
-                                           device="cuda"), s, r),
-                 **{x: main[x] for x in ("sampled", "compacted", "fused")}}
-    scatter_sets = {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
-                    "canonicalization": (main["canonicalization"],)}
-    for variant in SCATTER_PATHS:
+    s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, s).to(torch.int32)
+    r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, r).to(torch.int32)
+    main = _main_path_inputs(torch, g)
+    sets = {
+        "hook_compress": {
+            "graph": (P, s, r), "floor": (torch.full_like(P, -1), s, r),
+            "identity": (torch.arange(L, dtype=torch.int32, device="cuda"),
+                         s, r),
+            **{x: main[x] for x in ("sampled", "compacted", "fused")}},
+        "scatter_min": {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
+                        "canonicalization": (main["canonicalization"],)},
+        "edge_relabel": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
+        "pointer_jump": {"k=1": ((P, 1),), "k=3": ((P, 3),)},
+    }
+    for name, variant, modes in RECORDED:
         finish = variant.split("+")[1]
-        for fused in (False, True):
-            calls = _recorded_scatter_calls(torch, g, variant, fused)
-            live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
-            name = f"{finish} {'fused' if fused else 'compacted'}"
-            print(f"[kernels] {name}: {len(calls)} scatter_min calls of "
-                  f"{calls[0][1].shape[0]} entries each, {live} entries "
-                  f"not dumped in all")
-            scatter_sets[name] = calls
-    return P, hook_sets, scatter_sets
+        for fused in modes:
+            calls = _recorded_calls(torch, g, name, variant, fused)
+            key = f"{finish} {'fused' if fused else 'compacted'}"
+            if name == "scatter_min":
+                live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
+                what = (f"of {calls[0][1].shape[0]} entries each, {live} "
+                        f"entries not dumped in all")
+            elif name == "edge_relabel":
+                # live proposals: edges whose ends' labels disagree
+                ends = [edge_rewrite_ref(*c) for c in calls]
+                live = [int((a != b).sum()) for a, b in ends]
+                neg = [int(((a < 0) & (b < 0)).sum()) for _, a, b in calls]
+                what = (f"of {calls[0][1].shape[0]} edges each; live "
+                        f"proposals {sum(live)} in all, per call {live}; "
+                        f"edges with both ends -1 per call {neg}")
+            else:
+                what = (f"on labels ({calls[0][0].shape[0]},), k = "
+                        f"{sorted({k for _, k in calls})}")
+            print(f"[kernels] {key}: {len(calls)} {name} calls {what}")
+            sets[name][key] = calls
+    return P, sets
 
 
 def phase_kernels(torch, g, cap: int) -> dict:
     """Each kernel against its plain version at the main paths' shapes,
-    the two accumulating kernels also on the main path's own inputs."""
+    and on the calls the paths really make (kernel_inputs)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.edge_relabel.ref import (
         edge_relabel_ref,
@@ -367,15 +421,11 @@ def phase_kernels(torch, g, cap: int) -> dict:
     gen.manual_seed(0)
     L = g.n + 1
     m = g.m_pad
-    P, hook_sets, scatter_sets = accumulating_inputs(torch, g, gen)
-    s, r = g.senders, g.receivers
-    # the graph's edges with ~10% of the endpoints -1, as Liu-Tarjan's alter
-    # step leaves them once L_max is pinned
-    s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
-                        -1, s).to(torch.int32)
-    r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
-                        -1, r).to(torch.int32)
-    edge_sets = {"graph": (s, r), "neg": (s_neg, r_neg)}
+    P, sets = kernel_inputs(torch, g, gen)
+    hook_sets, scatter_sets = sets["hook_compress"], sets["scatter_min"]
+    relabel_sets, jump_sets = sets["edge_relabel"], sets["pointer_jump"]
+    # edge_rewrite on the synthetic edge lists of edge_relabel
+    edge_sets = {x: relabel_sets[x][0] for x in ("graph", "neg")}
 
     def hook_bytes(x):
         # labels read and the result written once, every sender read, and a
@@ -425,22 +475,28 @@ def phase_kernels(torch, g, cap: int) -> dict:
                                  f"({hook_sets[x[0]][1].shape[0]},)"),
         },
         "pointer_jump": {
-            "sweep": (1, 3), "main": 1,
-            "kernel": lambda k: ops.KERNELS["pointer_jump"](P, k=k),
-            "plain": lambda k: pointer_jump_ref(P, k=k),
-            "bytes": lambda _: 4 * 2 * L,
-            "ops": lambda k: k * L,
+            "sweep": tuple(jump_sets), "main": "k=1",
+            "kernel": lambda x: run_calls("pointer_jump",
+                                          ops.KERNELS["pointer_jump"],
+                                          jump_sets[x]),
+            "plain": lambda x: run_calls("pointer_jump", pointer_jump_ref,
+                                         jump_sets[x]),
+            # each call reads its labels and writes its result once
+            "bytes": lambda x: sum(8 * lab.shape[0] for lab, _ in jump_sets[x]),
+            "ops": lambda x: sum(k * lab.shape[0] for lab, k in jump_sets[x]),
             "library": None,
             "source": "src/repro_torch/kernels/csrc/pointer_jump.cu",
             "replaces": "src/repro/kernels/pointer_jump/kernel.py:38",
-            "shapes": lambda _: f"labels ({L},)",
+            "shapes": lambda x: (f"{len(jump_sets[x])} x labels "
+                                 f"({jump_sets[x][0][0].shape[0]},)"),
         },
         "scatter_min": {
             "sweep": tuple(scatter_sets), "main": "uniform",
-            "kernel": lambda x: tuple(ops.KERNELS["scatter_min"](*c)
-                                      for c in scatter_sets[x]),
-            "plain": lambda x: tuple(scatter_min_ref(*c)
-                                     for c in scatter_sets[x]),
+            "kernel": lambda x: run_calls("scatter_min",
+                                          ops.KERNELS["scatter_min"],
+                                          scatter_sets[x]),
+            "plain": lambda x: run_calls("scatter_min", scatter_min_ref,
+                                         scatter_sets[x]),
             "bytes": scatter_bytes,
             "ops": scatter_live,
             "library": scatter_library,
@@ -451,20 +507,28 @@ def phase_kernels(torch, g, cap: int) -> dict:
                                  f"idx/vals ({scatter_sets[x][0][1].shape[0]},)"),
         },
         "edge_relabel": {
-            "sweep": tuple(edge_sets), "main": "graph",
-            "kernel": lambda e: ops.KERNELS["edge_relabel"](P, *edge_sets[e]),
-            "plain": lambda e: edge_relabel_ref(P, *edge_sets[e]),
-            "bytes": lambda _: 4 * (2 * L + 2 * m),
-            "ops": lambda _: 4 * m,
+            "sweep": tuple(relabel_sets), "main": "graph",
+            "kernel": lambda x: run_calls("edge_relabel",
+                                          ops.KERNELS["edge_relabel"],
+                                          relabel_sets[x]),
+            "plain": lambda x: run_calls("edge_relabel", edge_relabel_ref,
+                                         relabel_sets[x]),
+            # per call: the label copy (read and written once) and both
+            # endpoint arrays read once
+            "bytes": lambda x: sum(4 * (2 * lab.shape[0] + 2 * a.shape[0])
+                                   for lab, a, _ in relabel_sets[x]),
+            "ops": lambda x: sum(4 * a.shape[0] for _, a, _ in relabel_sets[x]),
             "library": None,
             "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
             "replaces": "src/repro/kernels/edge_relabel/kernel.py:63",
-            "shapes": lambda _: f"labels ({L},) edges ({m},)",
+            "shapes": lambda x: (f"{len(relabel_sets[x])} x labels "
+                                 f"({relabel_sets[x][0][0].shape[0]},) edges "
+                                 f"({relabel_sets[x][0][1].shape[0]},)"),
         },
         "edge_rewrite": {
             "sweep": tuple(edge_sets), "main": "graph",
-            "kernel": lambda e: ops.KERNELS["edge_rewrite"](P, *edge_sets[e]),
-            "plain": lambda e: edge_rewrite_ref(P, *edge_sets[e]),
+            "kernel": lambda e: ops.KERNELS["edge_rewrite"](*edge_sets[e]),
+            "plain": lambda e: edge_rewrite_ref(*edge_sets[e]),
             "bytes": lambda _: 4 * (L + 4 * m),
             "ops": lambda _: 2 * m,
             "library": None,
@@ -495,8 +559,7 @@ def phase_kernels(torch, g, cap: int) -> dict:
                 lib_ms = time_ms(torch, lib, iters=20)
             nbytes = c["bytes"](x)
             b_ms, b_by = bound_ms(nbytes, c["ops"](x))
-            label = (f"{x[0]} k={x[1]}" if isinstance(x, tuple)
-                     else f"k={x}" if isinstance(x, int) else x)
+            label = f"{x[0]} k={x[1]}" if isinstance(x, tuple) else x
             print(f"[kernels] {name} {label} {c['shapes'](x)}: exact match; "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "

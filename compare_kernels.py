@@ -1,27 +1,31 @@
 #!/usr/bin/env python3
-"""Time scatter_min and hook_compress, and the paths that run them, built
-from several kernel source trees in turns.
+"""Time the connectivity kernels, and the paths that run them, built from
+several kernel source trees in turns.
 
     python3 compare_kernels.py [NAME=]CSRC [[NAME=]CSRC ...]
                                [--log-n 22 --log-m 25] [--paths] [--reps 3]
 
 Each CSRC is a ``kernels/csrc`` directory (for a parent commit: ``git
 archive`` it into a git-ignored directory of this checkout). Each tree's
-``scatter_min.cu`` and ``hook_compress.cu`` are built by ``_build`` into a
-directory of their own, and the port's own wrappers call them, one tree's
-libraries swapped in at a time. The inputs are ``chip_smoke.py``'s kernel
-phase's (``chip_smoke.accumulating_inputs``): the hook pass (k = 0 and 3)
-on the graph edges with the phase's labels, all labels -1 and identity
-labels, and on the main path's first sampled, compacted and fused rounds;
-scatter_min on uniform targets, a synthetic hub, the canonicalization's
-call and the recorded finish calls of CRFA and label propagation. Every
-output is held against the plain version; each case is timed with the
-trees in order, then in reverse (CUDA-event means over 20 launches), and a
-tree's time is the mean of its two. ``--paths`` also runs every path of
-``chip_smoke.PATHS`` ``--reps`` times per tree in the same turns (host wall
-time of a synchronized ``connectivity`` call, median), checking that every
-tree gives the same labels, launches and finish rounds. Needs one CUDA
-card; exits 1 without one.
+``scatter_min.cu``, ``hook_compress.cu``, ``edge_relabel.cu`` and
+``pointer_jump.cu`` are built by ``_build`` into a directory of their own,
+and the port's own wrappers call them, one tree's libraries swapped in at a
+time. The inputs are ``chip_smoke.py``'s kernel phase's
+(``chip_smoke.kernel_inputs``): the hook pass (k = 0 and 3) on the graph
+edges with the phase's labels, all labels -1 and identity labels, and on
+the main path's first sampled, compacted and fused rounds; scatter_min on
+uniform targets, a synthetic hub, the canonicalization's call and the
+recorded finish calls of CRFA and label propagation; edge_relabel on the
+graph edges (with and without -1 endpoints) and the recorded calls of
+Liu-Tarjan PUFA and Stergiou; pointer_jump at k = 1 and 3 and the main
+path's recorded calls. Every output is held against the plain version;
+each case is timed with the trees in order, then in reverse (CUDA-event
+means over 20 launches), and a tree's time is the mean of its two.
+``--paths`` also runs every path of ``chip_smoke.PATHS`` ``--reps`` times
+per tree in the same turns (host wall time of a synchronized
+``connectivity`` call, median), checking that every tree gives the same
+labels, launches and finish rounds. Needs one CUDA card; exits 1 without
+one.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-KERNELS = ("scatter_min", "hook_compress")
+KERNELS = ("scatter_min", "hook_compress", "edge_relabel", "pointer_jump")
 
 
 def main() -> int:
@@ -53,7 +57,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.edge_relabel.ref import edge_relabel_ref
     from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+    from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
     from repro_torch.kernels.scatter_min.ref import scatter_min_ref
 
     cs.phase_device(torch)
@@ -75,21 +81,24 @@ def main() -> int:
     g = cs.phase_graph(torch, args.log_n, args.log_m, 0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    _, hook_sets, scatter_sets = cs.accumulating_inputs(torch, g, gen)
+    _, sets = cs.kernel_inputs(torch, g, gen)
     cases = []
-    for x, (lab, a, b) in hook_sets.items():
+    for x, (lab, a, b) in sets["hook_compress"].items():
         for k in (0, 3):
             cases.append((f"hook_compress {x} k={k}",
                           lambda lab=lab, a=a, b=b, k=k: (
                               ops.KERNELS["hook_compress"](lab, a, b, k=k),),
                           lambda lab=lab, a=a, b=b, k=k: (
                               hook_compress_ref(lab, a, b, k=k),)))
-    for x, calls in scatter_sets.items():
-        cases.append((f"scatter_min {x}",
-                      lambda calls=calls: tuple(ops.KERNELS["scatter_min"](*c)
-                                                for c in calls),
-                      lambda calls=calls: tuple(scatter_min_ref(*c)
-                                                for c in calls)))
+    refs = {"scatter_min": scatter_min_ref, "edge_relabel": edge_relabel_ref,
+            "pointer_jump": pointer_jump_ref}
+    for name, ref in refs.items():
+        for x, calls in sets[name].items():
+            cases.append((f"{name} {x}",
+                          lambda name=name, calls=calls: cs.run_calls(
+                              name, ops.KERNELS[name], calls),
+                          lambda name=name, ref=ref, calls=calls: cs.run_calls(
+                              name, ref, calls)))
 
     print(f"[kernels] ms per case, each tree the mean of its two turns; "
           f"ratio to {names[0]}")

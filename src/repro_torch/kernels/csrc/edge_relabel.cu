@@ -9,21 +9,34 @@
 //     runs blocks in no order, so the output is a copy of the input labels,
 //     every gather reads `labels` (never `out`: reading `out` would let a
 //     block see other blocks' proposals and turn the Jacobi round into a
-//     Gauss-Seidel one), and each proposal lands with a native atomicMin.
+//     Gauss-Seidel one), and proposals land with atomicMin.
 //   * edge_rewrite (_edge_rewrite_kernel): s' = labels[s], r' = labels[r].
 //     A pure gather with two outputs; blocks are independent.
 // A negative endpoint (the -1 virtual minimum on altered edges) proposes its
-// own value and is never a target, as in the reference.
+// own value and is never a target, as in the reference; nor is an endpoint
+// at or past L.
 //
 // Bound: bytes. edge_relabel reads both endpoint arrays and the labels and
 // writes the labels once; edge_rewrite reads both endpoint arrays and
 // writes two. The label gathers are random reads that the 50 MB L2 holds at
-// n = 2^22. out[t] starts at labels[t] and only falls, so a proposal that is
-// not below the snapshot value at its target is a no-op and is skipped
-// before the atomic: an edge whose ends already agree costs no atomic.
-// Proposals that converge on an RMAT hub's slot still serialise on its
-// atomic; that contention is left as it is.
-#include "common.cuh"
+// n = 2^22.
+//
+// edge_relabel makes at most one proposal an edge: out[t] starts at
+// labels[t] and only falls, and for a target t the edge's gather at t is
+// that snapshot value, so only the end with the larger label can take the
+// other's (ls < lr: ls to r; lr < ls: lr to s; equal ends, s == r among
+// them, propose nothing). That makes it a warp_min.cuh step, as the hook
+// pass is: senders and receivers stream with 16-byte evict-first loads, a
+// label is gathered only for a non-negative endpoint (Liu-Tarjan's fused
+// rounds carry mostly -1 ends, and an edge with both ends -1 gathers
+// nothing), and proposals fold and combine along runs of equal targets
+// (CSR runs of one sender; in Stergiou's rounds, runs of equal rewritten
+// senders prev[s]) before the relaxed read and the atomic. On an H100 a
+// round whose edges are dead (ends equal or -1) runs at the rate of a
+// plain copy of the edge arrays; a live round is held by its random label
+// gathers and by the read and atomic of proposals to random receivers
+// (PERF.md).
+#include "warp_min.cuh"
 
 namespace {
 
@@ -34,23 +47,51 @@ __device__ __forceinline__ int gather_label(const int* __restrict__ labels,
   return e < 0 ? e : labels[connectit::clamp_index(e, L)];
 }
 
-__global__ void edge_relabel_kernel(const int* __restrict__ labels,
-                                    const int* __restrict__ senders,
-                                    const int* __restrict__ receivers,
-                                    int* __restrict__ out, int64_t L,
-                                    int64_t m) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < m; e += stride) {
-    const int s = senders[e];
-    const int r = receivers[e];
-    const int ls = gather_label(labels, s, L);
-    const int lr = gather_label(labels, r, L);
-    // for 0 <= r < L, lr is the snapshot value at target r (and likewise ls
-    // at s), so a proposal at or above it cannot lower out[r]
-    if (r >= 0 && static_cast<int64_t>(r) < L && ls < lr) atomicMin(out + r, ls);
-    if (s >= 0 && static_cast<int64_t>(s) < L && lr < ls) atomicMin(out + s, lr);
+struct RelabelStep {
+  const int* __restrict__ labels;
+  const int* __restrict__ senders;
+  const int* __restrict__ receivers;
+  int* out;
+  int64_t L;
+
+  template <int W>
+  __device__ __forceinline__ void run(int64_t j, bool in) {
+    int s[W], r[W];
+    if (in) {
+      connectit::load_stream<W>(senders, j, s);
+      connectit::load_stream<W>(receivers, j, r);
+    } else {
+#pragma unroll
+      for (int q = 0; q < W; ++q) s[q] = r[q] = -1;
+    }
+    int ls[W], lr[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      ls[q] = gather_label(labels, s[q], L);
+      lr[q] = gather_label(labels, r[q], L);
+    }
+    int slot[W], val[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      const bool to_r = r[q] >= 0 && static_cast<int64_t>(r[q]) < L &&
+                        ls[q] < lr[q];
+      const bool to_s = s[q] >= 0 && static_cast<int64_t>(s[q]) < L &&
+                        lr[q] < ls[q];
+      slot[q] = to_r ? r[q] : to_s ? s[q] : -1;
+      val[q] = to_r ? ls[q] : lr[q];
+    }
+    connectit::commit_min<W>(out, slot, val);
   }
+};
+
+template <int V>
+__global__ void __launch_bounds__(connectit::kThreads)
+    edge_relabel_kernel(const int* __restrict__ labels,
+                        const int* __restrict__ senders,
+                        const int* __restrict__ receivers, int* out,
+                        int64_t L, int64_t m, int64_t head) {
+  RelabelStep step{labels, senders, receivers, out, L};
+  connectit::stream_steps<V>(m, head, step);
 }
 
 __global__ void edge_rewrite_kernel(const int* __restrict__ labels,
@@ -77,9 +118,20 @@ extern "C" int edge_relabel_i32(const void* labels, const void* senders,
                                     cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0 && L > 0) {
-    edge_relabel_kernel<<<connectit::grid_for(m), connectit::kThreads, 0, st>>>(
-        static_cast<const int*>(labels), static_cast<const int*>(senders),
-        static_cast<const int*>(receivers), static_cast<int*>(out), L, m);
+    const connectit::PairLayout lay =
+        connectit::pair_layout(senders, receivers, m);
+    const int* lab = static_cast<const int*>(labels);
+    const int* s = static_cast<const int*>(senders);
+    const int* r = static_cast<const int*>(receivers);
+    int* o = static_cast<int*>(out);
+    const unsigned grid = connectit::grid_for(lay.items);
+    if (lay.vec) {
+      edge_relabel_kernel<4><<<grid, connectit::kThreads, 0, st>>>(
+          lab, s, r, o, L, m, lay.head);
+    } else {
+      edge_relabel_kernel<1><<<grid, connectit::kThreads, 0, st>>>(
+          lab, s, r, o, L, m, 0);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,8 +8,9 @@
 //   (a) copy labels -> hooked;
 //   (b) hook kernel: gathers read the *input* labels (the round-start
 //       snapshot), proposals min into `hooked`;
-//   (c) hop kernel: a second launch, so it starts only after every hook has
-//       landed, reads `hooked` and writes a third buffer.
+//   (c) hop kernel (hops.cuh, shared with pointer_jump): a second launch,
+//       so it starts only after every hook has landed, reads `hooked` and
+//       writes a third buffer.
 // Fusing (b) and (c) without a grid-wide barrier, or hopping in place, would
 // let a hop read a half-hooked array and change the round's result. With
 // this order the output equals hook_compress_ref bit for bit.
@@ -104,10 +105,6 @@ extern "C" int hook_compress_i32(const void* labels, const void* senders,
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (k > 0 && L > 0) {
-    connectit::hops_kernel<<<connectit::grid_for(L), connectit::kThreads, 0,
-                             st>>>(static_cast<const int*>(hooked),
-                                   static_cast<int*>(out), L, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(connectit::launch_hops(
+      static_cast<const int*>(hooked), static_cast<int*>(out), L, k, st));
 }

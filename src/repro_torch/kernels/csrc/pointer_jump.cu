@@ -2,23 +2,20 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/pointer_jump/kernel.py
 // (pointer_jump / _pointer_jump_kernel). On the TPU the whole label array
-// sits in VMEM and each grid step writes one output block; here one thread
-// owns one slot, gathers through the label array in device memory, and
-// writes a separate output buffer, so every hop reads the snapshot (an
-// in-place update would change what a k-hop call returns).
+// sits in VMEM and each grid step writes one output block; here the hop
+// pass of hops.cuh gathers through the label array in device memory (held
+// in L2) and writes a separate output buffer, so every hop reads the
+// snapshot (an in-place update would change what a k-hop call returns).
 //
 // Bound: bytes. Each slot reads its label once and writes its result once
-// (8 bytes a slot); the k dependent gathers are random reads that the 50 MB
-// L2 absorbs only in part at 2^22 slots. No shared memory is needed: a
-// gather has no reuse a block could stage.
+// (8 bytes a slot); hops.cuh says how the k dependent gathers are kept in
+// L2 and in flight. No shared memory is needed: a gather has no reuse a
+// block could stage.
 #include "hops.cuh"
 
 extern "C" int pointer_jump_i32(const void* labels, void* out, int64_t L,
                                 int k, void* stream) {
-  if (L > 0) {
-    connectit::hops_kernel<<<connectit::grid_for(L), connectit::kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(labels), static_cast<int*>(out), L, k);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(connectit::launch_hops(
+      static_cast<const int*>(labels), static_cast<int*>(out), L, k,
+      static_cast<cudaStream_t>(stream)));
 }

@@ -1,13 +1,13 @@
-// Streaming proposals into a label array with min, shared by scatter_min and
-// the hook pass of hook_compress.
+// Streaming proposals into a label array with min, shared by scatter_min,
+// the hook pass of hook_compress and edge_relabel.
 //
-// Both kernels stream int32 arrays once (idx/vals, senders/receivers), turn
-// each element into at most one proposal (slot, value), and lower out[slot]
-// to the value. RMAT inputs send most proposals to one hub slot, where one
-// atomicMin per proposal serialised (3.06 ms for the canonicalization's
-// 4.19M proposals on an H100). Three things keep a proposal off the
-// atomic, none of which changes the result (min is order-free, and out
-// only falls):
+// The three kernels stream int32 arrays once (idx/vals, senders/receivers;
+// common.cuh's stream_steps), turn each element into at most one proposal
+// (slot, value), and lower out[slot] to the value. RMAT inputs send most
+// proposals to one hub slot, where one atomicMin per proposal serialised
+// (3.06 ms for the canonicalization's 4.19M proposals on an H100). Three
+// things keep a proposal off the atomic, none of which changes the result
+// (min is order-free, and out only falls):
 //   1. inside a lane, a run of equal slots commits its min once;
 //   2. neighbouring lanes of a warp with equal slots combine with a
 //      segmented min over shuffles, and only the first lane of each run
@@ -17,11 +17,12 @@
 // Runs, not arbitrary groups, are combined: __match_any_sync costs more the
 // more distinct slots a warp holds, which made uniform targets much slower,
 // while equal slots arrive in runs on the paths that contend (ids in order
-// in min_vertex_labels, CSR-ordered senders in the hook pass). The read in
-// 3 costs uniform random targets one more L2 access per proposal (0.066 ->
-// 0.073 ms); without it the canonicalization took 0.072 ms instead of
-// 0.035 and label propagation's fused rounds, whose proposals mostly find
-// their slot already there, 1.84 ms instead of 1.52 (PERF.md).
+// in min_vertex_labels, CSR-ordered senders in the hook pass and
+// edge_relabel, runs of equal rewritten senders in Stergiou's rounds). The
+// read in 3 costs uniform random targets one more L2 access per proposal
+// (0.066 -> 0.073 ms); without it the canonicalization took 0.072 ms
+// instead of 0.035 and label propagation's fused rounds, whose proposals
+// mostly find their slot already there, 1.84 ms instead of 1.52 (PERF.md).
 // The load sees other blocks' atomics (it is served by L2, never by the
 // non-coherent path), so a stale value can only be too high: an extra
 // atomic, never a lost one.
@@ -99,68 +100,6 @@ __device__ __forceinline__ void commit_min(int* out, int (&slot)[V],
   for (int q = 0; q < V; ++q) {
     if (lead[q] && val[q] < cur[q]) atomicMin(out + slot[q], val[q]);
   }
-}
-
-// V consecutive elements of p from element j, with one evict-first load:
-// 16 bytes for V = 4 (p + j must be 16-byte aligned), 4 for V = 1. The
-// streamed arrays are read once; evict-first keeps them from evicting what
-// the kernels gather from L2.
-template <int V>
-__device__ __forceinline__ void load_stream(const int* p, int64_t j,
-                                            int (&x)[V]) {
-  if constexpr (V == 4) {
-    const int4 v = __ldcs(reinterpret_cast<const int4*>(p + j));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
-  } else {
-    x[0] = __ldcs(p + j);
-  }
-}
-
-// Call step.template run<W>(j, in) over elements [0, m): with V = 4, lanes
-// take 4 elements each from `head` on, which the caller has made 16-byte
-// aligned in every array the step streams; with V = 1, one each. The `head`
-// leading elements and the ragged tail are one W = 1 step of the grid's
-// first warp. Every lane of a warp runs every step (out-of-range lanes with
-// in = false), so a step may use warp collectives.
-template <int V, typename Step>
-__device__ __forceinline__ void stream_steps(int64_t m, int64_t head,
-                                             Step& step) {
-  const int lane = static_cast<int>(threadIdx.x & 31u);
-  const int64_t warp =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  const int64_t nvec = (m - head) / V;
-  if (V > 1 && warp == 0) {
-    const int64_t tail = head + nvec * V;
-    const int64_t j = lane < head ? lane : tail + (lane - head);
-    step.template run<1>(j, j < m);
-  }
-  for (int64_t base = warp * 32; base < nvec; base += warps * 32) {
-    const int64_t t = base + lane;
-    step.template run<V>(head + t * V, t < nvec);
-  }
-}
-
-// How a stream_steps kernel covers arrays a and b of length m: vectors of 4
-// when both lie equally far past a 16-byte boundary (`head` scalar
-// elements lead to it), scalars otherwise; `items` is the number of vectors
-// (or scalars) the grid strides over.
-struct PairLayout {
-  bool vec;
-  int64_t head;
-  int64_t items;
-};
-
-inline PairLayout pair_layout(const void* a, const void* b, int64_t m) {
-  const uintptr_t off_a = reinterpret_cast<uintptr_t>(a) % 16;
-  const uintptr_t off_b = reinterpret_cast<uintptr_t>(b) % 16;
-  if (off_a != off_b || off_a % sizeof(int) != 0) return {false, 0, m};
-  int64_t head = static_cast<int64_t>((16 - off_a) % 16 / sizeof(int));
-  if (head > m) head = m;
-  return {true, head, (m - head) / 4};
 }
 
 }  // namespace connectit

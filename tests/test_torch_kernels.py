@@ -301,6 +301,82 @@ def test_hook_compress_plain_matches_jax_on_hubs(shape, k):
                                                        _t(P)[:n - 1])
 
 
+RELABEL_HUBS = ("csr_hub", "stergiou", "pufa", "self_loops")
+
+
+def _hub_relabel_inputs(shape: str, n: int, rng) -> tuple:
+    """(labels (n + 1,), senders, receivers) as the edge_relabel paths hand
+    them over; senders in CSR order (sorted) unless said otherwise."""
+    L = n + 1
+    m = 4 * n + 3
+    s = np.sort(rng.integers(0, L, m)).astype(np.int32)
+    r = rng.integers(0, L, m).astype(np.int32)
+    if shape == "stergiou":
+        # a round's rewritten endpoints prev[s], prev[r]: runs of equal
+        # values, ~96% of them one hub label, ~2% -1
+        prev = _hub_components(n, rng)
+        return prev, prev[s], prev[r]
+    P = _labels_with_dump(n, rng)
+    if shape == "csr_hub":
+        # half the receivers are one root whose label is the largest, so
+        # nearly every edge onto it proposes
+        hub = n - 1
+        P[hub] = hub
+        return P, s, np.where(rng.random(m) < 0.5, hub, r).astype(np.int32)
+    if shape == "pufa":
+        # Liu-Tarjan's altered edges once L_max is pinned: ~90% of the
+        # endpoints -1, most edges -1 at both ends
+        P[rng.random(L) < 0.3] = -1
+        P[n] = n
+        return (P, np.where(rng.random(m) < 0.9, -1, s).astype(np.int32),
+                np.where(rng.random(m) < 0.9, -1, r).astype(np.int32))
+    # self_loops: half the edges have s == r, which proposes nothing
+    return P, s, np.where(rng.random(m) < 0.5, s, r).astype(np.int32)
+
+
+@pytest.mark.parametrize("shape", RELABEL_HUBS)
+def test_edge_relabel_plain_matches_jax_on_hubs(shape):
+    P, s, r = _hub_relabel_inputs(shape, 1000, np.random.default_rng(24))
+    n = P.shape[0] - 1
+    s, r = _pad_to(256, (n, n), s, r)
+    jP, js, jr = jnp.asarray(P), jnp.asarray(s), jnp.asarray(r)
+    pallas = j_edge_relabel(jP, js, jr, block_m=256, interpret=True)
+    ref = j_relabel_ref(jP, js, jr)
+    got = edge_relabel_ref(_t(P), _t(s), _t(r))
+    _assert_same(got, pallas, ref)
+    if shape == "self_loops":  # an edge onto itself changes nothing
+        loops = s == r
+        assert torch.equal(edge_relabel_ref(_t(P), _t(s[loops]),
+                                            _t(r[loops])), _t(P))
+
+
+def _jump_labels(L: int, rng) -> np.ndarray:
+    """(L,) labels with chains, ~20% self-loops (roots), ~10% -1 and ~40%
+    of the slots on one hub root."""
+    ids = np.arange(L)
+    P = np.minimum(rng.integers(0, L, L), ids)
+    hub = int(rng.integers(0, L))
+    P[rng.random(L) < 0.4] = hub
+    P[hub] = hub
+    roots = rng.random(L) < 0.2
+    P[roots] = ids[roots]
+    P[rng.random(L) < 0.1] = -1
+    return P.astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [1, 5, 4097])
+@pytest.mark.parametrize("k", [1, 3])
+def test_pointer_jump_plain_matches_jax_on_hubs(k, L):
+    P = _jump_labels(L, np.random.default_rng(25))
+    pallas = jops.pointer_jump(jnp.asarray(P), k=k, policy="interpret",
+                               block=1024)
+    ref = j_jump_ref(jnp.asarray(P), k=k)
+    got = pointer_jump_ref(_t(P), k=k)
+    _assert_same(got, pallas, ref)
+    if k == 3:
+        assert torch.equal(got, pointer_jump_ref(pointer_jump_ref(_t(P))))
+
+
 def test_pointer_jump_three_hops_is_two_rounds():
     P = _t(_labels_with_virtual_min(256))
     two = pointer_jump_ref(pointer_jump_ref(P, k=1), k=1)
@@ -733,3 +809,66 @@ def test_hook_compress_kernel_matches_plain_on_hubs(cuda, shape, layout, k):
     got = fn(P, s, r, k=k)
     assert fn.launches == before + 1
     assert torch.equal(got, hook_compress_ref(P, s, r, k=k))
+
+
+@functools.lru_cache(maxsize=None)
+def _card_relabel_inputs(shape: str) -> tuple:
+    return _hub_relabel_inputs(shape, 1 << 20, np.random.default_rng(33))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("shape", RELABEL_HUBS)
+def test_edge_relabel_kernel_matches_plain_on_hubs(cuda, shape, layout):
+    P, s, r = _card_relabel_inputs(shape)
+    P = _t(P).to(cuda)
+    s, r = _edge_layout(cuda, layout, s, r)
+    fn = ops.KERNELS["edge_relabel"]
+    before = fn.launches
+    got = fn(P, s, r)
+    assert fn.launches == before + 1
+    assert torch.equal(got, edge_relabel_ref(P, s, r))
+
+
+JUMP_LAYOUTS = ("aligned", "ragged", "offset", "one")
+
+
+def _label_layout(cuda, layout: str, P) -> torch.Tensor:
+    """Labels on the card: (2^20 + 1,) as allocated (L % 4 == 1); cut to
+    L % 4 == 3; a view 4 bytes past a 16-byte boundary; or one slot."""
+    P = _t(P).to(cuda)
+    if layout == "ragged":
+        return P[:P.shape[0] - 2].clamp_max(P.shape[0] - 3)
+    if layout == "one":
+        return P[:1].clamp_max(0)
+    if layout == "offset":
+        buf = torch.empty(P.shape[0] + 1, dtype=P.dtype, device=cuda)
+        buf[1:] = P
+        assert buf[1:].data_ptr() % 16 == 4
+        return buf[1:]
+    return P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3])
+@pytest.mark.parametrize("layout", JUMP_LAYOUTS)
+def test_pointer_jump_kernel_matches_plain_on_hubs(cuda, layout, k):
+    P = _label_layout(cuda, layout,
+                      _jump_labels((1 << 20) + 1, np.random.default_rng(34)))
+    fn = ops.KERNELS["pointer_jump"]
+    before = fn.launches
+    got = fn(P, k=k)
+    assert fn.launches == before + 1
+    assert torch.equal(got, pointer_jump_ref(P, k=k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 2, 7])
+def test_hook_compress_kernel_hops_short_labels(cuda, L):
+    """The hop pass after the hook on label arrays shorter than a vector."""
+    rng = np.random.default_rng(35)
+    P = _t(_jump_labels(L, rng)).to(cuda)
+    s = _t(rng.integers(0, L, 37).astype(np.int32)).to(cuda)
+    r = _t(rng.integers(0, L, 37).astype(np.int32)).to(cuda)
+    got = ops.KERNELS["hook_compress"](P, s, r, k=3)
+    assert torch.equal(got, hook_compress_ref(P, s, r, k=3))
