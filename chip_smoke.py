@@ -19,55 +19,81 @@ Phases, in order; any failure exits non-zero:
               PyTorch version on the same inputs (the int32 kernels exactly,
               embedding_bag within BAG_TOL), with its time, the plain
               version's, one PyTorch call's where one computes the same
-              function, and the bound. The connectivity kernels also run on
-              what the paths really hand them: the hook of hook_compress on
-              the graph edges with (a) the phase's labels, (b) all labels -1
-              (the pass's floor), (c) identity labels, and (d) the first
-              round of the sampler, of the compacted finish and of the fused
-              finish, at k = 0 and 3; scatter_min on uniform targets, on a
-              synthetic hub taking ~98% of them, on min_vertex_labels' call
-              after the main path; edge_relabel on the graph edges with the
-              phase's labels and with ~10% -1 endpoints; pointer_jump on the
-              phase's labels at k = 1 and 3. Then every call, recorded from
-              real runs (RECORDED) and timed as one run's calls back to
-              back: scatter_min's finish calls of
-              kout_hybrid_k2+liu_tarjan_CRFA and kout_hybrid_k2+label_prop,
-              compacted and fused; edge_relabel's of
-              kout_hybrid_k2+liu_tarjan_PUFA, compacted and fused (3 each),
-              and of none+stergiou (4, on the rewritten endpoints), with
-              their count of live proposals; pointer_jump's of the main
-              path, compacted and fused (12 each). Bounds count the bytes
-              this run's data needs. embedding_bag on a
-              1,000,448 x 64 table at RM2's serve_bulk shape (B=262144,
-              L=1, zipfian ids) and a multi-hot one (B=65536, L=8, ~10% on
-              the dump row, and with wrapped and clamped ids), sum / mean /
-              max, float32 / bfloat16;
+              function (scatter_reduce for scatter_min; for pointer_jump at
+              k = 1 and edge_rewrite, gathers through the labels with a -1
+              slot appended), and the bound. The connectivity kernels also
+              run on what the paths really hand them: the hook of
+              hook_compress on the graph edges with (a) the phase's labels,
+              (b) all labels -1 (the pass's floor), (c) identity labels, and
+              (d) the first round of the sampler, of the compacted finish
+              and of the fused finish, at k = 0 and 3; scatter_min on
+              uniform targets, on a synthetic hub taking ~98% of them, on
+              min_vertex_labels' call after the main path; edge_relabel and
+              edge_rewrite on the graph edges with the phase's labels and
+              with ~10% -1 endpoints; pointer_jump on the phase's labels at
+              k = 1 and 3. Then every call, recorded from real runs
+              (RECORDED) and timed as one run's calls back to back:
+              scatter_min's finish calls of kout_hybrid_k2+liu_tarjan_CRFA
+              and kout_hybrid_k2+label_prop, compacted and fused, and both
+              passes of every round of a none+uf_sync_full spanning forest;
+              edge_relabel's of kout_hybrid_k2+liu_tarjan_PUFA, compacted
+              and fused (3 each), and of none+stergiou (4, on the rewritten
+              endpoints), with their count of live proposals;
+              pointer_jump's of the main path, compacted and fused (12
+              each); edge_rewrite's of the main variant's first 8 stream
+              batches of 2^20 edges. Bounds count the bytes this run's data
+              needs. embedding_bag on a 1,000,448 x 64 table at RM2's
+              serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
+              one (B=65536, L=8, ~10% on the dump row, and with wrapped and
+              clamped ids), sum / mean / max, float32 / bfloat16;
   5. small    every variant of enumerate_variants() (148) on a small graph,
               compacted and fused, on the card, against the CPU path and
-              scipy;
-  6. paths    on the big graph, each against the scipy oracle (computed
-              once), with wall time, stats, peak memory and each kernel's
-              launch count; each path names its launches per kernel and
-              finish rounds on the default graph, asserted there (LDD's
-              follow the random stream and are printed):
+              scipy; the spanning forest of its 28 forest-capable variants,
+              valid on the card and the CPU path, and equal row for row on
+              the deterministic samplings;
+  6. oracle   scipy's labels of the big graph and its sorted edge keys;
+  7. paths    on the big graph, each against the scipy oracle, with wall
+              time, stats, peak memory and each kernel's launch count; each
+              path names its launches per kernel and finish rounds on the
+              default graph, asserted there (LDD's follow the random stream
+              and are printed):
                 kout_hybrid_k2+uf_sync_full      compacted, fused (the main path)
                 kout_hybrid_k2+liu_tarjan_PUFA   compacted, fused
                 kout_hybrid_k2+liu_tarjan_CRFA   compacted, fused
                 none+stergiou
                 ldd_b0.2+uf_sync_full
-  7. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+  8. forest   ConnectIt(v).spanning_forest(g) for the FOREST_PATHS variants
+              on the big graph, each forest checked on the host: n -
+              #components edges, the graph's components, every edge in the
+              graph; wall time, peak memory, launches and finish rounds
+              (asserted on the default graph but for BFS and LDD);
+  9. stream   the graph's undirected edges permuted by --seed through
+              ConnectIt(MAIN_VARIANT).stream(n) in batches of 2^20 and, for
+              the first 2^22, of 2^16, with 2^16 query pairs a batch: labels
+              against scipy's, the queries of batch 8 and of the last batch
+              against scipy on the prefix; inserted edges/s, per-batch p50
+              and p99; launches and rounds asserted on the default graph;
+ 10. dynamic  (a) the same 2^20 batches through stream(n, dynamic=True,
+              log=2^26): labels and forest against the graph's; (b) 8 steps
+              of sliding_window(n, batch=2^20, window=4, queries=2^16) on a
+              fresh stream(n, dynamic=True, log=2^23): each step's answers
+              against scipy on the live multiset, the final forest within
+              the survivors; updates/s, rounds, fallback rebuilds;
+ 11. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
-  8. profile  where the compacted main path's time goes: wall time per
+ 12. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
-              compares run over the whole edge list) and of one DLRM-RM2
-              serve_bulk and one serve_p99 step.
+              compares run over the whole edge list), of one stream batch
+              and one dynamic step, and of one DLRM-RM2 serve_bulk and one
+              serve_p99 step.
 
+Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it prints no result and exits 1.
@@ -96,14 +122,31 @@ PATHS = (
     ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True), (4, 15, 1, 3, 3), 3),
     ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True), (4, 16, 9, 0, 4), 4),
     ("none+stergiou", (False,), (0, 5, 1, 4, 4), 4),
-    ("ldd_b0.2+uf_sync_full", (False,), (2, 4, 1, 0, 0), 2),
+    ("ldd_b0.2+uf_sync_full", (False,), (2, 4, 82, 0, 0), 2),
 )
-# paths whose counts follow the random stream (LDD's shifts): printed, not
-# asserted
-RANDOM_STREAM_PATHS = ("ldd_b0.2+uf_sync_full",)
+# paths whose counts follow the random stream (LDD's shifts, BFS's
+# sources): printed, not asserted
+RANDOM_STREAM_PATHS = ("ldd_b0.2+uf_sync_full", "bfs_c3+uf_sync_full")
 DEFAULT_GRAPH = (22, 25, 0)  # log n, log m, seed
 # the path whose compacted run reports the two edge kernels' launches
 EDGE_PATH = "kout_hybrid_k2+liu_tarjan_PUFA"
+# spanning forests on the big graph: (variant, (launches of PATH_KERNELS,
+# finish rounds) on the default graph), asserted there but for
+# RANDOM_STREAM_PATHS
+FOREST_PATHS = (
+    (MAIN_VARIANT, ((0, 19, 14, 0, 0), 3)),
+    ("none+uf_sync_full", ((0, 11, 8, 0, 0), 4)),
+    ("kout_afforest_k2+uf_sync_full", ((0, 16, 12, 0, 0), 2)),
+    ("bfs_c3+uf_sync_full", ((0, 9, 20, 0, 0), 4)),
+    ("ldd_b0.2+uf_sync_full", ((0, 4, 166, 0, 0), 2)),
+    ("kout_hybrid_k2+shiloach_vishkin", ((0, 19, 14, 0, 0), 3)),
+)
+# the stream phase's launches of PATH_KERNELS and finish rounds per batch
+# size, and the dynamic phase's for (a) and (b), on the default graph
+STREAM_COUNTS = {1 << 20: ((103, 145, 0, 0, 32), 103),
+                 1 << 16: ((209, 290, 0, 0, 64), 209)}
+DYNAMIC_COUNTS = {"a": ((0, 251, 206, 0, 0), 103),
+                  "b": ((0, 200, 122, 0, 0), 61)}
 # samplings whose stats take no random draw, so the card's equal the CPU's
 DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -150,17 +193,20 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 
 def phase_device(torch) -> dict:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card)
+    print(_card_line())
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     print(f"[device] torch.cuda.get_device_name(0)={kind!r} count={count} "
           f"torch={torch.__version__} cuda={torch.version.cuda}")
     return {"platform": "gpu", "kind": kind, "count": count}
+
+
+def _card_line() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def phase_build() -> None:
@@ -283,25 +329,47 @@ def _main_path_inputs(torch, g) -> dict:
 # runs whose calls of a kernel are recorded, and the kernel is timed on
 # them: scatter_min on the heaviest finish traffic, Liu-Tarjan connect's
 # write_min over the edge list (8 of CRFA's 9 launches) and label
-# propagation's; edge_relabel on Liu-Tarjan PUFA's connect rounds (fused:
-# the whole edge list, mostly -1 endpoints) and Stergiou's rounds (the
-# rewritten endpoints prev[s], prev[r]); pointer_jump on the main path's
-# calls. (kernel, variant, fused modes)
+# propagation's, and both passes of the spanning forest's hook_and_record
+# (the labels, then edge ids into an INT_MAX buffer) in each round of a
+# none+uf_sync_full forest run; edge_relabel on Liu-Tarjan PUFA's connect
+# rounds (fused: the whole edge list, mostly -1 endpoints) and Stergiou's
+# rounds (the rewritten endpoints prev[s], prev[r]); pointer_jump on the
+# main path's calls; edge_rewrite on the main variant's first
+# RECORDED_STREAM_BATCHES stream batches of STREAM_BATCH edges. (kernel,
+# variant, runs: "compacted" and "fused" connectivity, "forest", "stream")
 RECORDED = (
-    ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", (False, True)),
-    ("scatter_min", "kout_hybrid_k2+label_prop", (False, True)),
-    ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", (False, True)),
-    ("edge_relabel", "none+stergiou", (False,)),
-    ("pointer_jump", MAIN_VARIANT, (False, True)),
+    ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
+    ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
+    ("scatter_min", "none+uf_sync_full", ("forest",)),
+    ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
+    ("edge_relabel", "none+stergiou", ("compacted",)),
+    ("pointer_jump", MAIN_VARIANT, ("compacted", "fused")),
+    ("edge_rewrite", MAIN_VARIANT, ("stream",)),
 )
+STREAM_BATCH = 1 << 20
+RECORDED_STREAM_BATCHES = 8
 
 
-def _recorded_calls(torch, g, name: str, variant: str, fused: bool) -> tuple:
-    """The arguments of every call of kernel ``name`` in one run of
+def stream_edges(torch, g, seed: int) -> tuple:
+    """The graph's undirected edges (s < r) on the card, permuted by
+    ``seed``: what the stream and dynamic phases insert."""
+    s, r = g.senders[: g.m], g.receivers[: g.m]
+    keep = s < r
+    s, r = s[keep], r[keep]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    perm = torch.randperm(s.shape[0], generator=gen, device="cuda")
+    return s[perm], r[perm]
+
+
+def _recorded_calls(torch, g, name: str, variant: str, run: str,
+                    seed: int = 0) -> tuple:
+    """The arguments of every call of kernel ``name`` in one ``run`` of
     ``variant``, as ops hands them to the kernel's wrapper: (labels, idx,
-    vals) for scatter_min, (labels, senders, receivers) for edge_relabel,
-    (labels, k) for pointer_jump. scatter_min's last call, the
-    canonicalization's, is left out (it has its own input)."""
+    vals) for scatter_min, (labels, senders, receivers) for edge_relabel and
+    edge_rewrite, (labels, k) for pointer_jump. The last scatter_min call of
+    a connectivity run, the canonicalization's, is left out (it has its own
+    input)."""
     from types import SimpleNamespace
     from unittest import mock
 
@@ -315,6 +383,7 @@ def _recorded_calls(torch, g, name: str, variant: str, fused: bool) -> tuple:
         calls.append((*args, *kw.values()))
         return launch(*args, **kw)
 
+    session = ConnectIt(variant, device="cuda")
     # ops reaches the wrapper through its module at call time: ops's name
     # for that module is patched, so the wrapper itself, and its launch
     # count, stay as they are
@@ -322,19 +391,33 @@ def _recorded_calls(torch, g, name: str, variant: str, fused: bool) -> tuple:
     attr = next(k for k, v in vars(ops).items() if v is module)
     with mock.patch.object(ops, attr,
                            SimpleNamespace(**{**vars(module), name: record})):
-        ConnectIt(variant, device="cuda").connectivity(g, fused=fused)
-    return tuple(calls[:-1] if name == "scatter_min" else calls)
+        if run == "forest":
+            session.spanning_forest(g)
+        elif run == "stream":
+            u, v = stream_edges(torch, g, seed)
+            st = session.stream(g.n)
+            for i in range(RECORDED_STREAM_BATCHES):
+                lo = i * STREAM_BATCH
+                st.insert(u[lo: lo + STREAM_BATCH], v[lo: lo + STREAM_BATCH])
+        else:
+            session.connectivity(g, fused=run == "fused")
+    if name == "scatter_min" and run in ("compacted", "fused"):
+        calls = calls[:-1]
+    return tuple(calls)
 
 
 def run_calls(name: str, fn, calls) -> tuple:
     """``fn``, a kernel's wrapper or its plain version, on each of
-    ``calls`` in turn (pointer_jump's hop count is a call's last item)."""
+    ``calls`` in turn (pointer_jump's hop count is a call's last item;
+    edge_rewrite's two outputs a call are flattened)."""
     if name == "pointer_jump":
         return tuple(fn(lab, k=k) for lab, k in calls)
+    if name == "edge_rewrite":
+        return tuple(x for c in calls for x in fn(*c))
     return tuple(fn(*c) for c in calls)
 
 
-def kernel_inputs(torch, g, gen) -> tuple:
+def kernel_inputs(torch, g, gen, seed: int = 0) -> tuple:
     """(P, sets): the phase's labels P (chains, roots, ~10% -1) and, per
     kernel, the named inputs it is timed on. hook_compress: one (labels,
     senders, receivers) each, (a) "graph", P on the graph edges; (b)
@@ -346,8 +429,9 @@ def kernel_inputs(torch, g, gen) -> tuple:
     ~98% of them with random values, which no path produces (the worst case
     for one slot); the canonicalization's own call. edge_relabel on the
     graph edges with P ("graph") and with ~10% of the endpoints -1 ("neg",
-    as the alter step leaves them). pointer_jump on P at k = 1 and 3. Then
-    every call of the RECORDED runs. Also used by compare_kernels.py."""
+    as the alter step leaves them), and edge_rewrite on both. pointer_jump
+    on P at k = 1 and 3. Then every call of the RECORDED runs (``seed``
+    permutes the stream's edges). Also used by compare_kernels.py."""
     from repro_torch.kernels.edge_relabel.ref import edge_rewrite_ref
 
     L = g.n + 1
@@ -378,13 +462,14 @@ def kernel_inputs(torch, g, gen) -> tuple:
         "scatter_min": {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
                         "canonicalization": (main["canonicalization"],)},
         "edge_relabel": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
+        "edge_rewrite": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
         "pointer_jump": {"k=1": ((P, 1),), "k=3": ((P, 3),)},
     }
-    for name, variant, modes in RECORDED:
+    for name, variant, runs in RECORDED:
         finish = variant.split("+")[1]
-        for fused in modes:
-            calls = _recorded_calls(torch, g, name, variant, fused)
-            key = f"{finish} {'fused' if fused else 'compacted'}"
+        for run in runs:
+            calls = _recorded_calls(torch, g, name, variant, run, seed)
+            key = f"{finish} {run}"
             if name == "scatter_min":
                 live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
                 what = (f"of {calls[0][1].shape[0]} entries each, {live} "
@@ -397,6 +482,11 @@ def kernel_inputs(torch, g, gen) -> tuple:
                 what = (f"of {calls[0][1].shape[0]} edges each; live "
                         f"proposals {sum(live)} in all, per call {live}; "
                         f"edges with both ends -1 per call {neg}")
+            elif name == "edge_rewrite":
+                real = [int((a < g.n).sum()) for _, a, _ in calls]
+                what = (f"of {calls[0][1].shape[0]} entries each (the "
+                        f"symmetrized pow2 batch), real entries per call "
+                        f"{real}")
             else:
                 what = (f"on labels ({calls[0][0].shape[0]},), k = "
                         f"{sorted({k for _, k in calls})}")
@@ -405,7 +495,7 @@ def kernel_inputs(torch, g, gen) -> tuple:
     return P, sets
 
 
-def phase_kernels(torch, g, cap: int) -> dict:
+def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
     """Each kernel against its plain version at the main paths' shapes,
     and on the calls the paths really make (kernel_inputs)."""
     from repro_torch.kernels import ops
@@ -420,12 +510,10 @@ def phase_kernels(torch, g, cap: int) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     L = g.n + 1
-    m = g.m_pad
-    P, sets = kernel_inputs(torch, g, gen)
+    P, sets = kernel_inputs(torch, g, gen, seed)
     hook_sets, scatter_sets = sets["hook_compress"], sets["scatter_min"]
     relabel_sets, jump_sets = sets["edge_relabel"], sets["pointer_jump"]
-    # edge_rewrite on the synthetic edge lists of edge_relabel
-    edge_sets = {x: relabel_sets[x][0] for x in ("graph", "neg")}
+    rewrite_sets = sets["edge_rewrite"]
 
     def hook_bytes(x):
         # labels read and the result written once, every sender read, and a
@@ -444,6 +532,23 @@ def phase_kernels(torch, g, cap: int) -> dict:
         # index only where its value is not the dump sentinel
         return sum(4 * (2 * lab.shape[0] + v.shape[0])
                    for lab, _, v in scatter_sets[x]) + 4 * scatter_live(x)
+
+    def extended(lab):
+        # labels with a -1 slot appended: a -1 index wraps onto it, so one
+        # gather keeps -1 fixed (built outside the timed window)
+        return torch.cat([lab, lab.new_tensor([-1])])
+
+    def jump_library(x):
+        # at k = 1 a call is one gather P <- Pe[P]
+        if any(k != 1 for _, k in jump_sets[x]):
+            return None
+        ext = [(extended(lab), lab) for lab, _ in jump_sets[x]]
+        return lambda: tuple(e[lab] for e, lab in ext)
+
+    def rewrite_library(x):
+        # two gathers a call, Pe[s] and Pe[r]
+        calls = [(extended(lab), a, b) for lab, a, b in rewrite_sets[x]]
+        return lambda: tuple(y for e, a, b in calls for y in (e[a], e[b]))
 
     def scatter_library(x):
         calls = [(base, i.long(), v) for base, i, v in scatter_sets[x]]
@@ -484,7 +589,7 @@ def phase_kernels(torch, g, cap: int) -> dict:
             # each call reads its labels and writes its result once
             "bytes": lambda x: sum(8 * lab.shape[0] for lab, _ in jump_sets[x]),
             "ops": lambda x: sum(k * lab.shape[0] for lab, k in jump_sets[x]),
-            "library": None,
+            "library": jump_library,
             "source": "src/repro_torch/kernels/csrc/pointer_jump.cu",
             "replaces": "src/repro/kernels/pointer_jump/kernel.py:38",
             "shapes": lambda x: (f"{len(jump_sets[x])} x labels "
@@ -526,15 +631,24 @@ def phase_kernels(torch, g, cap: int) -> dict:
                                  f"({relabel_sets[x][0][1].shape[0]},)"),
         },
         "edge_rewrite": {
-            "sweep": tuple(edge_sets), "main": "graph",
-            "kernel": lambda e: ops.KERNELS["edge_rewrite"](*edge_sets[e]),
-            "plain": lambda e: edge_rewrite_ref(*edge_sets[e]),
-            "bytes": lambda _: 4 * (L + 4 * m),
-            "ops": lambda _: 2 * m,
-            "library": None,
+            "sweep": tuple(rewrite_sets), "main": "graph",
+            "kernel": lambda x: run_calls("edge_rewrite",
+                                          ops.KERNELS["edge_rewrite"],
+                                          rewrite_sets[x]),
+            "plain": lambda x: run_calls("edge_rewrite", edge_rewrite_ref,
+                                         rewrite_sets[x]),
+            # per call: labels read once, two endpoint arrays read and two
+            # written
+            "bytes": lambda x: sum(4 * (lab.shape[0] + 4 * a.shape[0])
+                                   for lab, a, _ in rewrite_sets[x]),
+            "ops": lambda x: sum(2 * a.shape[0] for _, a, _ in rewrite_sets[x]),
+            "library": rewrite_library,
             "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",
             "replaces": "src/repro/kernels/edge_relabel/kernel.py:96",
-            "shapes": lambda _: f"labels ({L},) edges ({m},), two outputs",
+            "shapes": lambda x: (f"{len(rewrite_sets[x])} x labels "
+                                 f"({rewrite_sets[x][0][0].shape[0]},) edges "
+                                 f"({rewrite_sets[x][0][1].shape[0]},), two "
+                                 f"outputs"),
         },
     }
     results = {}
@@ -551,8 +665,8 @@ def phase_kernels(torch, g, cap: int) -> dict:
             ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
             plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
             lib_ms = None
-            if c["library"] is not None:
-                lib = c["library"](x)
+            lib = c["library"](x) if c["library"] is not None else None
+            if lib is not None:
                 require(_max_abs_err(torch, lib(), want) == 0,
                         f"{name} {x}: the library call differs from the "
                         f"plain version")
@@ -722,22 +836,52 @@ def phase_small(torch) -> None:
     print(f"[small] all {len(variants)} variants of enumerate_variants() x "
           f"compacted/fused on rmat n=2^12: card == CPU path == scipy, stats "
           f"equal on the deterministic ones ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    keys = (g_cpu.senders[: g_cpu.m].numpy().astype(np.int64) * (g_cpu.n + 1)
+            + g_cpu.receivers[: g_cpu.m].numpy())
+    forest = [v for v in enumerate_variants() if v.forest_capable]
+    for spec in forest:
+        variant = str(spec)
+        a = ConnectIt(variant, device="cpu").spanning_forest(g_cpu)
+        b = ConnectIt(variant, device="cuda").spanning_forest(g_gpu)
+        for edges, where in ((a, "CPU path"), (b, "card")):
+            check_forest(edges, g_cpu.n, expect, keys,
+                         f"small forest {variant} ({where})")
+        require(variant.split("+")[0] not in DETERMINISTIC_SAMPLINGS
+                or np.array_equal(a, b),
+                f"small forest {variant}: the card's edges differ from the "
+                f"CPU path's")
+    print(f"[small] spanning_forest of all {len(forest)} forest-capable "
+          f"variants on rmat n=2^12: valid forests on the card and the CPU "
+          f"path, equal row for row on the deterministic samplings "
+          f"({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_paths(torch, g, results: dict, exact: bool) -> None:
+def phase_oracle(g) -> tuple:
+    """scipy's labels of the big graph (min vertex ids) and its sorted edge
+    keys s * (n + 1) + r, both on the host."""
+    import numpy as np
+
+    from repro_torch.graphs import components_oracle
+    t0 = time.perf_counter()
+    expect = components_oracle(g)
+    # build_graph orders the edges by this key, so the keys are sorted
+    keys = (g.senders[: g.m].cpu().numpy().astype(np.int64) * (g.n + 1)
+            + g.receivers[: g.m].cpu().numpy())
+    print(f"[oracle] scipy oracle on the host: {time.perf_counter() - t0:.2f} "
+          f"s, {len(np.unique(expect))} components")
+    return expect, keys
+
+
+def phase_paths(torch, g, expect, results: dict, exact: bool) -> None:
     """Each path of PATHS on the big graph against the scipy oracle, with
     the kernels it must launch; on the default graph (``exact``) also its
     launch counts and finish rounds."""
     import numpy as np
 
     from repro_torch import ConnectIt
-    from repro_torch.graphs import components_oracle
     from repro_torch.kernels import ops
 
-    t0 = time.perf_counter()
-    expect = components_oracle(g)
-    print(f"[paths] scipy oracle on the host: {time.perf_counter() - t0:.2f} "
-          f"s, {len(np.unique(expect))} components")
     for variant, modes, want_counts, want_rounds in PATHS:
         session = ConnectIt(variant, device="cuda")
         for fused in modes:
@@ -783,6 +927,302 @@ def phase_paths(torch, g, results: dict, exact: bool) -> None:
             if not fused and variant == EDGE_PATH:
                 for name in ("edge_relabel", "edge_rewrite"):
                     results[name]["launches"] = counts[name]
+
+
+def canonical(labels):
+    """Min-vertex-id labels of the partition that ``labels`` (n,) gives:
+    the first vertex of a label is its component's smallest."""
+    import numpy as np
+    _, first, inv = np.unique(labels, return_index=True, return_inverse=True)
+    return first[inv]
+
+
+def check_forest(edges, n: int, expect, keys, what: str) -> None:
+    """A spanning forest of the graph whose scipy labels are ``expect`` and
+    sorted edge keys ``keys``, on the host without a Python loop: n -
+    #components edges, whose components are the graph's (so, with that
+    size, acyclic), each an edge of the graph."""
+    import numpy as np
+
+    ncomp = int((expect == np.arange(n)).sum())
+    require(edges.ndim == 2 and edges.shape == (n - ncomp, 2),
+            f"{what}: forest of shape {edges.shape}, want ({n - ncomp}, 2)")
+    u, v = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    require(bool(((u >= 0) & (u < n) & (v >= 0) & (v < n)).all()),
+            f"{what}: a forest endpoint is not a vertex")
+    _, lab = _scipy_labels(n, edges)
+    require(np.array_equal(canonical(lab), expect),
+            f"{what}: the forest's components differ from the graph's")
+    key = np.sort(u * (n + 1) + v)  # sorted: the search walks keys in order
+    at = np.searchsorted(keys, key).clip(0, len(keys) - 1)
+    require(bool((keys[at] == key).all()),
+            f"{what}: a forest edge is not an edge of the graph")
+
+
+def _check_counts(what: str, counts: dict, rounds: int, want, exact: bool,
+                  kernels=PATH_KERNELS) -> None:
+    """Assert launches per kernel and rounds on the default graph, where
+    ``want`` = (launches, rounds) is known; print them otherwise."""
+    got = tuple(counts[k] for k in kernels)
+    if exact and want is not None:
+        require((got, rounds) == want,
+                f"{what}: launches {got} and rounds {rounds}, want "
+                f"{want[0]} and {want[1]} ({kernels})")
+    elif want is not None and (got, rounds) != want:
+        print(f"[check] {what}: launches {got} and rounds {rounds} differ "
+              f"from the default graph's {want} (not asserted here)")
+
+
+def phase_forest(torch, g, expect, keys, exact: bool) -> None:
+    """Each spanning forest of FOREST_PATHS on the big graph, checked on the
+    host against the graph and its scipy labels."""
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+
+    for variant, want in FOREST_PATHS:
+        session = ConnectIt(variant, device="cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        edges = session.spanning_forest(g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        check_forest(edges, g.n, expect, keys, f"forest {variant}")
+        t_check = time.perf_counter() - t0
+        stats = session.stats
+        for name in ("pointer_jump", "scatter_min"):
+            require(counts[name] > 0, f"forest {variant}: kernel {name} "
+                    f"never launched")
+        _check_counts(f"forest {variant}", counts, stats.finish_rounds, want,
+                      exact and variant not in RANDOM_STREAM_PATHS)
+        print(f"[forest] {variant}: {len(edges)} edges, a spanning forest "
+              f"(size, components, edges checked on the host in "
+              f"{t_check:.2f} s); wall {wall:.4f} s (to the host array); "
+              f"finish_rounds {stats.finish_rounds}; lmax_count "
+              f"{stats.lmax_count}; edges_finish {stats.edges_finish}; peak "
+              f"device memory {peak} bytes; launches {json.dumps(counts)}")
+
+
+def _prefix_answers(n: int, u, v, hi: int, q):
+    """scipy's IsConnected for the query pairs ``q`` (2, k) after the first
+    ``hi`` stream edges."""
+    import numpy as np
+    edges = np.stack([u[:hi].cpu().numpy(), v[:hi].cpu().numpy()], 1)
+    _, lab = _scipy_labels(n, edges)
+    return lab[q[0]] == lab[q[1]]
+
+
+def _pct(xs: list, q: float) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(q * len(xs)))]
+
+
+def phase_stream(torch, g, expect, seed: int, exact: bool, card: str) -> None:
+    """The graph's undirected edges, permuted by ``seed``, inserted through
+    ConnectIt(MAIN_VARIANT).stream(n) in batches of STREAM_BATCH (all of
+    them, the last batch ragged) and of 2^16 (the first 2^22), each batch
+    with 2^16 uniform query pairs; the labels at the end against scipy's,
+    the queries of batch 8 and of the last batch against scipy on the edges
+    inserted by then."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+
+    u, v = stream_edges(torch, g, seed)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for batch, total in ((STREAM_BATCH, u.shape[0]),
+                         (1 << 16, min(1 << 22, u.shape[0]))):
+        nb = -(-total // batch)
+        queries = torch.randint(0, g.n, (nb, 2, 1 << 16), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        st = ConnectIt(MAIN_VARIANT, device="cuda").stream(g.n)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        walls, kept = [], {}
+        for i in range(nb):
+            lo, hi = i * batch, min((i + 1) * batch, total)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ans = st.process(u[lo:hi], v[lo:hi], queries[i, 0], queries[i, 1])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i in (7, nb - 1):
+                kept[i] = (hi, ans.cpu().numpy(), queries[i].cpu().numpy())
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        stats = st.stats
+        what = f"stream batch={batch}"
+        require(stats.edges_total == total and counts["edge_rewrite"] == nb,
+                f"{what}: {stats.edges_total} edges in "
+                f"{counts['edge_rewrite']} rewrites, want {total} in {nb}")
+        for name in ("hook_compress", "pointer_jump"):
+            require(counts[name] > 0, f"{what}: kernel {name} never launched")
+        _check_counts(what, counts, stats.finish_rounds,
+                      STREAM_COUNTS.get(batch), exact)
+        for i, (hi, ans, q) in kept.items():
+            require(np.array_equal(ans, _prefix_answers(g.n, u, v, hi, q)),
+                    f"{what}: the queries of batch {i + 1} differ from "
+                    f"scipy's on the first {hi} edges")
+        if total == u.shape[0]:
+            labels = st.labels.cpu().numpy()
+            require(np.array_equal(canonical(labels), expect),
+                    f"{what}: the stream's components differ from the "
+                    f"static path's")
+            same = np.array_equal(labels, expect)
+            end = (f"labels' partition == scipy's (labels themselves "
+                   f"{'==' if same else '!='} the static path's)")
+        else:
+            end = "prefix run"
+        ms = [w * 1e3 for w in walls]
+        print(f"[stream] {what}: {nb} batches, {total} edges, 2^16 queries "
+              f"a batch; queries of batches {sorted(k + 1 for k in kept)} == "
+              f"scipy on the prefix; {end}; {total / sum(walls):.1f} inserted "
+              f"edges/s; per batch p50 {_pct(ms, 0.5):.4f} ms, p99 "
+              f"{_pct(ms, 0.99):.4f} ms, max {max(ms):.4f} ms; finish_rounds "
+              f"{stats.finish_rounds}; batch_shapes {stats.batch_shapes}; peak "
+              f"device memory {peak} bytes; launches {json.dumps(counts)}; "
+              f"card {card}")
+
+
+def _live_keys(live, n: int):
+    import numpy as np
+    lo = np.minimum(live[:, 0], live[:, 1]).astype(np.int64)
+    return lo * n + np.maximum(live[:, 0], live[:, 1])
+
+
+def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
+                  card: str) -> None:
+    """(a) The stream phase's batches of STREAM_BATCH through a dynamic
+    stream (log 2^26): labels and forest against the graph's. (b) 8 steps
+    of sliding_window on a fresh dynamic stream (log 2^23 at n = 2^22):
+    each step's answers against scipy on the live multiset, the final
+    forest a subset of the survivors. Fallback rebuilds are counted."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.dynamic import engine
+    from repro_torch.graphs.generators import sliding_window
+    from repro_torch.kernels import ops
+
+    fallbacks = []
+    rebuild = engine.uf_sync_forest
+
+    def counted(*a, **kw):
+        fallbacks.append(1)
+        return rebuild(*a, **kw)
+
+    n = g.n
+    u, v = stream_edges(torch, g, seed)
+    nb = -(-u.shape[0] // STREAM_BATCH)
+    with mock.patch.object(engine, "uf_sync_forest", counted):
+        d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
+            n, dynamic=True, log=1 << 26)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        walls = []
+        for i in range(nb):
+            lo = i * STREAM_BATCH
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d.insert(u[lo: lo + STREAM_BATCH], v[lo: lo + STREAM_BATCH])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        stats = d.stats
+        what = "dynamic (a) inserts"
+        require(np.array_equal(canonical(d.labels.cpu().numpy()), expect),
+                f"{what}: components differ from the static path's")
+        check_forest(d.forest_edges(), n, expect, keys, what)
+        require(d.log_used() == u.shape[0],
+                f"{what}: {d.log_used()} live log entries, want {u.shape[0]}")
+        _check_counts(what, counts, stats.finish_rounds, DYNAMIC_COUNTS["a"],
+                      exact)
+        ms = [w * 1e3 for w in walls]
+        print(f"[dynamic] {what}: {nb} batches of {STREAM_BATCH}, "
+              f"{u.shape[0]} edges; components == scipy's, forest checked; "
+              f"{u.shape[0] / sum(walls):.1f} updates/s; per batch p50 "
+              f"{_pct(ms, 0.5):.4f} ms, p99 {_pct(ms, 0.99):.4f} ms; "
+              f"finish_rounds {stats.finish_rounds}; fallbacks "
+              f"{len(fallbacks)}; peak device memory {peak} bytes; launches "
+              f"{json.dumps(counts)}; card {card}")
+        del d
+
+        batch = min(1 << 20, n // 4)
+        log = 1 << (8 * batch - 1).bit_length()
+        d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
+            n, dynamic=True, log=log)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        live = np.zeros((0, 2), np.int32)
+        steps = []
+        for step, (ins, dels, q) in enumerate(sliding_window(
+                n, steps=8, batch=batch, window=4, queries=1 << 16,
+                seed=seed)):
+            args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                    for x in (dels[:, 0], dels[:, 1], ins[:, 0], ins[:, 1],
+                              q[:, 0], q[:, 1])]
+            before, k0 = d._rounds, len(fallbacks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ans = d.process(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            # the live multiset: a delete removes every copy of its pair,
+            # then the batch's non-loop inserts join
+            if len(dels):
+                live = live[~np.isin(_live_keys(live, n),
+                                     _live_keys(dels, n))]
+            live = np.concatenate([live, ins[ins[:, 0] != ins[:, 1]]])
+            _, lab = _scipy_labels(n, live)
+            require(np.array_equal(ans.cpu().numpy(),
+                                   lab[q[:, 0]] == lab[q[:, 1]]),
+                    f"dynamic (b) step {step}: answers differ from scipy's "
+                    f"on the live multiset")
+            steps.append((wall, len(ins) + len(dels), d._rounds - before,
+                          len(fallbacks) - k0))
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        forest = d.forest_edges()
+        require(bool(np.isin(_live_keys(forest, n), _live_keys(live, n)).all()),
+                "dynamic (b): a forest edge is not a surviving edge")
+        require(d.log_used() == len(live),
+                f"dynamic (b): {d.log_used()} live log entries, want "
+                f"{len(live)}")
+        rounds = d.stats.finish_rounds
+        _check_counts("dynamic (b) sliding_window", counts, rounds,
+                      DYNAMIC_COUNTS["b"], exact)
+    total = sum(x[1] for x in steps)
+    print(f"[dynamic] (b) sliding_window(n={n}, steps=8, batch={batch}, "
+          f"window=4, queries=2^16, seed={seed}), log {log}: answers == scipy "
+          f"on the live multiset at every step, final forest ({len(forest)} "
+          f"edges) within the {len(live)} survivors; "
+          f"{total / sum(x[0] for x in steps):.1f} updates/s; finish_rounds "
+          f"{rounds}; steps that fell back "
+          f"{sum(1 for x in steps if x[3])} of 8; peak device memory {peak} "
+          f"bytes; launches {json.dumps(counts)}; card {card}")
+    for i, (wall, ups, r, fb) in enumerate(steps):
+        print(f"[dynamic]   step {i}: {ups} updates, wall {wall * 1e3:.4f} "
+              f"ms, rounds {r}, fallback rebuilds {fb}")
+
+
+def _scipy_labels(n: int, edges):
+    import numpy as np
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import connected_components
+    return connected_components(
+        csr_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])),
+                   shape=(n, n)), directed=False)
 
 
 def phase_dlrm(torch, cap: int, seed: int, results: dict):
@@ -930,11 +1370,12 @@ def _trace(torch, tag: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def phase_profile(torch, g, model, serve_inputs) -> None:
+def phase_profile(torch, g, model, serve_inputs, seed: int) -> None:
     """Where the compacted main path's time goes: wall time per driver step
     (host clock around synchronized work), then one traced run of it, one of
-    none+stergiou, one of the fused PUFA path, and one DLRM-RM2 serve_bulk
-    and one serve_p99 step."""
+    none+stergiou, one of the fused PUFA path, one stream batch (the ninth
+    of STREAM_BATCH), one dynamic step (sliding_window's fifth, the first
+    that deletes), and one DLRM-RM2 serve_bulk and one serve_p99 step."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import serve_step
     from repro_torch import ConnectIt
@@ -971,12 +1412,47 @@ def phase_profile(torch, g, model, serve_inputs) -> None:
     pufa = ConnectIt(EDGE_PATH, device="cuda")
     _trace(torch, f"{EDGE_PATH} fused",
            lambda: pufa.connectivity(g, fused=True))
+    _trace_stream_steps(torch, g, seed)
     for shape in ("serve_bulk", "serve_p99"):
         inputs = serve_inputs[shape]
         ops.reset_launch_counts()
         _trace(torch, f"dlrm-rm2 {shape} B={inputs[0].shape[0]}",
                lambda: serve_step(model, *inputs))
         print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
+
+
+def _trace_stream_steps(torch, g, seed: int) -> None:
+    """One traced stream batch and one traced dynamic step, each after the
+    steps before it, with their launches."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.graphs.generators import sliding_window
+    from repro_torch.kernels import ops
+
+    B = STREAM_BATCH
+    u, v = stream_edges(torch, g, seed)
+    st = ConnectIt(MAIN_VARIANT, device="cuda").stream(g.n)
+    for i in range(8):
+        st.insert(u[i * B: (i + 1) * B], v[i * B: (i + 1) * B])
+    ops.reset_launch_counts()
+    _trace(torch, f"stream batch 9 of {B} edges",
+           lambda: st.insert(u[8 * B: 9 * B], v[8 * B: 9 * B]))
+    print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
+    batch = min(1 << 20, g.n // 4)
+    d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
+        g.n, dynamic=True, log=1 << (8 * batch - 1).bit_length())
+    for step, (ins, dels, q) in enumerate(sliding_window(
+            g.n, steps=5, batch=batch, window=4, queries=1 << 16, seed=seed)):
+        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in (dels[:, 0], dels[:, 1], ins[:, 0], ins[:, 1],
+                          q[:, 0], q[:, 1])]
+        if step < 4:
+            d.process(*args)
+    ops.reset_launch_counts()
+    _trace(torch, f"dynamic step 5 of sliding_window ({len(dels)} deletes, "
+           f"{len(ins)} inserts)", lambda: d.process(*args))
+    print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
 
 
 def main() -> int:
@@ -997,20 +1473,36 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
 
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        device = phase_device(torch)
-        phase_build()
-        g = phase_graph(torch, args.log_n, args.log_m, args.seed)
+        device = timed("device", phase_device, torch)
+        card = _card_line()
+        timed("build", phase_build)
+        g = timed("graph", phase_graph, torch, args.log_n, args.log_m,
+                  args.seed)
+        exact = (args.log_n, args.log_m, args.seed) == DEFAULT_GRAPH
         # the DLRM phases' size cap: at the default 2^22 it cuts nothing, so
         # RM2 runs at its published widths; a short check cuts vocab,
         # batches and candidates to 2^log_n
         cap = 1 << args.log_n
-        results = phase_kernels(torch, g, cap)
-        phase_small(torch)
-        phase_paths(torch, g, results,
-                    (args.log_n, args.log_m, args.seed) == DEFAULT_GRAPH)
-        model, serve_inputs = phase_dlrm(torch, cap, args.seed, results)
-        phase_profile(torch, g, model, serve_inputs)
+        results = timed("kernels", phase_kernels, torch, g, cap, args.seed)
+        timed("small", phase_small, torch)
+        expect, keys = timed("oracle", phase_oracle, g)
+        timed("paths", phase_paths, torch, g, expect, results, exact)
+        timed("forest", phase_forest, torch, g, expect, keys, exact)
+        timed("stream", phase_stream, torch, g, expect, args.seed, exact,
+              card)
+        timed("dynamic", phase_dynamic, torch, g, expect, keys, args.seed,
+              exact, card)
+        model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
+                                    results)
+        timed("profile", phase_profile, torch, g, model, serve_inputs,
+              args.seed)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

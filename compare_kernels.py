@@ -15,10 +15,11 @@ time. The inputs are ``chip_smoke.py``'s kernel phase's
 edges with the phase's labels, all labels -1 and identity labels, and on
 the main path's first sampled, compacted and fused rounds; scatter_min on
 uniform targets, a synthetic hub, the canonicalization's call and the
-recorded finish calls of CRFA and label propagation; edge_relabel on the
-graph edges (with and without -1 endpoints) and the recorded calls of
-Liu-Tarjan PUFA and Stergiou; pointer_jump at k = 1 and 3 and the main
-path's recorded calls. Every output is held against the plain version;
+recorded calls of CRFA, label propagation and a spanning forest;
+edge_relabel on the graph edges (with and without -1 endpoints) and the
+recorded calls of Liu-Tarjan PUFA and Stergiou; edge_rewrite on the same
+graph edges and the recorded calls of 8 stream batches; pointer_jump at
+k = 1 and 3 and the main path's recorded calls. Every output is held against the plain version;
 each case is timed with the trees in order, then in reverse (CUDA-event
 means over 20 launches), and a tree's time is the mean of its two.
 ``--paths`` also runs every path of ``chip_smoke.PATHS`` ``--reps`` times
@@ -57,7 +58,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke as cs
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.edge_relabel.ref import edge_relabel_ref
+    from repro_torch.kernels.edge_relabel.ref import (
+        edge_relabel_ref,
+        edge_rewrite_ref,
+    )
     from repro_torch.kernels.hook_compress.ref import hook_compress_ref
     from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
     from repro_torch.kernels.scatter_min.ref import scatter_min_ref
@@ -91,7 +95,7 @@ def main() -> int:
                           lambda lab=lab, a=a, b=b, k=k: (
                               hook_compress_ref(lab, a, b, k=k),)))
     refs = {"scatter_min": scatter_min_ref, "edge_relabel": edge_relabel_ref,
-            "pointer_jump": pointer_jump_ref}
+            "edge_rewrite": edge_rewrite_ref, "pointer_jump": pointer_jump_ref}
     for name, ref in refs.items():
         for x, calls in sets[name].items():
             cases.append((f"{name} {x}",

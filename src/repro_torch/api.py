@@ -20,10 +20,17 @@ prints them:
     compress := "naive" | "halve" | "full"
 
 ``enumerate_variants()`` gives the paper's sampling × finish grid, 148
-variants, in the reference's order. Only the ``single`` placement is
-ported; "auto", the other placements, the forest, streams, chunked ingest,
-the apps and serving raise ``NotImplementedError`` naming the ROADMAP queue
-item that ports them.
+variants, in the reference's order. Besides static connectivity, a session
+computes spanning forests (root-based finishes) and opens batch-incremental
+and batch-dynamic streams:
+
+    forest = ci.spanning_forest(g)                       # (k, 2) host array
+    st = ci.stream(n)                                    # inserts + queries
+    dyn = ci.stream(n, dynamic=True, log=1 << 20)        # + deletes
+
+Only the ``single`` placement is ported; "auto", the other placements,
+chunked ingest, the apps and serving raise ``NotImplementedError`` naming
+the ROADMAP queue item that ports them.
 """
 
 from __future__ import annotations
@@ -31,22 +38,26 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from .core import driver
+from .core import driver, streaming
 from .core.finish import (
     COMPRESS_MODES,
+    FOREST_METHODS,
     LIU_TARJAN_VARIANTS,
     METHODS,
     make_finish,
+    make_forest_finish,
 )
 from .core.sampling import KOUT_VARIANTS, make_sampler
 from .device import DEFAULT_DEVICE, resolve_device
+from .dynamic import engine as dyn_engine
 
 __all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "ConnectIt",
-           "enumerate_variants", "is_compatible", "default_sampling_grid",
-           "default_finish_grid", "KOUT_VARIANTS", "COMPRESS_MODES",
-           "LIU_TARJAN_VARIANTS"]
+           "Stream", "DynamicStream", "enumerate_variants", "is_compatible",
+           "default_sampling_grid", "default_finish_grid", "KOUT_VARIANTS",
+           "COMPRESS_MODES", "LIU_TARJAN_VARIANTS"]
 
 CONNECT_RULES = ("connect", "parent", "extended")
 SHORTCUT_RULES = ("S", "F")
@@ -318,6 +329,31 @@ class VariantSpec:
         """The memoized finish callable."""
         return make_finish(self.finish.method, **self.finish_kwargs())
 
+    @property
+    def forest_capable(self) -> bool:
+        """True iff the finish method supports root-based forest recording
+        (paper §3.4 / Theorem 6): the uf_sync family and Shiloach-Vishkin."""
+        return self.finish.method in FOREST_METHODS
+
+    @property
+    def forest_compress(self) -> str:
+        """The per-round compression the forest step runs under (SV's round
+        is hook + full compression by definition)."""
+        return (self.finish.compress if self.finish.method == "uf_sync"
+                else "full")
+
+    def build_forest_finish(self):
+        """The memoized root-based forest step ``(P, s, r, fu, fv) ->
+        (ForestState, rounds)``. Raises for non-forest-capable methods."""
+        if not self.forest_capable:
+            raise ValueError(
+                f"forest recording requires a root-based finish "
+                f"({'/'.join(FOREST_METHODS)}), not {self.finish_str!r} — "
+                f"paper §3.4")
+        kw = ({"compress": self.finish.compress}
+              if self.finish.method == "uf_sync" else {})
+        return make_forest_finish(self.finish.method, **kw)
+
     def __str__(self) -> str:
         return f"{self.sampling}+{self.finish_str}"
 
@@ -367,8 +403,237 @@ def enumerate_variants(
 SpecLike = Union[str, VariantSpec]
 
 
+def _as_index(x, device) -> torch.Tensor:
+    """A 1-D int32 tensor of ``x`` (a sequence, numpy array or tensor) on
+    ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int32).reshape(-1)
+    return torch.from_numpy(np.array(x, dtype=np.int32).reshape(-1)).to(
+        device)
+
+
+def _pad(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    k = x.shape[0]
+    return x if size == k else torch.cat([x, x.new_full((size - k,), fill)])
+
+
+class Stream:
+    """Batch-incremental connectivity bound to one finish variant (paper
+    §3.5 / Algorithm 3), on one device.
+
+    Batches are padded to the next power of two with the dump id ``n`` (and
+    query batches with vertex 0), so a ragged last batch reuses an earlier
+    shape. The counters stay on the device and are read only by ``stats``
+    and ``edges_inserted``."""
+
+    def __init__(self, n: int, finish_fn, *, device, variant: str = ""):
+        self.n = n
+        self.variant = variant
+        self.device = device
+        self._ops = streaming.stream_ops(n, finish_fn, device=device)
+        self.state = self._ops.init()
+        self.batches = 0
+        self._dispatch_sizes: list[int] = []
+        self._edges = torch.zeros((), dtype=torch.int64, device=device)
+        self._rounds = 0  # the finish loops count rounds on the host
+
+    def _pad_batch(self, u, v):
+        u, v = _as_index(u, self.device), _as_index(v, self.device)
+        size = self._ops.batch_size(u.shape[0])
+        return _pad(u, size, self.n), _pad(v, size, self.n), size
+
+    def _pad_queries(self, qa, qb):
+        qa, qb = _as_index(qa, self.device), _as_index(qb, self.device)
+        k = qa.shape[0]
+        size = self._ops.batch_size(k)
+        return _pad(qa, size, 0), _pad(qb, size, 0), k
+
+    def _account(self, u, size: int, rounds: int) -> None:
+        self.batches += 1
+        self._dispatch_sizes.append(size)
+        self._edges += (u < self.n).sum()
+        self._rounds += int(rounds)
+
+    def insert(self, u, v) -> "Stream":
+        """Insert one batch of undirected edges (symmetrized internally)."""
+        u, v, size = self._pad_batch(u, v)
+        self.state, rounds = self._ops.insert(self.state, u, v)
+        self._account(u, size, rounds)
+        return self
+
+    def query(self, qa, qb) -> torch.Tensor:
+        """IsConnected for each (qa[i], qb[i]) pair."""
+        qa, qb, k = self._pad_queries(qa, qb)
+        return self._ops.query(self.state, qa, qb)[:k]
+
+    def process(self, u, v, qa, qb) -> torch.Tensor:
+        """Inserts, then queries against the result (paper Algorithm 3)."""
+        u, v, size = self._pad_batch(u, v)
+        qa, qb, k = self._pad_queries(qa, qb)
+        self.state, ans, rounds = self._ops.process(self.state, u, v, qa, qb)
+        self._account(u, size, rounds)
+        return ans[:k]
+
+    @property
+    def edges_inserted(self) -> int:
+        """Real (non-padding) edges inserted so far (syncs on read)."""
+        return int(self._edges)
+
+    @property
+    def labels(self) -> torch.Tensor:
+        """Current compressed labeling over real vertices (n,)."""
+        return self._ops.labels(self.state)
+
+    def num_components(self) -> int:
+        return int(self._ops.ncomp(self.state))
+
+    @property
+    def stats(self) -> driver.ConnectivityStats:
+        """ConnectivityStats of the stream so far (syncs on read). Batches
+        are symmetrized, so ``edges_finish`` is twice ``edges_inserted``;
+        ``dispatch_sizes`` sums the padded directed entries over batches;
+        ``batch_shapes`` is the distinct padded batch sizes."""
+        edges = self.edges_inserted
+        padded = 2 * sum(self._dispatch_sizes)
+        return driver.ConnectivityStats(
+            variant=self.variant, edges_total=edges, edges_finish=2 * edges,
+            edges_finish_padded=padded, edges_per_device=(2 * edges,),
+            dispatch_sizes=(padded,),
+            batch_shapes=tuple(sorted(set(self._dispatch_sizes))),
+            finish_rounds=self._rounds)
+
+
+class DynamicStream:
+    """Batch-dynamic connectivity: mixed insert/delete/query batches
+    (``repro_torch.dynamic``), bound to one forest-capable variant.
+
+    The device state extends the stream labeling with the spanning forest
+    (recorded during inserts) and a fixed-capacity tombstoned edge log.
+    Deletions that miss the forest cost only the tombstone; forest hits
+    start the bounded replacement search (``search_rounds`` rounds, then a
+    rebuild of the affected components). Within one batch the order is
+    deletes, inserts, queries.
+
+    The three size axes (deletes, inserts, queries) are padded to powers of
+    two apart. Log capacity is tracked on the host with a bound that ignores
+    tombstones; the true occupancy is read from the device only when the
+    bound would overflow."""
+
+    def __init__(self, n: int, *, device, variant: str = "",
+                 compress: str = "full", log: int = 0,
+                 search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS):
+        self.n = n
+        self.variant = variant
+        self.device = device
+        self._ops = dyn_engine.dynamic_ops(n, device=device,
+                                           compress=compress, log=log,
+                                           search_rounds=search_rounds)
+        self._exec = "single:dynamic" + (f",log={log}" if log else "")
+        self.state = self._ops.init()
+        self.batches = 0
+        self._dispatch_sizes: list[int] = []
+        self._edges = torch.zeros((), dtype=torch.int64, device=device)
+        self._deletes = torch.zeros((), dtype=torch.int64, device=device)
+        self._rounds = 0
+        self._bound = 0  # occupancy bound of the log
+
+    def _pad(self, u, v, size_fn):
+        u, v = _as_index(u, self.device), _as_index(v, self.device)
+        k = u.shape[0]
+        size = size_fn(k)
+        return _pad(u, size, self.n), _pad(v, size, self.n), k, size
+
+    def _ensure_capacity(self, k: int) -> None:
+        cap = self._ops.log_cap
+        if self._bound + k <= cap:
+            self._bound += k
+            return
+        # the bound ignores tombstones: read the true occupancy once, then
+        # check again (the only sync on the capacity path)
+        self._bound = int(self._ops.used(self.state).sum())
+        if self._bound + k > cap:
+            raise ValueError(
+                f"edge log full: occupancy {self._bound} + batch {k} exceeds "
+                f"{cap} slots — build the stream with a larger log=")
+        self._bound += k
+
+    def process(self, du, dv, u, v, qa, qb) -> torch.Tensor:
+        """One mixed batch: delete ``(du, dv)``, insert ``(u, v)``, then
+        answer ``(qa, qb)``."""
+        du, dv, _, _ = self._pad(du, dv, self._ops.delete_size)
+        u, v, k, size = self._pad(u, v, self._ops.batch_size)
+        qa, qb, qk, _ = self._pad(qa, qb, self._ops.batch_size)
+        self._ensure_capacity(k)
+        self.state, ans, rounds = self._ops.update(
+            self.state, du, dv, u, v, qa, qb)
+        self.batches += 1
+        self._dispatch_sizes.append(size)
+        self._edges += (u < self.n).sum()
+        self._deletes += (du < self.n).sum()
+        self._rounds += int(rounds)
+        return ans[:qk]
+
+    def insert(self, u, v) -> "DynamicStream":
+        """Insert one batch of undirected edges."""
+        empty = np.empty((0,), np.int32)
+        self.process(empty, empty, u, v, empty, empty)
+        return self
+
+    def delete(self, u, v) -> "DynamicStream":
+        """Delete one batch of undirected edges (every logged copy of each
+        pair goes; pairs not present are ignored)."""
+        empty = np.empty((0,), np.int32)
+        self.process(u, v, empty, empty, empty, empty)
+        return self
+
+    def query(self, qa, qb) -> torch.Tensor:
+        """IsConnected for each (qa[i], qb[i]) pair."""
+        qa, qb, qk, _ = self._pad(qa, qb, self._ops.batch_size)
+        return self._ops.query(self.state, qa, qb)[:qk]
+
+    @property
+    def edges_inserted(self) -> int:
+        """Real (non-padding) insert entries so far (syncs on read)."""
+        return int(self._edges)
+
+    @property
+    def edges_deleted(self) -> int:
+        """Real (non-padding) delete entries so far (syncs on read)."""
+        return int(self._deletes)
+
+    @property
+    def labels(self) -> torch.Tensor:
+        return self._ops.labels(self.state)
+
+    def num_components(self) -> int:
+        return int(self._ops.ncomp(self.state))
+
+    def log_used(self) -> int:
+        """Live (non-tombstoned) edge-log entries (syncs)."""
+        return int(self._ops.used(self.state).sum())
+
+    def forest_edges(self) -> np.ndarray:
+        """Current spanning-forest edges, a host (k, 2) int32 array."""
+        return driver.forest_edges(*self._ops.forest(self.state))
+
+    @property
+    def stats(self) -> driver.ConnectivityStats:
+        """ConnectivityStats of the dynamic stream (syncs on read).
+        ``edges_total`` counts inserts net of deletes submitted;
+        ``edges_finish`` is twice the inserts, as for ``Stream``."""
+        padded = 2 * sum(self._dispatch_sizes)
+        return driver.ConnectivityStats(
+            variant=self.variant, exec=self._exec,
+            edges_total=self.edges_inserted - self.edges_deleted,
+            edges_finish=2 * self.edges_inserted,
+            edges_finish_padded=padded, dispatch_sizes=(padded,),
+            batch_shapes=tuple(sorted(set(self._dispatch_sizes))),
+            finish_rounds=self._rounds)
+
+
 class ConnectIt:
-    """One variant on one device: static connectivity.
+    """One variant on one device: static connectivity, spanning forests and
+    streams.
 
     >>> ci = ConnectIt("kout_hybrid_k2+uf_sync_full")   # device="cuda"
     >>> labels = ci.connectivity(g)
@@ -403,9 +668,7 @@ class ConnectIt:
         L_max-internal edges. ``generator`` draws the sampler's random
         numbers: k-out columns, BFS sources, LDD shifts (seeded 0 when
         None)."""
-        if g.device != self.device:
-            raise ValueError(f"graph lives on {g.device}, session on "
-                             f"{self.device}")
+        self._check_device(g)
         if fused:
             labels, stats = driver.run_connectivity_fused(
                 g, self._sampler, self._finish, generator,
@@ -425,11 +688,59 @@ class ConnectIt:
         """ConnectivityStats of the last run."""
         return self._stats
 
-    def spanning_forest(self, g, **kw):
-        raise _not_ported("spanning_forest", "Queue 1 item 7")
+    def _check_device(self, g) -> None:
+        if g.device != self.device:
+            raise ValueError(f"graph lives on {g.device}, session on "
+                             f"{self.device}")
 
-    def stream(self, n: int, **kw):
-        raise _not_ported("streaming connectivity", "Queue 1 items 8 and 10")
+    def spanning_forest(self, g, *,
+                        generator: Optional[torch.Generator] = None
+                        ) -> np.ndarray:
+        """Spanning forest edges, a host ``(k, 2)`` int32 array (paper
+        §3.4). Valid only for root-based finish methods (the uf_sync family
+        and Shiloach-Vishkin): the forest invariant needs one recorded edge
+        per hooked root. ``stats`` holds the run's ConnectivityStats."""
+        if not self.spec.forest_capable:
+            raise ValueError(
+                f"spanning forest requires a root-based finish "
+                f"({'/'.join(FOREST_METHODS)}), not "
+                f"{self.spec.finish_str!r} — paper §3.4")
+        self._check_device(g)
+        edges, self._stats = driver.run_spanning_forest(
+            g, self._sampler, generator, compress=self.spec.forest_compress,
+            variant=str(self.spec), pad="pow2")
+        return edges
+
+    def stream(self, n: int, *, dynamic: bool = False,
+               log: Optional[int] = None,
+               search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS
+               ) -> Union[Stream, DynamicStream]:
+        """A fresh batch-incremental handle over ``n`` vertices (paper
+        §3.5) on the session's device.
+
+        With ``dynamic=True`` the handle is a ``DynamicStream``: mixed
+        insert/delete/query batches backed by a spanning forest and a
+        tombstoned edge log of capacity ``log`` (a power of two; default
+        the next power of two >= 4n). It needs a root-based finish.
+        ``search_rounds`` bounds the replacement search before a deletion
+        falls back to rebuilding the affected components."""
+        if not dynamic:
+            if log:
+                raise ValueError("log= is a dynamic-stream knob — pass "
+                                 "dynamic=True")
+            return Stream(n, self._finish, device=self.device,
+                          variant=str(self.spec))
+        if not self.spec.forest_capable:
+            raise ValueError(
+                f"dynamic streams maintain a spanning forest and need a "
+                f"root-based finish ({'/'.join(FOREST_METHODS)}), not "
+                f"{self.spec.finish_str!r} — paper §3.4")
+        cap = log or 0
+        if cap and cap & (cap - 1):
+            raise ValueError(f"log must be a power of two, got {cap}")
+        return DynamicStream(n, device=self.device, variant=str(self.spec),
+                             compress=self.spec.forest_compress, log=cap,
+                             search_rounds=search_rounds)
 
     def from_chunks(self, source, **kw):
         raise _not_ported("out-of-core ingest", "Queue 1 item 9")

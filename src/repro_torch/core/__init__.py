@@ -1,6 +1,6 @@
 """ConnectIt core in PyTorch: primitives, the finish methods, the samplers
 and the two-phase driver behind ``repro_torch.api``."""
-from . import driver, finish, primitives, sampling  # noqa: F401
+from . import driver, finish, primitives, sampling, streaming  # noqa: F401
 from .driver import (  # noqa: F401
     ConnectivityStats,
     run_connectivity,

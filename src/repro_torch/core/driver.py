@@ -15,6 +15,10 @@ orchestrator behind ``repro_torch.api.ConnectIt``:
 ``run_connectivity_fused`` skips the compaction: L_max-internal edges stay
 in the list as no-ops under write_min. Both paths fill the same
 ``ConnectivityStats``.
+
+``run_spanning_forest`` is paper Algorithm 2: the same steps with a
+root-based finish that records one forest edge per hooked root, seeded with
+the sampler's partial forest.
 """
 
 from __future__ import annotations
@@ -22,9 +26,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..graphs.containers import Graph, round_up
+from .finish import uf_sync_forest
 from .primitives import (
     full_compress,
     init_labels,
@@ -175,3 +181,48 @@ def run_connectivity_fused(
     stats.edges_per_device = (stats.edges_finish,)
     stats.dispatch_sizes = (stats.edges_finish_padded,)
     return P[: g.n], stats
+
+
+def forest_edges(fu: torch.Tensor, fv: torch.Tensor) -> np.ndarray:
+    """Compact forest slots to a host ``(k, 2)`` int32 edge array."""
+    fu_np, fv_np = fu.cpu().numpy(), fv.cpu().numpy()
+    sel = (fu_np >= 0) & (fv_np >= 0)
+    return np.stack([fu_np[sel], fv_np[sel]], 1)
+
+
+def run_spanning_forest(
+    g: Graph,
+    sampler_fn: Optional[Callable],
+    generator: Optional[torch.Generator] = None,
+    *,
+    compress: str = "full",
+    variant: str = "",
+    compact_pad: int = 8,
+    pad: str = "multiple",
+) -> tuple[np.ndarray, ConnectivityStats]:
+    """Spanning forest via a root-based finish (paper Algorithm 2) → (host
+    ``(k, 2)`` forest edges, stats). With a sampler, its partial forest
+    seeds the finish, which runs on the compacted edges; padding changes no
+    real edge's id."""
+    stats = ConnectivityStats(variant=variant, edges_total=g.m)
+    if sampler_fn is None:
+        P = init_labels(g.n, device=g.device)
+        st, rounds = uf_sync_forest(P, g.senders, g.receivers,
+                                    compress=compress)
+        stats.edges_finish = g.m
+        stats.edges_finish_padded = g.m_pad
+    else:
+        st0 = sampler_fn(g, _default_generator(g, generator),
+                         want_forest=True)
+        P, keep, _, cnt = _prep_sampled(st0.P, g.senders, g.receivers)
+        senders, receivers, kept = _compact(g.senders, g.receivers, keep, g.n,
+                                            compact_pad, pad)
+        st, rounds = uf_sync_forest(P, senders, receivers, st0.fu, st0.fv,
+                                    compress=compress)
+        stats.lmax_count = int(cnt)
+        stats.edges_finish = kept
+        stats.edges_finish_padded = int(senders.shape[0])
+    stats.finish_rounds = int(rounds)
+    stats.edges_per_device = (stats.edges_finish,)
+    stats.dispatch_sizes = (stats.edges_finish_padded,)
+    return forest_edges(st.fu, st.fv), stats

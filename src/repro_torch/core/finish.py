@@ -25,19 +25,25 @@ the hop count of that call:
 
 Shiloach–Vishkin, the Liu–Tarjan framework, Stergiou and label propagation
 are synchronous algorithms already and port rule for rule.
+
+The root-based methods (the uf_sync family and Shiloach–Vishkin) also have a
+forest step, ``make_forest_finish(method, **params)``, that records one
+spanning-forest edge per hooked root (paper §3.4).
 """
 
 from __future__ import annotations
 
 import inspect
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
 from .primitives import (
     DEFAULT_MAX_ROUNDS,
     full_compress,
+    hook_and_record,
     hook_compress,
+    init_forest,
     iterate_to_fixpoint,
     jump_round,
     parents_of,
@@ -244,17 +250,18 @@ def stergiou(P, senders, receivers, *, max_rounds: int = DEFAULT_MAX_ROUNDS):
 # The registry: method name -> factory, memoized per parameterization.
 # ---------------------------------------------------------------------------
 
-def memoized_factory(kind: str, factories: dict) -> Callable:
+def memoized_factory(kind: str, factories: dict,
+                     error: type = ValueError) -> Callable:
     """``make(name, **params)`` over ``factories``, memoized per
     parameterization. Parameters are normalized with the factory's defaults,
     so ``make("uf_sync")`` and ``make("uf_sync", compress="naive")`` are one
-    callable."""
+    callable. An unknown name raises ``error``."""
     instances: dict = {}  # (name, normalized params) -> callable
 
     def make(name: str, **params) -> Callable:
         if name not in factories:
-            raise ValueError(f"unknown {kind} {name!r}; "
-                             f"have {tuple(sorted(factories))}")
+            raise error(f"unknown {kind} {name!r}; "
+                        f"have {tuple(sorted(factories))}")
         bound = inspect.signature(factories[name]).bind(**params)
         bound.apply_defaults()
         key = (name, tuple(sorted(bound.arguments.items())))
@@ -275,3 +282,83 @@ _FACTORIES: dict = {
 METHODS = tuple(sorted(_FACTORIES))
 # make_finish(method, **params) -> the memoized finish callable
 make_finish = memoized_factory("finish method", _FACTORIES)
+
+
+# ---------------------------------------------------------------------------
+# Root-based spanning-forest finish (paper §3.4): uf_sync/SV + edge recording.
+# Shiloach–Vishkin's round (min-hook roots + full compression) is, with
+# recording added, the uf_sync forest round at compress='full'.
+# ---------------------------------------------------------------------------
+
+class ForestState(NamedTuple):
+    P: torch.Tensor   # (n + 1,) labels
+    fu: torch.Tensor  # (n + 1,) forest slots: one edge per hooked root,
+    fv: torch.Tensor  # as its original endpoints; -1 = empty
+
+
+def forest_round(st, s, r, *, compress: str = "full"):
+    """One uf_sync hook + compress round that records original endpoints."""
+    P, fu, fv = st
+    pu = P[s]  # int32 indices: no int64 copy of the edge list a round
+    pv = P[r]
+    root_u = parents_of(P, pu) == pu
+    mask = root_u & (pv < pu)
+    P2, fu, fv = hook_and_record(P, pu, pv, mask, s, r, fu, fv)
+    return _compress(P2, compress), fu, fv
+
+
+def _labels_changed(old, new) -> bool:
+    # converge on the labels only: the forest buffers can only change in a
+    # round whose hooks also decreased a label
+    return not torch.equal(old[0], new[0])
+
+
+def uf_sync_forest(P, senders, receivers, fu=None, fv=None, *,
+                   compress: str = "full",
+                   max_rounds: int = DEFAULT_MAX_ROUNDS):
+    """uf_sync that records one forest edge per hooked root (Theorem 6)
+    → (ForestState, rounds)."""
+    if fu is None:
+        fu, fv = init_forest(P.shape[0] - 1, device=P.device, dtype=P.dtype)
+    (P, fu, fv), rounds = iterate_to_fixpoint(
+        lambda st: forest_round(st, senders, receivers, compress=compress),
+        (P, fu, fv), max_rounds, changed_fn=_labels_changed)
+    return ForestState(P, fu, fv), rounds
+
+
+def make_uf_sync_forest(compress: str = "full") -> FinishFn:
+    if compress not in COMPRESS_MODES:
+        raise ValueError(
+            f"unknown compress mode {compress!r}; have {COMPRESS_MODES}")
+
+    def forest(P, senders, receivers, fu, fv, *,
+               max_rounds: int = DEFAULT_MAX_ROUNDS):
+        return uf_sync_forest(P, senders, receivers, fu, fv,
+                              compress=compress, max_rounds=max_rounds)
+
+    forest.__name__ = f"uf_sync_forest_{compress}"
+    return forest
+
+
+def make_sv_forest() -> FinishFn:
+    forest = make_uf_sync_forest("full")  # a fresh closure: rename it
+    forest.__name__ = "shiloach_vishkin_forest"
+    return forest
+
+
+_FOREST_FACTORIES: dict = {
+    "uf_sync": make_uf_sync_forest,
+    "shiloach_vishkin": make_sv_forest,
+}
+FOREST_METHODS = tuple(_FOREST_FACTORIES)
+
+
+def forest_method_names() -> list[str]:
+    return sorted(_FOREST_FACTORIES)
+
+
+# make_forest_finish(method, **params) -> the memoized forest step
+# ``(P, s, r, fu, fv) -> (ForestState, rounds)``; other methods (label_prop,
+# stergiou, liu_tarjan: paper §3.4's restriction) raise KeyError
+make_forest_finish = memoized_factory("forest-capable finish method",
+                                      _FOREST_FACTORIES, error=KeyError)

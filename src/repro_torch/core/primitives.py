@@ -162,3 +162,41 @@ def min_vertex_labels(P: torch.Tensor) -> torch.Tensor:
 def canonical_labels(P: torch.Tensor, max_rounds: int = 64) -> torch.Tensor:
     P = full_compress(P, max_rounds)
     return min_vertex_labels(restore_lmax(P))
+
+
+def hook_and_record(P, idx, vals, mask, eu, ev, fu, fv):
+    """writeMin hook that also records the winning edge per hooked root.
+
+    Root-based spanning forest rule (paper §3.4 / Theorem 6): when root
+    ``x``'s label first decreases because of edge ``e = (eu[i], ev[i])``,
+    store ``e`` at slot ``x``. Two passes of ``ops.scatter_min``: the values
+    into ``P``, then the edge ids of the entries that reached the winning
+    value into an ``INT_MAX`` buffer (the smallest id wins). A slot is
+    written at most once. ``won`` compares the new labels with the untouched
+    ``old``; the gathers clamp as the reference's do."""
+    n = P.shape[0] - 1
+    m = eu.shape[0]
+    old = P
+    P = write_min(P, idx, vals, mask)
+    if m == 0:
+        return P, fu, fv
+    safe_idx = torch.where((idx >= 0) & (idx <= n), idx, n)
+    si = safe_idx.long()
+    Pi = P[si]
+    won = (idx >= 0) & (vals.to(P.dtype) == Pi) & (Pi < old[si])
+    if mask is not None:
+        won = won & mask
+    eid = torch.arange(m, dtype=torch.int32, device=P.device)
+    ebuf = torch.full((n + 1,), INT_MAX, dtype=torch.int32, device=P.device)
+    ebuf = ops.scatter_min(ebuf, safe_idx, eid, won)
+    sel = (ebuf < INT_MAX) & (fu == -1)
+    take = ebuf.clamp_max(m - 1).long()
+    fu = torch.where(sel, eu[take], fu)
+    fv = torch.where(sel, ev[take], fv)
+    return P, fu, fv
+
+
+def init_forest(n: int, *, device, dtype=torch.int32):
+    """Empty forest slots ``(fu, fv)``, ``(n + 1,)`` each, ``-1`` = none."""
+    return (torch.full((n + 1,), -1, dtype=dtype, device=device),
+            torch.full((n + 1,), -1, dtype=dtype, device=device))

@@ -16,13 +16,17 @@ k-out selects about ``k`` edges per vertex and runs uf_sync(full) over them:
     maxdeg    the neighbor of maximum degree plus k - 1 random ones
 
 ``make_sampler(scheme, **params)`` returns the memoized sampler of one
-parameterization; a sampler is called as ``sampler(g, generator)``.
+parameterization; a sampler is called as ``sampler(g, generator)``, and with
+``want_forest=True`` also returns the partial spanning forest it found
+(Def. B.2) as a ``ForestState``: k-out records one edge per hooked root, BFS
+each visited vertex's discovery edge, LDD each covered vertex's.
 
 The random numbers (k-out columns, BFS sources, LDD shifts) come from a
 ``torch.Generator``, which gives other numbers than the JAX package's
 ``jax.random`` key; the labels after the finish phase are the same all the
 same, since canonical min-vertex labels are unique for a partition. The
-frontier loops check their condition on the host once a round.
+frontier loops check their condition on the host once a round, and scatter
+through ``ops.scatter_min`` (``write_min``).
 """
 
 from __future__ import annotations
@@ -32,10 +36,18 @@ from typing import Callable, Optional
 import torch
 
 from ..graphs.containers import Graph
-from .finish import make_finish, memoized_factory
-from .primitives import DEFAULT_MAX_ROUNDS, INT_MAX, full_compress, init_labels
+from .finish import ForestState, make_finish, memoized_factory, uf_sync_forest
+from .primitives import (
+    DEFAULT_MAX_ROUNDS,
+    INT_MAX,
+    full_compress,
+    init_forest,
+    init_labels,
+    write_min,
+)
 
-SamplerFn = Callable[..., torch.Tensor]  # (g, generator) -> labels
+# (g, generator, *, want_forest=False) -> labels, or a ForestState
+SamplerFn = Callable[..., object]
 
 KOUT_VARIANTS = ("afforest", "pure", "hybrid", "maxdeg")
 
@@ -106,9 +118,13 @@ def make_kout(k: int = 2, variant: str = "hybrid") -> SamplerFn:
     if k < 1:
         raise ValueError(f"k-out needs k >= 1, got {k}")
 
-    def kout(g: Graph, generator: Optional[torch.Generator] = None):
+    def kout(g: Graph, generator: Optional[torch.Generator] = None, *,
+             want_forest: bool = False):
         s, r = _select_kout_edges(g, generator, k, variant)
         P = init_labels(g.n, device=g.device)
+        if want_forest:
+            st, _ = uf_sync_forest(P, s, r, compress="full")
+            return ForestState(full_compress(st.P), st.fu, st.fv)
         P, _ = make_finish("uf_sync", compress="full")(P, s, r)
         return full_compress(P)
 
@@ -121,48 +137,58 @@ def make_kout(k: int = 2, variant: str = "hybrid") -> SamplerFn:
 # ---------------------------------------------------------------------------
 
 def _bfs_from(g: Graph, src: torch.Tensor, *,
-              max_rounds: int = DEFAULT_MAX_ROUNDS) -> torch.Tensor:
-    """Frontier BFS from the 0-d vertex tensor ``src``; returns the
-    ``(n + 1,)`` visited mask."""
+              max_rounds: int = DEFAULT_MAX_ROUNDS):
+    """Frontier BFS from the 0-d vertex tensor ``src`` → ``(visited,
+    parent)``, both ``(n + 1,)``: the visited mask and, for each vertex
+    visited after the source, the sender that discovered it (-1 else)."""
     n = g.n
     s, r = g.senders.long(), g.receivers.long()
     visited = init_labels(n, device=g.device) == src
+    parent = torch.full((n + 1,), -1, dtype=torch.int32, device=g.device)
     frontier = visited
     rounds = 0
     while rounds < max_rounds and bool(frontier.any()):
-        act = frontier[s]
         # discovery: the min sender reaches each new vertex first
-        prop = torch.where(act & ~visited[r], g.senders, INT_MAX)
-        buf = torch.full((n + 1,), INT_MAX, dtype=torch.int32,
-                         device=g.device).scatter_reduce(0, r, prop, "amin")
+        live = frontier[s] & ~visited[r]
+        buf = write_min(torch.full((n + 1,), INT_MAX, dtype=torch.int32,
+                                   device=g.device),
+                        g.receivers, g.senders, live)
         frontier = (buf < INT_MAX) & ~visited
+        parent = torch.where(frontier, buf.clamp_max(n), parent)
         visited = visited | frontier
         rounds += 1
-    return visited
+    return visited, parent
 
 
 def make_bfs(num_sources: int = 3, threshold: float = 0.1) -> SamplerFn:
     """BFS sampler: try up to ``num_sources`` random sources in the order
     drawn, accept the first whose component covers more than
-    ``int(threshold * n)`` vertices; without one, the identity labeling."""
+    ``int(threshold * n)`` vertices; without one, the identity labeling.
+    The forest is the accepted source's discovery edges."""
     if num_sources < 1:
         raise ValueError(f"bfs needs num_sources >= 1, got {num_sources}")
     if not 0.0 < threshold <= 1.0:
         raise ValueError(f"bfs threshold must be in (0, 1], got {threshold}")
 
-    def bfs(g: Graph, generator: Optional[torch.Generator] = None):
+    def bfs(g: Graph, generator: Optional[torch.Generator] = None, *,
+            want_forest: bool = False):
         n = g.n
         ids = init_labels(n, device=g.device)
         min_cover = int(threshold * n)
         sources = torch.randint(0, n, (num_sources,), generator=generator,
                                 device=g.device, dtype=torch.int32)
+        P = ids
+        fu, fv = init_forest(n, device=g.device)
         for src in sources:
-            visited = _bfs_from(g, src)
+            visited, parent = _bfs_from(g, src)
             if int(visited[:n].sum()) > min_cover:
                 P = torch.where(visited, src, ids)
                 P[n] = n
-                return P
-        return ids
+                sel = visited & (parent >= 0) & (ids < n) & (ids != src)
+                fu = torch.where(sel, parent, fu)
+                fv = torch.where(sel, ids, fv)
+                break
+        return ForestState(P, fu, fv) if want_forest else P
 
     bfs.__name__ = f"bfs_c{num_sources}"
     return bfs
@@ -177,7 +203,8 @@ def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
     if not beta > 0.0:
         raise ValueError(f"ldd needs beta > 0, got {beta}")
 
-    def ldd(g: Graph, generator: Optional[torch.Generator] = None):
+    def ldd(g: Graph, generator: Optional[torch.Generator] = None, *,
+            want_forest: bool = False):
         n = g.n
         dev = g.device
         s, r = g.senders.long(), g.receivers.long()
@@ -191,9 +218,15 @@ def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
         wake = torch.cat([wake, wake.new_tensor([INT_MAX])])
         P = torch.full((n + 1,), INT_MAX, dtype=torch.int32, device=dev)
         P[n] = n
+        parent = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
         ids = init_labels(n, device=dev)
         real = ids < n
         frontier = torch.zeros(n + 1, dtype=torch.bool, device=dev)
+
+        def empty():
+            return torch.full((n + 1,), INT_MAX, dtype=torch.int32,
+                              device=dev)
+
         rounds = 0
         while rounds < max_rounds and bool((P[:n] == INT_MAX).any()):
             # uncovered vertices whose shift has elapsed become centers
@@ -202,12 +235,21 @@ def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
             frontier = frontier | start
             # grow all clusters one hop; the min center id wins a vertex
             act = frontier[s]
-            prop = torch.where(act & (P[r] == INT_MAX), P[s], INT_MAX)
-            buf = torch.full((n + 1,), INT_MAX, dtype=torch.int32,
-                             device=dev).scatter_reduce(0, r, prop, "amin")
+            Ps = P[s]
+            buf = write_min(empty(), g.receivers, Ps, act & (P[r] == INT_MAX))
             frontier = (buf < INT_MAX) & (P == INT_MAX)
+            if want_forest:
+                # the discovery edge: min sender among achievers of buf
+                pbuf = write_min(empty(), g.receivers, g.senders,
+                                 act & frontier[r] & (Ps == buf[r]))
+                parent = torch.where(frontier, pbuf.clamp_max(n), parent)
             P = torch.where(frontier, buf, P)
             rounds += 1
+        if want_forest:
+            sel = (parent >= 0) & real
+            fu, fv = init_forest(n, device=dev)
+            return ForestState(P, torch.where(sel, parent, fu),
+                               torch.where(sel, ids, fv))
         return P
 
     ldd.__name__ = f"ldd_b{beta:g}"

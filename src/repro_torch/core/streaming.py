@@ -1,0 +1,104 @@
+"""Parallel batch-incremental connectivity (paper §3.5 / Appendix B.4).
+
+``process_batch_fn`` applies one batch of edge insertions and connectivity
+queries: the labeling is the persistent state, and queries are answered
+against the post-insertion labeling (inserts linearize before the queries of
+their batch).
+
+The labeling is kept *fully compressed* between batches, so a query is two
+gathers, and each incoming batch endpoint rewritten to its label (one
+``edge_rewrite`` kernel call) is its component's root: the finish method
+hooks roots directly instead of re-walking chains.
+
+``stream_ops(n, finish_fn, device=...)`` bundles the single-device programs
+behind ``repro_torch.api.Stream``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .driver import bucket_size
+from .primitives import full_compress, init_labels, num_components, rewrite_edges
+
+
+class StreamState(NamedTuple):
+    P: torch.Tensor  # (n + 1,) compressed labeling
+
+
+def init_stream(n: int, *, device, dtype=torch.int32) -> StreamState:
+    return StreamState(init_labels(n, device=device, dtype=dtype))
+
+
+def state_from_arrays(P, *, device) -> StreamState:
+    """A ``StreamState`` from another package's labels (e.g. numpy taken
+    from the JAX package's state), verbatim, on ``device``."""
+    return StreamState(torch.from_numpy(np.array(P, dtype=np.int32)).to(device))
+
+
+def insert_batch_rounds_fn(state: StreamState, batch_u, batch_v,
+                           finish_fn: Callable):
+    """Apply a batch of edge insertions → (state, finish rounds). The batch
+    is symmetrized (min-based finish methods hook along the lower-endpoint
+    direction, so both directions must be visible) and its endpoints
+    rewritten to their labels. Padded slots must point at the dump id n."""
+    u = torch.cat([batch_u, batch_v])
+    v = torch.cat([batch_v, batch_u])
+    u, v = rewrite_edges(state.P, u, v)
+    P, rounds = finish_fn(state.P, u, v)
+    return StreamState(full_compress(P)), rounds
+
+
+def insert_batch_fn(state: StreamState, batch_u, batch_v,
+                    finish_fn: Callable) -> StreamState:
+    return insert_batch_rounds_fn(state, batch_u, batch_v, finish_fn)[0]
+
+
+def query_batch(state: StreamState, qa, qb) -> torch.Tensor:
+    """IsConnected for each (qa[i], qb[i]) against the compressed labeling."""
+    return state.P[qa.long()] == state.P[qb.long()]
+
+
+def process_batch_rounds_fn(state: StreamState, batch_u, batch_v, qa, qb,
+                            finish_fn: Callable):
+    """Inserts then queries (paper Algorithm 3 ProcessBatch) → (state,
+    answers, finish rounds)."""
+    state, rounds = insert_batch_rounds_fn(state, batch_u, batch_v, finish_fn)
+    return state, query_batch(state, qa, qb), rounds
+
+
+def process_batch_fn(state: StreamState, batch_u, batch_v, qa, qb,
+                     finish_fn: Callable):
+    state, ans, _ = process_batch_rounds_fn(state, batch_u, batch_v, qa, qb,
+                                            finish_fn)
+    return state, ans
+
+
+class StreamOps(NamedTuple):
+    """The single-device streaming programs of one (n, finish) pair."""
+
+    init: Callable        # () -> state
+    insert: Callable      # (state, u, v) -> (state, rounds)
+    process: Callable     # (state, u, v, qa, qb) -> (state, ans, rounds)
+    query: Callable       # (state, qa, qb) -> ans
+    labels: Callable      # (state) -> (n,) labels
+    ncomp: Callable       # (state) -> component count (0-d tensor)
+    edge_shards: int      # devices a batch dispatch splits across
+    batch_size: Callable  # (k) -> padded dispatch size (pow2)
+
+
+def stream_ops(n: int, finish_fn: Callable, *, device) -> StreamOps:
+    return StreamOps(
+        init=lambda: init_stream(n, device=device),
+        insert=lambda st, u, v: insert_batch_rounds_fn(st, u, v, finish_fn),
+        process=lambda st, u, v, qa, qb: process_batch_rounds_fn(
+            st, u, v, qa, qb, finish_fn),
+        query=query_batch,
+        labels=lambda st: st.P[:n],
+        ncomp=lambda st: num_components(st.P),
+        edge_shards=1,
+        batch_size=lambda k: bucket_size(k, pad="pow2"),
+    )

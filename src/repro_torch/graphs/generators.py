@@ -2,7 +2,9 @@
 
 The edges are drawn with numpy exactly as the JAX package's
 ``repro.graphs.generators`` draws them, so one seed gives one edge list in
-both packages; only the container is built on ``device``.
+both packages; only the container is built on ``device``. The churn
+schedules (``sliding_window``, ``flash_crowd``, ``partition_heal``) yield
+host arrays, the same ones as the JAX package's for one seed.
 """
 
 from __future__ import annotations
@@ -90,3 +92,84 @@ def star(n: int, *, device=DEFAULT_DEVICE) -> Graph:
 def path(n: int, *, device=DEFAULT_DEVICE) -> Graph:
     ids = np.arange(n - 1, dtype=np.int64)
     return build_graph(np.stack([ids, ids + 1], 1), n, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Churn schedules (repro_torch.dynamic): host-side generators of mixed
+# insert/delete/query steps for batch-dynamic streams and benchmarks.
+# Each yields (inserts, deletes, queries) int32 arrays of shape (k, 2);
+# deletions only ever target currently-live edges, so a scipy oracle can
+# replay the schedule exactly.
+# ---------------------------------------------------------------------------
+
+def sliding_window(n: int, *, steps: int = 16, batch: int = 256,
+                   window: int = 4, queries: int = 64, seed: int = 0):
+    """Steady-state churn: every step inserts a random batch and deletes the
+    batch inserted ``window`` steps ago — the live edge set is a sliding
+    window over the insert stream (constant size after warmup), the classic
+    graph-stream windowing workload."""
+    rng = np.random.default_rng(seed)
+    empty = np.zeros((0, 2), np.int32)
+    recent: list = []
+    for _ in range(steps):
+        ins = rng.integers(0, n, size=(batch, 2)).astype(np.int32)
+        dels = recent.pop(0) if len(recent) >= window else empty
+        recent.append(ins)
+        q = rng.integers(0, n, size=(queries, 2)).astype(np.int32)
+        yield ins, dels, q
+
+
+def flash_crowd(n: int, *, steps: int = 16, batch: int = 256,
+                hub_frac: float = 0.25, queries: int = 64, seed: int = 0):
+    """Adversarial churn for the replacement search: the first
+    ``hub_frac`` of the steps pile star edges onto one hub (forming one
+    giant component whose forest routes through the hub), then the
+    remaining steps tear the hub edges back down in chunks — every delete
+    batch hits the spanning forest and forces reconnection attempts."""
+    rng = np.random.default_rng(seed)
+    hub = int(rng.integers(0, n))
+    empty = np.zeros((0, 2), np.int32)
+    up = max(1, int(steps * hub_frac))
+    hub_edges: list = []
+    for step in range(steps):
+        q = rng.integers(0, n, size=(queries, 2)).astype(np.int32)
+        if step < up:
+            spokes = rng.integers(0, n, size=(batch,)).astype(np.int32)
+            ins = np.stack([np.full((batch,), hub, np.int32), spokes], 1)
+            hub_edges.extend(map(tuple, ins.tolist()))
+            yield ins, empty, q
+        else:
+            take = min(len(hub_edges), max(1, batch // 2))
+            dels = np.asarray(hub_edges[:take], np.int32).reshape(-1, 2)
+            del hub_edges[:take]
+            # background inserts keep the insert path busy during teardown
+            ins = rng.integers(0, n, size=(batch // 4, 2)).astype(np.int32)
+            yield ins, dels, q
+
+
+def partition_heal(n: int, *, steps: int = 16, batch: int = 256,
+                   queries: int = 64, seed: int = 0):
+    """Two halves joined by a thin bridge that is repeatedly cut and
+    re-laid: odd steps delete every bridge edge (splitting one component
+    into two), even steps re-insert bridges plus intra-half edges. Queries
+    straddle the cut, so answers flip with the bridge state — the
+    partition/heal pattern distributed-systems churn tests use."""
+    rng = np.random.default_rng(seed)
+    half = n // 2
+    empty = np.zeros((0, 2), np.int32)
+    bridges: list = []
+    for step in range(steps):
+        qa = rng.integers(0, half, size=(queries,)).astype(np.int32)
+        qb = rng.integers(half, n, size=(queries,)).astype(np.int32)
+        q = np.stack([qa, qb], 1)
+        if step % 2 == 0:
+            a = rng.integers(0, half, size=(batch // 2, 2)).astype(np.int32)
+            b = rng.integers(half, n, size=(batch // 2, 2)).astype(np.int32)
+            nb = np.stack([rng.integers(0, half, size=(4,)),
+                           rng.integers(half, n, size=(4,))], 1).astype(np.int32)
+            bridges = nb.tolist()
+            yield np.concatenate([a, b, nb]), empty, q
+        else:
+            dels = np.asarray(bridges, np.int32).reshape(-1, 2)
+            bridges = []
+            yield empty, dels, q

@@ -10,8 +10,8 @@ their JAX counterparts the same way. Every comparison is exact integer
 equality. The whole variant grid runs in test_torch_variants.py.
 
 The last test scans the port's sources: nothing in ``src/repro_torch``,
-``chip_smoke.py`` or ``compare_kernels.py`` may import ``jax`` or
-``repro``.
+``chip_smoke.py``, ``compare_kernels.py`` or ``compare_paths.py`` may
+import ``jax`` or ``repro``.
 """
 
 import ast
@@ -224,12 +224,14 @@ def test_make_sampler_is_memoized_and_refuses_other_schemes():
 @pytest.mark.parametrize("gname", ["random", "path", "star", "two_clique",
                                    "rmat"])
 def test_bfs_traversal_matches_jax(gname):
-    """The visited mask from a given source equals repro's exactly."""
+    """The visited mask and the discovery parents from a given source equal
+    repro's exactly."""
     jg = GRAPHS[gname]
     for src in (0, 3, jg.n - 1):
-        want, _ = j_bfs_from(jg, jnp.int32(src), jnp.bool_(True))
+        want = j_bfs_from(jg, jnp.int32(src), jnp.bool_(True))
         got = _bfs_from(_port(jg), torch.tensor(src, dtype=torch.int32))
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        for a, b in zip(got, want, strict=True):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 def test_bfs_accepts_the_first_source_over_the_threshold():
@@ -418,8 +420,6 @@ def test_unported_surfaces_name_their_queue_item():
         tapi.ConnectIt("uf_sync", exec="sharded(x)", device="cpu")
     ci = tapi.ConnectIt("kout_hybrid_k2+uf_sync_full", device="cpu")
     for call, item in [
-        (lambda: ci.spanning_forest(None), "item 7"),
-        (lambda: ci.stream(8), "items 8 and 10"),
         (lambda: ci.from_chunks(None), "item 9"),
         (lambda: ci.amsf(None, None), "item 11"),
         (lambda: ci.scan(None, None), "item 11"),
@@ -470,7 +470,8 @@ def _imported_roots(path: Path) -> set:
 
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files += [REPO / "chip_smoke.py", REPO / "compare_kernels.py"]
+    files += [REPO / "chip_smoke.py", REPO / "compare_kernels.py",
+              REPO / "compare_paths.py"]
     assert len(files) > 15
     for path in files:
         bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}

@@ -872,3 +872,88 @@ def test_hook_compress_kernel_hops_short_labels(cuda, L):
     r = _t(rng.integers(0, L, 37).astype(np.int32)).to(cuda)
     got = ops.KERNELS["hook_compress"](P, s, r, k=3)
     assert torch.equal(got, hook_compress_ref(P, s, r, k=3))
+
+
+# Calls the forest and stream paths make: scatter_min into an edge-id
+# buffer (hook_and_record's second pass), edge_rewrite of a pow2-padded
+# stream batch, hook_compress on fully compressed labels with no -1.
+EDGE_ID_TARGETS = ("hub_root", "distinct_roots", "dump_slot")
+
+
+@functools.lru_cache(maxsize=None)
+def _edge_id_inputs(targets: str) -> tuple:
+    """An INT_MAX-filled (n + 1,) buffer, ascending edge ids ~5% live (the
+    rest dumped with the sentinel, as ops hands them), live targets on one
+    hub root, on distinct roots, or on the dump slot itself."""
+    n = 1 << 20
+    rng = np.random.default_rng(36)
+    m = n - 3
+    live = rng.random(m) < 0.05
+    idx = {"hub_root": np.full(m, n // 3),
+           "distinct_roots": rng.permutation(n)[:m],
+           "dump_slot": np.full(m, n)}[targets]
+    idx = np.where(live, idx, n).astype(np.int32)
+    vals = np.where(live, np.arange(m), INT32_MAX).astype(np.int32)
+    return np.full(n + 1, INT32_MAX, np.int32), idx, vals
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("targets", EDGE_ID_TARGETS)
+def test_scatter_min_kernel_on_an_edge_id_buffer(cuda, targets, layout):
+    buf, idx, vals = _edge_id_inputs(targets)
+    buf = _t(buf).to(cuda)
+    idx, vals = _edge_layout(cuda, layout, idx, vals)
+    fn = ops.KERNELS["scatter_min"]
+    before = fn.launches
+    got = fn(buf, idx, vals)
+    assert fn.launches == before + 1
+    assert torch.equal(got, scatter_min_ref(buf, idx, vals))
+
+
+def _compressed_labels(n: int, rng) -> np.ndarray:
+    """(n + 1,) fully compressed labels, no -1: ~20% roots labeling
+    themselves, every other slot on a root; the dump row n on itself."""
+    roots = np.flatnonzero(rng.random(n) < 0.2)
+    P = roots[rng.integers(0, len(roots), n)]
+    P[roots] = roots
+    return np.append(P, n).astype(np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_batch(size: int = 1 << 17, real: int = (1 << 17) - 12_345):
+    """Compressed labels and one symmetrized stream batch of ``size``
+    entries whose tail past ``real`` is dump-padded (id n)."""
+    n = 1 << 20
+    rng = np.random.default_rng(37)
+    P = _compressed_labels(n, rng)
+    u = np.full(size, n, np.int32)
+    v = np.full(size, n, np.int32)
+    u[:real], v[:real] = rng.integers(0, n, (2, real))
+    return P, np.concatenate([u, v]), np.concatenate([v, u])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_edge_rewrite_kernel_on_a_padded_stream_batch(cuda, layout):
+    P, u, v = _stream_batch()
+    P = _t(P).to(cuda)
+    u, v = _edge_layout(cuda, layout, u[: 1 << 17], v[: 1 << 17])
+    fn = ops.KERNELS["edge_rewrite"]
+    before = fn.launches
+    got = fn(P, u, v)
+    assert fn.launches == before + 1
+    want = edge_rewrite_ref(P, u, v)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3])
+def test_hook_compress_kernel_on_compressed_labels(cuda, k):
+    """The stream's finish: rewritten batch endpoints (roots) on labels
+    with no -1."""
+    P, u, v = _stream_batch()
+    P = _t(P).to(cuda)
+    s, r = edge_rewrite_ref(P, _t(u).to(cuda), _t(v).to(cuda))
+    got = ops.KERNELS["hook_compress"](P, s, r, k=k)
+    assert torch.equal(got, hook_compress_ref(P, s, r, k=k))
