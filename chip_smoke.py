@@ -40,9 +40,12 @@ Phases, in order; any failure exits non-zero:
               and fused (3 each), and of none+stergiou (4, on the rewritten
               endpoints), with their count of live proposals;
               pointer_jump's of the main path, compacted and fused (12
-              each); edge_rewrite's of the main variant's first 8 stream
-              batches of 2^20 edges. Bounds count the bytes this run's data
-              needs. embedding_bag on a 1,000,448 x 64 table at RM2's
+              each); edge_rewrite's of kout_hybrid_k2+liu_tarjan_PUFA (3)
+              and _CRFA (4), compacted and fused, of none+stergiou (4, on
+              the graph edges) and of the main variant's first 8 stream
+              batches of 2^20 edges, with their count of non-negative ends.
+              Bounds count the bytes this run's data needs (edge_rewrite:
+              the label slots its non-negative ends read). embedding_bag on a 1,000,448 x 64 table at RM2's
               serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
               one (B=65536, L=8, ~10% on the dump row, and with wrapped and
               clamped ids), sum / mean / max, float32 / bfloat16;
@@ -334,9 +337,13 @@ def _main_path_inputs(torch, g) -> dict:
 # none+uf_sync_full forest run; edge_relabel on Liu-Tarjan PUFA's connect
 # rounds (fused: the whole edge list, mostly -1 endpoints) and Stergiou's
 # rounds (the rewritten endpoints prev[s], prev[r]); pointer_jump on the
-# main path's calls; edge_rewrite on the main variant's first
-# RECORDED_STREAM_BATCHES stream batches of STREAM_BATCH edges. (kernel,
-# variant, runs: "compacted" and "fused" connectivity, "forest", "stream")
+# main path's calls; edge_rewrite on every path that calls it: the alter
+# steps of Liu-Tarjan PUFA and CRFA (compacted: the kept edges; fused: the
+# whole edge list, whose ends turn -1 round by round), Stergiou's endpoint
+# rewrites (the original graph edges, every end live), and the main
+# variant's first RECORDED_STREAM_BATCHES stream batches of STREAM_BATCH
+# edges. (kernel, variant, runs: "compacted" and "fused" connectivity,
+# "forest", "stream")
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
@@ -344,6 +351,9 @@ RECORDED = (
     ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
     ("edge_relabel", "none+stergiou", ("compacted",)),
     ("pointer_jump", MAIN_VARIANT, ("compacted", "fused")),
+    ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
+    ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
+    ("edge_rewrite", "none+stergiou", ("compacted",)),
     ("edge_rewrite", MAIN_VARIANT, ("stream",)),
 )
 STREAM_BATCH = 1 << 20
@@ -483,10 +493,16 @@ def kernel_inputs(torch, g, gen, seed: int = 0) -> tuple:
                         f"proposals {sum(live)} in all, per call {live}; "
                         f"edges with both ends -1 per call {neg}")
             elif name == "edge_rewrite":
-                real = [int((a < g.n).sum()) for _, a, _ in calls]
-                what = (f"of {calls[0][1].shape[0]} entries each (the "
-                        f"symmetrized pow2 batch), real entries per call "
-                        f"{real}")
+                # the ends that gather a label (a -1 end is kept as it is)
+                live = [int((a >= 0).sum()) + int((b >= 0).sum())
+                        for _, a, b in calls]
+                what = (f"of {calls[0][1].shape[0]} entries each, "
+                        f"non-negative ends (of {2 * calls[0][1].shape[0]}) "
+                        f"per call {live}")
+                if run == "stream":
+                    real = [int((a < g.n).sum()) for _, a, _ in calls]
+                    what += (f"; the symmetrized pow2 batch, real entries "
+                             f"per call {real}")
             else:
                 what = (f"on labels ({calls[0][0].shape[0]},), k = "
                         f"{sorted({k for _, k in calls})}")
@@ -532,6 +548,12 @@ def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
         # index only where its value is not the dump sentinel
         return sum(4 * (2 * lab.shape[0] + v.shape[0])
                    for lab, _, v in scatter_sets[x]) + 4 * scatter_live(x)
+
+    def gathered_slots(lab, a, b):
+        # the distinct label slots that the call's non-negative ends read
+        # (an end at or past L reads the last slot)
+        ends = torch.cat([a[a >= 0], b[b >= 0]]).clamp_max(lab.shape[0] - 1)
+        return int(torch.unique(ends).numel())
 
     def extended(lab):
         # labels with a -1 slot appended: a -1 index wraps onto it, so one
@@ -637,10 +659,10 @@ def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
                                           rewrite_sets[x]),
             "plain": lambda x: run_calls("edge_rewrite", edge_rewrite_ref,
                                          rewrite_sets[x]),
-            # per call: labels read once, two endpoint arrays read and two
-            # written
-            "bytes": lambda x: sum(4 * (lab.shape[0] + 4 * a.shape[0])
-                                   for lab, a, _ in rewrite_sets[x]),
+            # per call: two endpoint arrays read and two written, and each
+            # label slot a non-negative end reads, once
+            "bytes": lambda x: sum(4 * (gathered_slots(*c) + 4 * c[1].shape[0])
+                                   for c in rewrite_sets[x]),
             "ops": lambda x: sum(2 * a.shape[0] for _, a, _ in rewrite_sets[x]),
             "library": rewrite_library,
             "source": "src/repro_torch/kernels/csrc/edge_relabel.cu",

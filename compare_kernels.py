@@ -4,6 +4,7 @@ several kernel source trees in turns.
 
     python3 compare_kernels.py [NAME=]CSRC [[NAME=]CSRC ...]
                                [--log-n 22 --log-m 25] [--paths] [--reps 3]
+                               [--only KERNEL ...]
 
 Each CSRC is a ``kernels/csrc`` directory (for a parent commit: ``git
 archive`` it into a git-ignored directory of this checkout). Each tree's
@@ -18,10 +19,12 @@ uniform targets, a synthetic hub, the canonicalization's call and the
 recorded calls of CRFA, label propagation and a spanning forest;
 edge_relabel on the graph edges (with and without -1 endpoints) and the
 recorded calls of Liu-Tarjan PUFA and Stergiou; edge_rewrite on the same
-graph edges and the recorded calls of 8 stream batches; pointer_jump at
-k = 1 and 3 and the main path's recorded calls. Every output is held against the plain version;
-each case is timed with the trees in order, then in reverse (CUDA-event
-means over 20 launches), and a tree's time is the mean of its two.
+graph edges and the recorded calls of Liu-Tarjan PUFA and CRFA (compacted
+and fused), of Stergiou and of 8 stream batches; pointer_jump at k = 1 and
+3 and the main path's recorded calls. ``--only`` keeps the cases of the
+kernels named. Every output is held against the plain version; each case
+is timed with the trees in order, then in reverse (CUDA-event means over 20
+launches), and a tree's time is the mean of its two.
 ``--paths`` also runs every path of ``chip_smoke.PATHS`` ``--reps`` times
 per tree in the same turns (host wall time of a synchronized
 ``connectivity`` call, median), checking that every tree gives the same
@@ -48,6 +51,8 @@ def main() -> int:
     ap.add_argument("--log-m", type=int, default=25)
     ap.add_argument("--paths", action="store_true")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", nargs="+", metavar="KERNEL",
+                    help="time only these kernels' cases")
     args = ap.parse_args()
 
     import torch
@@ -104,6 +109,8 @@ def main() -> int:
                           lambda name=name, ref=ref, calls=calls: cs.run_calls(
                               name, ref, calls)))
 
+    if args.only:
+        cases = [c for c in cases if c[0].split()[0] in args.only]
     print(f"[kernels] ms per case, each tree the mean of its two turns; "
           f"ratio to {names[0]}")
     print(f"{'case':40s} " + " ".join(f"{n:>10s}" for n in names))

@@ -38,6 +38,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..kernels.index import wrap_index
 from .primitives import (
     DEFAULT_MAX_ROUNDS,
     full_compress,
@@ -72,7 +73,7 @@ def label_prop(P, senders, receivers, *, max_rounds: int = DEFAULT_MAX_ROUNDS):
     in the frontier."""
     n = P.shape[0] - 1
     big = torch.iinfo(P.dtype).max
-    s = senders.long()
+    s = wrap_index(senders, n + 1)  # the reference's gathers wrap and clamp
     frontier = torch.ones(n + 1, dtype=torch.bool, device=P.device)
     frontier[n] = False
     rounds = 0

@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..kernels.index import take
 from .driver import bucket_size
 from .primitives import full_compress, init_labels, num_components, rewrite_edges
 
@@ -58,8 +59,13 @@ def insert_batch_fn(state: StreamState, batch_u, batch_v,
 
 
 def query_batch(state: StreamState, qa, qb) -> torch.Tensor:
-    """IsConnected for each (qa[i], qb[i]) against the compressed labeling."""
-    return state.P[qa.long()] == state.P[qb.long()]
+    """IsConnected for each (qa[i], qb[i]) against the compressed labeling.
+
+    Every int32 id answers, as in the JAX package: an id reads ``P`` where
+    ``jnp`` indexing reads it, so a negative id counts from the end of the
+    ``(n + 1,)`` labeling once, and an id still outside ``[0, n]`` clamps
+    into it (``n`` and above read the dump row)."""
+    return take(state.P, qa) == take(state.P, qb)
 
 
 def process_batch_rounds_fn(state: StreamState, batch_u, batch_v, qa, qb,

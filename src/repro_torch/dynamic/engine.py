@@ -49,6 +49,7 @@ from ..core.primitives import (
     iterate_to_fixpoint,
     num_components,
 )
+from ..kernels.index import take
 
 __all__ = [
     "DynamicState", "init_dynamic", "default_log_cap", "make_update",
@@ -233,8 +234,10 @@ def make_update(n: int, *, compress: str = "full",
 
 
 def query_state(state: DynamicState, qa, qb) -> torch.Tensor:
-    """Connectivity answers against a compressed dynamic state."""
-    return state.P[qa.long()] == state.P[qb.long()]
+    """Connectivity answers against a compressed dynamic state. An id outside
+    ``[0, n]`` reads ``P`` as ``streaming.query_batch`` reads it (as the
+    JAX package's gather does)."""
+    return take(state.P, qa) == take(state.P, qb)
 
 
 def used_slots(state: DynamicState, n: int) -> torch.Tensor:

@@ -4,8 +4,8 @@
 //   * a label array is (L,) int32 whose last slot is the dump row;
 //   * -1 (any negative label) is the virtual minimum: a fixed point of every
 //     hop, never a scatter target;
-//   * every index these kernels gather through is clamped into [0, L), as the
-//     reference's gathers clamp, so an out-of-contract input cannot read
+//   * every index these kernels gather through is read as the reference's
+//     gathers read it (clamp_index), so an out-of-contract input cannot read
 //     outside the array.
 //
 // Every kernel streams one or two int32 arrays once (edges, or the labels
@@ -15,6 +15,8 @@
 #pragma once
 
 #include <cstdint>
+#include <initializer_list>
+
 #include <cuda_runtime.h>
 
 namespace connectit {
@@ -31,9 +33,16 @@ inline unsigned grid_for(int64_t n) {
   return static_cast<unsigned>(blocks);
 }
 
+// The slot that the reference's gather x[i] reads in an (L,) array: a
+// negative i counts from the end once, and what is still outside [0, L)
+// clamps into it (repro_torch/kernels/index.py is the same map). In 32-bit
+// arithmetic, exact for 1 <= L <= 2^31: with 64-bit arithmetic the hook
+// pass of hook_compress ran 30% slower on the fused main path's labels.
 __device__ __forceinline__ int64_t clamp_index(int x, int64_t L) {
-  int64_t i = x < 0 ? 0 : static_cast<int64_t>(x);
-  return i < L ? i : L - 1;
+  const int last = static_cast<int>(L - 1);
+  int i = x < 0 ? x + last + 1 : x;
+  i = i < 0 ? 0 : i;
+  return i < last ? i : last;
 }
 
 // V consecutive elements of p from element j, with one load: 16 bytes for
@@ -80,6 +89,19 @@ __device__ __forceinline__ void store_vec(int* p, int64_t j,
   }
 }
 
+// The stores of load_stream: streaming (st.global.cs), for an output that
+// no later step of the kernel reads, so that it does not evict from L2
+// what the kernel gathers.
+template <int V>
+__device__ __forceinline__ void store_stream(int* p, int64_t j,
+                                             const int (&x)[V]) {
+  if constexpr (V == 4) {
+    __stcs(reinterpret_cast<int4*>(p + j), make_int4(x[0], x[1], x[2], x[3]));
+  } else {
+    __stcs(p + j, x[0]);
+  }
+}
+
 // Call step.template run<W>(j, in) over elements [0, m): with V = 4, lanes
 // take 4 elements each from `head` on, which the caller has made 16-byte
 // aligned in every array the step streams; with V = 1, one each. The `head`
@@ -105,21 +127,24 @@ __device__ __forceinline__ void stream_steps(int64_t m, int64_t head,
   }
 }
 
-// How a stream_steps kernel covers arrays a and b of length m: vectors of 4
-// when both lie equally far past a 16-byte boundary (`head` scalar
-// elements lead to it), scalars otherwise; `items` is the number of vectors
-// (or scalars) the grid strides over.
-struct PairLayout {
+// How a stream_steps kernel covers int32 arrays of length m: vectors of 4
+// when all lie equally far past a 16-byte boundary (`head` scalar elements
+// lead to it), scalars otherwise; `items` is the number of vectors (or
+// scalars) the grid strides over.
+struct StreamLayout {
   bool vec;
   int64_t head;
   int64_t items;
 };
 
-inline PairLayout pair_layout(const void* a, const void* b, int64_t m) {
-  const uintptr_t off_a = reinterpret_cast<uintptr_t>(a) % 16;
-  const uintptr_t off_b = reinterpret_cast<uintptr_t>(b) % 16;
-  if (off_a != off_b || off_a % sizeof(int) != 0) return {false, 0, m};
-  int64_t head = static_cast<int64_t>((16 - off_a) % 16 / sizeof(int));
+inline StreamLayout stream_layout(std::initializer_list<const void*> arrays,
+                                  int64_t m) {
+  const uintptr_t off = reinterpret_cast<uintptr_t>(*arrays.begin()) % 16;
+  for (const void* p : arrays) {
+    if (reinterpret_cast<uintptr_t>(p) % 16 != off) return {false, 0, m};
+  }
+  if (off % sizeof(int) != 0) return {false, 0, m};
+  int64_t head = static_cast<int64_t>((16 - off) % 16 / sizeof(int));
   if (head > m) head = m;
   return {true, head, (m - head) / 4};
 }

@@ -2,33 +2,26 @@
 // Liu-Tarjan alter step, on int32 labels and int32 edge endpoints.
 //
 // Replaces the two Pallas TPU kernels of src/repro/kernels/edge_relabel/
-// kernel.py:
-//   * edge_relabel (_edge_relabel_kernel): out = labels; out[r] min= labels[s];
-//     out[s] min= labels[r]. On the TPU the output block accumulates across
-//     ordered grid steps while every gather reads the input block. Hopper
-//     runs blocks in no order, so the output is a copy of the input labels,
-//     every gather reads `labels` (never `out`: reading `out` would let a
-//     block see other blocks' proposals and turn the Jacobi round into a
-//     Gauss-Seidel one), and proposals land with atomicMin.
-//   * edge_rewrite (_edge_rewrite_kernel): s' = labels[s], r' = labels[r].
-//     A pure gather with two outputs; blocks are independent.
-// A negative endpoint (the -1 virtual minimum on altered edges) proposes its
-// own value and is never a target, as in the reference; nor is an endpoint
-// at or past L.
+// kernel.py. A negative endpoint (the -1 virtual minimum on altered edges)
+// is never gathered through: it proposes, or is rewritten to, its own
+// value, and is never a target; nor is an endpoint at or past L, whose
+// gather reads the last slot, as the reference's gathers clamp.
 //
-// Bound: bytes. edge_relabel reads both endpoint arrays and the labels and
-// writes the labels once; edge_rewrite reads both endpoint arrays and
-// writes two. The label gathers are random reads that the 50 MB L2 holds at
-// n = 2^22.
-//
-// edge_relabel makes at most one proposal an edge: out[t] starts at
-// labels[t] and only falls, and for a target t the edge's gather at t is
-// that snapshot value, so only the end with the larger label can take the
-// other's (ls < lr: ls to r; lr < ls: lr to s; equal ends, s == r among
-// them, propose nothing). That makes it a warp_min.cuh step, as the hook
-// pass is: senders and receivers stream with 16-byte evict-first loads, a
-// label is gathered only for a non-negative endpoint (Liu-Tarjan's fused
-// rounds carry mostly -1 ends, and an edge with both ends -1 gathers
+// edge_relabel (_edge_relabel_kernel, kernel.py:63): out = labels;
+// out[r] min= labels[s]; out[s] min= labels[r]. On the TPU the output block
+// accumulates across ordered grid steps while every gather reads the input
+// block. Hopper runs blocks in no order, so the output is a copy of the
+// input labels, every gather reads `labels` (never `out`: reading `out`
+// would let a block see other blocks' proposals and turn the Jacobi round
+// into a Gauss-Seidel one), and proposals land with atomicMin. Bound:
+// bytes, 4(2L + 2m) a call. It makes at most one proposal an edge: out[t]
+// starts at labels[t] and only falls, and for a target t the edge's gather
+// at t is that snapshot value, so only the end with the larger label can
+// take the other's (ls < lr: ls to r; lr < ls: lr to s; equal ends, s == r
+// among them, propose nothing). That makes it a warp_min.cuh step, as the
+// hook pass is: senders and receivers stream with 16-byte evict-first
+// loads, a label is gathered only for a non-negative endpoint (Liu-Tarjan's
+// fused rounds carry mostly -1 ends, and an edge with both ends -1 gathers
 // nothing), and proposals fold and combine along runs of equal targets
 // (CSR runs of one sender; in Stergiou's rounds, runs of equal rewritten
 // senders prev[s]) before the relaxed read and the atomic. On an H100 a
@@ -36,6 +29,33 @@
 // plain copy of the edge arrays; a live round is held by its random label
 // gathers and by the read and atomic of proposals to random receivers
 // (PERF.md).
+//
+// edge_rewrite (_edge_rewrite_kernel, kernel.py:96): s' = labels[s],
+// r' = labels[r]; a pure gather with two outputs, so blocks are
+// independent. Its callers: every Liu-Tarjan alter step (over the whole
+// edge list in a fused run, where after the first rounds nearly every end
+// is -1), Stergiou's endpoint rewrite each round (the original graph edges,
+// every end live), and the stream's batch relabel (2^21 entries against
+// 2^22 labels). Bound: bytes, 4(L + 4m) a call at most: both endpoint
+// arrays read and both outputs written once, the labels read once. The
+// gathers are random 4-byte reads, each a 32-byte L2 sector, and at
+// n = 2^22 the 16.8 MB label array stays in the 50 MB L2 only if the 16m
+// bytes streamed through it do not push it out. So a lane takes 4 edges
+// through stream_steps: 16-byte evict-first loads of both endpoint arrays
+// (load_stream), all 8 label gathers issued before any store (a -1 end
+// issues none, so a dead call moves only the edge arrays, at the rate of a
+// copy), and 16-byte streaming stores of both outputs (store_stream; with
+// default stores the graph's call is 25% slower). The wrapper allocates
+// each output at its input's 16-byte phase, so that the four arrays share
+// one; arrays out of phase take one edge a lane, and so does a call with
+// fewer edges than labels (the stream's batches, where 4 a lane measured
+// 4% slower than one), and ragged heads and tails go through
+// stream_steps' scalar step. What is left on the graph's
+// calls is the random gathers' L2 traffic, which the bytes bound does not
+// count. Measured and not kept (PERF.md): an L2 evict_last policy on the
+// gathers, gathers that bypass L1, default loads, 8 edges a lane, blocks of
+// 64 or 128 threads, a persistent grid, reusing a lane's gather along a
+// run of equal ends.
 #include "warp_min.cuh"
 
 namespace {
@@ -94,18 +114,40 @@ __global__ void __launch_bounds__(connectit::kThreads)
   connectit::stream_steps<V>(m, head, step);
 }
 
-__global__ void edge_rewrite_kernel(const int* __restrict__ labels,
-                                    const int* __restrict__ senders,
-                                    const int* __restrict__ receivers,
-                                    int* __restrict__ s_out,
-                                    int* __restrict__ r_out, int64_t L,
-                                    int64_t m) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < m; e += stride) {
-    s_out[e] = gather_label(labels, senders[e], L);
-    r_out[e] = gather_label(labels, receivers[e], L);
+struct RewriteStep {
+  const int* __restrict__ labels;
+  const int* __restrict__ senders;
+  const int* __restrict__ receivers;
+  int* __restrict__ s_out;
+  int* __restrict__ r_out;
+  int64_t L;
+
+  template <int W>
+  __device__ __forceinline__ void run(int64_t j, bool in) {
+    if (!in) return;
+    int s[W], r[W];
+    connectit::load_stream<W>(senders, j, s);
+    connectit::load_stream<W>(receivers, j, r);
+    int a[W], b[W];
+#pragma unroll
+    for (int q = 0; q < W; ++q) {
+      a[q] = gather_label(labels, s[q], L);
+      b[q] = gather_label(labels, r[q], L);
+    }
+    connectit::store_stream<W>(s_out, j, a);
+    connectit::store_stream<W>(r_out, j, b);
   }
+};
+
+template <int V>
+__global__ void __launch_bounds__(connectit::kThreads)
+    edge_rewrite_kernel(const int* __restrict__ labels,
+                        const int* __restrict__ senders,
+                        const int* __restrict__ receivers,
+                        int* __restrict__ s_out, int* __restrict__ r_out,
+                        int64_t L, int64_t m, int64_t head) {
+  RewriteStep step{labels, senders, receivers, s_out, r_out, L};
+  connectit::stream_steps<V>(m, head, step);
 }
 
 }  // namespace
@@ -118,8 +160,8 @@ extern "C" int edge_relabel_i32(const void* labels, const void* senders,
                                     cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0 && L > 0) {
-    const connectit::PairLayout lay =
-        connectit::pair_layout(senders, receivers, m);
+    const connectit::StreamLayout lay =
+        connectit::stream_layout({senders, receivers}, m);
     const int* lab = static_cast<const int*>(labels);
     const int* s = static_cast<const int*>(senders);
     const int* r = static_cast<const int*>(receivers);
@@ -141,11 +183,23 @@ extern "C" int edge_rewrite_i32(const void* labels, const void* senders,
                                 void* r_out, int64_t L, int64_t m,
                                 void* stream) {
   if (m > 0 && L > 0) {
-    edge_rewrite_kernel<<<connectit::grid_for(m), connectit::kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(labels), static_cast<const int*>(senders),
-        static_cast<const int*>(receivers), static_cast<int*>(s_out),
-        static_cast<int*>(r_out), L, m);
+    connectit::StreamLayout lay =
+        connectit::stream_layout({senders, receivers, s_out, r_out}, m);
+    if (m < L) lay = {false, 0, m};  // one edge a lane (see the header)
+    const int* lab = static_cast<const int*>(labels);
+    const int* s = static_cast<const int*>(senders);
+    const int* r = static_cast<const int*>(receivers);
+    int* so = static_cast<int*>(s_out);
+    int* ro = static_cast<int*>(r_out);
+    const unsigned grid = connectit::grid_for(lay.items);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (lay.vec) {
+      edge_rewrite_kernel<4><<<grid, connectit::kThreads, 0, st>>>(
+          lab, s, r, so, ro, L, m, lay.head);
+    } else {
+      edge_rewrite_kernel<1><<<grid, connectit::kThreads, 0, st>>>(
+          lab, s, r, so, ro, L, m, 0);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

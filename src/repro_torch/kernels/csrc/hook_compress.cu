@@ -88,8 +88,8 @@ extern "C" int hook_compress_i32(const void* labels, const void* senders,
                                     cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0) {
-    const connectit::PairLayout lay =
-        connectit::pair_layout(senders, receivers, m);
+    const connectit::StreamLayout lay =
+        connectit::stream_layout({senders, receivers}, m);
     const int* lab = static_cast<const int*>(labels);
     const int* s = static_cast<const int*>(senders);
     const int* r = static_cast<const int*>(receivers);

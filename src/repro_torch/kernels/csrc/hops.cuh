@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
 inline cudaError_t launch_hops(const int* snap, int* out, int64_t L, int k,
                                cudaStream_t st) {
   if (L > 0 && k > 0) {
-    const PairLayout lay = pair_layout(snap, out, L);
+    const StreamLayout lay = stream_layout({snap, out}, L);
     const unsigned grid = grid_for(lay.items);
     if (lay.vec) {
       hops_kernel<4><<<grid, kThreads, 0, st>>>(snap, out, L, k, lay.head);

@@ -68,7 +68,8 @@ extern "C" int scatter_min_i32(const void* labels, const void* idx,
                                     cudaMemcpyDeviceToDevice, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m > 0) {
-    const connectit::PairLayout lay = connectit::pair_layout(idx, vals, m);
+    const connectit::StreamLayout lay =
+        connectit::stream_layout({idx, vals}, m);
     const int* i = static_cast<const int*>(idx);
     const int* v = static_cast<const int*>(vals);
     int* o = static_cast<int*>(out);

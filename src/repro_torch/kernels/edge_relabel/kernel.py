@@ -28,12 +28,24 @@ def edge_relabel(labels: torch.Tensor, senders: torch.Tensor,
     return out
 
 
+def _at_phase_of(x: torch.Tensor) -> torch.Tensor:
+    """An empty tensor like ``x`` that starts as far past a 16-byte boundary
+    as ``x`` does (a view 0-3 elements into a slightly longer buffer), so
+    that a kernel streaming both takes 16-byte vectors."""
+    phase = x.data_ptr() % 16 // x.element_size()
+    if phase == 0:
+        return torch.empty_like(x)
+    k = x.numel()
+    return x.new_empty(k + 3)[phase: phase + k]
+
+
 def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
                  receivers: torch.Tensor):
-    """``(labels[s], labels[r])`` with negative endpoints kept."""
+    """``(labels[s], labels[r])`` with negative endpoints kept; each output
+    at its input's 16-byte phase."""
     _build.check_args("edge_rewrite", labels, senders, receivers)
-    s_out = torch.empty_like(senders)
-    r_out = torch.empty_like(receivers)
+    s_out = _at_phase_of(senders)
+    r_out = _at_phase_of(receivers)
     lib = _build.load("edge_relabel")
     rc = lib.edge_rewrite_i32(labels.data_ptr(), senders.data_ptr(),
                               receivers.data_ptr(), s_out.data_ptr(),

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from ..index import take
 from ..pointer_jump.ref import pointer_jump_ref
 
 
@@ -22,11 +23,13 @@ def hook_compress_ref(labels: torch.Tensor, senders: torch.Tensor,
                       receivers: torch.Tensor, *, k: int = 1) -> torch.Tensor:
     """labels (L,) int; senders/receivers (m,) int in [0, L).
 
-    Padded edges must point at a self-labeled dump slot."""
+    Padded edges must point at a self-labeled dump slot. An endpoint
+    outside [0, L) is read as the JAX package's gather reads it
+    (``index.take``)."""
     big = torch.iinfo(labels.dtype).max
     dump = labels.shape[0] - 1
-    pu = labels[senders.long()]
-    pv = labels[receivers.long()]
+    pu = take(labels, senders)
+    pv = take(labels, receivers)
     ppu = torch.where(pu < 0, pu, labels[pu.clamp_min(0).long()])
     ok = (pu >= 0) & (ppu == pu) & (pv < pu)
     tgt = torch.where(ok, pu, dump)

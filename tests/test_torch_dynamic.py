@@ -317,3 +317,45 @@ def test_churn_schedules_match_jax_and_scipy(schedule):
     for ins, dels, q in steps:
         p.process(dels, ins, q[:, 0], q[:, 1])
     p.check_end()
+
+
+# ---------------------------------------------------------------------------
+# Ids outside [0, n): the port answers as repro does.
+# ---------------------------------------------------------------------------
+
+def _id_sweep(n: int) -> np.ndarray:
+    i32 = np.iinfo(np.int32)
+    return np.array([-(n + 1) - 3, -(n + 1), -2, -1, n, n + 3, i32.min,
+                     i32.max], np.int32)
+
+
+@pytest.mark.parametrize("variant", [VARIANT, "none+shiloach_vishkin"])
+def test_out_of_range_ids_answer_as_jax(variant):
+    """Each swept id on either end of an insert and a delete, and in every
+    query pair with the real vertices: repro drops such an insert or
+    delete (its endpoints are sanitized to the dump pair) and answers the
+    queries through its clamping, wrapping gather. All five state arrays,
+    the rounds and every answer are equal after every batch; the stats
+    too."""
+    n = 6
+    p = Pair(n, variant, log=64)
+    ids = _id_sweep(n)
+    q = np.concatenate([ids, np.arange(n, dtype=np.int32)])
+    qa, qb = np.repeat(q, len(q)), np.tile(q, len(q))
+
+    def both(*args):
+        got = p.t.process(*args).numpy()
+        np.testing.assert_array_equal(got, np.asarray(p.j.process(*args)))
+        p.check_state(f"{variant} batch {p.t.batches}")
+
+    both(EMPTY, EMPTY, np.array([0, 1, 3], np.int32),
+         np.array([1, 2, 4], np.int32), qa, qb)
+    for x in ids:
+        e = np.array([x, 0], np.int32)
+        f = np.array([0, x], np.int32)
+        both(e, f, f, e, qa, qb)
+        both(np.array([0], np.int32), np.array([1], np.int32), e, f, qa, qb)
+        got = p.t.query(qa, qb).numpy()
+        np.testing.assert_array_equal(got, np.asarray(p.j.query(qa, qb)))
+    assert p.t.num_components() == p.j.num_components()
+    assert dataclasses.asdict(p.t.stats) == dataclasses.asdict(p.j.stats)

@@ -46,6 +46,7 @@ from repro_torch.kernels.edge_relabel.ref import (
     edge_rewrite_ref,
 )
 from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+from repro_torch.kernels.index import take
 from repro_torch.kernels.legacy import embedding_bag
 from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
@@ -171,6 +172,56 @@ def test_edge_relabel_negative_endpoints_propose_but_never_receive():
     assert (out >= -1).all()               # nothing scattered off-array
     _assert_same(out, j_relabel_ref(jnp.asarray(P), jnp.asarray(s),
                                     jnp.asarray(r)))
+
+
+def _ends_out_of_range(L: int, m: int, rng) -> np.ndarray:
+    """Endpoints over every int32 region: -1, other negatives (below -L
+    too), real slots, L and past it, and the int32 extremes."""
+    i32 = np.iinfo(np.int32)
+    pool = np.array([-1, -2, -L, -L - 3, L, L + 5, i32.min, i32.max])
+    e = rng.integers(0, L, m)
+    pick = rng.random(m) < 0.5
+    e[pick] = rng.choice(pool, int(pick.sum()))
+    return e.astype(np.int32)
+
+
+@pytest.mark.parametrize("L", [1, 9, 257])
+def test_edge_plain_versions_on_ends_out_of_range_match_jax(L):
+    """An end at or past L gathers the last slot and is never a target, as
+    repro's refs do it (their gather clamps, their scatter drops); a
+    negative end is kept (rewrite) or proposes itself (relabel)."""
+    rng = np.random.default_rng(41)
+    P = _labels_with_virtual_min(L, rng=rng)
+    s, r = (_ends_out_of_range(L, 600, rng) for _ in range(2))
+    js, jr = j_rewrite_ref(*map(jnp.asarray, (P, s, r)))
+    got_s, got_r = edge_rewrite_ref(_t(P), _t(s), _t(r))
+    _assert_same(got_s, js)
+    _assert_same(got_r, jr)
+    _assert_same(edge_relabel_ref(_t(P), _t(s), _t(r)),
+                 j_relabel_ref(*map(jnp.asarray, (P, s, r))))
+    _assert_same(ops.edge_rewrite(_t(P), _t(s), _t(r))[0],
+                 jops.edge_rewrite(*map(jnp.asarray, (P, s, r)),
+                                   policy="ref")[0])
+
+
+@pytest.mark.parametrize("k", [0, 3])
+def test_hook_compress_plain_on_ends_out_of_range_matches_jax(k):
+    """repro's hook gathers P[s] and P[r] with jnp indexing: a negative end
+    counts from the end once, and what is still outside [0, L) clamps."""
+    rng = np.random.default_rng(42)
+    L = 65
+    P = _labels_with_virtual_min(L, rng=rng)
+    s, r = (_ends_out_of_range(L, 700, rng) for _ in range(2))
+    _assert_same(hook_compress_ref(_t(P), _t(s), _t(r), k=k),
+                 j_hook_ref(*map(jnp.asarray, (P, s, r)), k=k))
+
+
+def test_take_indexes_as_jnp():
+    rng = np.random.default_rng(43)
+    for L in (1, 2, 17):
+        x = rng.integers(-5, 99, L).astype(np.int32)
+        idx = _ends_out_of_range(L, 300, rng)
+        _assert_same(take(_t(x), _t(idx)), jnp.asarray(x)[jnp.asarray(idx)])
 
 
 # ---------------------------------------------------------------------------
@@ -945,6 +996,102 @@ def test_edge_rewrite_kernel_on_a_padded_stream_batch(cuda, layout):
     assert fn.launches == before + 1
     want = edge_rewrite_ref(P, u, v)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# edge_rewrite's calls: all ends -1 (a converged alter step), ~99.99% -1
+# (fused Liu-Tarjan PUFA's later rounds), a dump-padded stream batch, and
+# ends at or past L and below -1 (clamped, or kept); each at its inputs'
+# 16-byte phase (as the wrapper allocates) and out of it.
+REWRITE_ENDS = ("all_neg", "pufa", "stream", "past_L")
+REWRITE_LENGTHS = (0, 1, 31, 33, (1 << 17) + 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _rewrite_inputs(ends: str, m: int) -> tuple:
+    n = 1 << 20
+    rng = np.random.default_rng(38)
+    if ends == "stream":
+        P, u, v = _stream_batch()
+        return P, u[:m], v[:m]
+    P = _labels_with_virtual_min(n + 1, rng=rng)
+    if ends == "past_L":
+        return P, *(_ends_out_of_range(n + 1, m, rng) for _ in range(2))
+    s, r = rng.integers(0, n + 1, (2, m)).astype(np.int32)
+    keep = 0.0 if ends == "all_neg" else 1e-4
+    s[rng.random(m) >= keep] = -1
+    r[rng.random(m) >= keep] = -1
+    return P, s, r
+
+
+def _out_of_phase(monkeypatch):
+    """Make edge_rewrite's wrapper allocate each output one element past its
+    input's 16-byte phase (the scalar path), with guard elements around
+    it that must stay untouched."""
+    from repro_torch.kernels.edge_relabel import kernel as kmod
+    guarded = []
+
+    def shifted(x):
+        k = x.numel()
+        phase = (x.data_ptr() % 16 // 4 + 1) % 4
+        buf = torch.full((k + 8,), -7, dtype=x.dtype, device=x.device)
+        guarded.append((buf, phase + 4, k))
+        return buf[phase + 4: phase + 4 + k]
+
+    monkeypatch.setattr(kmod, "_at_phase_of", shifted)
+    return guarded
+
+
+def _check_rewrite(P, s, r, guarded=()) -> None:
+    fn = ops.KERNELS["edge_rewrite"]
+    before = fn.launches
+    got = fn(P, s, r)
+    assert fn.launches == before + 1
+    want = edge_rewrite_ref(P, s, r)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for out, x in zip(got, (s, r)):
+        assert out.shape == x.shape and out.dtype == torch.int32
+        if not guarded:  # the wrapper's own outputs share their input's phase
+            assert out.data_ptr() % 16 == x.data_ptr() % 16
+    for buf, lo, k in guarded:
+        rest = torch.cat([buf[:lo], buf[lo + k:]])
+        assert bool((rest == -7).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["input", "shifted"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("ends", REWRITE_ENDS)
+def test_edge_rewrite_kernel_on_its_calls(cuda, monkeypatch, ends, layout,
+                                         phase):
+    P, s, r = _rewrite_inputs(ends, REWRITE_LENGTHS[-1])
+    guarded = _out_of_phase(monkeypatch) if phase == "shifted" else ()
+    _check_rewrite(_t(P).to(cuda), *_edge_layout(cuda, layout, s, r), guarded)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("phase", ["input", "shifted"])
+@pytest.mark.parametrize("m", REWRITE_LENGTHS)
+@pytest.mark.parametrize("ends", REWRITE_ENDS)
+def test_edge_rewrite_kernel_on_short_and_ragged_calls(cuda, monkeypatch,
+                                                       ends, m, phase):
+    P, s, r = _rewrite_inputs(ends, m)
+    guarded = _out_of_phase(monkeypatch) if phase == "shifted" else ()
+    _check_rewrite(_t(P).to(cuda), _t(s).to(cuda), _t(r).to(cuda), guarded)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 3])
+def test_hook_compress_kernel_on_ends_out_of_range(cuda, k):
+    """The kernel reads an end outside [0, L) where the plain version (and
+    repro's jnp gather) does: a negative end from the end once, then
+    clamped."""
+    rng = np.random.default_rng(39)
+    L = 4097
+    P = _t(_labels_with_virtual_min(L, rng=rng)).to(cuda)
+    s, r = (_t(_ends_out_of_range(L, 50_003, rng)).to(cuda)
+            for _ in range(2))
+    got = ops.KERNELS["hook_compress"](P, s, r, k=k)
+    assert torch.equal(got, hook_compress_ref(P, s, r, k=k))
 
 
 @pytest.mark.gpu

@@ -190,10 +190,89 @@ def test_query_only_and_stream_knobs():
     assert isinstance(ci.stream(16), tapi.Stream)
 
 
-def test_out_of_range_queries_raise():
-    """A query vertex outside [-(n + 1), n]: repro's gather clamps it and
-    answers; the port's raises (ROADMAP Queue 3)."""
+SWEEP_FINISHES = FINISHES + ("liu_tarjan_PUFA", "stergiou", "label_prop")
+
+
+def id_sweep(n: int) -> np.ndarray:
+    """Vertex ids outside [0, n): below -(n + 1), at it, -2 and -1, the
+    dump id n and past it, and the int32 extremes."""
+    i32 = np.iinfo(np.int32)
+    return np.array([-(n + 1) - 3, -(n + 1), -2, -1, n, n + 3, i32.min,
+                     i32.max], np.int32)
+
+
+def all_pairs(n: int):
+    """Every pair of the sweep's ids and the real vertices, as (qa, qb)."""
+    q = np.concatenate([id_sweep(n), np.arange(n, dtype=np.int32)])
+    return np.repeat(q, len(q)), np.tile(q, len(q))
+
+
+def sweep_inserts(n: int):
+    """One batch for each swept id, on either end of an edge to a real
+    vertex, beside a real edge."""
+    for x in id_sweep(n):
+        yield np.array([x, 1, 2], np.int32), np.array([0, x, 3], np.int32)
+
+
+@pytest.mark.parametrize("finish", SWEEP_FINISHES)
+def test_out_of_range_ids_answer_as_jax(finish):
+    """Inserts and queries with ids outside [0, n) answer as repro's: its
+    gathers clamp (an id of n or more reads the dump row) and wrap a
+    negative id by n + 1 once, and a negative end of a batch reaches the
+    finish method as it is. Labels, rounds and every answer are equal
+    after every batch."""
+    n = 6
+    js, ts = _pair(f"none+{finish}", n)
+    qa, qb = all_pairs(n)
+    for i, (u, v) in enumerate(sweep_inserts(n)):
+        for st in (js, ts):
+            st.insert(u, v)
+        _same_state(js, ts, f"{finish} batch {i}: {u[0]}")
+        np.testing.assert_array_equal(ts.query(qa, qb).numpy(),
+                                      np.asarray(js.query(qa, qb)))
+    want = js.process([0], [n + 9], qa, qb)
+    np.testing.assert_array_equal(ts.process([0], [n + 9], qa, qb).numpy(),
+                                  np.asarray(want))
+    _same_state(js, ts)
+    _same_stats(ts, js)
+
+
+def test_out_of_range_ids_of_the_reference_probe():
+    """repro clamps an insert's id 7 onto the dump row of n = 4 (joining
+    vertex 0 to it) and answers queries at 9 and -9: the port does the
+    same."""
     js, ts = _pair("none+uf_sync_full", 4)
-    assert bool(js.query([7], [4])[0])  # clamped onto the dump row
-    with pytest.raises(IndexError):
-        ts.query([7], [4])
+    for st in (js, ts):
+        st.insert([7, 0], [0, 1])
+    for qa, qb in (([0, 1, 2, 3], [4, 4, 4, 0]), ([9, -9], [4, 4])):
+        got = ts.query(qa, qb).numpy()
+        np.testing.assert_array_equal(got, np.asarray(js.query(qa, qb)))
+    assert ts.query([0, 1, 2, 3], [4, 4, 4, 0]).tolist() == [
+        True, True, False, False]
+    _same_state(js, ts)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("finish", SWEEP_FINISHES)
+def test_out_of_range_ids_on_card_match_cpu(cuda, finish):
+    """The sweep on the card (edge_rewrite, hook_compress and the other
+    kernels take the out-of-range ends) gives the CPU path's labels,
+    rounds and answers."""
+    n = 6
+    ci = tapi.ConnectIt(f"none+{finish}", device="cpu")
+    cc = tapi.ConnectIt(f"none+{finish}", device="cuda")
+    ts, tc = ci.stream(n), cc.stream(n)
+    qa, qb = all_pairs(n)
+    for u, v in sweep_inserts(n):
+        for st in (ts, tc):
+            st.insert(u, v)
+        assert torch.equal(tc.state.P.cpu(), ts.state.P)
+        assert tc._rounds == ts._rounds
+        assert torch.equal(tc.query(qa, qb).cpu(), ts.query(qa, qb))
