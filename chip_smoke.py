@@ -43,10 +43,16 @@ Phases, in order; any failure exits non-zero:
               each); edge_rewrite's of kout_hybrid_k2+liu_tarjan_PUFA (3)
               and _CRFA (4), compacted and fused, of none+stergiou (4, on
               the graph edges) and of the main variant's first 8 stream
-              batches of 2^20 edges, with their count of non-negative ends.
+              batches of 2^20 edges, with their count of non-negative ends;
+              the ingest phase's calls: edge_rewrite's and hook_compress's
+              of the main variant on the graph's edges in 8 chunks, and
+              every kernel's of kout_afforest_k2+uf_sync_full on the
+              power-law stream of 2^25 edges over 2^24 vertices; and an
+              evenly spaced sample (4 to 7 calls) of scatter_min's and
+              pointer_jump's in the main variant's amsf.
               Bounds count the bytes this run's data needs (edge_rewrite:
-              the label slots its non-negative ends read). embedding_bag on a 1,000,448 x 64 table at RM2's
-              serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
+              the label slots its non-negative ends read). embedding_bag
+              on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
               one (B=65536, L=8, ~10% on the dump row, and with wrapped and
               clamped ids), sum / mean / max, float32 / bfloat16;
   5. small    every variant of enumerate_variants() (148) on a small graph,
@@ -54,7 +60,9 @@ Phases, in order; any failure exits non-zero:
               scipy; the spanning forest of its 28 forest-capable variants,
               valid on the card and the CPU path, and equal row for row on
               the deterministic samplings;
-  6. oracle   scipy's labels of the big graph and its sorted edge keys;
+  6. oracle   scipy's labels of the big graph and its sorted edge keys
+              (each scipy oracle's CSR input is sorted, counted and, for
+              components, deduplicated on the card);
   7. paths    on the big graph, each against the scipy oracle, with wall
               time, stats, peak memory and each kernel's launch count; each
               path names its launches per kernel and finish rounds on the
@@ -82,19 +90,41 @@ Phases, in order; any failure exits non-zero:
               fresh stream(n, dynamic=True, log=2^23): each step's answers
               against scipy on the live multiset, the final forest within
               the survivors; updates/s, rounds, fallback rebuilds;
- 11. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+ 11. ingest   ConnectIt(v).from_chunks on the graph's undirected edges in
+              the stream phase's order, a host ArrayEdgeSource of 8 chunks
+              (2^22 each), for kout_hybrid_k2+, kout_afforest_k2+ and
+              none+uf_sync_full: labels against scipy and .connectivity,
+              chunks, edges streamed, survivors, spills, rounds, edges/s,
+              peak memory beside the one-shot path's; the same edges as
+              CompressedEdgeBlocks (2^16 a block) decoded on the card;
+              powerlaw_chunks(4n, m, seed=7) at m = 2^25 and 2^27 (labels
+              against scipy at 2^27), whose peaks must agree within 5% and
+              print beside the analytic resident bytes; edge_rewrite once a
+              chunk;
+ 12. apps     with_weights(g, seed=0): amsf, amsf(skip=lmax), amsf(mode=coo)
+              and msf with the main variant, each a spanning forest (checked
+              as in the forest phase) whose weight is within 1.25x of scipy's
+              minimum spanning tree (msf: equal to float32 rounding);
+              scan(eps=0.6,mu=3) and scan(eps=0.3,mu=3) on seeded symmetric
+              similarities against a numpy/scipy restatement of the
+              sequential query, and scan(eps=0.1,mu=3), scan(eps=0.3,mu=3)
+              on rmat(2^13, 12*2^13, seed=4) with build_index's
+              similarities against gs_query_sequential;
+ 13. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
- 12. profile  where the compacted main path's time goes: wall time per
+ 14. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
               compares run over the whole edge list), of one stream batch
-              and one dynamic step, and of one DLRM-RM2 serve_bulk and one
-              serve_p99 step.
+              and one dynamic step, of one ingest of the ingest phase's
+              8-chunk source, one amsf(skip=lmax) with the main variant and
+              one msf, and of one DLRM-RM2 serve_bulk and one serve_p99
+              step.
 
 Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
@@ -180,10 +210,20 @@ def bound_ms(nbytes: int, nops: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
-    """Mean ms of one call over ``iters`` back-to-back calls (CUDA events)."""
-    for _ in range(warmup):
+def time_ms(torch, fn, iters: int, warmup: int = 2,
+            budget_ms: float = 200.0) -> float:
+    """Mean ms of one call over ``iters`` back-to-back calls (CUDA events).
+    A call whose last warm-up took longer than ``budget_ms / iters`` (the
+    plain versions and library calls on whole edge lists, 0.1-0.5 s each)
+    is timed over fewer calls, at least 3."""
+    for _ in range(warmup - 1):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    last = (time.perf_counter() - t0) * 1e3
+    iters = max(3, min(iters, int(budget_ms / max(last, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -342,22 +382,39 @@ def _main_path_inputs(torch, g) -> dict:
 # whole edge list, whose ends turn -1 round by round), Stergiou's endpoint
 # rewrites (the original graph edges, every end live), and the main
 # variant's first RECORDED_STREAM_BATCHES stream batches of STREAM_BATCH
-# edges. (kernel, variant, runs: "compacted" and "fused" connectivity,
-# "forest", "stream")
+# edges. The ingest phase's sources: the graph's edges in 8 chunks
+# ("ingest": a rewrite a chunk, the head's k-out hooks and the finalize's
+# hooks over the 2 x (2^24 + 1)-entry survivor buffer) and the power-law
+# stream at 2^(log_m) edges over 4n vertices ("ingest powerlaw": every
+# kernel on labels larger than the card's L2). The apps phase's amsf
+# ("amsf": both forest passes a round and the compressions, each on the
+# whole edge list; an evenly spaced sample of its calls, see
+# RECORDED_AMSF_CALLS). (kernel, variant, runs: "compacted" and "fused"
+# connectivity, "forest", "stream", "ingest", "ingest powerlaw", "amsf")
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
     ("scatter_min", "none+uf_sync_full", ("forest",)),
+    ("scatter_min", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
+    ("scatter_min", MAIN_VARIANT, ("amsf",)),
     ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
     ("edge_relabel", "none+stergiou", ("compacted",)),
-    ("pointer_jump", MAIN_VARIANT, ("compacted", "fused")),
+    ("pointer_jump", MAIN_VARIANT, ("compacted", "fused", "amsf")),
+    ("pointer_jump", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("edge_rewrite", "none+stergiou", ("compacted",)),
-    ("edge_rewrite", MAIN_VARIANT, ("stream",)),
+    ("edge_rewrite", MAIN_VARIANT, ("stream", "ingest")),
+    ("edge_rewrite", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
+    ("hook_compress", MAIN_VARIANT, ("ingest",)),
+    ("hook_compress", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
 )
 STREAM_BATCH = 1 << 20
 RECORDED_STREAM_BATCHES = 8
+# an amsf run makes ~480 scatter_min calls, each with two arrays of the
+# whole edge list: a kernel keeps from RECORDED_AMSF_CALLS to twice that
+# many of them, evenly spaced over the run (every 2^j-th call)
+RECORDED_AMSF_CALLS = 4
 
 
 def stream_edges(torch, g, seed: int) -> tuple:
@@ -372,35 +429,74 @@ def stream_edges(torch, g, seed: int) -> tuple:
     return s[perm], r[perm]
 
 
-def _recorded_calls(torch, g, name: str, variant: str, run: str,
-                    seed: int = 0) -> tuple:
-    """The arguments of every call of kernel ``name`` in one ``run`` of
-    ``variant``, as ops hands them to the kernel's wrapper: (labels, idx,
-    vals) for scatter_min, (labels, senders, receivers) for edge_relabel and
-    edge_rewrite, (labels, k) for pointer_jump. The last scatter_min call of
-    a connectivity run, the canonicalization's, is left out (it has its own
-    input)."""
+def ingest_chunk(log_m: int) -> int:
+    """The ingest phase's chunk: 2^22 edges at the default 2^25."""
+    return 1 << (log_m - 3)
+
+
+def ingest_source(torch, g, seed: int, log_m: int):
+    """The ingest phase's first source: the stream phase's edges as a host
+    ArrayEdgeSource in chunks of ingest_chunk(log_m)."""
+    from repro_torch.graphs import ArrayEdgeSource
+    u, v = stream_edges(torch, g, seed)
+    E = torch.stack([u, v], 1).cpu().numpy()
+    return ArrayEdgeSource(E, g.n, chunk=ingest_chunk(log_m))
+
+
+def powerlaw_source(g, lm: int, log_m: int):
+    """powerlaw_chunks over 4n vertices, 2^lm edges, the ingest chunk."""
+    from repro_torch.graphs.generators import powerlaw_chunks
+    return powerlaw_chunks(4 * g.n, 1 << lm, chunk=ingest_chunk(log_m), seed=7)
+
+
+def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
+                    log_m: int, seed: int = 0) -> dict:
+    """{kernel: (calls, made, stride)} for each kernel of ``names`` in one
+    ``run``
+    of ``variant``: the arguments of its calls as ops hands them to the
+    kernel's wrapper, (labels, senders, receivers, k) for hook_compress,
+    (labels, idx, vals) for scatter_min, (labels, senders, receivers) for
+    edge_relabel and edge_rewrite, (labels, k) for pointer_jump; ``made``
+    the calls the run made. An "amsf" run keeps every ``stride``-th call
+    (RECORDED_AMSF_CALLS); every other run keeps every call. The last
+    scatter_min call of a connectivity run, the canonicalization's, is left
+    out (it has its own input)."""
+    from contextlib import ExitStack
     from types import SimpleNamespace
     from unittest import mock
 
     from repro_torch import ConnectIt
+    from repro_torch.graphs.generators import with_weights
     from repro_torch.kernels import ops
 
-    calls = []
-    launch = ops.KERNELS[name]
+    calls = {name: [] for name in names}
+    made = dict.fromkeys(names, 0)
+    stride = dict.fromkeys(names, 1)
 
-    def record(*args, **kw):
-        calls.append((*args, *kw.values()))
-        return launch(*args, **kw)
+    def recorder(name):
+        launch = ops.KERNELS[name]
+
+        def record(*args, **kw):
+            if made[name] % stride[name] == 0:
+                calls[name].append((*args, *kw.values()))
+                if run == "amsf" and len(calls[name]) == 2 * RECORDED_AMSF_CALLS:
+                    del calls[name][1::2]
+                    stride[name] *= 2
+            made[name] += 1
+            return launch(*args, **kw)
+        return record
 
     session = ConnectIt(variant, device="cuda")
-    # ops reaches the wrapper through its module at call time: ops's name
+    # ops reaches each wrapper through its module at call time: ops's name
     # for that module is patched, so the wrapper itself, and its launch
     # count, stay as they are
-    module = sys.modules[launch.__module__]
-    attr = next(k for k, v in vars(ops).items() if v is module)
-    with mock.patch.object(ops, attr,
-                           SimpleNamespace(**{**vars(module), name: record})):
+    with ExitStack() as stack:
+        for module in {sys.modules[ops.KERNELS[x].__module__] for x in names}:
+            attr = next(k for k, v in vars(ops).items() if v is module)
+            patched = {x: recorder(x) for x in names
+                       if ops.KERNELS[x].__module__ == module.__name__}
+            stack.enter_context(mock.patch.object(
+                ops, attr, SimpleNamespace(**{**vars(module), **patched})))
         if run == "forest":
             session.spanning_forest(g)
         elif run == "stream":
@@ -409,39 +505,48 @@ def _recorded_calls(torch, g, name: str, variant: str, run: str,
             for i in range(RECORDED_STREAM_BATCHES):
                 lo = i * STREAM_BATCH
                 st.insert(u[lo: lo + STREAM_BATCH], v[lo: lo + STREAM_BATCH])
+        elif run == "ingest":
+            session.from_chunks(ingest_source(torch, g, seed, log_m))
+        elif run == "ingest powerlaw":
+            session.from_chunks(powerlaw_source(g, log_m, log_m))
+        elif run == "amsf":
+            session.amsf(g, with_weights(g, seed=0), "amsf")
         else:
             session.connectivity(g, fused=run == "fused")
-    if name == "scatter_min" and run in ("compacted", "fused"):
-        calls = calls[:-1]
-    return tuple(calls)
+    if "scatter_min" in names and run in ("compacted", "fused"):
+        calls["scatter_min"] = calls["scatter_min"][:-1]
+        made["scatter_min"] -= 1
+    return {x: (tuple(calls[x]), made[x], stride[x]) for x in names}
 
 
 def run_calls(name: str, fn, calls) -> tuple:
     """``fn``, a kernel's wrapper or its plain version, on each of
-    ``calls`` in turn (pointer_jump's hop count is a call's last item;
-    edge_rewrite's two outputs a call are flattened)."""
-    if name == "pointer_jump":
-        return tuple(fn(lab, k=k) for lab, k in calls)
+    ``calls`` in turn (pointer_jump's and hook_compress's hop count is a
+    call's last item; edge_rewrite's two outputs a call are flattened)."""
+    if name in ("pointer_jump", "hook_compress"):
+        return tuple(fn(*c[:-1], k=c[-1]) for c in calls)
     if name == "edge_rewrite":
         return tuple(x for c in calls for x in fn(*c))
     return tuple(fn(*c) for c in calls)
 
 
-def kernel_inputs(torch, g, gen, seed: int = 0) -> tuple:
+def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
     """(P, sets): the phase's labels P (chains, roots, ~10% -1) and, per
-    kernel, the named inputs it is timed on. hook_compress: one (labels,
-    senders, receivers) each, (a) "graph", P on the graph edges; (b)
-    "floor", all labels -1 (a streamed read and one gather, no hook); (c)
-    "identity", each edge proposing to its own sender with no slot
-    contended; (d) the main path's first rounds. The others: a tuple of
-    calls each. scatter_min on (n+1,) sanitized targets, ~10% carrying the
+    kernel, the named tuples of calls it is timed on. hook_compress at k =
+    0 and 3 (and 1 on the graph) on one (labels, senders, receivers) each:
+    (a) "graph", P on the graph edges; (b) "floor", all labels -1 (a
+    streamed read and one gather, no hook); (c) "identity", each edge
+    proposing to its own sender with no slot contended; (d) the main
+    path's first rounds. scatter_min on (n+1,) sanitized targets, ~10% carrying the
     dump sentinel as masked entries do: "uniform"; a synthetic "hub" taking
     ~98% of them with random values, which no path produces (the worst case
     for one slot); the canonicalization's own call. edge_relabel on the
     graph edges with P ("graph") and with ~10% of the endpoints -1 ("neg",
     as the alter step leaves them), and edge_rewrite on both. pointer_jump
-    on P at k = 1 and 3. Then every call of the RECORDED runs (``seed``
-    permutes the stream's edges). Also used by compare_kernels.py."""
+    on P at k = 1 and 3. Then the calls of the RECORDED runs (``seed``
+    permutes the stream's and the ingest's edges; ``log_m`` sizes the
+    ingest's chunks and power-law stream). Also used by
+    compare_kernels.py."""
     from repro_torch.kernels.edge_relabel.ref import edge_rewrite_ref
 
     L = g.n + 1
@@ -463,24 +568,38 @@ def kernel_inputs(torch, g, gen, seed: int = 0) -> tuple:
     r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
                         -1, r).to(torch.int32)
     main = _main_path_inputs(torch, g)
-    sets = {
-        "hook_compress": {
-            "graph": (P, s, r), "floor": (torch.full_like(P, -1), s, r),
+    hook = {"graph": (P, s, r), "floor": (torch.full_like(P, -1), s, r),
             "identity": (torch.arange(L, dtype=torch.int32, device="cuda"),
                          s, r),
-            **{x: main[x] for x in ("sampled", "compacted", "fused")}},
+            **{x: main[x] for x in ("sampled", "compacted", "fused")}}
+    sets = {
+        "hook_compress": {f"{x} k={k}": ((*args, k),)
+                          for x, args in hook.items()
+                          for k in ((0, 1, 3) if x == "graph" else (0, 3))},
         "scatter_min": {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
                         "canonicalization": (main["canonicalization"],)},
         "edge_relabel": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
         "edge_rewrite": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
         "pointer_jump": {"k=1": ((P, 1),), "k=3": ((P, 3),)},
     }
+    # each run once, recording every kernel RECORDED asks of it
+    wanted = {}
+    for name, variant, runs in RECORDED:
+        for run in runs:
+            wanted.setdefault((variant, run), []).append(name)
+    recorded = {key: _recorded_calls(torch, g, tuple(names), *key, log_m,
+                                     seed)
+                for key, names in wanted.items()}
     for name, variant, runs in RECORDED:
         finish = variant.split("+")[1]
         for run in runs:
-            calls = _recorded_calls(torch, g, name, variant, run, seed)
+            calls, made, stride = recorded[variant, run][name]
             key = f"{finish} {run}"
-            if name == "scatter_min":
+            if name == "hook_compress":
+                what = (f"on labels ({calls[0][0].shape[0]},), edges per "
+                        f"call {[c[1].shape[0] for c in calls]}, k = "
+                        f"{sorted({c[3] for c in calls})}")
+            elif name == "scatter_min":
                 live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
                 what = (f"of {calls[0][1].shape[0]} entries each, {live} "
                         f"entries not dumped in all")
@@ -506,12 +625,14 @@ def kernel_inputs(torch, g, gen, seed: int = 0) -> tuple:
             else:
                 what = (f"on labels ({calls[0][0].shape[0]},), k = "
                         f"{sorted({k for _, k in calls})}")
-            print(f"[kernels] {key}: {len(calls)} {name} calls {what}")
+            kept = (f"{len(calls)}" if stride == 1 else
+                     f"{len(calls)} of {made} (1 in {stride})")
+            print(f"[kernels] {key} ({variant}): {kept} {name} calls {what}")
             sets[name][key] = calls
     return P, sets
 
 
-def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
+def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
     """Each kernel against its plain version at the main paths' shapes,
     and on the calls the paths really make (kernel_inputs)."""
     from repro_torch.kernels import ops
@@ -525,20 +646,21 @@ def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    L = g.n + 1
-    P, sets = kernel_inputs(torch, g, gen, seed)
+    P, sets = kernel_inputs(torch, g, gen, log_m, seed)
     hook_sets, scatter_sets = sets["hook_compress"], sets["scatter_min"]
     relabel_sets, jump_sets = sets["edge_relabel"], sets["pointer_jump"]
     rewrite_sets = sets["edge_rewrite"]
 
     def hook_bytes(x):
-        # labels read and the result written once, every sender read, and a
-        # receiver only where its sender's label is a slot that can take a
-        # hook (a -1 label never hooks)
-        lab, e, _ = hook_sets[x[0]]
-        pu = lab[e.long()]
-        hooks = int(((pu >= 0) & (pu < lab.shape[0])).sum())
-        return 4 * (2 * lab.shape[0] + e.shape[0] + hooks)
+        # per call: labels read and the result written once, every sender
+        # read, and a receiver only where its sender's label is a slot that
+        # can take a hook (a -1 label never hooks)
+        total = 0
+        for lab, e, _, _ in hook_sets[x]:
+            pu = lab[e.long()]
+            hooks = int(((pu >= 0) & (pu < lab.shape[0])).sum())
+            total += 4 * (2 * lab.shape[0] + e.shape[0] + hooks)
+        return total
 
     def scatter_live(x):
         return sum(int((v != INT32_MAX).sum()) for _, _, v in scatter_sets[x])
@@ -585,21 +707,21 @@ def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
     # where there is one
     cases = {
         "hook_compress": {
-            "sweep": (("graph", 0), ("graph", 1), ("graph", 3),
-                      *((x, k) for x in ("floor", "identity", "sampled",
-                                         "compacted", "fused")
-                        for k in (0, 3))),
-            "main": ("graph", 3),
-            "kernel": lambda x: ops.KERNELS["hook_compress"](
-                *hook_sets[x[0]], k=x[1]),
-            "plain": lambda x: hook_compress_ref(*hook_sets[x[0]], k=x[1]),
+            "sweep": tuple(hook_sets), "main": "graph k=3",
+            "kernel": lambda x: run_calls("hook_compress",
+                                          ops.KERNELS["hook_compress"],
+                                          hook_sets[x]),
+            "plain": lambda x: run_calls("hook_compress", hook_compress_ref,
+                                         hook_sets[x]),
             "bytes": hook_bytes,
-            "ops": lambda x: 4 * hook_sets[x[0]][1].shape[0] + x[1] * L,
+            "ops": lambda x: sum(4 * e.shape[0] + k * lab.shape[0]
+                                 for lab, e, _, k in hook_sets[x]),
             "library": None,
             "source": "src/repro_torch/kernels/csrc/hook_compress.cu",
             "replaces": "src/repro/kernels/hook_compress/kernel.py:68",
-            "shapes": lambda x: (f"labels ({L},) edges "
-                                 f"({hook_sets[x[0]][1].shape[0]},)"),
+            "shapes": lambda x: (f"{len(hook_sets[x])} x labels "
+                                 f"({hook_sets[x][0][0].shape[0]},) edges "
+                                 f"({hook_sets[x][0][1].shape[0]},)"),
         },
         "pointer_jump": {
             "sweep": tuple(jump_sets), "main": "k=1",
@@ -695,22 +817,20 @@ def phase_kernels(torch, g, cap: int, seed: int = 0) -> dict:
                 lib_ms = time_ms(torch, lib, iters=20)
             nbytes = c["bytes"](x)
             b_ms, b_by = bound_ms(nbytes, c["ops"](x))
-            label = f"{x[0]} k={x[1]}" if isinstance(x, tuple) else x
-            print(f"[kernels] {name} {label} {c['shapes'](x)}: exact match; "
+            print(f"[kernels] {name} {x} {c['shapes'](x)}: exact match; "
                   f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                   f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
                   f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
                   f"3.35 TB/s) kernel/bound={ms / b_ms:.2f}")
-            inputs[label] = {"ms": ms, "plain_ms": plain_ms,
-                             "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by, "max_abs_err": err}
+            inputs[x] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
             if x == c["main"]:
                 results[name] = {
                     "name": name, "route": "cuda", "source": c["source"],
                     "replaces": c["replaces"], "launches": 0,
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "main": label}
+                    "main": x}
         results[name]["inputs"] = inputs
     hook = results["hook_compress"]["inputs"]
     a, b, c0 = (hook[f"{x} k=0"]["ms"] for x in ("graph", "floor", "identity"))
@@ -883,10 +1003,12 @@ def phase_oracle(g) -> tuple:
     """scipy's labels of the big graph (min vertex ids) and its sorted edge
     keys s * (n + 1) + r, both on the host."""
     import numpy as np
+    import torch
 
-    from repro_torch.graphs import components_oracle
     t0 = time.perf_counter()
-    expect = components_oracle(g)
+    _, lab = _scipy_labels(g.n, torch.stack([g.senders[: g.m],
+                                             g.receivers[: g.m]], 1))
+    expect = canonical(lab)
     # build_graph orders the edges by this key, so the keys are sorted
     keys = (g.senders[: g.m].cpu().numpy().astype(np.int64) * (g.n + 1)
             + g.receivers[: g.m].cpu().numpy())
@@ -1238,13 +1360,337 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
               f"ms, rounds {r}, fallback rebuilds {fb}")
 
 
-def _scipy_labels(n: int, edges):
+# the analytic resident bytes of chunked ingest, as the JAX package's scale
+# benchmark states them (benchmarks/scale_bench.py::_analytic_bytes): int32
+# labels over n + 1 rows, one dump-padded (u, v) chunk at its pow2 bucket,
+# the survivor buffer pair, and the sampling head's graph (4 int32 arrays at
+# the head chunk's padded size, freed after sampling)
+def _analytic_bytes(n: int, chunk: int, cap: int) -> int:
+    from repro_torch.core.driver import bucket_size
+    b = bucket_size(chunk, pad="pow2")
+    return 4 * (n + 1) + 2 * 4 * b + 2 * 4 * (cap + 1) + 4 * 4 * b + 4 * (n + 2)
+
+
+INGEST_VARIANTS = (MAIN_VARIANT, "kout_afforest_k2+uf_sync_full",
+                   "none+uf_sync_full")
+INGEST_PATH = "kout_afforest_k2+uf_sync_full"  # the power-law streams'
+
+
+class _Timed:
+    """A ChunkedEdgeSource wrapper that counts the host seconds its chunks
+    take to make and keeps each chunk (for the oracle) if asked."""
+
+    def __init__(self, source, keep: bool = False):
+        self.n = source.n
+        self._source, self._keep = source, keep
+        self.seconds, self.kept = 0.0, []
+
+    def chunks(self):
+        it = iter(self._source.chunks())
+        while True:
+            t0 = time.perf_counter()
+            chunk = next(it, None)
+            self.seconds += time.perf_counter() - t0
+            if chunk is None:
+                return
+            if self._keep:
+                self.kept.append(chunk)
+            yield chunk
+
+
+def _run_ingest(torch, session, source, what: str):
+    """One from_chunks run → (labels, stats, wall s, launches, peak bytes
+    above what was allocated before it)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels, stats = session.from_chunks(source, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    require(labels.shape == (source.n,) and labels.dtype == torch.int32,
+            f"{what}: labels shape {tuple(labels.shape)}")
+    require(counts["edge_rewrite"] == stats.chunks,
+            f"{what}: {counts['edge_rewrite']} edge_rewrite launches for "
+            f"{stats.chunks} chunks")
+    for name in ("hook_compress", "pointer_jump", "scatter_min"):
+        require(counts[name] > 0, f"{what}: kernel {name} never launched")
+    return labels, stats, wall, counts, peak
+
+
+def phase_ingest(torch, g, expect, seed: int, log_m: int, exact: bool,
+                 card: str):
+    """Out-of-core ingest (ConnectIt.from_chunks): the graph's undirected
+    edges in the stream phase's order as a host ArrayEdgeSource of 8 chunks,
+    for INGEST_VARIANTS, against scipy and the one-shot path; the same
+    edges as compressed blocks decoded on the card; power-law streams of
+    2^(log_m) and 2^(log_m + 2) edges over 4n vertices, whose resident
+    peaks must agree. Returns the host edge array (for the profile)."""
     import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.graphs import compress_edges
+
+    n = g.n
+    src = ingest_source(torch, g, seed, log_m)
+    E = src.edges
+    m = E.shape[0]
+    chunk = ingest_chunk(log_m)
+    for variant in INGEST_VARIANTS:
+        session = ConnectIt(variant, device="cuda")
+        what = f"ingest {variant}"
+        labels, stats, wall, counts, peak = _run_ingest(torch, session, src,
+                                                        what)
+        require(np.array_equal(labels.cpu().numpy(), expect),
+                f"{what}: labels differ from the scipy oracle")
+        require(stats.chunks == src.num_chunks and stats.edges_total == m,
+                f"{what}: {stats.chunks} chunks, {stats.edges_total} edges "
+                f"streamed; want {src.num_chunks} and {m}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        one = session.connectivity(g)
+        torch.cuda.synchronize()
+        one_peak = torch.cuda.max_memory_allocated() - base
+        require(torch.equal(one, labels),
+                f"{what}: labels differ from .connectivity(g)'s")
+        print(f"[ingest] {what}: {stats.chunks} chunks of {chunk}, {m} edges "
+              f"streamed; labels == scipy == .connectivity; survivors "
+              f"{stats.edges_finish} (ratio {stats.survivor_ratio:.6f}); "
+              f"spills {stats.spills}; finish_rounds {stats.finish_rounds}; "
+              f"lmax_count {stats.lmax_count}; wall {wall:.4f} s, "
+              f"{m / wall:.1f} edges/s; peak device memory above the "
+              f"resident graph {peak} bytes (one-shot .connectivity "
+              f"{one_peak}); launches {json.dumps(counts)}; card {card}")
+
+    t0 = time.perf_counter()
+    blocks = compress_edges(E, n, block_size=1 << 16, device="cuda")
+    t_comp = time.perf_counter() - t0
+    what = f"ingest {MAIN_VARIANT} compressed"
+    labels, stats, wall, counts, peak = _run_ingest(
+        torch, ConnectIt(MAIN_VARIANT, device="cuda"), blocks, what)
+    require(np.array_equal(labels.cpu().numpy(), expect),
+            f"{what}: labels differ from the scipy oracle")
+    require(stats.edges_total == m, f"{what}: {stats.edges_total} edges")
+    print(f"[ingest] {what}: compress_edges on the host {t_comp:.2f} s, "
+          f"{blocks.num_blocks} blocks of 2^16, {blocks.nbytes} bytes "
+          f"(ratio {blocks.ratio:.3f} against int32 COO); decoded on the "
+          f"card: labels == scipy; spills {stats.spills}; wall {wall:.4f} s, "
+          f"{m / wall:.1f} edges/s; peak above the graph {peak} bytes; "
+          f"launches {json.dumps(counts)}")
+    del blocks
+
+    session = ConnectIt(INGEST_PATH, device="cuda")
+    pn = 4 * n
+    peaks = []
+    for lm in (log_m, log_m + 2):
+        stream = _Timed(powerlaw_source(g, lm, log_m), keep=lm > log_m)
+        what = f"ingest {INGEST_PATH} powerlaw_chunks(n={pn}, m=2^{lm})"
+        labels, stats, wall, counts, peak = _run_ingest(torch, session,
+                                                        stream, what)
+        peaks.append(peak)
+        check = "labels not checked"
+        if stream.kept:
+            t0 = time.perf_counter()
+            _, lab = _scipy_labels(pn, np.concatenate(stream.kept))
+            stream.kept.clear()
+            require(np.array_equal(labels.cpu().numpy(), canonical(lab)),
+                    f"{what}: labels differ from scipy's")
+            check = f"labels == scipy ({time.perf_counter() - t0:.1f} s)"
+        cap = stats.edges_finish_padded // 2 - 1  # the buffer's capacity
+        print(f"[ingest] {what}: {stats.chunks} chunks; {check}; survivors "
+              f"{stats.edges_finish}; spills {stats.spills}; finish_rounds "
+              f"{stats.finish_rounds}; lmax_count {stats.lmax_count}; wall "
+              f"{wall:.4f} s ({stream.seconds:.4f} s of it making chunks on "
+              f"the host), {(1 << lm) / wall:.1f} edges/s; peak device "
+              f"memory above the resident graph {peak} bytes, analytic "
+              f"resident bytes {_analytic_bytes(pn, chunk, cap)}; launches "
+              f"{json.dumps(counts)}; card {card}")
+    spread = max(peaks) / min(peaks) - 1
+    print(f"[ingest] power-law peaks {peaks}: spread {100 * spread:.2f}%")
+    if exact:
+        require(spread <= 0.05, f"ingest: the power-law peaks {peaks} differ "
+                f"by more than 5%")
+    return E
+
+
+def _sym_uniform(torch, g, seed: int):
+    """One uniform float32 draw per undirected edge (numpy, ``seed``), given
+    to both directions; inf on the padding, as ``with_weights`` pads."""
+    import numpy as np
+    s, r = g.senders[: g.m].long(), g.receivers[: g.m].long()
+    key = torch.minimum(s, r) * (g.n + 1) + torch.maximum(s, r)
+    uniq, inv = torch.unique(key, return_inverse=True)
+    draw = np.random.default_rng(seed).random(uniq.shape[0]).astype(np.float32)
+    out = torch.full((g.m_pad,), float("inf"), device=g.device)
+    out[: g.m] = torch.from_numpy(draw).cuda()[inv]
+    return out
+
+
+def _scan_oracle(n: int, s, r, sims, eps: float, mu: int):
+    """gs_query_sequential restated with numpy and scipy: cores have at
+    least mu similar edges; the core-core similar subgraph's components
+    take their min vertex; a non-core vertex takes the min of its own id
+    and its similar core neighbours' labels."""
+    import numpy as np
+    similar = sims >= np.float32(eps)
+    core = np.bincount(s[similar], minlength=n) >= mu
+    # the similar core-core edges, one direction each (sims are symmetric)
+    cc = similar & core[s] & core[r] & (s < r)
+    _, lab = _scipy_labels(n, np.stack([s[cc], r[cc]], 1))
+    labels = canonical(lab).astype(np.int64)
+    att = similar & core[r] & ~core[s]
+    np.minimum.at(labels, s[att], labels[r[att]])
+    return labels, core
+
+
+def phase_apps(torch, g, expect, keys, exact: bool, card: str):
+    """AMSF (mask, skip=lmax, coo) and exact MSF on the graph with
+    with_weights(g, seed=0), against scipy's minimum spanning tree; SCAN at
+    full size on seeded symmetric similarities against a numpy/scipy
+    restatement of the sequential query, and on a graph small enough for
+    build_index against gs_query_sequential. Returns the weights."""
+    import numpy as np
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    from repro_torch import ConnectIt
+    from repro_torch.core.apps import amsf as amsf_impl
+    from repro_torch.core.apps import scan as scan_impl
+    from repro_torch.graphs.generators import rmat, with_weights
+    from repro_torch.kernels import ops
+
+    n = g.n
+    t0 = time.perf_counter()
+    w = with_weights(g, seed=0)
+    torch.cuda.synchronize()
+    t_w = time.perf_counter() - t0
+    s = g.senders[: g.m].cpu().numpy()
+    r = g.receivers[: g.m].cpu().numpy()
+    wh = w[: g.m].cpu().numpy()
+    up = s < r
+    t0 = time.perf_counter()
+    mst = minimum_spanning_tree(_csr(n, s[up], r[up],
+                                     wh[up].astype(np.float64)))
+    exact_w = float(mst.sum())
+    t_mst = time.perf_counter() - t0
+    print(f"[apps] with_weights on the card {t_w:.2f} s; scipy "
+          f"minimum_spanning_tree (float64) {t_mst:.2f} s: weight "
+          f"{exact_w!r}, {mst.nnz} edges")
+    session = ConnectIt(MAIN_VARIANT, device="cuda")
+    for spec in ("amsf", "amsf(skip=lmax)", "amsf(mode=coo)", "msf"):
+        what = f"apps {MAIN_VARIANT} {spec}"
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        edges, stats = session.amsf(g, w, spec, return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        for name in ("pointer_jump", "scatter_min"):
+            require(counts[name] > 0, f"{what}: kernel {name} never launched")
+        check_forest(edges, n, expect, keys, what)
+        weight = amsf_impl.forest_weight(edges, g, w)
+        at = np.searchsorted(keys, edges[:, 0].astype(np.int64) * (n + 1)
+                             + edges[:, 1])
+        w64 = float(wh[at].astype(np.float64).sum())
+        if spec == "msf":
+            require(abs(w64 - exact_w) <= 1e-9 * exact_w
+                    and abs(weight - exact_w) <= 1e-5 * exact_w,
+                    f"{what}: weight {w64!r} (float32 sum {weight!r}), "
+                    f"scipy's {exact_w!r}")
+        else:
+            require(exact_w * (1 - 1e-9) <= w64 <= 1.25 * exact_w,
+                    f"{what}: weight {w64!r} outside [{exact_w!r}, 1.25 x]")
+        print(f"[apps] {what}: {len(edges)} edges, a spanning forest; weight "
+              f"{w64!r} ({w64 / exact_w:.6f} x scipy's MST; float32 sum "
+              f"{weight!r}); buckets {stats.buckets}; finish_rounds "
+              f"{stats.finish_rounds}; wall {wall:.4f} s; peak device "
+              f"memory above the graph {peak} bytes; launches "
+              f"{json.dumps(counts)}; card {card}")
+
+    sims = _sym_uniform(torch, g, 0)
+    sh = sims[: g.m].cpu().numpy()
+    for eps, mu in ((0.6, 3), (0.3, 3)):
+        what = f"apps {MAIN_VARIANT} scan(eps={eps},mu={mu})"
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels, is_core, stats = session.scan(
+            g, sims, f"scan(eps={eps},mu={mu})", return_stats=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        t0 = time.perf_counter()
+        want, core = _scan_oracle(n, s, r, sh, eps, mu)
+        t_ref = time.perf_counter() - t0
+        require(np.array_equal(is_core.cpu().numpy(), core),
+                f"{what}: is_core differs from the restatement's")
+        require(np.array_equal(labels.cpu().numpy(), want),
+                f"{what}: labels differ from the restatement's")
+        for name in ("hook_compress", "pointer_jump", "scatter_min"):
+            require(counts[name] > 0, f"{what}: kernel {name} never launched")
+        print(f"[apps] {what}: labels, is_core == the numpy/scipy "
+              f"restatement ({t_ref:.2f} s on the host); {int(core.sum())} "
+              f"cores, {len(np.unique(want))} clusters; core-core edges "
+              f"{stats.edges_finish}; finish_rounds {stats.finish_rounds}; "
+              f"wall {wall:.4f} s; launches {json.dumps(counts)}")
+
+    small = rmat(1 << 13, 12 << 13, seed=4, device="cuda")
+    t0 = time.perf_counter()
+    index = scan_impl.build_index(small)
+    t_index = time.perf_counter() - t0
+    for eps, mu in ((0.1, 3), (0.3, 3)):  # benchmarks/scan_bench.py's
+        labels, is_core = session.scan(small, torch.from_numpy(index).cuda(),
+                                       f"scan(eps={eps},mu={mu})")
+        want, core = scan_impl.gs_query_sequential(small, index, eps, mu=mu)
+        require(np.array_equal(labels.cpu().numpy(), want)
+                and np.array_equal(is_core.cpu().numpy(), core),
+                f"apps scan(eps={eps},mu={mu}) on rmat(2^13): differs from "
+                f"gs_query_sequential")
+        print(f"[apps] scan(eps={eps},mu={mu}) on rmat(2^13, 12*2^13, seed=4) "
+              f"(m={small.m}; build_index on the host {t_index:.2f} s): "
+              f"labels, is_core == gs_query_sequential; {int(core.sum())} "
+              f"cores")
+    return w
+
+
+def _csr(n: int, rows, cols, data=None):
+    """scipy's (n, n) CSR matrix of the entries (rows, cols, data; data 1.0
+    if None; host arrays or card tensors), its rows sorted (stably) and
+    counted on the card: scipy's COO conversion would sort and sum them on
+    the host, much of an oracle's time. Entries are kept as they are (the
+    MST's input has no duplicates)."""
+    import numpy as np
+    import torch
     from scipy.sparse import csr_matrix
+    row, order = torch.sort(torch.as_tensor(rows, device="cuda"), stable=True)
+    indptr = torch.zeros(n + 1, dtype=torch.int64, device="cuda")
+    indptr[1:] = torch.cumsum(torch.bincount(row, minlength=n), 0)
+    del row
+    cols = torch.as_tensor(cols, device="cuda")[order]
+    data = (np.ones(order.shape[0]) if data is None else
+            torch.as_tensor(data, device="cuda")[order].cpu().numpy())
+    return csr_matrix((data, cols.to(torch.int32).cpu().numpy(),
+                       indptr.to(torch.int32).cpu().numpy()), shape=(n, n))
+
+
+def _scipy_labels(n: int, edges):
+    """scipy's connected components of the host (k, 2) edge list, each
+    vertex pair given once (deduplicated on the card)."""
+    import torch
     from scipy.sparse.csgraph import connected_components
-    return connected_components(
-        csr_matrix((np.ones(len(edges), np.int8), (edges[:, 0], edges[:, 1])),
-                   shape=(n, n)), directed=False)
+    e = torch.as_tensor(edges, device="cuda").long()
+    key = torch.unique(torch.minimum(e[:, 0], e[:, 1]) * n
+                       + torch.maximum(e[:, 0], e[:, 1]))
+    del e
+    return connected_components(_csr(n, key // n, key % n), directed=False)
 
 
 def phase_dlrm(torch, cap: int, seed: int, results: dict):
@@ -1392,12 +1838,15 @@ def _trace(torch, tag: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
-def phase_profile(torch, g, model, serve_inputs, seed: int) -> None:
+def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
+                  log_m: int) -> None:
     """Where the compacted main path's time goes: wall time per driver step
     (host clock around synchronized work), then one traced run of it, one of
     none+stergiou, one of the fused PUFA path, one stream batch (the ninth
     of STREAM_BATCH), one dynamic step (sliding_window's fifth, the first
-    that deletes), and one DLRM-RM2 serve_bulk and one serve_p99 step."""
+    that deletes), one ingest of the graph's edges (the ingest phase's
+    source), one amsf(skip=lmax), one msf, and one DLRM-RM2 serve_bulk and
+    one serve_p99 step."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import serve_step
     from repro_torch import ConnectIt
@@ -1435,6 +1884,16 @@ def phase_profile(torch, g, model, serve_inputs, seed: int) -> None:
     _trace(torch, f"{EDGE_PATH} fused",
            lambda: pufa.connectivity(g, fused=True))
     _trace_stream_steps(torch, g, seed)
+    from repro_torch.graphs import ArrayEdgeSource
+    src = ArrayEdgeSource(edges, g.n, chunk=1 << (log_m - 3))
+    for tag, fn in ((f"ingest {MAIN_VARIANT}, {src.num_chunks} chunks",
+                     lambda: session.from_chunks(src)),
+                    (f"amsf(skip=lmax) {MAIN_VARIANT}",
+                     lambda: session.amsf(g, weights, "amsf(skip=lmax)")),
+                    ("msf", lambda: session.msf(g, weights))):
+        ops.reset_launch_counts()
+        _trace(torch, tag, fn)
+        print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
     for shape in ("serve_bulk", "serve_p99"):
         inputs = serve_inputs[shape]
         ops.reset_launch_counts()
@@ -1512,7 +1971,8 @@ def main() -> int:
         # RM2 runs at its published widths; a short check cuts vocab,
         # batches and candidates to 2^log_n
         cap = 1 << args.log_n
-        results = timed("kernels", phase_kernels, torch, g, cap, args.seed)
+        results = timed("kernels", phase_kernels, torch, g, cap, args.log_m,
+                        args.seed)
         timed("small", phase_small, torch)
         expect, keys = timed("oracle", phase_oracle, g)
         timed("paths", phase_paths, torch, g, expect, results, exact)
@@ -1521,10 +1981,14 @@ def main() -> int:
               card)
         timed("dynamic", phase_dynamic, torch, g, expect, keys, args.seed,
               exact, card)
+        edges = timed("ingest", phase_ingest, torch, g, expect, args.seed,
+                      args.log_m, exact, card)
+        weights = timed("apps", phase_apps, torch, g, expect, keys, exact,
+                        card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
-              args.seed)
+              args.seed, edges, weights, args.log_m)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

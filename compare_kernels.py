@@ -21,7 +21,8 @@ edge_relabel on the graph edges (with and without -1 endpoints) and the
 recorded calls of Liu-Tarjan PUFA and Stergiou; edge_rewrite on the same
 graph edges and the recorded calls of Liu-Tarjan PUFA and CRFA (compacted
 and fused), of Stergiou and of 8 stream batches; pointer_jump at k = 1 and
-3 and the main path's recorded calls. ``--only`` keeps the cases of the
+3 and the main path's recorded calls; and every kernel's recorded calls
+of chunked ingest and of amsf (``chip_smoke.RECORDED``). ``--only`` keeps the cases of the
 kernels named. Every output is held against the plain version; each case
 is timed with the trees in order, then in reverse (CUDA-event means over 20
 launches), and a tree's time is the mean of its two.
@@ -90,17 +91,11 @@ def main() -> int:
     g = cs.phase_graph(torch, args.log_n, args.log_m, 0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    _, sets = cs.kernel_inputs(torch, g, gen)
+    _, sets = cs.kernel_inputs(torch, g, gen, args.log_m)
+    refs = {"hook_compress": hook_compress_ref, "scatter_min": scatter_min_ref,
+            "edge_relabel": edge_relabel_ref, "edge_rewrite": edge_rewrite_ref,
+            "pointer_jump": pointer_jump_ref}
     cases = []
-    for x, (lab, a, b) in sets["hook_compress"].items():
-        for k in (0, 3):
-            cases.append((f"hook_compress {x} k={k}",
-                          lambda lab=lab, a=a, b=b, k=k: (
-                              ops.KERNELS["hook_compress"](lab, a, b, k=k),),
-                          lambda lab=lab, a=a, b=b, k=k: (
-                              hook_compress_ref(lab, a, b, k=k),)))
-    refs = {"scatter_min": scatter_min_ref, "edge_relabel": edge_relabel_ref,
-            "edge_rewrite": edge_rewrite_ref, "pointer_jump": pointer_jump_ref}
     for name, ref in refs.items():
         for x, calls in sets[name].items():
             cases.append((f"{name} {x}",

@@ -27,10 +27,13 @@ and batch-dynamic streams:
     forest = ci.spanning_forest(g)                       # (k, 2) host array
     st = ci.stream(n)                                    # inserts + queries
     dyn = ci.stream(n, dynamic=True, log=1 << 20)        # + deletes
+    labels = ci.from_chunks(ArrayEdgeSource(edges, n))   # out-of-core ingest
+    forest = ci.amsf(g, with_weights(g), "amsf(skip=lmax)")   # paper §5.1
+    labels, cores = ci.scan(g, sims, "scan(eps=0.6,mu=3)")    # paper §5.2
 
-Only the ``single`` placement is ported; "auto", the other placements,
-chunked ingest, the apps and serving raise ``NotImplementedError`` naming
-the ROADMAP queue item that ports them.
+Only the ``single`` placement is ported; "auto", the other placements and
+serving raise ``NotImplementedError`` naming the ROADMAP queue item that
+ports them.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ import numpy as np
 import torch
 
 from .core import driver, streaming
+from .core.apps import amsf as _amsf_impl
+from .core.apps import single as _apps
+from .core.apps.spec import AppSpec, AppSpecLike, as_app_spec
 from .core.finish import (
     COMPRESS_MODES,
     FOREST_METHODS,
@@ -53,9 +59,11 @@ from .core.finish import (
 from .core.sampling import KOUT_VARIANTS, make_sampler
 from .device import DEFAULT_DEVICE, resolve_device
 from .dynamic import engine as dyn_engine
+from .graphs.ingest import ingest_chunks, ingest_stats
 
-__all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "ConnectIt",
-           "Stream", "DynamicStream", "enumerate_variants", "is_compatible",
+__all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "AppSpec",
+           "AppSpecLike", "ConnectIt", "Stream", "DynamicStream",
+           "enumerate_variants", "is_compatible",
            "default_sampling_grid", "default_finish_grid", "KOUT_VARIANTS",
            "COMPRESS_MODES", "LIU_TARJAN_VARIANTS"]
 
@@ -632,8 +640,8 @@ class DynamicStream:
 
 
 class ConnectIt:
-    """One variant on one device: static connectivity, spanning forests and
-    streams.
+    """One variant on one device: static connectivity, spanning forests,
+    streams, out-of-core ingest and the §5 apps (AMSF, MSF, SCAN).
 
     >>> ci = ConnectIt("kout_hybrid_k2+uf_sync_full")   # device="cuda"
     >>> labels = ci.connectivity(g)
@@ -742,17 +750,96 @@ class ConnectIt:
                              compress=self.spec.forest_compress, log=cap,
                              search_rounds=search_rounds)
 
-    def from_chunks(self, source, **kw):
-        raise _not_ported("out-of-core ingest", "Queue 1 item 9")
+    def from_chunks(self, source, *,
+                    generator: Optional[torch.Generator] = None,
+                    survivor_cap: Optional[int] = None,
+                    sample_chunks: int = 1, return_stats: bool = False):
+        """Out-of-core connectivity over a ``ChunkedEdgeSource``
+        (``repro_torch.graphs.ingest``), on the session's device.
 
-    def amsf(self, g, weights, *a, **kw):
-        raise _not_ported("the AMSF app", "Queue 1 item 11")
+        The sampling phase runs on the stream's head; then every chunk goes
+        through relabel-and-filter into a bounded survivor buffer. The
+        labels equal ``.connectivity``'s on the same edges. ``.stats``
+        reports the chunks, spills and survivors beside the usual
+        fields."""
+        result = ingest_chunks(
+            source, self._sampler, self._finish, generator,
+            device=self.device, survivor_cap=survivor_cap,
+            sample_chunks=sample_chunks)
+        stats = ingest_stats(result, variant=str(self.spec))
+        self._stats = stats
+        if return_stats:
+            return result.labels, stats
+        return result.labels
 
-    def msf(self, g, weights, **kw):
-        raise _not_ported("the MSF app", "Queue 1 item 11")
+    # -- applications (paper §5): AMSF / exact MSF / SCAN -------------------
 
-    def scan(self, g, sims, *a, **kw):
-        raise _not_ported("the SCAN app", "Queue 1 item 11")
+    def _app_stats(self, app: AppSpec, g) -> driver.ConnectivityStats:
+        return driver.ConnectivityStats(variant=str(self.spec), app=str(app),
+                                        edges_total=g.m)
+
+    def amsf(self, g, weights, spec: AppSpecLike = "amsf", *,
+             return_stats: bool = False) -> np.ndarray:
+        """Approximate minimum spanning forest (paper §5.1) → host ``(k,
+        2)`` edges; its weight is within ``(1 + eps)`` of the exact MSF.
+
+        ``spec`` names the paper variant (``amsf`` = AMSF-NF,
+        ``amsf(skip=lmax)`` = AMSF-NF-S, ``amsf(mode=coo)`` = AMSF-COO,
+        ``msf`` = exact Borůvka). Each bucket's forest step is this
+        session's finish method, which must be root-based (the uf_sync
+        family or Shiloach-Vishkin). ``weights`` is the ``(m_pad,)``
+        float32 tensor of ``with_weights`` on the graph's device. Fills
+        ``.stats`` (buckets, edges per bucket, rounds, dispatch sizes)."""
+        app = as_app_spec(spec)
+        if app.app == "scan":
+            raise ValueError("scan specs run via .scan(g, sims, spec)")
+        self._check_device(g)
+        stats = self._app_stats(app, g)
+        weights = torch.as_tensor(weights, device=self.device)
+        if app.app == "msf":
+            edges, _ = _amsf_impl.boruvka_msf(g, weights)
+            stats.edges_finish = g.m
+            stats.edges_finish_padded = g.m_pad
+            stats.edges_per_device = (g.m,)
+            stats.dispatch_sizes = (g.m_pad,)
+        else:
+            forest_fn = self.spec.build_forest_finish()
+            fu, fv = _apps.amsf(g, weights, app, forest_fn, stats=stats)
+            edges = _amsf_impl.forest_edges(fu, fv)
+        self._stats = stats
+        if return_stats:
+            return edges, stats
+        return edges
+
+    def msf(self, g, weights, **kw) -> np.ndarray:
+        """Exact MSF (Borůvka, the GBBS-MSF baseline): ``amsf(g, w,
+        "msf")``."""
+        return self.amsf(g, weights, "msf", **kw)
+
+    def scan(self, g, sims, spec: AppSpecLike = "scan", *,
+             return_stats: bool = False):
+        """SCAN clustering via parallel GS*-Query (paper §5.2) → ``(labels,
+        is_core)`` on the session's device.
+
+        ``sims`` is the per-directed-edge structural-similarity index
+        (``core.apps.scan.build_index``, offline, like GS*-Index). The
+        core-core connectivity runs this session's finish method; non-core
+        border vertices join the minimum adjacent core cluster; the rest
+        keep their own id. Fills ``.stats``."""
+        app = as_app_spec(spec)
+        if app.app != "scan":
+            raise ValueError(
+                f"scan() takes a scan spec, got {str(app)!r} "
+                f"(amsf/msf run via .amsf(g, weights, spec))")
+        self._check_device(g)
+        stats = self._app_stats(app, g)
+        labels, is_core = _apps.scan(
+            g, torch.as_tensor(sims, device=self.device), app, self._finish,
+            stats)
+        self._stats = stats
+        if return_stats:
+            return labels, is_core, stats
+        return labels, is_core
 
     def serve(self, n=None, **kw):
         raise _not_ported("serving", "Queue 1 item 12")

@@ -3,13 +3,19 @@
 The edges are drawn with numpy exactly as the JAX package's
 ``repro.graphs.generators`` draws them, so one seed gives one edge list in
 both packages; only the container is built on ``device``. The churn
-schedules (``sliding_window``, ``flash_crowd``, ``partition_heal``) yield
-host arrays, the same ones as the JAX package's for one seed.
+schedules (``sliding_window``, ``flash_crowd``, ``partition_heal``) and the
+streamed chunk sources (``rmat_chunks``, ``powerlaw_chunks``) yield host
+arrays, the same ones as the JAX package's for one seed, and
+``with_weights`` draws the same weights.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Iterator
+
 import numpy as np
+import torch
 
 from ..device import DEFAULT_DEVICE
 from .containers import Graph, build_graph
@@ -94,6 +100,26 @@ def path(n: int, *, device=DEFAULT_DEVICE) -> Graph:
     return build_graph(np.stack([ids, ids + 1], 1), n, device=device)
 
 
+def with_weights(g: Graph, *, seed: int = 0, mean: float = 1.0) -> torch.Tensor:
+    """Exponential edge weights (AMSF §5.1), the same for both directions of
+    an edge: ``(m_pad,)`` float32 on the graph's device, with ``inf`` past
+    ``m``. One draw per distinct undirected edge, in the order of its key
+    ``min * (n + 1) + max``, as the JAX package draws them; the keys are
+    ranked on the graph's device."""
+    rng = np.random.default_rng(seed)
+    s = g.senders[: g.m].long()
+    r = g.receivers[: g.m].long()
+    key = torch.minimum(s, r) * (g.n + 1) + torch.maximum(s, r)
+    uniq, inverse = torch.unique(key, sorted=True, return_inverse=True)
+    del key
+    uniq_w = rng.exponential(mean, size=max(int(uniq.shape[0]), 1))
+    w = torch.from_numpy(uniq_w.astype(np.float32)).to(g.device)[inverse]
+    out = torch.full((g.m_pad,), float("inf"), dtype=torch.float32,
+                     device=g.device)
+    out[: g.m] = w
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Churn schedules (repro_torch.dynamic): host-side generators of mixed
 # insert/delete/query steps for batch-dynamic streams and benchmarks.
@@ -173,3 +199,81 @@ def partition_heal(n: int, *, steps: int = 16, batch: int = 256,
             dels = np.asarray(bridges, np.int32).reshape(-1, 2)
             bridges = []
             yield empty, dels, q
+
+
+# ---------------------------------------------------------------------------
+# Streamed chunked sources (repro_torch.graphs.ingest): the full edge list
+# never exists on the host. Each chunk is drawn from its own counter-based
+# generator (``default_rng([seed, chunk_index])``), so a stream is
+# reproducible, seekable and O(chunk) resident.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamedEdgeSource:
+    """ChunkedEdgeSource over a per-chunk generator function."""
+
+    n: int
+    total_edges: int
+    chunk: int
+    make_chunk: Callable[[int, int], np.ndarray]  # (chunk_index, k) → (k, 2)
+
+    @property
+    def num_chunks(self) -> int:
+        return max(-(-self.total_edges // self.chunk), 1)
+
+    def chunks(self) -> Iterator[np.ndarray]:
+        if self.total_edges == 0:
+            yield np.zeros((0, 2), np.int32)
+            return
+        made = 0
+        i = 0
+        while made < self.total_edges:
+            k = min(self.chunk, self.total_edges - made)
+            yield self.make_chunk(i, k)
+            made += k
+            i += 1
+
+
+def rmat_chunks(n: int, m: int, *, chunk: int = 1 << 20, a: float = 0.5,
+                b: float = 0.1, c: float = 0.1,
+                seed: int = 0) -> StreamedEdgeSource:
+    """Streamed RMAT with the paper's (a, b, c) = (0.5, 0.1, 0.1): the
+    quadrant recursion of ``rmat``, one chunk at a time, with threshold
+    comparisons in place of ``rng.choice``."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    scale = int(np.ceil(np.log2(max(n, 2))))
+
+    def make(i: int, k: int) -> np.ndarray:
+        rng = np.random.default_rng([seed, i])
+        src = np.zeros(k, np.int64)
+        dst = np.zeros(k, np.int64)
+        for level in range(scale):
+            r = rng.random(k)
+            bit = 1 << (scale - 1 - level)
+            # quadrants (a | b / c | d): src bit on for c,d; dst for b,d
+            src += np.where(r >= a + b, bit, 0)
+            dst += np.where(((r >= a) & (r < a + b)) | (r >= a + b + c),
+                            bit, 0)
+        src %= n
+        dst %= n
+        return np.stack([src, dst], 1).astype(np.int32)
+
+    return StreamedEdgeSource(n=n, total_edges=m, chunk=chunk, make_chunk=make)
+
+
+def powerlaw_chunks(n: int, m: int, *, chunk: int = 1 << 20,
+                    seed: int = 0) -> StreamedEdgeSource:
+    """Streamed power-law endpoints: both ends log-uniform over ``[0, n)``
+    (``floor(n**U)``, p(v) ∝ 1/(v+1)), the hub skew of social and web
+    graphs."""
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+    def make(i: int, k: int) -> np.ndarray:
+        rng = np.random.default_rng([seed, i])
+        e = np.floor(n ** rng.random((k, 2))).astype(np.int64) % n
+        return e.astype(np.int32)
+
+    return StreamedEdgeSource(n=n, total_edges=m, chunk=chunk, make_chunk=make)
