@@ -47,9 +47,14 @@ Phases, in order; any failure exits non-zero:
               the ingest phase's calls: edge_rewrite's and hook_compress's
               of the main variant on the graph's edges in 8 chunks, and
               every kernel's of kout_afforest_k2+uf_sync_full on the
-              power-law stream of 2^25 edges over 2^24 vertices; and an
+              power-law stream of 2^25 edges over 2^24 vertices; an
               evenly spaced sample (4 to 7 calls) of scatter_min's and
-              pointer_jump's in the main variant's amsf.
+              pointer_jump's in the main variant's amsf; and the same sample
+              of the serve phase's closed loops: edge_rewrite's,
+              hook_compress's and pointer_jump's of the static server
+              (commits of at most 32,768 directed entries against the
+              preloaded 2^22 + 1 labels), scatter_min's and pointer_jump's
+              of the dynamic server.
               Bounds count the bytes this run's data needs (edge_rewrite:
               the label slots its non-negative ends read). embedding_bag
               on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
@@ -90,7 +95,21 @@ Phases, in order; any failure exits non-zero:
               fresh stream(n, dynamic=True, log=2^23): each step's answers
               against scipy on the live multiset, the final forest within
               the survivors; updates/s, rounds, fallback rebuilds;
- 11. ingest   ConnectIt(v).from_chunks on the graph's undirected edges in
+ 11. serve    ConnectIt(MAIN_VARIANT).serve(n) at benchmarks/serve_bench.py's
+              full-scale settings (max_batch_edges 16384, max_batch_queries
+              8192, flush_ms 0.5, warmup "all"): the static server preloaded
+              with the stream phase's edges in commits of 2^20, an untimed
+              closed-loop pass, a closed loop of 16 clients x 48 requests
+              (1024 query pairs each, 4096 insert edges every 4th) and open
+              loops at 0.25, 0.5 and 0.75 of its QPS (256 requests), each
+              LoadResult row and the server's stats; epochs in commit order,
+              every submitted edge committed, the final partition and the
+              answers of 4 evenly spaced epochs against scipy on their prefix
+              of the commit log, edge_rewrite once a commit; then the dynamic
+              server (log 2^23) preloaded with 4 commits of 2^20 and a closed
+              loop of 16 x 16 with delete_frac 0.25: its labels against scipy
+              on the live multiset replayed from the commit log;
+ 12. ingest   ConnectIt(v).from_chunks on the graph's undirected edges in
               the stream phase's order, a host ArrayEdgeSource of 8 chunks
               (2^22 each), for kout_hybrid_k2+, kout_afforest_k2+ and
               none+uf_sync_full: labels against scipy and .connectivity,
@@ -101,7 +120,7 @@ Phases, in order; any failure exits non-zero:
               against scipy at 2^27), whose peaks must agree within 5% and
               print beside the analytic resident bytes; edge_rewrite once a
               chunk;
- 12. apps     with_weights(g, seed=0): amsf, amsf(skip=lmax), amsf(mode=coo)
+ 13. apps     with_weights(g, seed=0): amsf, amsf(skip=lmax), amsf(mode=coo)
               and msf with the main variant, each a spanning forest (checked
               as in the forest phase) whose weight is within 1.25x of scipy's
               minimum spanning tree (msf: equal to float32 rounding);
@@ -110,21 +129,22 @@ Phases, in order; any failure exits non-zero:
               sequential query, and scan(eps=0.1,mu=3), scan(eps=0.3,mu=3)
               on rmat(2^13, 12*2^13, seed=4) with build_index's
               similarities against gs_query_sequential;
- 13. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+ 14. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
- 14. profile  where the compacted main path's time goes: wall time per
+ 15. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
               compares run over the whole edge list), of one stream batch
               and one dynamic step, of one ingest of the ingest phase's
               8-chunk source, one amsf(skip=lmax) with the main variant and
-              one msf, and of one DLRM-RM2 serve_bulk and one serve_p99
-              step.
+              one msf, one closed-loop window of the serve phase's static
+              server (with the host's waits a commit), and of one DLRM-RM2
+              serve_bulk and one serve_p99 step.
 
 Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
@@ -389,32 +409,52 @@ def _main_path_inputs(torch, g) -> dict:
 # kernel on labels larger than the card's L2). The apps phase's amsf
 # ("amsf": both forest passes a round and the compressions, each on the
 # whole edge list; an evenly spaced sample of its calls, see
-# RECORDED_AMSF_CALLS). (kernel, variant, runs: "compacted" and "fused"
-# connectivity, "forest", "stream", "ingest", "ingest powerlaw", "amsf")
+# RECORDED_SAMPLED_CALLS). The serve phase's servers ("serve": the static
+# server's commits of at most SERVE_CAPS' 16,384 edges, 32,768 directed
+# entries, against the preloaded 2^22 + 1 labels; "serve dynamic": the
+# dynamic server's forest rounds, deletes included): an evenly spaced
+# sample of the closed loop's calls, none of the preload's. (kernel,
+# variant, runs: "compacted" and "fused" connectivity, "forest", "stream",
+# "ingest", "ingest powerlaw", "amsf", "serve", "serve dynamic")
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
     ("scatter_min", "none+uf_sync_full", ("forest",)),
     ("scatter_min", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
-    ("scatter_min", MAIN_VARIANT, ("amsf",)),
+    ("scatter_min", MAIN_VARIANT, ("amsf", "serve dynamic")),
     ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
     ("edge_relabel", "none+stergiou", ("compacted",)),
-    ("pointer_jump", MAIN_VARIANT, ("compacted", "fused", "amsf")),
+    ("pointer_jump", MAIN_VARIANT, ("compacted", "fused", "amsf", "serve",
+                                    "serve dynamic")),
     ("pointer_jump", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("edge_rewrite", "none+stergiou", ("compacted",)),
-    ("edge_rewrite", MAIN_VARIANT, ("stream", "ingest")),
+    ("edge_rewrite", MAIN_VARIANT, ("stream", "ingest", "serve")),
     ("edge_rewrite", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
-    ("hook_compress", MAIN_VARIANT, ("ingest",)),
+    ("hook_compress", MAIN_VARIANT, ("ingest", "serve")),
     ("hook_compress", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
 )
 STREAM_BATCH = 1 << 20
 RECORDED_STREAM_BATCHES = 8
 # an amsf run makes ~480 scatter_min calls, each with two arrays of the
-# whole edge list: a kernel keeps from RECORDED_AMSF_CALLS to twice that
-# many of them, evenly spaced over the run (every 2^j-th call)
-RECORDED_AMSF_CALLS = 4
+# whole edge list, and a served closed loop a few hundred small ones: in
+# these runs a kernel keeps from RECORDED_SAMPLED_CALLS to twice that many
+# of its calls, evenly spaced over the run (every 2^j-th call)
+RECORDED_SAMPLED_CALLS = 4
+SAMPLED_RUNS = ("amsf", "serve", "serve dynamic")
+# the serve phase: benchmarks/serve_bench.py's server settings and traffic
+# at its full scale (_scale), over the §4 graph's vertices
+SERVE_CAPS = dict(max_batch_edges=16384, max_batch_queries=8192,
+                  flush_ms=0.5)
+SERVE_TRAFFIC = dict(query_pairs=1024, insert_every=4, insert_edges=4096)
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_OPEN_REQUESTS = 16, 48, 256
+SERVE_LOADS = (0.25, 0.5, 0.75)
+SERVE_PRELOAD = 1 << 20          # edges a preload commit
+SERVE_DYNAMIC_PRELOAD = 4        # preload commits of the dynamic server
+SERVE_DYNAMIC_LOG = 1 << 23
+SERVE_DYNAMIC_REQUESTS = 16
+SERVE_DELETE_FRAC = 0.25
 
 
 def stream_edges(torch, g, seed: int) -> tuple:
@@ -457,8 +497,9 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     kernel's wrapper, (labels, senders, receivers, k) for hook_compress,
     (labels, idx, vals) for scatter_min, (labels, senders, receivers) for
     edge_relabel and edge_rewrite, (labels, k) for pointer_jump; ``made``
-    the calls the run made. An "amsf" run keeps every ``stride``-th call
-    (RECORDED_AMSF_CALLS); every other run keeps every call. The last
+    the calls the run made. An "amsf" or "serve" run keeps every
+    ``stride``-th call (RECORDED_SAMPLED_CALLS); every other run keeps every
+    call. A "serve" run records its closed loop only. The last
     scatter_min call of a connectivity run, the canonicalization's, is left
     out (it has its own input)."""
     from contextlib import ExitStack
@@ -472,14 +513,19 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     calls = {name: [] for name in names}
     made = dict.fromkeys(names, 0)
     stride = dict.fromkeys(names, 1)
+    # a serve run records from its closed loop on, not its preload
+    live = [not run.startswith("serve")]
 
     def recorder(name):
         launch = ops.KERNELS[name]
 
         def record(*args, **kw):
+            if not live[0]:
+                return launch(*args, **kw)
             if made[name] % stride[name] == 0:
                 calls[name].append((*args, *kw.values()))
-                if run == "amsf" and len(calls[name]) == 2 * RECORDED_AMSF_CALLS:
+                if (run in SAMPLED_RUNS
+                        and len(calls[name]) == 2 * RECORDED_SAMPLED_CALLS):
                     del calls[name][1::2]
                     stride[name] *= 2
             made[name] += 1
@@ -511,6 +557,12 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             session.from_chunks(powerlaw_source(g, log_m, log_m))
         elif run == "amsf":
             session.amsf(g, with_weights(g, seed=0), "amsf")
+        elif run.startswith("serve"):
+            dynamic = run == "serve dynamic"
+            server = serve_server(session, g, dynamic, warmup=False)
+            serve_preload(torch, server, g, seed, dynamic)
+            live[0] = True
+            serve_closed_loop(server, dynamic, seed)
         else:
             session.connectivity(g, fused=run == "fused")
     if "scatter_min" in names and run in ("compacted", "fused"):
@@ -618,7 +670,7 @@ def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
                 what = (f"of {calls[0][1].shape[0]} entries each, "
                         f"non-negative ends (of {2 * calls[0][1].shape[0]}) "
                         f"per call {live}")
-                if run == "stream":
+                if run in ("stream", "serve"):
                     real = [int((a < g.n).sum()) for _, a, _ in calls]
                     what += (f"; the symmetrized pow2 batch, real entries "
                              f"per call {real}")
@@ -1360,6 +1412,245 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
               f"ms, rounds {r}, fallback rebuilds {fb}")
 
 
+def serve_server(session, g, dynamic: bool, warmup="all"):
+    """The serve phase's server over the graph's vertices: the static one,
+    or the dynamic one with a log of SERVE_DYNAMIC_LOG."""
+    kw = dict(dynamic=True, log=SERVE_DYNAMIC_LOG) if dynamic else {}
+    return session.serve(g.n, warmup=warmup, **SERVE_CAPS, **kw)
+
+
+def serve_preload(torch, server, g, seed: int, dynamic: bool) -> list:
+    """commit_now the stream phase's edges in commits of SERVE_PRELOAD: all
+    of them (static), or the first SERVE_DYNAMIC_PRELOAD commits' (dynamic).
+    Returns each commit's wall seconds."""
+    u, v = stream_edges(torch, g, seed)
+    total = u.shape[0]
+    if dynamic:
+        total = min(total, SERVE_DYNAMIC_PRELOAD * SERVE_PRELOAD)
+    u, v = u[:total].cpu().numpy(), v[:total].cpu().numpy()
+    walls = []
+    for lo in range(0, total, SERVE_PRELOAD):
+        t0 = time.perf_counter()
+        server.commit_now(u[lo: lo + SERVE_PRELOAD], v[lo: lo + SERVE_PRELOAD])
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def serve_closed_loop(server, dynamic: bool, seed: int, requests=None):
+    """serve_bench's full-scale closed loop (16 clients); the dynamic
+    server's has SERVE_DYNAMIC_REQUESTS requests a client and deletes."""
+    from repro_torch.serve import closed_loop, run_sync
+    if requests is None:
+        requests = SERVE_DYNAMIC_REQUESTS if dynamic else SERVE_REQUESTS
+    kw = dict(delete_frac=SERVE_DELETE_FRAC) if dynamic else {}
+    return run_sync(server, closed_loop, clients=SERVE_CLIENTS,
+                    requests_per_client=requests, seed=seed,
+                    **SERVE_TRAFFIC, **kw)
+
+
+class _ServeLog:
+    """What the serve phase records of one server: each commit's edges (and
+    deletes) in commit order, its epoch and wall time (begin + wait, in the
+    insert loop's worker thread), every commit-program call (warmup's
+    included), and every query dispatch's ids, answers and epoch."""
+
+    def __init__(self, server):
+        import numpy as np
+        self.commits, self.walls, self.answers = [], [], []
+        self.calls = 0
+        store = server.store
+        begin, query, work = store.begin_commit, store.query, \
+            server._commit_work
+        commit = store._ops.commit
+
+        def logged(u, v, du=None, dv=None):
+            pending = begin(u, v, du, dv)
+            self.commits.append((pending.epoch, np.asarray(u, np.int32),
+                                 np.asarray(v, np.int32),
+                                 np.asarray(du if du is not None else [],
+                                            np.int32),
+                                 np.asarray(dv if dv is not None else [],
+                                            np.int32)))
+            return pending
+
+        def counted(*args):
+            self.calls += 1
+            return commit(*args)
+
+        def timed(*args):
+            t0 = time.perf_counter()
+            out = work(*args)
+            self.walls.append(time.perf_counter() - t0)
+            return out
+
+        def kept(qa, qb):
+            ans, epoch = query(qa, qb)
+            self.answers.append((epoch, np.asarray(qa), np.asarray(qb), ans))
+            return ans, epoch
+
+        store.begin_commit, store.query = logged, kept
+        store._ops = store._ops._replace(commit=counted)
+        server._commit_work = timed
+
+
+def _serve_row(tag: str, res) -> str:
+    return f"[serve] {tag} LoadResult {json.dumps(res.row())}"
+
+
+def phase_serve(torch, g, seed: int, card: str):
+    """ConnectIt(MAIN_VARIANT).serve over the graph's vertices at
+    serve_bench's full-scale settings: the static server preloaded with the
+    stream phase's edges in commits of 2^20, an untimed closed-loop pass,
+    the closed loop (saturation) and open loops at SERVE_LOADS of it;
+    scipy on the final labels and on 4 evenly spaced epochs' answers. Then
+    the dynamic server: SERVE_DYNAMIC_PRELOAD commits, a closed loop with
+    deletes, scipy on the live multiset. Returns the static server."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+    from repro_torch.serve import open_loop, run_sync
+
+    n = g.n
+    session = ConnectIt(MAIN_VARIANT, device="cuda")
+    ops.reset_launch_counts()
+    server = serve_server(session, g, dynamic=False)
+    log = _ServeLog(server)
+    pre = serve_preload(torch, server, g, seed, dynamic=False)
+    preloaded = server.epoch_edges[-1]
+    print(f"[serve] static server n={n}, {SERVE_CAPS}, warmup='all': "
+          f"preloaded {preloaded} edges in {len(pre)} commits of "
+          f"{SERVE_PRELOAD}, {sum(pre):.3f} s ({preloaded / sum(pre):.1f} "
+          f"edges/s, commit p50 {_pct(pre, 0.5) * 1e3:.3f} ms)")
+    warm = serve_closed_loop(server, False, seed + 1,
+                             requests=SERVE_REQUESTS // 4)
+    print(_serve_row("warm pass (untimed)", warm))
+    walls0 = len(log.walls)
+    sat = serve_closed_loop(server, False, seed)
+    loop_walls = log.walls[walls0:]
+    results = [("closed", sat)]
+    print(_serve_row(f"closed {SERVE_CLIENTS}x{SERVE_REQUESTS}", sat))
+    for frac in SERVE_LOADS:
+        qps = max(sat.achieved_qps * frac, 1.0)
+        res = run_sync(server, open_loop, qps=qps,
+                       requests=SERVE_OPEN_REQUESTS, seed=seed,
+                       **SERVE_TRAFFIC)
+        results.append((f"open {frac}", res))
+        print(_serve_row(f"open {frac} of saturation", res))
+    counts = ops.launch_counts()
+    st = server.stats()
+    print(f"[serve] stats {st}")
+    ms = [w * 1e3 for w in loop_walls]
+    print(f"[serve] closed loop: {len(ms)} commits, commit wall (begin + "
+          f"wait, worker thread) p50 {_pct(ms, 0.5):.4f} ms, p99 "
+          f"{_pct(ms, 0.99):.4f} ms, mean {sum(ms) / len(ms):.4f} ms; "
+          f"committed {sat.edges_per_s:.1f} edges/s; launches "
+          f"{json.dumps(counts)}; card {card}")
+
+    # linearization: epochs 1, 2, ... in commit order; every edge submitted
+    # was committed; the final labels and the answers of 4 evenly spaced
+    # epochs against scipy on their epoch's prefix of the commit log
+    epochs = [c[0] for c in log.commits]
+    require(epochs == list(range(1, len(epochs) + 1)),
+            "serve: commits did not become epochs 1, 2, ... in order")
+    sizes = np.cumsum([0] + [c[1].shape[0] for c in log.commits])
+    require(server.epoch_edges == sizes.tolist(),
+            "serve: epoch_edges is not the commit log's running total")
+    submitted = st.tenants["default"].edges_submitted
+    loops = [warm] + [r for _, r in results]
+    want = preloaded + sum(r.inserts for r in loops) * \
+        SERVE_TRAFFIC["insert_edges"]
+    require(server.epoch_edges[-1] == submitted == want,
+            f"serve: {server.epoch_edges[-1]} edges committed, {submitted} "
+            f"submitted, want {want}")
+    require(counts["edge_rewrite"] == log.calls
+            and counts["hook_compress"] > 0 and counts["pointer_jump"] > 0,
+            f"serve: launches {counts}, want edge_rewrite == {log.calls} "
+            f"commits (warmup's included) and hook_compress, pointer_jump "
+            f"above 0")
+    edges = np.stack([np.concatenate([c[1] for c in log.commits]),
+                      np.concatenate([c[2] for c in log.commits])], 1)
+    t0 = time.perf_counter()
+    _, lab = _scipy_labels(n, edges)
+    require(np.array_equal(canonical(server.store.labels.cpu().numpy()),
+                           canonical(lab)),
+            "serve: the final labels' partition differs from scipy's on "
+            "every committed edge")
+    seen = sorted({a[0] for a in log.answers if a[0] > len(pre)})
+    picks = sorted({seen[round(i * (len(seen) - 1) / 3)] for i in range(4)})
+    checked = 0
+    for e in picks:
+        _, lab = _scipy_labels(n, edges[: sizes[e]])
+        for epoch, qa, qb, ans in log.answers:
+            if epoch == e:
+                require(np.array_equal(ans.cpu().numpy(),
+                                       lab[qa] == lab[qb]),
+                        f"serve: answers at epoch {e} differ from scipy's "
+                        f"on its {sizes[e]}-edge prefix")
+                checked += qa.shape[0]
+    require(len(picks) >= 4 or len(seen) < 4,
+            f"serve: only epochs {picks} answered")
+    print(f"[serve] checks: epochs 1..{len(epochs)} in commit order; "
+          f"{submitted} edges submitted == committed; final partition == "
+          f"scipy's; {checked} answers at epochs {picks} == scipy on their "
+          f"prefixes ({len(picks) + 1} scipy runs, "
+          f"{time.perf_counter() - t0:.2f} s)")
+
+    # the dynamic server
+    ops.reset_launch_counts()
+    dserver = serve_server(session, g, dynamic=True)
+    dlog = _ServeLog(dserver)
+    dpre = serve_preload(torch, dserver, g, seed, dynamic=True)
+    dres = serve_closed_loop(dserver, True, seed)
+    dcounts = ops.launch_counts()
+    dst = dserver.stats()
+    print(_serve_row(f"dynamic closed {SERVE_CLIENTS}x"
+                     f"{SERVE_DYNAMIC_REQUESTS} delete_frac="
+                     f"{SERVE_DELETE_FRAC}", dres))
+    print(f"[serve] dynamic stats {dst}")
+    # the live multiset, replayed from the commit log: a delete removes
+    # every copy of its pair, and within a commit deletes apply before
+    # inserts, so an insert of commit i lives iff no commit after i deletes
+    # its pair
+    ins_key, ins_at, del_key, del_at = [], [], [], []
+    for i, (_, u, v, du, dv) in enumerate(dlog.commits):
+        keep = u != v
+        ins_key.append(_live_keys(np.stack([u[keep], v[keep]], 1), n))
+        ins_at.append(np.full(int(keep.sum()), i))
+        del_key.append(_live_keys(np.stack([du, dv], 1), n))
+        del_at.append(np.full(du.shape[0], i))
+    ins_key, ins_at = np.concatenate(ins_key), np.concatenate(ins_at)
+    del_key, del_at = np.concatenate(del_key), np.concatenate(del_at)
+    last = {}
+    for k, at in zip(del_key.tolist(), del_at.tolist()):
+        last[k] = max(at, last.get(k, -1))
+    dkeys = np.asarray(sorted(last), np.int64)
+    dlast = np.asarray([last[k] for k in dkeys.tolist()], np.int64)
+    pos = np.searchsorted(dkeys, ins_key).clip(0, max(len(dkeys) - 1, 0))
+    hit = (dkeys[pos] == ins_key) if len(dkeys) else np.zeros_like(ins_key,
+                                                                   bool)
+    live = ins_key[~hit | (dlast[pos] <= ins_at)]
+    _, lab = _scipy_labels(n, np.stack([live // n, live % n], 1))
+    used = int(dserver.store._ops.used(dserver.store._committed).sum())
+    require(np.array_equal(canonical(dserver.store.labels.cpu().numpy()),
+                           canonical(lab)),
+            "serve dynamic: the final labels differ from scipy's on the "
+            "live multiset")
+    require(used == len(live),
+            f"serve dynamic: {used} live log entries, want {len(live)}")
+    require(dcounts["scatter_min"] > 0 and dcounts["pointer_jump"] > 0,
+            f"serve dynamic: launches {dcounts}")
+    dms = [w * 1e3 for w in dlog.walls]
+    print(f"[serve] dynamic server n={n}, log {SERVE_DYNAMIC_LOG}: preload "
+          f"{len(dpre)} commits of {SERVE_PRELOAD} in {sum(dpre):.3f} s; "
+          f"closed loop {len(dms)} commits, commit wall p50 "
+          f"{_pct(dms, 0.5):.4f} ms, p99 {_pct(dms, 0.99):.4f} ms; "
+          f"{dst.edges_deleted} deletes committed; final labels == scipy on "
+          f"the {len(live)} live edges == the log's live count; launches "
+          f"{json.dumps(dcounts)}; card {card}")
+    return server
+
+
 # the analytic resident bytes of chunked ingest, as the JAX package's scale
 # benchmark states them (benchmarks/scale_bench.py::_analytic_bytes): int32
 # labels over n + 1 rows, one dump-padded (u, v) chunk at its pow2 bucket,
@@ -1813,9 +2104,10 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
     return model, serve_inputs
 
 
-def _trace(torch, tag: str, fn) -> None:
+def _trace(torch, tag: str, fn) -> dict:
     """One run of ``fn`` under torch.profiler: wall time, the device's busy
-    share and device time by kernel."""
+    share and device time by kernel. Returns the host-side (CUDA runtime)
+    calls by name with their counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1836,17 +2128,20 @@ def _trace(torch, tag: str, fn) -> None:
           f"{100 * (1 - busy / wall):.1f}%")
     for dev_us, key, count in rows[:15]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if ev.device_type != DeviceType.CUDA}
 
 
 def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
-                  log_m: int) -> None:
+                  log_m: int, server) -> None:
     """Where the compacted main path's time goes: wall time per driver step
     (host clock around synchronized work), then one traced run of it, one of
     none+stergiou, one of the fused PUFA path, one stream batch (the ninth
     of STREAM_BATCH), one dynamic step (sliding_window's fifth, the first
     that deletes), one ingest of the graph's edges (the ingest phase's
-    source), one amsf(skip=lmax), one msf, and one DLRM-RM2 serve_bulk and
-    one serve_p99 step."""
+    source), one amsf(skip=lmax), one msf, one closed-loop window of the
+    serve phase's static server (with its host syncs a commit), and one
+    DLRM-RM2 serve_bulk and one serve_p99 step."""
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import serve_step
     from repro_torch import ConnectIt
@@ -1894,12 +2189,47 @@ def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
         ops.reset_launch_counts()
         _trace(torch, tag, fn)
         print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
+    _trace_serve_window(torch, server, seed)
     for shape in ("serve_bulk", "serve_p99"):
         inputs = serve_inputs[shape]
         ops.reset_launch_counts()
         _trace(torch, f"dlrm-rm2 {shape} B={inputs[0].shape[0]}",
                lambda: serve_step(model, *inputs))
         print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
+
+
+# the CUDA runtime calls at which the host waits for the device
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def _trace_serve_window(torch, server, seed: int) -> None:
+    """One traced closed-loop window (16 clients x 8 requests) of the serve
+    phase's static server, its restart's warmup left out: busy share, the
+    largest device operations, and the host's waits on the device a commit
+    (a query dispatch waits once, for its answers)."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    server.config = dataclasses.replace(server.config, warmup=False)
+    before = server.stats()
+    ops.reset_launch_counts()
+    calls = _trace(torch, f"serve closed loop {SERVE_CLIENTS}x8 "
+                   f"({SERVE_TRAFFIC})",
+                   lambda: serve_closed_loop(server, False, seed + 2,
+                                             requests=8))
+    st = server.stats()
+    commits = st.commit_batches - before.commit_batches
+    queries = st.query_batches - before.query_batches
+    syncs = {k: calls.get(k, 0) for k in SYNC_CALLS}
+    rounds = st.finish_rounds - before.finish_rounds
+    waits = sum(syncs.values())
+    print(f"[profile]   {commits} commits ({rounds} finish rounds), "
+          f"{queries} query dispatches; host waits {json.dumps(syncs)}: "
+          f"{(waits - queries) / max(commits, 1):.1f} a commit besides one a "
+          f"query dispatch; cudaMemcpyAsync "
+          f"{calls.get('cudaMemcpyAsync', 0)}; launches "
+          f"{json.dumps(ops.launch_counts())}")
 
 
 def _trace_stream_steps(torch, g, seed: int) -> None:
@@ -1981,6 +2311,7 @@ def main() -> int:
               card)
         timed("dynamic", phase_dynamic, torch, g, expect, keys, args.seed,
               exact, card)
+        server = timed("serve", phase_serve, torch, g, args.seed, card)
         edges = timed("ingest", phase_ingest, torch, g, expect, args.seed,
                       args.log_m, exact, card)
         weights = timed("apps", phase_apps, torch, g, expect, keys, exact,
@@ -1988,7 +2319,7 @@ def main() -> int:
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
-              args.seed, edges, weights, args.log_m)
+              args.seed, edges, weights, args.log_m, server)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

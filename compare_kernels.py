@@ -22,8 +22,9 @@ recorded calls of Liu-Tarjan PUFA and Stergiou; edge_rewrite on the same
 graph edges and the recorded calls of Liu-Tarjan PUFA and CRFA (compacted
 and fused), of Stergiou and of 8 stream batches; pointer_jump at k = 1 and
 3 and the main path's recorded calls; and every kernel's recorded calls
-of chunked ingest and of amsf (``chip_smoke.RECORDED``). ``--only`` keeps the cases of the
-kernels named. Every output is held against the plain version; each case
+of chunked ingest, of amsf and of the served closed loops
+(``chip_smoke.RECORDED``). ``--only`` keeps the cases of the kernels
+named. Every output is held against the plain version; each case
 is timed with the trees in order, then in reverse (CUDA-event means over 20
 launches), and a tree's time is the mean of its two.
 ``--paths`` also runs every path of ``chip_smoke.PATHS`` ``--reps`` times

@@ -30,10 +30,11 @@ and batch-dynamic streams:
     labels = ci.from_chunks(ArrayEdgeSource(edges, n))   # out-of-core ingest
     forest = ci.amsf(g, with_weights(g), "amsf(skip=lmax)")   # paper §5.1
     labels, cores = ci.scan(g, sims, "scan(eps=0.6,mu=3)")    # paper §5.2
+    server = ci.serve(n)                     # async serving (repro_torch.serve)
 
-Only the ``single`` placement is ported; "auto", the other placements and
-serving raise ``NotImplementedError`` naming the ROADMAP queue item that
-ports them.
+Only the ``single`` placement is ported; "auto" and the other placements
+raise ``NotImplementedError`` naming the ROADMAP queue item that ports
+them.
 """
 
 from __future__ import annotations
@@ -641,7 +642,8 @@ class DynamicStream:
 
 class ConnectIt:
     """One variant on one device: static connectivity, spanning forests,
-    streams, out-of-core ingest and the §5 apps (AMSF, MSF, SCAN).
+    streams, out-of-core ingest, the §5 apps (AMSF, MSF, SCAN) and
+    serving.
 
     >>> ci = ConnectIt("kout_hybrid_k2+uf_sync_full")   # device="cuda"
     >>> labels = ci.connectivity(g)
@@ -841,5 +843,57 @@ class ConnectIt:
             return labels, is_core, stats
         return labels, is_core
 
-    def serve(self, n=None, **kw):
-        raise _not_ported("serving", "Queue 1 item 12")
+    def serve(self, n: Optional[int] = None, *, tenants=None, config=None,
+              dynamic: bool = False, log: Optional[int] = None,
+              search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS,
+              **knobs):
+        """Async serving front-end over a live graph (``repro_torch.serve``)
+        on the session's device.
+
+        Returns a not-yet-started ``repro_torch.serve.Server``: an asyncio
+        admission layer (``submit_inserts`` / ``query`` coroutines) that
+        coalesces concurrent client traffic into pow2-bucketed batches, with
+        double-buffered snapshot epochs so that queries always read a stable
+        committed snapshot. Pass ``n`` for one logical graph, or
+        ``tenants={"name": n, ...}`` to serve several tenant namespaces from
+        one shared state. ``config`` is a ``repro_torch.serve.ServeConfig``;
+        extra ``knobs`` (``max_batch_edges=...``, ``flush_ms=...``, ...)
+        override its fields.
+
+        With ``dynamic=True`` the server also accepts ``submit_deletes``:
+        deletions coalesce into the same commit pipeline (a root-based
+        finish is required; ``log`` sizes the tombstoned edge log as in
+        ``stream``).
+
+        >>> server = ConnectIt("none+uf_sync_full").serve(1 << 16)
+        >>> async with server:
+        ...     epoch = await server.submit_inserts(u, v)
+        ...     ans, at_epoch = await server.query(qa, qb)
+        """
+        from .serve import ServeConfig, Server, TenantRegistry
+        registry = TenantRegistry.build(n=n, tenants=tenants)
+        cfg = config or ServeConfig()
+        if knobs:
+            cfg = dataclasses.replace(cfg, **knobs)
+        if dynamic:
+            if not self.spec.forest_capable:
+                raise ValueError(
+                    f"dynamic serving needs a root-based finish "
+                    f"({'/'.join(FOREST_METHODS)}), not "
+                    f"{self.spec.finish_str!r} — paper §3.4")
+            cap = log or 0
+            if cap and cap & (cap - 1):
+                raise ValueError(f"log must be a power of two, got {cap}")
+            ops = dyn_engine.dynamic_snapshot_ops(
+                registry.total, device=self.device,
+                compress=self.spec.forest_compress, log=cap,
+                search_rounds=search_rounds, donate=cfg.donate)
+        else:
+            if log:
+                raise ValueError("log= is a dynamic-serving knob — pass "
+                                 "dynamic=True")
+            ops = streaming.snapshot_ops(registry.total, self._finish,
+                                         device=self.device,
+                                         donate=cfg.donate)
+        return Server(ops, registry, config=cfg, variant=str(self.spec),
+                      exec_str="single", devices=1)

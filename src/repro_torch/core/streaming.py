@@ -11,7 +11,8 @@ gathers, and each incoming batch endpoint rewritten to its label (one
 hooks roots directly instead of re-walking chains.
 
 ``stream_ops(n, finish_fn, device=...)`` bundles the single-device programs
-behind ``repro_torch.api.Stream``.
+behind ``repro_torch.api.Stream``, and ``snapshot_ops`` the double-buffered
+epoch programs behind ``repro_torch.serve``.
 """
 
 from __future__ import annotations
@@ -107,4 +108,70 @@ def stream_ops(n: int, finish_fn: Callable, *, device) -> StreamOps:
         ncomp=lambda st: num_components(st.P),
         edge_shards=1,
         batch_size=lambda k: bucket_size(k, pad="pow2"),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Snapshot plumbing (repro_torch.serve): double-buffered epochs.
+#
+# The serving layer keeps two label buffers per served vertex space: the
+# *committed* snapshot, which every query gathers against, and the *shadow*,
+# the previous epoch's labels, which no query can reach any more. A commit
+# computes the next epoch's labels from the committed snapshot. Every op on
+# the path writes out of place, so the committed buffer is never written
+# and a query racing a commit reads a stable snapshot. Donation is the
+# caching allocator's: with ``donate`` the store drops its reference to the
+# shadow before the commit allocates, so the shadow's block is free for the
+# commit's own buffers (serve/snapshot.py).
+# ---------------------------------------------------------------------------
+
+
+def snapshot_query(P: torch.Tensor, qa, qb) -> torch.Tensor:
+    """IsConnected against a raw compressed label buffer (the snapshot
+    read), as ``query_batch`` answers it."""
+    return query_batch(StreamState(P), qa, qb)
+
+
+def make_snapshot_commit(finish_fn: Callable) -> Callable:
+    """The snapshot commit ``(committed, shadow, u, v) -> (labels,
+    rounds)``. ``committed`` is read, never written; ``shadow`` is dead
+    state and is not read (the store passes ``None`` under donation)."""
+
+    def commit(committed, shadow, u, v):
+        del shadow
+        state, rounds = insert_batch_rounds_fn(StreamState(committed), u, v,
+                                               finish_fn)
+        return state.P, rounds
+
+    return commit
+
+
+class SnapshotOps(NamedTuple):
+    """The single-device snapshot-epoch programs of one (n, finish) pair,
+    behind ``repro_torch.serve``. The state is a raw ``(n + 1,)`` label
+    buffer."""
+
+    init: Callable        # () -> labels (one epoch buffer)
+    commit: Callable      # (committed, shadow, u, v) -> (labels, rounds)
+    query: Callable       # (labels, qa, qb) -> ans
+    labels: Callable      # (labels) -> (n,) real-vertex labels
+    ncomp: Callable       # (labels) -> component count (0-d tensor)
+    edge_shards: int      # devices a batch dispatch splits across
+    batch_size: Callable  # (k) -> padded dispatch size (pow2)
+    device: torch.device  # where the buffers live
+    donate: bool          # drop the shadow before the commit allocates
+
+
+def snapshot_ops(n: int, finish_fn: Callable, *, device,
+                 donate: bool = False) -> SnapshotOps:
+    return SnapshotOps(
+        init=lambda: init_labels(n, device=device),
+        commit=make_snapshot_commit(finish_fn),
+        query=snapshot_query,
+        labels=lambda P: P[:n],
+        ncomp=lambda P: num_components(P[: n + 1]),
+        edge_shards=1,
+        batch_size=lambda k: bucket_size(k, pad="pow2"),
+        device=torch.device(device),
+        donate=bool(donate),
     )

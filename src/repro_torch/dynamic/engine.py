@@ -56,7 +56,8 @@ __all__ = [
     "sanitize_pairs", "sorted_pairs", "pairs_member", "append_log",
     "affected_mask", "masked_log_edges", "forest_round", "query_state",
     "used_slots", "ncomp_state", "state_from_arrays", "DynamicOps",
-    "dynamic_ops", "DEFAULT_SEARCH_ROUNDS",
+    "dynamic_ops", "DynamicSnapshotOps", "dynamic_snapshot_ops",
+    "DEFAULT_SEARCH_ROUNDS",
 ]
 
 DEFAULT_SEARCH_ROUNDS = 4
@@ -291,4 +292,56 @@ def dynamic_ops(n: int, *, device, compress: str = "full", log: int = 0,
         batch_size=pow2,
         delete_size=pow2,
         log_cap=cap,
+    )
+
+
+class DynamicSnapshotOps(NamedTuple):
+    """Snapshot-epoch programs for dynamic serving (``repro_torch.serve``):
+    the state is a whole ``DynamicState`` and the commit applies deletes
+    before inserts. ``log_cap`` is how the serve layer tells a dynamic
+    bundle from a static one."""
+
+    init: Callable         # () -> DynamicState (one epoch state)
+    commit: Callable       # (committed, shadow, du, dv, u, v) -> (state, k)
+    query: Callable        # (state, qa, qb) -> ans
+    labels: Callable       # (state) -> (n,) labels
+    ncomp: Callable        # (state) -> component count (0-d tensor)
+    used: Callable         # (state) -> (edge_shards,) live log entries
+    edge_shards: int
+    batch_size: Callable
+    delete_size: Callable
+    log_cap: int
+    device: torch.device   # where the state lives
+    donate: bool           # drop the shadow before the commit allocates
+
+
+def dynamic_snapshot_ops(n: int, *, device, compress: str = "full",
+                         log: int = 0,
+                         search_rounds: int = DEFAULT_SEARCH_ROUNDS,
+                         donate: bool = False) -> DynamicSnapshotOps:
+    cap = log or default_log_cap(n)
+    upd = make_update(n, compress=compress, search_rounds=search_rounds)
+
+    def commit(committed, shadow, du, dv, u, v):
+        # every op of the update writes out of place: ``committed`` is read,
+        # never written, and the dead ``shadow`` is not read
+        del shadow
+        return upd(committed, du, dv, u, v)
+
+    def pow2(k):
+        return bucket_size(k, pad="pow2")
+
+    return DynamicSnapshotOps(
+        init=lambda: init_dynamic(n, cap, device=device),
+        commit=commit,
+        query=query_state,
+        labels=lambda st: st.P[:n],
+        ncomp=ncomp_state,
+        used=lambda st: used_slots(st, n),
+        edge_shards=1,
+        batch_size=pow2,
+        delete_size=pow2,
+        log_cap=cap,
+        device=torch.device(device),
+        donate=bool(donate),
     )

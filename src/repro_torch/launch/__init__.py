@@ -1,1 +1,2 @@
-"""Launch helpers: the cell builders (``steps``)."""
+"""Launch helpers: the cell builders (``steps``) and the serving CLI
+(``serve``)."""

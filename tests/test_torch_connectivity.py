@@ -418,9 +418,9 @@ def test_unported_specs_name_their_queue_item(text, item):
 def test_unported_surfaces_name_their_queue_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
         tapi.ConnectIt("uf_sync", exec="sharded(x)", device="cpu")
-    ci = tapi.ConnectIt("kout_hybrid_k2+uf_sync_full", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ci.serve(8)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+        tapi.ConnectIt("kout_hybrid_k2+uf_sync_full",
+                       exec="single:dynamic,log=64", device="cpu").serve(8)
 
 
 def test_bad_specs_raise_value_errors():
