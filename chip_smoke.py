@@ -6,6 +6,8 @@
     python3 chip_smoke.py --log-n 14 --log-m 17   # a short compile check
                                                   # (DLRM vocab, batches and
                                                   # candidates cut to 2^14)
+    python3 chip_smoke.py --ranks 4               # only the placements, on
+                                                  # 4 cards, a rank each
 
 Phases, in order; any failure exits non-zero:
 
@@ -54,7 +56,14 @@ Phases, in order; any failure exits non-zero:
               hook_compress's and pointer_jump's of the static server
               (commits of at most 32,768 directed entries against the
               preloaded 2^22 + 1 labels), scatter_min's and pointer_jump's
-              of the dynamic server.
+              of the dynamic server; and every call but the
+              canonicalization's of the placements phase's one-rank runs:
+              the main variant's under sharded(x) (scatter_min's into the
+              label window plus one appended dump slot, hook_compress's,
+              pointer_jump's) and under sharded(x):overlap (scatter_min's,
+              hook_compress's on the two half-blocks), and
+              kout_hybrid_k2+liu_tarjan_PUFA's edge_relabel and
+              edge_rewrite calls under sharded(x).
               Bounds count the bytes this run's data needs (edge_rewrite:
               the label slots its non-negative ends read). embedding_bag
               on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
@@ -129,13 +138,32 @@ Phases, in order; any failure exits non-zero:
               sequential query, and scan(eps=0.1,mu=3), scan(eps=0.3,mu=3)
               on rmat(2^13, 12*2^13, seed=4) with build_index's
               similarities against gs_query_sequential;
- 14. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+ 14. placements the replicated and sharded placements on the graph, each
+              against scipy's labels: (a) one rank over NCCL in this
+              process: the main variant under replicated(x), sharded(x),
+              sharded(x):frontier=0, sharded(x):fused, sharded(x):overlap
+              and sharded(x,y), none+uf_sync_full under replicated(x) and
+              sharded(x), and kout_hybrid_k2+liu_tarjan_PUFA under
+              sharded(x), each also against the single path's labels, with
+              its median wall of 5, rounds, launches (asserted on the
+              default graph), host waits an outer round from one traced
+              run (the sharded(x) main run's trace printed whole) and peak
+              memory; (b) the stream phase's 2^20-edge batches under
+              sharded(x): labels, the last batch's answers, edges/s, p50;
+              (c) scan(eps=0.6,mu=3) under sharded(x) against the single
+              path on the apps phase's similarities; (d) two processes
+              sharing the card over gloo (this script with --mesh-rank),
+              reading the graph and scipy's labels this process writes once
+              to a temporary directory: replicated(x), sharded(x),
+              sharded(x):frontier=0, each against scipy's labels (which
+              (a)'s equal), with wall and rounds;
+ 15. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
- 15. profile  where the compacted main path's time goes: wall time per
+ 16. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
@@ -145,6 +173,12 @@ Phases, in order; any failure exits non-zero:
               one msf, one closed-loop window of the serve phase's static
               server (with the host's waits a commit), and of one DLRM-RM2
               serve_bulk and one serve_p99 step.
+
+With --ranks N (N > 1) it runs device, build, graph and oracle, then
+only the placements across N cards: the runs of (a) and the stream of (b)
+on N processes of this script, one rank a card over NCCL, each rank's
+labels against scipy's, the ranks' rounds and stats equal, with each run's
+wall, rounds, edges per rank and launches.
 
 Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
@@ -200,6 +234,30 @@ STREAM_COUNTS = {1 << 20: ((103, 145, 0, 0, 32), 103),
                  1 << 16: ((209, 290, 0, 0, 64), 209)}
 DYNAMIC_COUNTS = {"a": ((0, 251, 206, 0, 0), 103),
                   "b": ((0, 200, 122, 0, 0), 61)}
+# the placements phase's one-rank runs over NCCL: (variant, exec), and
+# their launches of PATH_KERNELS and finish rounds on the default graph
+PLACEMENT_RUNS = (
+    (MAIN_VARIANT, "replicated(x)"), (MAIN_VARIANT, "sharded(x)"),
+    (MAIN_VARIANT, "sharded(x):frontier=0"), (MAIN_VARIANT, "sharded(x):fused"),
+    (MAIN_VARIANT, "sharded(x):overlap"), (MAIN_VARIANT, "sharded(x,y)"),
+    ("none+uf_sync_full", "replicated(x)"), ("none+uf_sync_full", "sharded(x)"),
+    (EDGE_PATH, "sharded(x)"),
+)
+PLACEMENT_COUNTS = {
+    (MAIN_VARIANT, "replicated(x)"): ((8, 13, 1, 0, 0), 2),
+    (MAIN_VARIANT, "sharded(x)"): ((8, 13, 3, 0, 0), 2),
+    (MAIN_VARIANT, "sharded(x):frontier=0"): ((8, 13, 1, 0, 0), 2),
+    (MAIN_VARIANT, "sharded(x):fused"): ((8, 13, 3, 0, 0), 2),
+    (MAIN_VARIANT, "sharded(x):overlap"): ((12, 17, 3, 0, 0), 5),
+    (MAIN_VARIANT, "sharded(x,y)"): ((8, 13, 3, 0, 0), 2),
+    ("none+uf_sync_full", "replicated(x)"): ((5, 8, 1, 0, 0), 2),
+    ("none+uf_sync_full", "sharded(x)"): ((5, 8, 2, 0, 0), 2),
+    (EDGE_PATH, "sharded(x)"): ((4, 17, 3, 5, 5), 2),
+}
+# the placements phase's stream under sharded(x), 2^20-edge batches
+PLACEMENT_STREAM_COUNTS = ((135, 177, 63, 0, 0), 64)
+# the placements the two gloo ranks sharing the card run (MAIN_VARIANT)
+GLOO_EXECS = ("replicated(x)", "sharded(x)", "sharded(x):frontier=0")
 # samplings whose stats take no random draw, so the card's equal the CPU's
 DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -413,28 +471,40 @@ def _main_path_inputs(torch, g) -> dict:
 # server's commits of at most SERVE_CAPS' 16,384 edges, 32,768 directed
 # entries, against the preloaded 2^22 + 1 labels; "serve dynamic": the
 # dynamic server's forest rounds, deletes included): an evenly spaced
-# sample of the closed loop's calls, none of the preload's. (kernel,
-# variant, runs: "compacted" and "fused" connectivity, "forest", "stream",
-# "ingest", "ingest powerlaw", "amsf", "serve", "serve dynamic")
+# sample of the closed loop's calls, none of the preload's. The placements
+# phase's one-rank runs ("placement sharded": sharded(x), whose frontier
+# merge scatters into the label window plus one appended dump slot, and
+# the PUFA run's calls on the edge block; "placement overlap":
+# sharded(x):overlap, its finishes on the two half-blocks): every call but
+# the canonicalization's. (kernel, variant, runs: "compacted" and "fused"
+# connectivity, "forest", "stream", "ingest", "ingest powerlaw", "amsf",
+# "serve", "serve dynamic", "placement sharded", "placement overlap")
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
     ("scatter_min", "none+uf_sync_full", ("forest",)),
     ("scatter_min", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
-    ("scatter_min", MAIN_VARIANT, ("amsf", "serve dynamic")),
-    ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
+    ("scatter_min", MAIN_VARIANT, ("amsf", "serve dynamic",
+                                   "placement sharded", "placement overlap")),
+    ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused",
+                                                        "placement sharded")),
     ("edge_relabel", "none+stergiou", ("compacted",)),
     ("pointer_jump", MAIN_VARIANT, ("compacted", "fused", "amsf", "serve",
-                                    "serve dynamic")),
+                                    "serve dynamic", "placement sharded")),
     ("pointer_jump", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
-    ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused")),
+    ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused",
+                                                        "placement sharded")),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("edge_rewrite", "none+stergiou", ("compacted",)),
     ("edge_rewrite", MAIN_VARIANT, ("stream", "ingest", "serve")),
     ("edge_rewrite", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
-    ("hook_compress", MAIN_VARIANT, ("ingest", "serve")),
+    ("hook_compress", MAIN_VARIANT, ("ingest", "serve", "placement sharded",
+                                     "placement overlap")),
     ("hook_compress", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
 )
+# the placement a recorded run's session takes
+RECORDED_EXEC = {"placement sharded": "sharded(x)",
+                 "placement overlap": "sharded(x):overlap"}
 STREAM_BATCH = 1 << 20
 RECORDED_STREAM_BATCHES = 8
 # an amsf run makes ~480 scatter_min calls, each with two arrays of the
@@ -499,9 +569,10 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     edge_relabel and edge_rewrite, (labels, k) for pointer_jump; ``made``
     the calls the run made. An "amsf" or "serve" run keeps every
     ``stride``-th call (RECORDED_SAMPLED_CALLS); every other run keeps every
-    call. A "serve" run records its closed loop only. The last
-    scatter_min call of a connectivity run, the canonicalization's, is left
-    out (it has its own input)."""
+    call. A "serve" run records its closed loop only. A "placement" run
+    is one connectivity call on its RECORDED_EXEC placement, in a one-rank
+    group made for it. The last scatter_min call of a connectivity run, the
+    canonicalization's, is left out (it has its own input)."""
     from contextlib import ExitStack
     from types import SimpleNamespace
     from unittest import mock
@@ -509,6 +580,7 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     from repro_torch import ConnectIt
     from repro_torch.graphs.generators import with_weights
     from repro_torch.kernels import ops
+    from repro_torch.launch import multihost
 
     calls = {name: [] for name in names}
     made = dict.fromkeys(names, 0)
@@ -532,11 +604,15 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             return launch(*args, **kw)
         return record
 
-    session = ConnectIt(variant, device="cuda")
+    placement = run in RECORDED_EXEC
+    session = ConnectIt(variant, exec=RECORDED_EXEC.get(run, "single"),
+                        device="cuda")
     # ops reaches each wrapper through its module at call time: ops's name
     # for that module is patched, so the wrapper itself, and its launch
     # count, stay as they are
     with ExitStack() as stack:
+        if placement:
+            stack.callback(multihost.shutdown)
         for module in {sys.modules[ops.KERNELS[x].__module__] for x in names}:
             attr = next(k for k, v in vars(ops).items() if v is module)
             patched = {x: recorder(x) for x in names
@@ -565,7 +641,8 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             serve_closed_loop(server, dynamic, seed)
         else:
             session.connectivity(g, fused=run == "fused")
-    if "scatter_min" in names and run in ("compacted", "fused"):
+    if "scatter_min" in names and (run in ("compacted", "fused")
+                                   or placement):
         calls["scatter_min"] = calls["scatter_min"][:-1]
         made["scatter_min"] -= 1
     return {x: (tuple(calls[x]), made[x], stride[x]) for x in names}
@@ -1952,6 +2029,318 @@ def phase_apps(torch, g, expect, keys, exact: bool, card: str):
     return w
 
 
+def _required_kernels(variant: str) -> tuple:
+    """The kernels a run of ``variant`` must launch: those its single-device
+    path launches (PATHS), the uf_sync kernels otherwise."""
+    for v, _, counts, _ in PATHS:
+        if v == variant:
+            return tuple(k for k, c in zip(PATH_KERNELS, counts) if c)
+    return UF_KERNELS
+
+
+def phase_placements(torch, g, expect, seed: int, exact: bool, card: str):
+    """The replicated and sharded placements (repro_torch.core.execution)
+    at the full size: (a) PLACEMENT_RUNS at one rank over NCCL in this
+    process, each against scipy's labels and the single path's, with its
+    median wall of 5, rounds, launches, host waits an outer round (one
+    traced run) and peak memory; (b) the stream phase's 2^20-edge batches
+    under sharded(x); (c) scan(eps=0.6,mu=3) under sharded(x) against the
+    single path on the apps phase's similarities; (d) GLOO_EXECS on two
+    processes sharing the card over gloo, each against (a)'s labels."""
+    import statistics
+
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multihost
+
+    topo = multihost.initialize()  # nothing configured: one rank
+    require(topo.num_processes == 1 and "nccl" in topo.backend,
+            f"placements: one-rank group expected, got {topo}")
+    try:
+        single = {}
+        for variant, exec_str in PLACEMENT_RUNS:
+            what = f"placements {variant} {exec_str}"
+            if variant not in single:
+                single[variant] = ConnectIt(variant, device="cuda") \
+                    .connectivity(g).cpu().numpy()
+            ci = ConnectIt(variant, exec=exec_str, device="cuda")
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            labels, stats = ci.connectivity(g, return_stats=True)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated() - base
+            got = labels.cpu().numpy()
+            require(np.array_equal(got, expect),
+                    f"{what}: labels differ from the scipy oracle")
+            require(np.array_equal(got, single[variant]),
+                    f"{what}: labels differ from the single path's")
+            require(stats.exec == exec_str and stats.devices == 1
+                    and sum(stats.edges_per_device) == stats.edges_finish
+                    and sum(stats.dispatch_sizes)
+                    == stats.edges_finish_padded,
+                    f"{what}: stats {stats}")
+            for name in _required_kernels(variant):
+                require(counts[name] > 0,
+                        f"{what}: kernel {name} never launched")
+            _check_counts(what, counts, stats.finish_rounds,
+                          PLACEMENT_COUNTS.get((variant, exec_str)), exact)
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ci.connectivity(g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            main = (variant, exec_str) == (MAIN_VARIANT, "sharded(x)")
+            calls = _trace(torch, what, lambda: ci.connectivity(g),
+                           top=15 if main else 0)
+            waits = sum(calls.get(k, 0) for k in SYNC_CALLS)
+            print(f"[placements] {what}: labels == scipy == single; median "
+                  f"wall of 5 {statistics.median(walls) * 1e3:.4f} ms; "
+                  f"finish_rounds {stats.finish_rounds}; host waits "
+                  f"{waits} ({waits / stats.finish_rounds:.1f} an outer "
+                  f"round); edges_finish {stats.edges_finish} of "
+                  f"{stats.edges_finish_padded}; peak device memory above "
+                  f"the graph {peak} bytes; launches {json.dumps(counts)}; "
+                  f"card {card}")
+        _placement_stream(torch, g, expect, seed, exact, card)
+        _placement_scan(torch, g)
+    finally:
+        multihost.shutdown()
+    _placement_gloo(torch, g, expect, card)
+
+
+def _placement_stream(torch, g, expect, seed: int, exact: bool, card: str,
+                      tag: str = "", want=PLACEMENT_STREAM_COUNTS) -> None:
+    """(b): the stream phase's 2^20-edge batches, each with 2^16 query
+    pairs, through ConnectIt(MAIN_VARIANT, exec="sharded(x)").stream(n).
+    The last batch's prefix is every edge, so its oracle is ``expect``.
+    ``want`` holds its launches and rounds at one rank (None elsewhere)."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+
+    u, v = stream_edges(torch, g, seed)
+    total, batch = u.shape[0], STREAM_BATCH
+    nb = -(-total // batch)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    queries = torch.randint(0, g.n, (nb, 2, 1 << 16), generator=gen,
+                            device="cuda", dtype=torch.int32)
+    st = ConnectIt(MAIN_VARIANT, exec="sharded(x)",
+                   device="cuda").stream(g.n)
+    ops.reset_launch_counts()
+    walls = []
+    for i in range(nb):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ans = st.process(u[i * batch: (i + 1) * batch],
+                         v[i * batch: (i + 1) * batch],
+                         queries[i, 0], queries[i, 1])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = ops.launch_counts()
+    stats = st.stats
+    what = f"placements {tag}stream sharded(x) batch={batch}"
+    require(stats.edges_total == total, f"{what}: {stats.edges_total} edges")
+    require(np.array_equal(canonical(st.labels.cpu().numpy()), expect),
+            f"{what}: the stream's components differ from scipy's")
+    q = queries[-1].cpu().numpy()
+    require(np.array_equal(ans.cpu().numpy(), expect[q[0]] == expect[q[1]]),
+            f"{what}: the last batch's answers differ from scipy's")
+    for name in UF_KERNELS:
+        require(counts[name] > 0, f"{what}: kernel {name} never launched")
+    _check_counts(what, counts, stats.finish_rounds, want, exact)
+    ms = [w * 1e3 for w in walls]
+    print(f"[placements] {what}: {nb} batches, {total} edges; labels' "
+          f"partition == scipy's; the last batch's answers == scipy's; "
+          f"{total / sum(walls):.1f} inserted edges/s; per batch p50 "
+          f"{_pct(ms, 0.5):.4f} ms, p99 {_pct(ms, 0.99):.4f} ms; "
+          f"finish_rounds {stats.finish_rounds}; batch_shapes "
+          f"{stats.batch_shapes}; launches {json.dumps(counts)}; card {card}")
+
+
+def _placement_scan(torch, g) -> None:
+    """(c): scan(eps=0.6,mu=3) under sharded(x) against the single path,
+    on the apps phase's similarities."""
+    from repro_torch import ConnectIt
+
+    sims = _sym_uniform(torch, g, 0)
+    spec = "scan(eps=0.6,mu=3)"
+    want = ConnectIt(MAIN_VARIANT, device="cuda").scan(g, sims, spec)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    labels, cores, stats = ConnectIt(
+        MAIN_VARIANT, exec="sharded(x)", device="cuda").scan(
+        g, sims, spec, return_stats=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    require(torch.equal(labels, want[0]) and torch.equal(cores, want[1]),
+            f"placements {spec} sharded(x): differs from the single path")
+    print(f"[placements] {MAIN_VARIANT} {spec} sharded(x): labels, is_core "
+          f"== the single path's; core-core edges {stats.edges_finish}; "
+          f"finish_rounds {stats.finish_rounds}; wall {wall:.4f} s")
+
+
+def _placement_gloo(torch, g, expect, card: str) -> None:
+    """(d): GLOO_EXECS on two processes that share the card over gloo
+    (NCCL takes one rank a card)."""
+    _run_ranks(torch, g, expect, 0, 2, "gloo",
+               [(MAIN_VARIANT, e) for e in GLOO_EXECS], False, card)
+
+
+def phase_ranks(torch, g, expect, seed: int, world: int, card: str) -> None:
+    """``--ranks N``: PLACEMENT_RUNS and (b)'s stream on N processes, one
+    rank a card over NCCL, each rank's labels against scipy's."""
+    require(torch.cuda.device_count() >= world,
+            f"ranks: {world} ranks over NCCL need {world} cards, have "
+            f"{torch.cuda.device_count()}")
+    _run_ranks(torch, g, expect, seed, world, "cpu:gloo,cuda:nccl",
+               list(PLACEMENT_RUNS), True, card)
+
+
+def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
+               runs: list, stream: bool, card: str) -> None:
+    """Start ``world`` processes of this script (--mesh-rank), one rank
+    each of a group over ``backend``. They read the graph and scipy's
+    labels, which this process writes once to a temporary directory (not
+    generating the graph again), run ``runs`` (and, with ``stream``, (b)'s
+    stream) and write what they measured there. Every rank must exit 0,
+    and the ranks must agree on each run's rounds and stats."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        for name in ("senders", "receivers", "indptr", "indices"):
+            getattr(g, name).cpu().numpy().tofile(tmp / f"{name}.i32")
+        expect.astype("int32").tofile(tmp / "expect.i32")
+        (tmp / "job.json").write_text(json.dumps(
+            {"n": g.n, "m": g.m, "world": world, "backend": backend,
+             "runs": runs, "stream": stream, "seed": seed, "card": card}))
+        t_write = time.perf_counter() - t0
+        logs = [tmp / f"rank{r}.log" for r in range(world)]
+        for r in range(world):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-rank", str(r), "--mesh-dir", str(tmp)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        # a rank that fails leaves the others waiting in a collective
+        deadline = time.monotonic() + 900
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for r, p in enumerate(procs):
+            log = logs[r].read_text()
+            require(p.returncode == 0,
+                    f"placements {backend} rank {r} of {world} exited "
+                    f"{p.returncode}:\n{log[-4000:]}")
+            for line in log.splitlines():
+                if line.startswith(("[placements]", "[check]")):
+                    head, rest = line.split("]", 1)
+                    print(f"{head}] {backend} rank {r} of {world}:{rest}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(world)]
+        for i, run in enumerate(res[0]):
+            keys = ("rounds", "edges_per_device", "dispatch_sizes")
+            require(all({k: x[i][k] for k in keys} ==
+                        {k: run[k] for k in keys} for x in res),
+                    f"placements {backend} {run['variant']} {run['exec']}: "
+                    f"the ranks disagree: {[x[i] for x in res]}")
+        print(f"[placements] {backend} {world} ranks: the graph written once "
+              f"in {t_write:.2f} s; every rank's labels == scipy's; the "
+              f"ranks agree on rounds and stats")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def mesh_rank(rank: int, tmp: str) -> int:
+    """One rank of _run_ranks: the job in ``tmp``'s job.json."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from repro_torch import ConnectIt
+    from repro_torch.graphs import graph_from_arrays
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multihost
+
+    d = Path(tmp)
+    job = json.loads((d / "job.json").read_text())
+    world, tag = job["world"], f"{job['backend']} {job['world']} ranks "
+    arrays = [np.fromfile(d / f"{k}.i32", dtype=np.int32)
+              for k in ("senders", "receivers", "indptr", "indices")]
+    expect = np.fromfile(d / "expect.i32", dtype=np.int32)
+    topo = multihost.initialize(init_method=f"file://{d}/rendezvous",
+                                num_processes=world, process_id=rank,
+                                backend=job["backend"], timeout=300)
+    out = []
+    try:
+        g = graph_from_arrays(*arrays, job["n"], job["m"], device="cuda")
+        for variant, exec_str in job["runs"]:
+            what = f"{variant} {exec_str}"
+            ci = ConnectIt(variant, exec=exec_str, device="cuda")
+            ops.reset_launch_counts()
+            labels, stats = ci.connectivity(g, return_stats=True)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            require(np.array_equal(labels.cpu().numpy(), expect),
+                    f"rank {rank}: {what}: labels differ from scipy's")
+            require(stats.devices == world
+                    and sum(stats.edges_per_device) == stats.edges_finish
+                    and sum(stats.dispatch_sizes)
+                    == stats.edges_finish_padded,
+                    f"rank {rank}: {what}: stats {stats}")
+            for name in _required_kernels(variant):
+                require(counts[name] > 0,
+                        f"rank {rank}: {what}: kernel {name} never launched")
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ci.connectivity(g)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            wall = statistics.median(walls) * 1e3
+            out.append({"variant": variant, "exec": exec_str,
+                        "rounds": stats.finish_rounds,
+                        "edges_per_device": list(stats.edges_per_device),
+                        "dispatch_sizes": list(stats.dispatch_sizes),
+                        "wall_ms": wall})
+            print(f"[placements] {what}: labels == scipy; median wall of 3 "
+                  f"{wall:.4f} ms; finish_rounds {stats.finish_rounds}; "
+                  f"edges_per_device {stats.edges_per_device}; launches "
+                  f"{json.dumps(counts)}; cuda:{torch.cuda.current_device()} "
+                  f"of {topo.num_processes} ranks; card {job['card']}",
+                  flush=True)
+        if job["stream"]:
+            _placement_stream(torch, g, expect, job["seed"], False,
+                              job["card"], tag, want=None)
+    finally:
+        multihost.shutdown()
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
 def _csr(n: int, rows, cols, data=None):
     """scipy's (n, n) CSR matrix of the entries (rows, cols, data; data 1.0
     if None; host arrays or card tensors), its rows sorted (stably) and
@@ -2104,10 +2493,11 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
     return model, serve_inputs
 
 
-def _trace(torch, tag: str, fn) -> dict:
+def _trace(torch, tag: str, fn, top: int = 15) -> dict:
     """One run of ``fn`` under torch.profiler: wall time, the device's busy
-    share and device time by kernel. Returns the host-side (CUDA runtime)
-    calls by name with their counts."""
+    share, the collectives' device time (NCCL's kernels) and the ``top``
+    device operations by time. Returns the host-side (CUDA runtime) calls
+    by name with their counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2126,7 +2516,11 @@ def _trace(torch, tag: str, fn) -> dict:
     print(f"[profile] {tag}: traced wall {wall:.4f} s; device busy "
           f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
           f"{100 * (1 - busy / wall):.1f}%")
-    for dev_us, key, count in rows[:15]:
+    nccl = [r for r in rows if "nccl" in r[1].lower()]
+    if nccl:
+        print(f"[profile]   collectives: {sum(r[0] for r in nccl) / 1e3:.3f} "
+              f"ms of device time in {sum(r[2] for r in nccl)} NCCL kernels")
+    for dev_us, key, count in rows[:top]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
     return {ev.key: ev.count for ev in prof.key_averages()
             if ev.device_type != DeviceType.CUDA}
@@ -2271,6 +2665,13 @@ def main() -> int:
     ap.add_argument("--log-n", type=int, default=22)
     ap.add_argument("--log-m", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="N > 1: only the placements over N processes, one "
+                         "rank a card over NCCL (needs N cards)")
+    # one rank of a multi-process placements run, started by this script
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2283,6 +2684,12 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if args.mesh_rank is not None:
+        try:
+            return mesh_rank(args.mesh_rank, args.mesh_dir)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", flush=True)
+            return 1
 
     def timed(name, fn, *a):
         t0 = time.perf_counter()
@@ -2297,6 +2704,12 @@ def main() -> int:
         g = timed("graph", phase_graph, torch, args.log_n, args.log_m,
                   args.seed)
         exact = (args.log_n, args.log_m, args.seed) == DEFAULT_GRAPH
+        if args.ranks > 1:
+            expect, _ = timed("oracle", phase_oracle, g)
+            timed("ranks", phase_ranks, torch, g, expect, args.seed,
+                  args.ranks, card)
+            print(json.dumps({"ok": True, "device": device}))
+            return 0
         # the DLRM phases' size cap: at the default 2^22 it cuts nothing, so
         # RM2 runs at its published widths; a short check cuts vocab,
         # batches and candidates to 2^log_n
@@ -2316,6 +2729,8 @@ def main() -> int:
                       args.log_m, exact, card)
         weights = timed("apps", phase_apps, torch, g, expect, keys, exact,
                         card)
+        timed("placements", phase_placements, torch, g, expect, args.seed,
+              exact, card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,

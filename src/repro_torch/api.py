@@ -32,9 +32,19 @@ and batch-dynamic streams:
     labels, cores = ci.scan(g, sims, "scan(eps=0.6,mu=3)")    # paper §5.2
     server = ci.serve(n)                     # async serving (repro_torch.serve)
 
-Only the ``single`` placement is ported; "auto" and the other placements
-raise ``NotImplementedError`` naming the ROADMAP queue item that ports
-them.
+``exec=`` places the session (``core/execution.py``, the reference's
+grammar): ``single`` on one device, or ``replicated(...)`` / ``sharded(...)``
+over the ranks of a ``torch.distributed`` group, every rank making the same
+calls (``repro_torch.launch.multihost``):
+
+    ci = ConnectIt("kout_hybrid_k2+uf_sync_full", exec="sharded(x)")
+
+Connectivity, streams and SCAN run on the placement; spanning forests and
+out-of-core ingest run on the single-device driver under any placement, as
+in the reference. What is not ported raises ``NotImplementedError`` naming
+the ROADMAP queue item that ports it: "auto" variants and ``tune`` (item
+14), and on a mesh placement AMSF/MSF, dynamic streams and serving (item
+13, second part).
 """
 
 from __future__ import annotations
@@ -49,6 +59,7 @@ from .core import driver, streaming
 from .core.apps import amsf as _amsf_impl
 from .core.apps import single as _apps
 from .core.apps.spec import AppSpec, AppSpecLike, as_app_spec
+from .core.execution import ExecutionSpec, as_execution_spec, make_backend
 from .core.finish import (
     COMPRESS_MODES,
     FOREST_METHODS,
@@ -62,8 +73,8 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .dynamic import engine as dyn_engine
 from .graphs.ingest import ingest_chunks, ingest_stats
 
-__all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "AppSpec",
-           "AppSpecLike", "ConnectIt", "Stream", "DynamicStream",
+__all__ = ["SamplingSpec", "FinishSpec", "VariantSpec", "ExecutionSpec",
+           "AppSpec", "AppSpecLike", "ConnectIt", "Stream", "DynamicStream",
            "enumerate_variants", "is_compatible",
            "default_sampling_grid", "default_finish_grid", "KOUT_VARIANTS",
            "COMPRESS_MODES", "LIU_TARJAN_VARIANTS"]
@@ -410,6 +421,7 @@ def enumerate_variants(
 
 
 SpecLike = Union[str, VariantSpec]
+ExecLike = Union[str, ExecutionSpec]
 
 
 def _as_index(x, device) -> torch.Tensor:
@@ -427,23 +439,31 @@ def _pad(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
 
 
 class Stream:
-    """Batch-incremental connectivity bound to one finish variant (paper
-    §3.5 / Algorithm 3), on one device.
+    """Batch-incremental connectivity bound to one finish variant and one
+    execution placement (paper §3.5 / Algorithm 3).
 
-    Batches are padded to the next power of two with the dump id ``n`` (and
-    query batches with vertex 0), so a ragged last batch reuses an earlier
-    shape. The counters stay on the device and are read only by ``stats``
-    and ``edges_inserted``."""
+    Batches are padded under the placement's pad policy (the next power of
+    two by default, a multiple of the edge shards) with the dump id ``n``
+    (query batches with vertex 0), so a ragged last batch reuses an earlier
+    shape. On a mesh placement every rank passes the whole batch and
+    inserts its own block of it; answers and labels are whole on every
+    rank, and ``labels`` and ``num_components`` are collectives that every
+    rank calls. The counters stay on the device and are read only by
+    ``stats`` and ``edges_inserted``."""
 
-    def __init__(self, n: int, finish_fn, *, device, variant: str = ""):
+    def __init__(self, n: int, finish_fn, *, backend, variant: str = ""):
         self.n = n
         self.variant = variant
-        self.device = device
-        self._ops = streaming.stream_ops(n, finish_fn, device=device)
+        self._backend = backend
+        self.device = backend.device
+        self._ops = backend.stream_ops(n, finish_fn)
         self.state = self._ops.init()
         self.batches = 0
         self._dispatch_sizes: list[int] = []
-        self._edges = torch.zeros((), dtype=torch.int64, device=device)
+        # directed real entries per edge shard (each shard mirrors its own
+        # block, hence twice its real edges)
+        self._edges_dev = torch.zeros((self._ops.edge_shards,),
+                                      dtype=torch.int64, device=self.device)
         self._rounds = 0  # the finish loops count rounds on the host
 
     def _pad_batch(self, u, v):
@@ -460,7 +480,8 @@ class Stream:
     def _account(self, u, size: int, rounds: int) -> None:
         self.batches += 1
         self._dispatch_sizes.append(size)
-        self._edges += (u < self.n).sum()
+        real = (u < self.n).reshape(self._ops.edge_shards, -1)
+        self._edges_dev += 2 * real.sum(1)
         self._rounds += int(rounds)
 
     def insert(self, u, v) -> "Stream":
@@ -486,7 +507,7 @@ class Stream:
     @property
     def edges_inserted(self) -> int:
         """Real (non-padding) edges inserted so far (syncs on read)."""
-        return int(self._edges)
+        return int(self._edges_dev.sum()) // 2
 
     @property
     def labels(self) -> torch.Tensor:
@@ -499,15 +520,21 @@ class Stream:
     @property
     def stats(self) -> driver.ConnectivityStats:
         """ConnectivityStats of the stream so far (syncs on read). Batches
-        are symmetrized, so ``edges_finish`` is twice ``edges_inserted``;
-        ``dispatch_sizes`` sums the padded directed entries over batches;
+        are symmetrized, so ``edges_finish`` is twice ``edges_inserted``,
+        and ``edges_per_device`` sums to it; ``dispatch_sizes`` (padded per
+        edge shard, summed over batches) sums to ``edges_finish_padded``;
         ``batch_shapes`` is the distinct padded batch sizes."""
+        spec = self._backend.spec
+        shards = self._ops.edge_shards
         edges = self.edges_inserted
         padded = 2 * sum(self._dispatch_sizes)
         return driver.ConnectivityStats(
-            variant=self.variant, edges_total=edges, edges_finish=2 * edges,
-            edges_finish_padded=padded, edges_per_device=(2 * edges,),
-            dispatch_sizes=(padded,),
+            variant=self.variant, exec=str(spec), placement=spec.placement,
+            devices=self._backend.devices, fused=spec.fused,
+            edges_total=edges, edges_finish=2 * edges,
+            edges_finish_padded=padded,
+            edges_per_device=tuple(self._edges_dev.tolist()),
+            dispatch_sizes=(padded // shards,) * shards,
             batch_shapes=tuple(sorted(set(self._dispatch_sizes))),
             finish_rounds=self._rounds)
 
@@ -640,10 +667,24 @@ class DynamicStream:
             finish_rounds=self._rounds)
 
 
+def _check_exec(spec: ExecutionSpec) -> None:
+    """Refuse the knobs that parse but do not run in the port."""
+    if spec.kernels != "auto":
+        raise ValueError(
+            f"kernels={spec.kernels} has no meaning in repro_torch: it "
+            f"dispatches by tensor device, with no policy knob (a CPU tensor "
+            f"takes the plain version, a CUDA tensor the CUDA kernel)")
+    if spec.tune:
+        raise _not_ported(f"the tune opt of {str(spec)!r}", "Queue 1 item 14")
+    if spec.dynamic:
+        raise _not_ported(f"the dynamic opt of {str(spec)!r}",
+                          "Queue 1 item 13 (second part)")
+
+
 class ConnectIt:
-    """One variant on one device: static connectivity, spanning forests,
-    streams, out-of-core ingest, the §5 apps (AMSF, MSF, SCAN) and
-    serving.
+    """One variant × one execution placement: static connectivity,
+    spanning forests, streams, out-of-core ingest, the §5 apps (AMSF, MSF,
+    SCAN) and serving.
 
     >>> ci = ConnectIt("kout_hybrid_k2+uf_sync_full")   # device="cuda"
     >>> labels = ci.connectivity(g)
@@ -651,43 +692,60 @@ class ConnectIt:
 
     ``device`` defaults to the card and raises where there is none; pass
     ``device="cpu"`` for the plain PyTorch path. The graph must live on the
-    session's device. Only the ``single`` placement is ported."""
+    session's device. ``exec`` is an ExecutionSpec (string); a mesh
+    placement runs over the ranks of the ``torch.distributed`` group (one
+    rank when none is configured), on ``mesh`` when one is given: a
+    ``DeviceMesh`` that names the spec's axes."""
 
     def __init__(self, spec: SpecLike = "none+uf_sync_naive",
-                 exec: str = "single", *, device=DEFAULT_DEVICE):
+                 exec: ExecLike = "single", *, mesh=None,
+                 device=DEFAULT_DEVICE):
         if isinstance(spec, str):
             spec = VariantSpec.parse(spec)
         if not isinstance(spec, VariantSpec):
             raise TypeError(f"spec must be a VariantSpec or string, "
                             f"got {type(spec).__name__}")
-        if str(exec).strip() != "single":
-            raise _not_ported(f"execution spec {exec!r}", "Queue 1 item 13")
+        exec_spec = as_execution_spec(exec)
+        _check_exec(exec_spec)
         self.spec = spec
+        self.exec = exec_spec
         self.device = resolve_device(device)
+        if exec_spec.placement != "single" and mesh is None:
+            import torch.distributed as dist
+
+            from .launch.multihost import initialize
+            if not dist.is_initialized():
+                initialize()  # the configured group, else one rank
+        self._backend = make_backend(exec_spec, mesh=mesh, device=self.device)
         self._sampler = spec.sampling.build()
         self._finish = spec.build_finish()
         self._stats: Optional[driver.ConnectivityStats] = None
 
     def __repr__(self) -> str:
-        return f"ConnectIt({str(self.spec)!r}, device={str(self.device)!r})"
+        ex = ("" if self.exec == ExecutionSpec()
+              else f", exec={str(self.exec)!r}")
+        return (f"ConnectIt({str(self.spec)!r}{ex}, "
+                f"device={str(self.device)!r})")
+
+    def _on_mesh(self, what: str) -> None:
+        if self.exec.placement != "single":
+            raise _not_ported(f"{what} on the {self.exec.placement} "
+                              f"placement", "Queue 1 item 13 (second part)")
 
     def connectivity(self, g, *, generator: Optional[torch.Generator] = None,
-                     fused: bool = False, return_stats: bool = False):
+                     fused: Optional[bool] = None,
+                     return_stats: bool = False):
         """Canonical min-vertex-id connectivity labels of ``g``, ``(n,)``
-        int32 on the session's device. ``fused`` skips the compaction of
-        L_max-internal edges. ``generator`` draws the sampler's random
-        numbers: k-out columns, BFS sources, LDD shifts (seeded 0 when
-        None)."""
+        int32 on the session's device (whole on every rank). ``fused``
+        skips the compaction of L_max-internal edges; on a mesh placement
+        it is part of the ExecutionSpec and cannot be overridden per call.
+        ``generator`` draws the sampler's random numbers: k-out columns, BFS
+        sources, LDD shifts (seeded 0 when None; on a mesh every rank draws
+        the same)."""
         self._check_device(g)
-        if fused:
-            labels, stats = driver.run_connectivity_fused(
-                g, self._sampler, self._finish, generator,
-                variant=str(self.spec))
-        else:
-            labels, stats = driver.run_connectivity(
-                g, self._sampler, self._finish, generator,
-                variant=str(self.spec), pad="pow2")
-        stats.exec = "single:fused" if fused else "single"
+        labels, stats = self._backend.connectivity(
+            g, self._sampler, self._finish, generator,
+            variant=str(self.spec), fused=fused)
         self._stats = stats
         if return_stats:
             return labels, stats
@@ -716,9 +774,9 @@ class ConnectIt:
                 f"({'/'.join(FOREST_METHODS)}), not "
                 f"{self.spec.finish_str!r} — paper §3.4")
         self._check_device(g)
-        edges, self._stats = driver.run_spanning_forest(
+        edges, self._stats = self._backend.spanning_forest(
             g, self._sampler, generator, compress=self.spec.forest_compress,
-            variant=str(self.spec), pad="pow2")
+            variant=str(self.spec))
         return edges
 
     def stream(self, n: int, *, dynamic: bool = False,
@@ -738,8 +796,9 @@ class ConnectIt:
             if log:
                 raise ValueError("log= is a dynamic-stream knob — pass "
                                  "dynamic=True")
-            return Stream(n, self._finish, device=self.device,
+            return Stream(n, self._finish, backend=self._backend,
                           variant=str(self.spec))
+        self._on_mesh("a dynamic stream")
         if not self.spec.forest_capable:
             raise ValueError(
                 f"dynamic streams maintain a spanning forest and need a "
@@ -777,8 +836,10 @@ class ConnectIt:
     # -- applications (paper §5): AMSF / exact MSF / SCAN -------------------
 
     def _app_stats(self, app: AppSpec, g) -> driver.ConnectivityStats:
-        return driver.ConnectivityStats(variant=str(self.spec), app=str(app),
-                                        edges_total=g.m)
+        stats = self._backend._base_stats(str(self.spec))
+        stats.app = str(app)
+        stats.edges_total = g.m
+        return stats
 
     def amsf(self, g, weights, spec: AppSpecLike = "amsf", *,
              return_stats: bool = False) -> np.ndarray:
@@ -795,6 +856,7 @@ class ConnectIt:
         app = as_app_spec(spec)
         if app.app == "scan":
             raise ValueError("scan specs run via .scan(g, sims, spec)")
+        self._on_mesh(app.app)
         self._check_device(g)
         stats = self._app_stats(app, g)
         weights = torch.as_tensor(weights, device=self.device)
@@ -835,7 +897,7 @@ class ConnectIt:
                 f"(amsf/msf run via .amsf(g, weights, spec))")
         self._check_device(g)
         stats = self._app_stats(app, g)
-        labels, is_core = _apps.scan(
+        labels, is_core = self._backend.scan(
             g, torch.as_tensor(sims, device=self.device), app, self._finish,
             stats)
         self._stats = stats
@@ -871,6 +933,7 @@ class ConnectIt:
         ...     ans, at_epoch = await server.query(qa, qb)
         """
         from .serve import ServeConfig, Server, TenantRegistry
+        self._on_mesh("serving")
         registry = TenantRegistry.build(n=n, tenants=tenants)
         cfg = config or ServeConfig()
         if knobs:

@@ -1,0 +1,350 @@
+"""Mesh programs for distributed connectivity, on ``torch.distributed``.
+
+The JAX package's programs (``repro/core/distributed.py``) run under
+``shard_map``: one controller dispatches one program to every device. Here
+every rank runs the same call on the same inputs and the ranks meet in the
+collectives of ``core/collectives.py``. A program takes this rank's blocks,
+as a ``shard_map`` body does: its edge block of the padded edge arrays, and
+its labels (all ``n + 1`` under the replicated placement, its window of the
+label axis under the sharded one). Two placements, each parameterized by a
+finish callable of the variant space:
+
+  * **replicated labels**: edges split over every mesh axis, labels whole on
+    every rank. Per outer round each rank runs the finish to its local
+    fixpoint on its edge block, then the labelings are merged with an
+    elementwise min over the edge axes.
+
+  * **sharded labels**: labels split over one axis (and replicated over the
+    others), edges over the edge axes. Per outer round: gather the labels
+    along the label axis → local finish → min-merge back into the windows.
+    The merge is *frontier compacted* by default: each rank exchanges only
+    the (index, value) pairs its finish lowered this round
+    (``ops.compact_mask`` into fixed-cap buffers), gated on the
+    mesh-reduced frontier count; rounds whose frontier exceeds the cap take
+    the dense merge: a full min-reduce and a slice, or with
+    ``reduce_scatter`` an all_to_all and a local min. With ``overlap`` the
+    edge block splits in two halves that alternate per round, and round
+    r's frontier exchange is applied at the top of round r + 1.
+
+Each outer loop runs on the host. Every branch it takes is decided by a
+value that is the same on every rank (merged labels, or a count reduced
+over the mesh), so all ranks enter the same collectives in the same order;
+the round counts are the reference's. The local finish runs its own
+host-checked fixpoint, which calls no collective.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional, Sequence
+
+import torch
+
+from ..graphs.containers import round_up
+from ..kernels import ops
+from ..kernels.index import take
+from . import collectives as coll
+from .primitives import INT_MAX, full_compress, iterate_to_fixpoint
+
+# Fixpoint cap floor of the outer merge loop (rounds=0): label information
+# crosses at least one shard boundary per outer round, so the cap is the
+# edge-shard count plus slack, and never below this floor.
+DEFAULT_OUTER_ROUNDS = 256
+
+
+def _fixpoint_cap(mesh, edge_axes: Sequence[str],
+                  max_rounds: Optional[int]) -> int:
+    if max_rounds is not None:
+        return max_rounds
+    return max(DEFAULT_OUTER_ROUNDS, 2 * coll.mesh_size(mesh, edge_axes) + 8)
+
+
+def _outer_loop(body, labels, rounds: int, max_rounds: int):
+    """``body: labels -> labels`` for ``rounds`` fixed rounds, or to its
+    fixpoint (``rounds=0``) capped at ``max_rounds`` → (labels, rounds).
+    The labels carried are merged, so the same on every rank, and so is the
+    host compare that ends the loop."""
+    if rounds > 0:
+        for _ in range(rounds):
+            labels = body(labels)
+        return labels, rounds
+    return iterate_to_fixpoint(
+        body, labels, max_rounds,
+        changed_fn=lambda old, new: not torch.equal(old, new))
+
+
+def _outer_loop_flagged(body, labels, rounds: int, cap: int):
+    """``_outer_loop`` for a body that reports its own mesh-uniform continue
+    flag, ``body: labels -> (labels, go)``: no compare of old and new."""
+    if rounds > 0:
+        for _ in range(rounds):
+            labels = body(labels)[0]
+        return labels, rounds
+    go, k = True, 0
+    while go and k < cap:
+        labels, go = body(labels)
+        k += 1
+    return labels, k
+
+
+def _mirror(s, r):
+    return torch.cat([s, r]), torch.cat([r, s])
+
+
+# ---------------------------------------------------------------------------
+# Replicated labels.
+# ---------------------------------------------------------------------------
+
+def make_replicated_finish(mesh, axes: Sequence[str], finish_fn: Callable, *,
+                           rounds: int = 0, max_rounds: Optional[int] = None,
+                           symmetrize: bool = False):
+    """Distributed finish with the labels whole on every rank and the edges
+    split over ``axes`` → ``program(labels, s, r) -> (labels, rounds)`` on
+    ``(n + 1,)`` labels and this rank's dump-padded edge block.
+
+    ``symmetrize`` mirrors the block in place (stream batches carry one
+    direction per edge; min-based hooks need both), keeping (u, v) and
+    (v, u) on the same rank."""
+    axes = tuple(axes)
+    cap = _fixpoint_cap(mesh, axes, max_rounds)
+
+    def program(labels, s, r):
+        if symmetrize:
+            s, r = _mirror(s, r)
+
+        def body(L):
+            L2, _ = finish_fn(L, s, r)
+            return coll.pmin(L2, mesh, axes)
+
+        return _outer_loop(body, labels, rounds, cap)
+
+    return program
+
+
+# ---------------------------------------------------------------------------
+# Sharded labels.
+# ---------------------------------------------------------------------------
+
+def _auto_frontier(n1: int, ngather: int) -> int:
+    """Auto per-rank frontier cap: the compacted exchange moves
+    ``2 * ngather * F`` int32 per round against the dense merge's
+    ``n1``-wide reduce, so the cap sits near ``n1 / (4 * ngather)``, rounded
+    up to 128."""
+    return min(n1, max(128, round_up(max(n1 // (4 * ngather), 1), 128)))
+
+
+def make_sharded_finish(mesh, edge_axes: Sequence[str], label_axis: str,
+                        finish_fn: Callable, *, reduce_scatter: bool = False,
+                        rounds: int = 0, max_rounds: Optional[int] = None,
+                        symmetrize: bool = False, frontier: int = -1,
+                        overlap: bool = False):
+    """Distributed finish with the labels split over ``label_axis`` →
+    ``program(window, s, r) -> (window, rounds)``.
+
+    The label array's length must divide by the label axis's size (the
+    backend pads it with self-rooted slots above the dump row). On a 1-D
+    mesh ``edge_axes`` may be ``(label_axis,)``; on a 2-D mesh the label
+    axis may be one of the edge axes, and labels are replicated over the
+    rest. ``frontier`` caps the compacted exchange per rank (-1 auto, 0
+    dense only, N explicit). ``overlap`` runs the two-block pipeline, whose
+    deferred exchange is sound because every finish is monotone: a finish
+    on stale labels proposes only valid, possibly larger, labels, and the
+    late exchange can only lower them. It stops after two consecutive
+    clean rounds (both blocks checked on settled labels with no exchange
+    in flight)."""
+    edge_axes = tuple(edge_axes)
+    extra_axes = tuple(a for a in edge_axes if a != label_axis)
+    merge_axes = tuple(dict.fromkeys(edge_axes + (label_axis,)))
+    nshards = coll.axis_size(mesh, label_axis)
+    ngather = coll.mesh_size(mesh, merge_axes)
+    # the continue flag reduces over every mesh axis, so that the host
+    # branch is the same on every rank even on meshes with unused axes
+    flag_axes = tuple(mesh.mesh_dim_names)
+    cap = _fixpoint_cap(mesh, edge_axes, max_rounds)
+
+    def gmax_of(diff) -> int:
+        cnt = diff.sum(dtype=torch.int32).reshape(1)
+        return int(coll.pmax(cnt, mesh, flag_axes))  # the round's host wait
+
+    def window(full, shard_len):
+        lo = coll.axis_index(mesh, label_axis) * shard_len
+        return full[lo: lo + shard_len]
+
+    def dense_candidate(full2, shard_len):
+        """The dense merge: this window of the candidates, min-reduced."""
+        if reduce_scatter:
+            # min-reduce-scatter: all_to_all over the label chunks and a
+            # local min move 1/|label axis| of a full reduce's bytes
+            chunks = full2.reshape(nshards, shard_len)
+            mine = coll.all_to_all(chunks, mesh, label_axis).amin(0)
+            if extra_axes:
+                mine = coll.pmin(mine, mesh, extra_axes)
+            return mine
+        return window(coll.pmin(full2, mesh, merge_axes), shard_len)
+
+    def gather_frontier(fi, fv):
+        return (coll.all_gather(fi, mesh, merge_axes),
+                coll.all_gather(fv, mesh, merge_axes))
+
+    def apply_frontier(shard, fi, fv):
+        """Scatter an exchanged frontier into this window. Out-of-window
+        targets and the unused ``-1`` slots land on an appended dump slot
+        (``ops.scatter_min`` dumps every target outside ``[0, len)``)."""
+        shard_len = shard.shape[0]
+        offset = coll.axis_index(mesh, label_axis) * shard_len
+        pad = torch.cat([shard, shard[-1:]])
+        out = ops.scatter_min(pad, fi - offset, fv, fi >= 0)
+        return out[:shard_len]
+
+    def resolve_cap(shard_len: int) -> int:
+        n1 = shard_len * nshards
+        if frontier == 0:
+            return 0
+        if frontier > 0:
+            return min(frontier, n1)
+        return _auto_frontier(n1, ngather)
+
+    def program(lab_shard, s, r):
+        if symmetrize:
+            s, r = _mirror(s, r)
+        shard_len = lab_shard.shape[0]
+        F = resolve_cap(shard_len)
+
+        def body(shard):
+            full = coll.all_gather(shard, mesh, (label_axis,))
+            full2, _ = finish_fn(full, s, r)
+            diff = full2 < full
+            gmax = gmax_of(diff)
+            # gmax <= F: no rank overflows its cap; the count is reduced
+            # over the mesh, so every rank takes the same branch
+            if 0 < F and gmax <= F:
+                fi, fv = ops.compact_mask(diff, full2, F)
+                shard2 = apply_frontier(shard, *gather_frontier(fi, fv))
+            else:
+                shard2 = torch.minimum(shard,
+                                       dense_candidate(full2, shard_len))
+            # gmax == 0 ⟺ no rank's finish lowered a label ⟺ every edge is
+            # satisfied: the fixpoint flag comes free from the merge
+            return shard2, gmax > 0
+
+        return _outer_loop_flagged(body, lab_shard, rounds, cap)
+
+    def program_overlap(lab_shard, s, r):
+        shard_len = lab_shard.shape[0]
+        F = resolve_cap(shard_len)
+        m = s.shape[0]
+        if m >= 2:
+            blocks = ((s[: m // 2], r[: m // 2]), (s[m // 2:], r[m // 2:]))
+        else:
+            blocks = ((s, r), (s, r))
+        if symmetrize:  # mirror per block: each block sees both directions
+            blocks = tuple(_mirror(bs, br) for bs, br in blocks)
+        empty_i = torch.full((ngather * F,), -1, dtype=torch.int32,
+                             device=lab_shard.device)
+        empty_v = torch.full((ngather * F,), INT_MAX, dtype=lab_shard.dtype,
+                             device=lab_shard.device)
+
+        def step(shard, pi, pv, pend, k):
+            full = coll.all_gather(shard, mesh, (label_axis,))
+            # the round's block reads the stale labels: it does not depend
+            # on the exchange still to be applied below
+            full2, _ = finish_fn(full, *blocks[k % 2])
+            diff = full2 < full
+            gmax = gmax_of(diff)
+            # consume last round's exchange only now (nothing to apply
+            # when none is in flight)
+            mine = apply_frontier(shard, pi, pv) if pend else shard
+            own = torch.minimum(mine, window(full2, shard_len))
+            if 0 < F and gmax <= F:
+                fi, fv = ops.compact_mask(diff, full2, F)
+                pi2, pv2 = gather_frontier(fi, fv)
+                # the gathered buffers hold an index >= 0 iff some rank's
+                # count was positive: ``pend`` needs no read of them
+                shard2, pend2 = own, gmax > 0
+            else:
+                shard2 = torch.minimum(own, dense_candidate(full2, shard_len))
+                pi2, pv2, pend2 = empty_i, empty_v, False
+            # clean ⟺ this block found nothing on settled labels and no
+            # exchange was in flight; two clean rounds in a row cover both
+            # blocks ⇒ the global fixpoint
+            return shard2, pi2, pv2, pend2, (gmax == 0) and not pend
+
+        shard, pi, pv, pend = lab_shard, empty_i, empty_v, False
+        streak, k = 0, 0
+        while (k < rounds) if rounds > 0 else (streak < 2 and k < cap):
+            shard, pi, pv, pend, clean = step(shard, pi, pv, pend, k)
+            streak = streak + 1 if clean else 0
+            k += 1
+        if pend:  # drain the trailing in-flight exchange
+            shard = apply_frontier(shard, pi, pv)
+        return shard, k
+
+    return program_overlap if overlap else program
+
+
+def make_sharded_compress(mesh, label_axis: str):
+    """Full pointer-jump compression of a label-sharded array (one
+    gather)."""
+
+    def compress(lab_shard):
+        shard_len = lab_shard.shape[0]
+        full = full_compress(coll.all_gather(lab_shard, mesh, (label_axis,)))
+        lo = coll.axis_index(mesh, label_axis) * shard_len
+        return full[lo: lo + shard_len].clone()
+
+    return compress
+
+
+# ---------------------------------------------------------------------------
+# Streams (paper §3.5 / Algorithm 3 on a mesh).
+# ---------------------------------------------------------------------------
+
+class StreamPrograms(NamedTuple):
+    """Mesh programs behind ``repro_torch.api.Stream`` on a placement. The
+    insert takes this rank's block of the batch; the query takes the whole
+    query batch and answers it whole on every rank."""
+
+    insert: Callable   # (labels, u, v) -> (labels, rounds)
+    query: Callable    # (labels, qa, qb) -> bool[q]
+    process: Callable  # (labels, u, v, qa, qb) -> (labels, ans, rounds)
+
+
+def _stream_programs(run, compress, full_labels) -> StreamPrograms:
+    def insert(labels, u, v):
+        labels, k = run(labels, u, v)
+        # keep the labeling fully compressed between batches (O(1) queries)
+        return compress(labels), k
+
+    def query(labels, qa, qb):
+        # ids read the labels as the reference's gathers read them
+        full = full_labels(labels)
+        return take(full, qa) == take(full, qb)
+
+    def process(labels, u, v, qa, qb):
+        labels, k = insert(labels, u, v)
+        return labels, query(labels, qa, qb), k
+
+    return StreamPrograms(insert, query, process)
+
+
+def make_replicated_stream(mesh, axes: Sequence[str], finish_fn: Callable, *,
+                           rounds: int = 0, max_rounds: Optional[int] = None
+                           ) -> StreamPrograms:
+    """Batch insert+query with the labels replicated."""
+    run = make_replicated_finish(mesh, axes, finish_fn, rounds=rounds,
+                                 max_rounds=max_rounds, symmetrize=True)
+    return _stream_programs(run, full_compress, lambda labels: labels)
+
+
+def make_sharded_stream(mesh, edge_axes: Sequence[str], label_axis: str,
+                        finish_fn: Callable, *, reduce_scatter: bool = False,
+                        rounds: int = 0, max_rounds: Optional[int] = None,
+                        frontier: int = -1, overlap: bool = False
+                        ) -> StreamPrograms:
+    """Batch insert+query with the labels sharded over ``label_axis``."""
+    run = make_sharded_finish(mesh, edge_axes, label_axis, finish_fn,
+                              reduce_scatter=reduce_scatter, rounds=rounds,
+                              max_rounds=max_rounds, symmetrize=True,
+                              frontier=frontier, overlap=overlap)
+    return _stream_programs(
+        run, make_sharded_compress(mesh, label_axis),
+        lambda shard: coll.all_gather(shard, mesh, (label_axis,)))

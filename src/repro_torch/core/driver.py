@@ -102,6 +102,14 @@ def bucket_size(k: int, *, pad: str = "pow2", pad_multiple: int = 8,
     return round_up(size, shards)
 
 
+def _per_chunk_counts(k: int, size: int, shards: int) -> tuple:
+    """Real-element count per contiguous shard chunk of a padded dispatch
+    whose first ``k`` slots are real (padding is always a suffix)."""
+    per = size // shards
+    return tuple(max(min((i + 1) * per, k) - i * per, 0)
+                 for i in range(shards))
+
+
 def _compact(senders, receivers, keep, n_dump: int, pad_multiple: int = 8,
              pad: str = "multiple"):
     """Kept edges in their order, padded with dump-slot edges."""

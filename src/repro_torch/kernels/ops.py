@@ -45,7 +45,7 @@ from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
-           "edge_rewrite", "embedding_bag", "launch_counts",
+           "edge_rewrite", "compact_mask", "embedding_bag", "launch_counts",
            "reset_launch_counts", "KERNELS"]
 
 # the CUDA wrappers, each with its ``launches`` counter
@@ -134,6 +134,31 @@ def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
     if on_cuda(labels):
         return _edge_relabel_kernel.edge_rewrite(labels, senders, receivers)
     return edge_rewrite_ref(labels, senders, receivers)
+
+
+def compact_mask(mask: torch.Tensor, vals: torch.Tensor, cap: int) -> tuple:
+    """Stream-compact the ``True`` positions of ``mask`` (and their
+    ``vals``) into fixed ``(cap,)`` buffers: the frontier exchange of the
+    sharded merge (core/distributed.py).
+
+    Returns ``(idx, out)``: ``idx[j]`` is the j-th set position (int32, in
+    mask order) and ``out[j]`` its value; unused slots hold ``idx = -1`` and
+    the value dtype's max, so the pair feeds ``scatter_min`` as it is.
+    Positions past ``cap`` are dropped: callers gate on the mesh-reduced
+    frontier count first. A cumsum and two scatters with no host sync, in
+    plain PyTorch on both devices, as the JAX package's jnp version is for
+    every kernel policy (no kernel: the op is small beside the scatter_min
+    it feeds)."""
+    m = mask.shape[0]
+    big = torch.iinfo(vals.dtype).max
+    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    tgt = torch.where(mask & (pos < cap), pos, cap).long()  # overflow: slot cap
+    src = torch.arange(m, dtype=torch.int32, device=mask.device)
+    idx = torch.full((cap + 1,), -1, dtype=torch.int32, device=mask.device)
+    idx[tgt] = src
+    out = torch.full((cap + 1,), big, dtype=vals.dtype, device=vals.device)
+    out[tgt] = torch.where(mask, vals, big)
+    return idx[:cap], out[:cap]
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,

@@ -47,15 +47,9 @@ from typing import Any, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.driver import _per_chunk_counts
+
 __all__ = ["PendingCommit", "SnapshotStore"]
-
-
-def _per_chunk_counts(k: int, size: int, shards: int) -> tuple:
-    """Real-element count per contiguous shard chunk of a padded dispatch
-    whose first ``k`` slots are real (padding is always a suffix)."""
-    per = size // shards
-    return tuple(max(min((i + 1) * per, k) - i * per, 0)
-                 for i in range(shards))
 
 
 class PendingCommit(NamedTuple):
