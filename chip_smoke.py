@@ -8,6 +8,7 @@
                                                   # candidates cut to 2^14)
     python3 chip_smoke.py --ranks 4               # only the placements, on
                                                   # 4 cards, a rank each
+                                                  # (dynamic, AMSF, serving)
 
 Phases, in order; any failure exits non-zero:
 
@@ -151,7 +152,19 @@ Phases, in order; any failure exits non-zero:
               memory; (b) the stream phase's 2^20-edge batches under
               sharded(x): labels, the last batch's answers, edges/s, p50;
               (c) scan(eps=0.6,mu=3) under sharded(x) against the single
-              path on the apps phase's similarities; (d) two processes
+              path on the apps phase's similarities; (e) the dynamic
+              phase's 8 sliding_window steps under replicated(x) and
+              sharded(x): each step's answers, the final labels and rounds
+              against the single path's, the forest n - #components edges
+              of the live graph, with updates/s, per-step p50/p99,
+              fallbacks and a traced ninth step; (f) amsf and
+              amsf(skip=lmax) under both on the apps phase's weights: a
+              spanning forest within 1.25x of scipy's MST weight, buckets
+              and edges per bucket the single path's, and one traced
+              sharded(x) run; (g) the serve phase's static and dynamic
+              servers under sharded(x), same caps and traffic without the
+              open loops, answers at 2 epochs and the final labels against
+              scipy, a traced closed-loop window; (d) two processes
               sharing the card over gloo (this script with --mesh-rank),
               reading the graph and scipy's labels this process writes once
               to a temporary directory: replicated(x), sharded(x),
@@ -178,7 +191,11 @@ With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
 on N processes of this script, one rank a card over NCCL, each rank's
 labels against scipy's, the ranks' rounds and stats equal, with each run's
-wall, rounds, edges per rank and launches.
+wall, rounds, edges per rank and launches; then (e) and amsf(skip=lmax)
+under sharded(x), against the single path's runs in this process, and one
+served closed loop under sharded(x), rank 0 serving and the other ranks
+following its commits, every rank's final labels equal to rank 0's and to
+scipy's on rank 0's commit log.
 
 Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
@@ -256,6 +273,18 @@ PLACEMENT_COUNTS = {
 }
 # the placements phase's stream under sharded(x), 2^20-edge batches
 PLACEMENT_STREAM_COUNTS = ((135, 177, 63, 0, 0), 64)
+# the placements phase's (e) dynamic streams (the dynamic phase's
+# sliding_window) and (f) AMSF under each placement, one rank over NCCL;
+# their launches of PATH_KERNELS and rounds on the default graph
+PLACEMENT_DYN_EXECS = ("replicated(x)", "sharded(x)")
+AMSF_SPECS = ("amsf", "amsf(skip=lmax)")
+PLACEMENT_DYNAMIC_COUNTS = {"replicated(x)": ((0, 188, 159, 0, 0), 61),
+                            "sharded(x)": ((0, 188, 159, 0, 0), 61)}
+PLACEMENT_AMSF_COUNTS = {
+    (e, spec): ((0, 332 if spec == "amsf" else 423, 535, 0, 0), 239)
+    for e in PLACEMENT_DYN_EXECS for spec in AMSF_SPECS}
+# (g): the serve phase's servers under this placement
+SERVE_EXEC = "sharded(x)"
 # the placements the two gloo ranks sharing the card run (MAIN_VARIANT)
 GLOO_EXECS = ("replicated(x)", "sharded(x)", "sharded(x):frontier=0")
 # samplings whose stats take no random draw, so the card's equal the CPU's
@@ -478,19 +507,26 @@ def _main_path_inputs(torch, g) -> dict:
 # sharded(x):overlap, its finishes on the two half-blocks): every call but
 # the canonicalization's. (kernel, variant, runs: "compacted" and "fused"
 # connectivity, "forest", "stream", "ingest", "ingest powerlaw", "amsf",
-# "serve", "serve dynamic", "placement sharded", "placement overlap")
+# "serve", "serve dynamic", "placement sharded", "placement overlap",
+# "placement dynamic", "placement amsf"). The placements phase's (e) and
+# (f) under sharded(x) ("placement dynamic": RECORDED_DYNAMIC_STEPS steps of
+# the sliding window; "placement amsf": amsf): an evenly spaced sample of
+# their calls, the merged forest round's third scatter_min pass (into the
+# stacked endpoint buffer of 2 (n + 1) + 1 slots) sampled apart.
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
     ("scatter_min", "none+uf_sync_full", ("forest",)),
     ("scatter_min", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
     ("scatter_min", MAIN_VARIANT, ("amsf", "serve dynamic",
-                                   "placement sharded", "placement overlap")),
+                                   "placement sharded", "placement overlap",
+                                   "placement dynamic", "placement amsf")),
     ("edge_relabel", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused",
                                                         "placement sharded")),
     ("edge_relabel", "none+stergiou", ("compacted",)),
     ("pointer_jump", MAIN_VARIANT, ("compacted", "fused", "amsf", "serve",
-                                    "serve dynamic", "placement sharded")),
+                                    "serve dynamic", "placement sharded",
+                                    "placement dynamic", "placement amsf")),
     ("pointer_jump", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
     ("edge_rewrite", "kout_hybrid_k2+liu_tarjan_PUFA", ("compacted", "fused",
                                                         "placement sharded")),
@@ -504,7 +540,14 @@ RECORDED = (
 )
 # the placement a recorded run's session takes
 RECORDED_EXEC = {"placement sharded": "sharded(x)",
-                 "placement overlap": "sharded(x):overlap"}
+                 "placement overlap": "sharded(x):overlap",
+                 "placement dynamic": "sharded(x)",
+                 "placement amsf": "sharded(x)"}
+# the recorded runs that are one connectivity call (whose last scatter_min
+# call, the canonicalization's, is left out)
+CONNECTIVITY_RUNS = ("compacted", "fused", "placement sharded",
+                     "placement overlap")
+RECORDED_DYNAMIC_STEPS = 5
 STREAM_BATCH = 1 << 20
 RECORDED_STREAM_BATCHES = 8
 # an amsf run makes ~480 scatter_min calls, each with two arrays of the
@@ -512,7 +555,8 @@ RECORDED_STREAM_BATCHES = 8
 # these runs a kernel keeps from RECORDED_SAMPLED_CALLS to twice that many
 # of its calls, evenly spaced over the run (every 2^j-th call)
 RECORDED_SAMPLED_CALLS = 4
-SAMPLED_RUNS = ("amsf", "serve", "serve dynamic")
+SAMPLED_RUNS = ("amsf", "serve", "serve dynamic", "placement dynamic",
+                "placement amsf")
 # the serve phase: benchmarks/serve_bench.py's server settings and traffic
 # at its full scale (_scale), over the §4 graph's vertices
 SERVE_CAPS = dict(max_batch_edges=16384, max_batch_queries=8192,
@@ -537,6 +581,29 @@ def stream_edges(torch, g, seed: int) -> tuple:
     gen.manual_seed(seed)
     perm = torch.randperm(s.shape[0], generator=gen, device="cuda")
     return s[perm], r[perm]
+
+
+def sliding_batch_log(n: int) -> tuple:
+    """The dynamic phase's sliding_window batch (2^20 at n = 2^22) and the
+    edge-log capacity it runs with (2^23)."""
+    batch = min(1 << 20, n // 4)
+    return batch, 1 << (8 * batch - 1).bit_length()
+
+
+def sliding_steps(torch, n: int, seed: int, steps: int = 8):
+    """sliding_window(n, steps, batch, window=4, queries=2^16, seed): each
+    step's (inserts, deletes, queries) host arrays and the process()
+    arguments on the card."""
+    import numpy as np
+
+    from repro_torch.graphs.generators import sliding_window
+    batch, _ = sliding_batch_log(n)
+    for ins, dels, q in sliding_window(n, steps=steps, batch=batch,
+                                       window=4, queries=1 << 16, seed=seed):
+        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
+                for x in (dels[:, 0], dels[:, 1], ins[:, 0], ins[:, 1],
+                          q[:, 0], q[:, 1])]
+        yield ins, dels, q, args
 
 
 def ingest_chunk(log_m: int) -> int:
@@ -567,12 +634,15 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     kernel's wrapper, (labels, senders, receivers, k) for hook_compress,
     (labels, idx, vals) for scatter_min, (labels, senders, receivers) for
     edge_relabel and edge_rewrite, (labels, k) for pointer_jump; ``made``
-    the calls the run made. An "amsf" or "serve" run keeps every
+    the calls the run made. A SAMPLED_RUNS run keeps every
     ``stride``-th call (RECORDED_SAMPLED_CALLS); every other run keeps every
     call. A "serve" run records its closed loop only. A "placement" run
-    is one connectivity call on its RECORDED_EXEC placement, in a one-rank
-    group made for it. The last scatter_min call of a connectivity run, the
-    canonicalization's, is left out (it has its own input)."""
+    runs on its RECORDED_EXEC placement, in a one-rank group made for it:
+    one connectivity call, or the placements phase's dynamic steps or amsf,
+    whose scatter_min calls into the stacked endpoint buffer are kept apart
+    as "scatter_min stacked". The last scatter_min call of a connectivity
+    run, the canonicalization's, is left out (it has its own input)."""
+    from collections import defaultdict
     from contextlib import ExitStack
     from types import SimpleNamespace
     from unittest import mock
@@ -582,11 +652,12 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     from repro_torch.kernels import ops
     from repro_torch.launch import multihost
 
-    calls = {name: [] for name in names}
-    made = dict.fromkeys(names, 0)
-    stride = dict.fromkeys(names, 1)
+    calls = defaultdict(list)
+    made = defaultdict(int)
+    stride = defaultdict(lambda: 1)
     # a serve run records from its closed loop on, not its preload
     live = [not run.startswith("serve")]
+    forest_rounds = run in ("placement dynamic", "placement amsf")
 
     def recorder(name):
         launch = ops.KERNELS[name]
@@ -594,13 +665,17 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
         def record(*args, **kw):
             if not live[0]:
                 return launch(*args, **kw)
-            if made[name] % stride[name] == 0:
-                calls[name].append((*args, *kw.values()))
+            key = name
+            if (forest_rounds and name == "scatter_min"
+                    and args[0].shape[0] > 2 * (g.n + 1)):
+                key = "scatter_min stacked"
+            if made[key] % stride[key] == 0:
+                calls[key].append((*args, *kw.values()))
                 if (run in SAMPLED_RUNS
-                        and len(calls[name]) == 2 * RECORDED_SAMPLED_CALLS):
-                    del calls[name][1::2]
-                    stride[name] *= 2
-            made[name] += 1
+                        and len(calls[key]) == 2 * RECORDED_SAMPLED_CALLS):
+                    del calls[key][1::2]
+                    stride[key] *= 2
+            made[key] += 1
             return launch(*args, **kw)
         return record
 
@@ -631,8 +706,14 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             session.from_chunks(ingest_source(torch, g, seed, log_m))
         elif run == "ingest powerlaw":
             session.from_chunks(powerlaw_source(g, log_m, log_m))
-        elif run == "amsf":
+        elif run in ("amsf", "placement amsf"):
             session.amsf(g, with_weights(g, seed=0), "amsf")
+        elif run == "placement dynamic":
+            st = session.stream(g.n, dynamic=True,
+                                log=sliding_batch_log(g.n)[1])
+            for *_, args in sliding_steps(torch, g.n, seed,
+                                          RECORDED_DYNAMIC_STEPS):
+                st.process(*args)
         elif run.startswith("serve"):
             dynamic = run == "serve dynamic"
             server = serve_server(session, g, dynamic, warmup=False)
@@ -641,11 +722,11 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             serve_closed_loop(server, dynamic, seed)
         else:
             session.connectivity(g, fused=run == "fused")
-    if "scatter_min" in names and (run in ("compacted", "fused")
-                                   or placement):
+    if "scatter_min" in names and run in CONNECTIVITY_RUNS:
         calls["scatter_min"] = calls["scatter_min"][:-1]
         made["scatter_min"] -= 1
-    return {x: (tuple(calls[x]), made[x], stride[x]) for x in names}
+    kept = [x for x in (*names, "scatter_min stacked") if x in calls]
+    return {x: (tuple(calls[x]), made[x], stride[x]) for x in kept}
 
 
 def run_calls(name: str, fn, calls) -> tuple:
@@ -721,16 +802,19 @@ def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
                 for key, names in wanted.items()}
     for name, variant, runs in RECORDED:
         finish = variant.split("+")[1]
-        for run in runs:
-            calls, made, stride = recorded[variant, run][name]
-            key = f"{finish} {run}"
+        for run, part in ((run, part) for run in runs
+                          for part in (name, f"{name} stacked")
+                          if part in recorded[variant, run]):
+            calls, made, stride = recorded[variant, run][part]
+            key = f"{finish} {run}" + (" stacked" if part != name else "")
             if name == "hook_compress":
                 what = (f"on labels ({calls[0][0].shape[0]},), edges per "
                         f"call {[c[1].shape[0] for c in calls]}, k = "
                         f"{sorted({c[3] for c in calls})}")
             elif name == "scatter_min":
                 live = sum(int((v != INT32_MAX).sum()) for _, _, v in calls)
-                what = (f"of {calls[0][1].shape[0]} entries each, {live} "
+                what = (f"into ({calls[0][0].shape[0]},) of "
+                        f"{calls[0][1].shape[0]} entries each, {live} "
                         f"entries not dumped in all")
             elif name == "edge_relabel":
                 # live proposals: edges whose ends' labels disagree
@@ -1376,14 +1460,15 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
     stream (log 2^26): labels and forest against the graph's. (b) 8 steps
     of sliding_window on a fresh dynamic stream (log 2^23 at n = 2^22):
     each step's answers against scipy on the live multiset, the final
-    forest a subset of the survivors. Fallback rebuilds are counted."""
+    forest a subset of the survivors. Fallback rebuilds are counted.
+    Returns (b)'s answers a step, its final labels, the live graph's
+    component count and the live edge keys, for the placements phase."""
     from unittest import mock
 
     import numpy as np
 
     from repro_torch import ConnectIt
     from repro_torch.dynamic import engine
-    from repro_torch.graphs.generators import sliding_window
     from repro_torch.kernels import ops
 
     fallbacks = []
@@ -1431,20 +1516,15 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
               f"{json.dumps(counts)}; card {card}")
         del d
 
-        batch = min(1 << 20, n // 4)
-        log = 1 << (8 * batch - 1).bit_length()
+        batch, log = sliding_batch_log(n)
         d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
             n, dynamic=True, log=log)
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         live = np.zeros((0, 2), np.int32)
-        steps = []
-        for step, (ins, dels, q) in enumerate(sliding_window(
-                n, steps=8, batch=batch, window=4, queries=1 << 16,
-                seed=seed)):
-            args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
-                    for x in (dels[:, 0], dels[:, 1], ins[:, 0], ins[:, 1],
-                              q[:, 0], q[:, 1])]
+        steps, answers = [], []
+        for step, (ins, dels, q, args) in enumerate(
+                sliding_steps(torch, n, seed)):
             before, k0 = d._rounds, len(fallbacks)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1457,8 +1537,9 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
                 live = live[~np.isin(_live_keys(live, n),
                                      _live_keys(dels, n))]
             live = np.concatenate([live, ins[ins[:, 0] != ins[:, 1]]])
-            _, lab = _scipy_labels(n, live)
-            require(np.array_equal(ans.cpu().numpy(),
+            ncomp, lab = _scipy_labels(n, live)
+            answers.append(ans.cpu().numpy())
+            require(np.array_equal(answers[-1],
                                    lab[q[:, 0]] == lab[q[:, 1]]),
                     f"dynamic (b) step {step}: answers differ from scipy's "
                     f"on the live multiset")
@@ -1487,6 +1568,9 @@ def phase_dynamic(torch, g, expect, keys, seed: int, exact: bool,
     for i, (wall, ups, r, fb) in enumerate(steps):
         print(f"[dynamic]   step {i}: {ups} updates, wall {wall * 1e3:.4f} "
               f"ms, rounds {r}, fallback rebuilds {fb}")
+    return {"answers": answers, "labels": canonical(d.labels.cpu().numpy()),
+            "ncomp": int(ncomp), "live": _live_keys(live, n),
+            "used": len(live), "rounds": [x[2] for x in steps]}
 
 
 def serve_server(session, g, dynamic: bool, warmup="all"):
@@ -1570,8 +1654,8 @@ class _ServeLog:
         server._commit_work = timed
 
 
-def _serve_row(tag: str, res) -> str:
-    return f"[serve] {tag} LoadResult {json.dumps(res.row())}"
+def _serve_row(pre: str, tag: str, res) -> str:
+    return f"{pre} {tag} LoadResult {json.dumps(res.row())}"
 
 
 def phase_serve(torch, g, seed: int, card: str):
@@ -1582,98 +1666,134 @@ def phase_serve(torch, g, seed: int, card: str):
     scipy on the final labels and on 4 evenly spaced epochs' answers. Then
     the dynamic server: SERVE_DYNAMIC_PRELOAD commits, a closed loop with
     deletes, scipy on the live multiset. Returns the static server."""
+    from repro_torch import ConnectIt
+
+    session = ConnectIt(MAIN_VARIANT, device="cuda")
+    server = serve_static(torch, g, session, seed, card, "[serve]",
+                          open_loops=True, epochs=4)
+    serve_dynamic(torch, g, session, seed, card, "[serve]")
+    return server
+
+
+def serve_static(torch, g, session, seed: int, card: str, pre: str, *,
+                 open_loops: bool, epochs: int):
+    """The static server of ``session`` (the serve phase's, or (g)'s under
+    a placement): preload, warm pass, the closed loop, with ``open_loops``
+    the open loops at SERVE_LOADS; the commit log's linearization, the
+    final labels and the answers of ``epochs`` evenly spaced epochs against
+    scipy. ``pre`` heads each printed line. Returns the server."""
     import numpy as np
 
-    from repro_torch import ConnectIt
     from repro_torch.kernels import ops
     from repro_torch.serve import open_loop, run_sync
 
     n = g.n
-    session = ConnectIt(MAIN_VARIANT, device="cuda")
     ops.reset_launch_counts()
     server = serve_server(session, g, dynamic=False)
     log = _ServeLog(server)
-    pre = serve_preload(torch, server, g, seed, dynamic=False)
+    pre_walls = serve_preload(torch, server, g, seed, dynamic=False)
     preloaded = server.epoch_edges[-1]
-    print(f"[serve] static server n={n}, {SERVE_CAPS}, warmup='all': "
-          f"preloaded {preloaded} edges in {len(pre)} commits of "
-          f"{SERVE_PRELOAD}, {sum(pre):.3f} s ({preloaded / sum(pre):.1f} "
-          f"edges/s, commit p50 {_pct(pre, 0.5) * 1e3:.3f} ms)")
+    print(f"{pre} static server n={n} exec={server.exec_str}, {SERVE_CAPS}, "
+          f"warmup='all': preloaded {preloaded} edges in {len(pre_walls)} "
+          f"commits of {SERVE_PRELOAD}, {sum(pre_walls):.3f} s "
+          f"({preloaded / sum(pre_walls):.1f} edges/s, commit p50 "
+          f"{_pct(pre_walls, 0.5) * 1e3:.3f} ms)")
     warm = serve_closed_loop(server, False, seed + 1,
                              requests=SERVE_REQUESTS // 4)
-    print(_serve_row("warm pass (untimed)", warm))
+    print(_serve_row(pre, "warm pass (untimed)", warm))
     walls0 = len(log.walls)
     sat = serve_closed_loop(server, False, seed)
     loop_walls = log.walls[walls0:]
     results = [("closed", sat)]
-    print(_serve_row(f"closed {SERVE_CLIENTS}x{SERVE_REQUESTS}", sat))
-    for frac in SERVE_LOADS:
+    print(_serve_row(pre, f"closed {SERVE_CLIENTS}x{SERVE_REQUESTS}", sat))
+    for frac in SERVE_LOADS if open_loops else ():
         qps = max(sat.achieved_qps * frac, 1.0)
         res = run_sync(server, open_loop, qps=qps,
                        requests=SERVE_OPEN_REQUESTS, seed=seed,
                        **SERVE_TRAFFIC)
         results.append((f"open {frac}", res))
-        print(_serve_row(f"open {frac} of saturation", res))
+        print(_serve_row(pre, f"open {frac} of saturation", res))
     counts = ops.launch_counts()
     st = server.stats()
-    print(f"[serve] stats {st}")
+    print(f"{pre} stats {st}")
     ms = [w * 1e3 for w in loop_walls]
-    print(f"[serve] closed loop: {len(ms)} commits, commit wall (begin + "
+    print(f"{pre} closed loop: {len(ms)} commits, commit wall (begin + "
           f"wait, worker thread) p50 {_pct(ms, 0.5):.4f} ms, p99 "
           f"{_pct(ms, 0.99):.4f} ms, mean {sum(ms) / len(ms):.4f} ms; "
-          f"committed {sat.edges_per_s:.1f} edges/s; launches "
-          f"{json.dumps(counts)}; card {card}")
+          f"saturation {sat.achieved_qps:.1f} query requests/s, p99 "
+          f"{sat.p99_ms:.4f} ms; committed {sat.edges_per_s:.1f} edges/s; "
+          f"launches {json.dumps(counts)}; card {card}")
 
     # linearization: epochs 1, 2, ... in commit order; every edge submitted
-    # was committed; the final labels and the answers of 4 evenly spaced
+    # was committed; the final labels and the answers of evenly spaced
     # epochs against scipy on their epoch's prefix of the commit log
-    epochs = [c[0] for c in log.commits]
-    require(epochs == list(range(1, len(epochs) + 1)),
-            "serve: commits did not become epochs 1, 2, ... in order")
+    epoch_order = [c[0] for c in log.commits]
+    require(epoch_order == list(range(1, len(epoch_order) + 1)),
+            f"{pre} commits did not become epochs 1, 2, ... in order")
     sizes = np.cumsum([0] + [c[1].shape[0] for c in log.commits])
     require(server.epoch_edges == sizes.tolist(),
-            "serve: epoch_edges is not the commit log's running total")
+            f"{pre} epoch_edges is not the commit log's running total")
     submitted = st.tenants["default"].edges_submitted
     loops = [warm] + [r for _, r in results]
     want = preloaded + sum(r.inserts for r in loops) * \
         SERVE_TRAFFIC["insert_edges"]
     require(server.epoch_edges[-1] == submitted == want,
-            f"serve: {server.epoch_edges[-1]} edges committed, {submitted} "
+            f"{pre} {server.epoch_edges[-1]} edges committed, {submitted} "
             f"submitted, want {want}")
-    require(counts["edge_rewrite"] == log.calls
+    # a single-path commit rewrites its batch once; a placement's does not
+    # (its finish takes the raw ends, as the reference's does)
+    rewrites = log.calls if session.exec.placement == "single" else 0
+    require(counts["edge_rewrite"] == rewrites
             and counts["hook_compress"] > 0 and counts["pointer_jump"] > 0,
-            f"serve: launches {counts}, want edge_rewrite == {log.calls} "
-            f"commits (warmup's included) and hook_compress, pointer_jump "
-            f"above 0")
+            f"{pre} launches {counts}, want edge_rewrite == {rewrites} "
+            f"({log.calls} commits, warmup's included) and hook_compress, "
+            f"pointer_jump above 0")
     edges = np.stack([np.concatenate([c[1] for c in log.commits]),
                       np.concatenate([c[2] for c in log.commits])], 1)
     t0 = time.perf_counter()
-    _, lab = _scipy_labels(n, edges)
+    oracle = {}  # scipy's labels by prefix size: the last epoch's is final
+
+    def prefix_labels(size):
+        if size not in oracle:
+            oracle[size] = _scipy_labels(n, edges[:size])[1]
+        return oracle[size]
+
     require(np.array_equal(canonical(server.store.labels.cpu().numpy()),
-                           canonical(lab)),
-            "serve: the final labels' partition differs from scipy's on "
-            "every committed edge")
-    seen = sorted({a[0] for a in log.answers if a[0] > len(pre)})
-    picks = sorted({seen[round(i * (len(seen) - 1) / 3)] for i in range(4)})
+                           canonical(prefix_labels(len(edges)))),
+            f"{pre} the final labels' partition differs from scipy's on "
+            f"every committed edge")
+    seen = sorted({a[0] for a in log.answers if a[0] > len(pre_walls)})
+    picks = sorted({seen[round(i * (len(seen) - 1) / (epochs - 1))]
+                    for i in range(epochs)})
     checked = 0
     for e in picks:
-        _, lab = _scipy_labels(n, edges[: sizes[e]])
+        lab = prefix_labels(int(sizes[e]))
         for epoch, qa, qb, ans in log.answers:
             if epoch == e:
                 require(np.array_equal(ans.cpu().numpy(),
                                        lab[qa] == lab[qb]),
-                        f"serve: answers at epoch {e} differ from scipy's "
+                        f"{pre} answers at epoch {e} differ from scipy's "
                         f"on its {sizes[e]}-edge prefix")
                 checked += qa.shape[0]
-    require(len(picks) >= 4 or len(seen) < 4,
-            f"serve: only epochs {picks} answered")
-    print(f"[serve] checks: epochs 1..{len(epochs)} in commit order; "
+    require(len(picks) >= epochs or len(seen) < epochs,
+            f"{pre} only epochs {picks} answered")
+    print(f"{pre} checks: epochs 1..{len(epoch_order)} in commit order; "
           f"{submitted} edges submitted == committed; final partition == "
           f"scipy's; {checked} answers at epochs {picks} == scipy on their "
-          f"prefixes ({len(picks) + 1} scipy runs, "
+          f"prefixes ({len(oracle)} scipy runs, "
           f"{time.perf_counter() - t0:.2f} s)")
+    return server
 
-    # the dynamic server
+
+def serve_dynamic(torch, g, session, seed: int, card: str, pre: str):
+    """The dynamic server of ``session``: SERVE_DYNAMIC_PRELOAD commits, a
+    closed loop with deletes, scipy on the live multiset replayed from the
+    commit log."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    n = g.n
     ops.reset_launch_counts()
     dserver = serve_server(session, g, dynamic=True)
     dlog = _ServeLog(dserver)
@@ -1681,10 +1801,10 @@ def phase_serve(torch, g, seed: int, card: str):
     dres = serve_closed_loop(dserver, True, seed)
     dcounts = ops.launch_counts()
     dst = dserver.stats()
-    print(_serve_row(f"dynamic closed {SERVE_CLIENTS}x"
+    print(_serve_row(pre, f"dynamic closed {SERVE_CLIENTS}x"
                      f"{SERVE_DYNAMIC_REQUESTS} delete_frac="
                      f"{SERVE_DELETE_FRAC}", dres))
-    print(f"[serve] dynamic stats {dst}")
+    print(f"{pre} dynamic stats {dst}")
     # the live multiset, replayed from the commit log: a delete removes
     # every copy of its pair, and within a commit deletes apply before
     # inserts, so an insert of commit i lives iff no commit after i deletes
@@ -1711,21 +1831,22 @@ def phase_serve(torch, g, seed: int, card: str):
     used = int(dserver.store._ops.used(dserver.store._committed).sum())
     require(np.array_equal(canonical(dserver.store.labels.cpu().numpy()),
                            canonical(lab)),
-            "serve dynamic: the final labels differ from scipy's on the "
+            f"{pre} dynamic: the final labels differ from scipy's on the "
             "live multiset")
     require(used == len(live),
-            f"serve dynamic: {used} live log entries, want {len(live)}")
+            f"{pre} dynamic: {used} live log entries, want {len(live)}")
     require(dcounts["scatter_min"] > 0 and dcounts["pointer_jump"] > 0,
-            f"serve dynamic: launches {dcounts}")
+            f"{pre} dynamic: launches {dcounts}")
     dms = [w * 1e3 for w in dlog.walls]
-    print(f"[serve] dynamic server n={n}, log {SERVE_DYNAMIC_LOG}: preload "
+    print(f"{pre} dynamic server n={n} exec={dserver.exec_str}, log "
+          f"{SERVE_DYNAMIC_LOG}: preload "
           f"{len(dpre)} commits of {SERVE_PRELOAD} in {sum(dpre):.3f} s; "
           f"closed loop {len(dms)} commits, commit wall p50 "
           f"{_pct(dms, 0.5):.4f} ms, p99 {_pct(dms, 0.99):.4f} ms; "
           f"{dst.edges_deleted} deletes committed; final labels == scipy on "
           f"the {len(live)} live edges == the log's live count; launches "
           f"{json.dumps(dcounts)}; card {card}")
-    return server
+    return dserver
 
 
 # the analytic resident bytes of chunked ingest, as the JAX package's scale
@@ -1916,14 +2037,40 @@ def _scan_oracle(n: int, s, r, sims, eps: float, mu: int):
     return labels, core
 
 
+def _mst_weight(g, w) -> tuple:
+    """scipy's minimum spanning tree weight (float64) of the graph under
+    weights ``w``, the host weights of the graph's edges, and the tree's
+    edge count."""
+    import numpy as np
+    from scipy.sparse.csgraph import minimum_spanning_tree
+
+    s = g.senders[: g.m].cpu().numpy()
+    r = g.receivers[: g.m].cpu().numpy()
+    wh = w[: g.m].cpu().numpy()
+    up = s < r
+    mst = minimum_spanning_tree(_csr(g.n, s[up], r[up],
+                                     wh[up].astype(np.float64)))
+    return float(mst.sum()), wh, mst.nnz
+
+
+def _forest_weight64(edges, n: int, keys, wh) -> float:
+    """A forest's weight in float64: each edge's weight found by its key
+    among the graph's sorted edge keys."""
+    import numpy as np
+    at = np.searchsorted(keys, edges[:, 0].astype(np.int64) * (n + 1)
+                         + edges[:, 1])
+    return float(wh[at].astype(np.float64).sum())
+
+
 def phase_apps(torch, g, expect, keys, exact: bool, card: str):
     """AMSF (mask, skip=lmax, coo) and exact MSF on the graph with
     with_weights(g, seed=0), against scipy's minimum spanning tree; SCAN at
     full size on seeded symmetric similarities against a numpy/scipy
     restatement of the sequential query, and on a graph small enough for
-    build_index against gs_query_sequential. Returns the weights."""
+    build_index against gs_query_sequential. Returns the weights, scipy's
+    MST weight and, per AMSF spec, the single path's forest, buckets and
+    edges per bucket."""
     import numpy as np
-    from scipy.sparse.csgraph import minimum_spanning_tree
 
     from repro_torch import ConnectIt
     from repro_torch.core.apps import amsf as amsf_impl
@@ -1938,17 +2085,14 @@ def phase_apps(torch, g, expect, keys, exact: bool, card: str):
     t_w = time.perf_counter() - t0
     s = g.senders[: g.m].cpu().numpy()
     r = g.receivers[: g.m].cpu().numpy()
-    wh = w[: g.m].cpu().numpy()
-    up = s < r
     t0 = time.perf_counter()
-    mst = minimum_spanning_tree(_csr(n, s[up], r[up],
-                                     wh[up].astype(np.float64)))
-    exact_w = float(mst.sum())
+    exact_w, wh, nnz = _mst_weight(g, w)
     t_mst = time.perf_counter() - t0
     print(f"[apps] with_weights on the card {t_w:.2f} s; scipy "
           f"minimum_spanning_tree (float64) {t_mst:.2f} s: weight "
-          f"{exact_w!r}, {mst.nnz} edges")
+          f"{exact_w!r}, {nnz} edges")
     session = ConnectIt(MAIN_VARIANT, device="cuda")
+    single = {}
     for spec in ("amsf", "amsf(skip=lmax)", "amsf(mode=coo)", "msf"):
         what = f"apps {MAIN_VARIANT} {spec}"
         torch.cuda.synchronize()
@@ -1961,13 +2105,12 @@ def phase_apps(torch, g, expect, keys, exact: bool, card: str):
         wall = time.perf_counter() - t0
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated() - base
+        single[spec] = (edges, stats.buckets, stats.edges_per_bucket)
         for name in ("pointer_jump", "scatter_min"):
             require(counts[name] > 0, f"{what}: kernel {name} never launched")
         check_forest(edges, n, expect, keys, what)
         weight = amsf_impl.forest_weight(edges, g, w)
-        at = np.searchsorted(keys, edges[:, 0].astype(np.int64) * (n + 1)
-                             + edges[:, 1])
-        w64 = float(wh[at].astype(np.float64).sum())
+        w64 = _forest_weight64(edges, n, keys, wh)
         if spec == "msf":
             require(abs(w64 - exact_w) <= 1e-9 * exact_w
                     and abs(weight - exact_w) <= 1e-5 * exact_w,
@@ -2026,7 +2169,7 @@ def phase_apps(torch, g, expect, keys, exact: bool, card: str):
               f"(m={small.m}; build_index on the host {t_index:.2f} s): "
               f"labels, is_core == gs_query_sequential; {int(core.sum())} "
               f"cores")
-    return w
+    return {"weights": w, "exact": exact_w, "wh": wh, "single": single}
 
 
 def _required_kernels(variant: str) -> tuple:
@@ -2038,15 +2181,19 @@ def _required_kernels(variant: str) -> tuple:
     return UF_KERNELS
 
 
-def phase_placements(torch, g, expect, seed: int, exact: bool, card: str):
+def phase_placements(torch, g, expect, keys, seed: int, exact: bool,
+                     card: str, dyn: dict, apps: dict):
     """The replicated and sharded placements (repro_torch.core.execution)
     at the full size: (a) PLACEMENT_RUNS at one rank over NCCL in this
     process, each against scipy's labels and the single path's, with its
     median wall of 5, rounds, launches, host waits an outer round (one
     traced run) and peak memory; (b) the stream phase's 2^20-edge batches
     under sharded(x); (c) scan(eps=0.6,mu=3) under sharded(x) against the
-    single path on the apps phase's similarities; (d) GLOO_EXECS on two
-    processes sharing the card over gloo, each against (a)'s labels."""
+    single path on the apps phase's similarities; (e) the dynamic phase's
+    sliding window, (f) amsf and amsf(skip=lmax), and (g) the serve phase's
+    servers, under the placements, each against the single path (``dyn``,
+    ``apps``) or scipy; (d) GLOO_EXECS on two processes sharing the card
+    over gloo, each against (a)'s labels."""
     import statistics
 
     import numpy as np
@@ -2058,6 +2205,7 @@ def phase_placements(torch, g, expect, seed: int, exact: bool, card: str):
     topo = multihost.initialize()  # nothing configured: one rank
     require(topo.num_processes == 1 and "nccl" in topo.backend,
             f"placements: one-rank group expected, got {topo}")
+    t_a = time.perf_counter()
     try:
         single = {}
         for variant, exec_str in PLACEMENT_RUNS:
@@ -2108,11 +2256,22 @@ def phase_placements(torch, g, expect, seed: int, exact: bool, card: str):
                   f"{stats.edges_finish_padded}; peak device memory above "
                   f"the graph {peak} bytes; launches {json.dumps(counts)}; "
                   f"card {card}")
-        _placement_stream(torch, g, expect, seed, exact, card)
-        _placement_scan(torch, g)
+        print(f"[time] placements (a): {time.perf_counter() - t_a:.1f} s")
+        for part, fn, args in (
+                ("(b)", _placement_stream, (expect, seed, exact, card)),
+                ("(c)", _placement_scan, ()),
+                ("(e)", _placement_dynamic, (dyn, seed, exact, card)),
+                ("(f)", _placement_amsf, (expect, keys, apps, exact, card)),
+                ("(g)", _placement_serve, (seed, card))):
+            t0 = time.perf_counter()
+            fn(torch, g, *args)
+            print(f"[time] placements {part}: {time.perf_counter() - t0:.1f} "
+                  f"s")
     finally:
         multihost.shutdown()
+    t0 = time.perf_counter()
     _placement_gloo(torch, g, expect, card)
+    print(f"[time] placements (d): {time.perf_counter() - t0:.1f} s")
 
 
 def _placement_stream(torch, g, expect, seed: int, exact: bool, card: str,
@@ -2188,6 +2347,196 @@ def _placement_scan(torch, g) -> None:
           f"finish_rounds {stats.finish_rounds}; wall {wall:.4f} s")
 
 
+def _placement_dynamic(torch, g, single: dict, seed: int, exact: bool,
+                       card: str, execs=PLACEMENT_DYN_EXECS, tag: str = "",
+                       trace: bool = True) -> list:
+    """(e): the dynamic phase's sliding window (8 steps, log 2^23) through
+    ConnectIt(MAIN_VARIANT, exec=...).stream(n, dynamic=True) for each of
+    ``execs``: each step's answers against the single path's (``single``,
+    which scipy checked), the final labels' partition equal to its, the
+    forest n - #components edges of the live graph; updates/s, the
+    per-step wall, rounds, fallback rebuilds, and with ``trace`` the host
+    waits of a traced ninth step. Returns each run's rounds and stats."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.core import distributed
+    from repro_torch.dynamic.engine import DEFAULT_SEARCH_ROUNDS
+    from repro_torch.kernels import ops
+
+    n = g.n
+    _, log = sliding_batch_log(n)
+    fixpoint = distributed.iterate_to_fixpoint
+    out = []
+    for exec_str in execs:
+        what = f"placements {tag}(e) dynamic {exec_str}"
+        bounds = []
+
+        def recording(step, state, max_rounds, **kw):
+            # an update's insert phase and its search fallback run to the
+            # outer cap, its bounded search to DEFAULT_SEARCH_ROUNDS
+            bounds.append(max_rounds)
+            return fixpoint(step, state, max_rounds, **kw)
+
+        d = ConnectIt(MAIN_VARIANT, exec=exec_str, device="cuda").stream(
+            n, dynamic=True, log=log)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        steps = []
+        calls = {}
+        with mock.patch.object(distributed, "iterate_to_fixpoint",
+                               recording):
+            gen = sliding_steps(torch, n, seed, 9)
+            for step, (ins, dels, q, args) in zip(range(8), gen):
+                before, b0 = d._rounds, len(bounds)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ans = d.process(*args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                require(np.array_equal(ans.cpu().numpy(),
+                                       single["answers"][step]),
+                        f"{what} step {step}: answers differ from the "
+                        f"single path's")
+                capped = sum(1 for b in bounds[b0:]
+                             if b > DEFAULT_SEARCH_ROUNDS)
+                steps.append((wall, len(ins) + len(dels), d._rounds - before,
+                              capped - 1))
+            counts = ops.launch_counts()
+            stats = d.stats
+            require(np.array_equal(canonical(d.labels.cpu().numpy()),
+                                   single["labels"]),
+                    f"{what}: the labels' partition differs from the single "
+                    f"path's")
+            forest = d.forest_edges()
+            require(forest.shape == (n - single["ncomp"], 2)
+                    and bool(np.isin(_live_keys(forest, n),
+                                     single["live"]).all()),
+                    f"{what}: the forest ({forest.shape[0]} edges) is not "
+                    f"n - {single['ncomp']} edges of the live graph")
+            require(d.log_used() == single["used"],
+                    f"{what}: {d.log_used()} live log entries, want "
+                    f"{single['used']}")
+            require([x[2] for x in steps] == single["rounds"],
+                    f"{what}: rounds a step {[x[2] for x in steps]}, the "
+                    f"single path's {single['rounds']}")
+            for name in ("scatter_min", "pointer_jump"):
+                require(counts[name] > 0,
+                        f"{what}: kernel {name} never launched")
+            _check_counts(what, counts, stats.finish_rounds,
+                          PLACEMENT_DYNAMIC_COUNTS.get(exec_str) if not tag
+                          else None, exact)
+            if trace:
+                ins, dels, q, args = next(gen)
+                calls = _trace(torch, f"{what} step 9 ({len(dels)} deletes, "
+                               f"{len(ins)} inserts)",
+                               lambda: d.process(*args),
+                               top=12 if exec_str == "sharded(x)" else 0)
+        ms = [x[0] * 1e3 for x in steps]
+        total = sum(x[1] for x in steps)
+        waits = sum(calls.get(k, 0) for k in SYNC_CALLS)
+        print(f"[placements] {what}: answers == the single path's at every "
+              f"step, labels' partition == its, forest {len(forest)} edges "
+              f"of the live graph; {total / sum(x[0] for x in steps):.1f} "
+              f"updates/s; per-step wall p50 {_pct(ms, 0.5):.4f} ms, p99 "
+              f"{_pct(ms, 0.99):.4f} ms; finish_rounds {stats.finish_rounds} "
+              f"(a step {[x[2] for x in steps]}); fallback rebuilds a step "
+              f"{[x[3] for x in steps]}; host waits of the traced step "
+              f"{waits if trace else 'not traced'}; launches "
+              f"{json.dumps(counts)}; card {card}")
+        out.append({"variant": MAIN_VARIANT, "exec": f"{exec_str} dynamic",
+                    "rounds": stats.finish_rounds,
+                    "edges_per_device": list(stats.edges_per_device),
+                    "dispatch_sizes": list(stats.dispatch_sizes)})
+    return out
+
+
+def _placement_amsf(torch, g, expect, keys, apps: dict, exact: bool,
+                    card: str, execs=PLACEMENT_DYN_EXECS, specs=AMSF_SPECS,
+                    tag: str = "", trace: bool = True) -> list:
+    """(f): ``specs`` under each of ``execs`` on the apps phase's weights:
+    a spanning forest within 1.25x of scipy's MST weight, its buckets and
+    edges per bucket equal to the single path's (``apps``); wall, rounds,
+    launches, and with ``trace`` one traced sharded(x) amsf(skip=lmax)
+    (busy share, collectives, host waits a round). Returns each run's
+    rounds and stats."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.kernels import ops
+
+    n, w, exact_w = g.n, apps["weights"], apps["exact"]
+    out = []
+    for exec_str in execs:
+        session = ConnectIt(MAIN_VARIANT, exec=exec_str, device="cuda")
+        for spec in specs:
+            what = f"placements {tag}(f) {spec} {exec_str}"
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            edges, stats = session.amsf(g, w, spec, return_stats=True)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            s_edges, buckets, per_bucket = apps["single"][spec]
+            same = np.array_equal(edges, s_edges)
+            if not same:  # the single path's forest was checked already
+                check_forest(edges, n, expect, keys, what)
+            w64 = _forest_weight64(edges, n, keys, apps["wh"])
+            require(exact_w * (1 - 1e-9) <= w64 <= 1.25 * exact_w,
+                    f"{what}: weight {w64!r} outside [{exact_w!r}, 1.25 x]")
+            require(stats.buckets == buckets
+                    and stats.edges_per_bucket == per_bucket,
+                    f"{what}: buckets {stats.buckets} "
+                    f"{stats.edges_per_bucket}, the single path's {buckets} "
+                    f"{per_bucket}")
+            for name in ("scatter_min", "pointer_jump"):
+                require(counts[name] > 0,
+                        f"{what}: kernel {name} never launched")
+            _check_counts(what, counts, stats.finish_rounds,
+                          PLACEMENT_AMSF_COUNTS.get((exec_str, spec))
+                          if not tag else None, exact)
+            print(f"[placements] {what}: {len(edges)} edges, a spanning "
+                  f"forest; weight {w64!r} ({w64 / exact_w:.6f} x scipy's "
+                  f"MST); buckets, edges per bucket == the single path's "
+                  f"({stats.buckets}); forest {'==' if same else '!='} the "
+                  f"single path's{'' if same else ' (checked on the host)'}; "
+                  f"finish_rounds {stats.finish_rounds}; wall "
+                  f"{wall:.4f} s; launches {json.dumps(counts)}; card {card}")
+            out.append({"variant": MAIN_VARIANT, "exec": f"{exec_str} {spec}",
+                        "rounds": stats.finish_rounds,
+                        "edges_per_device": list(stats.edges_per_device),
+                        "dispatch_sizes": list(stats.dispatch_sizes),
+                        "edges": len(edges)})
+    if trace:
+        session = ConnectIt(MAIN_VARIANT, exec="sharded(x)", device="cuda")
+        calls = _trace(torch, "placements (f) amsf(skip=lmax) sharded(x)",
+                       lambda: session.amsf(g, w, "amsf(skip=lmax)"))
+        waits = sum(calls.get(k, 0) for k in SYNC_CALLS)
+        rounds = session.stats.finish_rounds
+        print(f"[profile]   host waits {waits} ({waits / rounds:.2f} a "
+              f"forest round of {rounds})")
+    return out
+
+
+def _placement_serve(torch, g, seed: int, card: str) -> None:
+    """(g): the serve phase's static and dynamic servers under SERVE_EXEC
+    at one rank, same caps and traffic (no open loops): answers against
+    scipy at 2 epochs, the final labels against scipy, and a traced
+    closed-loop window for the host waits a commit."""
+    from repro_torch import ConnectIt
+
+    session = ConnectIt(MAIN_VARIANT, exec=SERVE_EXEC, device="cuda")
+    pre = f"[placements] (g) serve {SERVE_EXEC}"
+    server = serve_static(torch, g, session, seed, card, pre,
+                          open_loops=False, epochs=2)
+    _trace_serve_window(torch, server, seed)
+    del server
+    serve_dynamic(torch, g, session, seed, card, pre)
+
+
 def _placement_gloo(torch, g, expect, card: str) -> None:
     """(d): GLOO_EXECS on two processes that share the card over gloo
     (NCCL takes one rank a card)."""
@@ -2195,26 +2544,80 @@ def _placement_gloo(torch, g, expect, card: str) -> None:
                [(MAIN_VARIANT, e) for e in GLOO_EXECS], False, card)
 
 
+def _single_dynamic(torch, n: int, seed: int) -> dict:
+    """The single path's run of the dynamic phase's sliding window: each
+    step's answers and rounds, the final labels' partition, and scipy's
+    component count of the final live graph with its edge keys."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+
+    d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
+        n, dynamic=True, log=sliding_batch_log(n)[1])
+    live = np.zeros((0, 2), np.int32)
+    answers, rounds = [], []
+    for ins, dels, q, args in sliding_steps(torch, n, seed):
+        before = d._rounds
+        answers.append(d.process(*args).cpu().numpy())
+        rounds.append(d._rounds - before)
+        if len(dels):
+            live = live[~np.isin(_live_keys(live, n), _live_keys(dels, n))]
+        live = np.concatenate([live, ins[ins[:, 0] != ins[:, 1]]])
+    ncomp, lab = _scipy_labels(n, live)
+    labels = canonical(d.labels.cpu().numpy())
+    require(np.array_equal(labels, canonical(lab)),
+            "ranks: the single path's dynamic labels differ from scipy's")
+    return {"answers": answers, "labels": labels, "ncomp": int(ncomp),
+            "live": _live_keys(live, n), "used": len(live),
+            "rounds": rounds}
+
+
 def phase_ranks(torch, g, expect, seed: int, world: int, card: str) -> None:
     """``--ranks N``: PLACEMENT_RUNS and (b)'s stream on N processes, one
-    rank a card over NCCL, each rank's labels against scipy's."""
+    rank a card over NCCL, each rank's labels against scipy's; then (e)
+    under sharded(x), (f)'s amsf(skip=lmax) under sharded(x), each against
+    the single path's run here, and one served closed loop under SERVE_EXEC
+    with rank 0 serving and the other ranks following."""
+    from repro_torch import ConnectIt
+    from repro_torch.graphs.generators import with_weights
+
     require(torch.cuda.device_count() >= world,
             f"ranks: {world} ranks over NCCL need {world} cards, have "
             f"{torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    dyn = _single_dynamic(torch, g.n, seed)
+    w = with_weights(g, seed=0)
+    exact_w, _, _ = _mst_weight(g, w)
+    spec = "amsf(skip=lmax)"
+    edges, st = ConnectIt(MAIN_VARIANT, device="cuda").amsf(
+        g, w, spec, return_stats=True)
+    print(f"[placements] ranks: the single path's dynamic run and {spec}, "
+          f"scipy's MST weight {exact_w!r}: {time.perf_counter() - t0:.1f} s")
+    extra = {"dyn": dyn, "weights": w.cpu().numpy(),
+             "apps": {"exact": exact_w,
+                      "single": {spec: (edges, st.buckets,
+                                        st.edges_per_bucket)}}}
     _run_ranks(torch, g, expect, seed, world, "cpu:gloo,cuda:nccl",
-               list(PLACEMENT_RUNS), True, card)
+               list(PLACEMENT_RUNS), True, card, extra)
 
 
 def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
-               runs: list, stream: bool, card: str) -> None:
+               runs: list, stream: bool, card: str,
+               extra: dict = None) -> None:
     """Start ``world`` processes of this script (--mesh-rank), one rank
     each of a group over ``backend``. They read the graph and scipy's
     labels, which this process writes once to a temporary directory (not
     generating the graph again), run ``runs`` (and, with ``stream``, (b)'s
-    stream) and write what they measured there. Every rank must exit 0,
-    and the ranks must agree on each run's rounds and stats."""
+    stream; with ``extra``, phase_ranks' single-path results, (e), (f) and
+    the served loop) and write what they measured there. Every rank must
+    exit 0, the ranks must agree on each run's rounds and stats, and the
+    served loop's ranks must end in rank 0's labels, which scipy's on its
+    commit log must give."""
+    import pickle
     import shutil
     import tempfile
+
+    import numpy as np
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
     procs = []
@@ -2225,7 +2628,12 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
         expect.astype("int32").tofile(tmp / "expect.i32")
         (tmp / "job.json").write_text(json.dumps(
             {"n": g.n, "m": g.m, "world": world, "backend": backend,
-             "runs": runs, "stream": stream, "seed": seed, "card": card}))
+             "runs": runs, "stream": stream, "seed": seed, "card": card,
+             "extra": extra is not None}))
+        if extra is not None:
+            extra["weights"].tofile(tmp / "weights.f32")
+            (tmp / "extra.pkl").write_bytes(pickle.dumps(
+                {k: v for k, v in extra.items() if k != "weights"}))
         t_write = time.perf_counter() - t0
         logs = [tmp / f"rank{r}.log" for r in range(world)]
         for r in range(world):
@@ -2261,6 +2669,22 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
                         {k: run[k] for k in keys} for x in res),
                     f"placements {backend} {run['variant']} {run['exec']}: "
                     f"the ranks disagree: {[x[i] for x in res]}")
+        if extra is not None:
+            served = [np.fromfile(tmp / f"served{r}.i32", dtype=np.int32)
+                      for r in range(world)]
+            for r in range(1, world):
+                require(np.array_equal(served[r], served[0]),
+                        f"placements {backend} serve: rank {r}'s final "
+                        f"labels differ from rank 0's")
+            log = np.fromfile(tmp / "commits.i32", dtype=np.int32)
+            _, lab = _scipy_labels(g.n, log.reshape(-1, 2))
+            require(np.array_equal(canonical(served[0]), canonical(lab)),
+                    f"placements {backend} serve: rank 0's final labels "
+                    f"differ from scipy's on its {log.size // 2} committed "
+                    f"edges")
+            print(f"[placements] {backend} {world} ranks serve {SERVE_EXEC}: "
+                  f"every follower's final labels == rank 0's == scipy on "
+                  f"the {log.size // 2} committed edges")
         print(f"[placements] {backend} {world} ranks: the graph written once "
               f"in {t_write:.2f} s; every rank's labels == scipy's; the "
               f"ranks agree on rounds and stats")
@@ -2335,10 +2759,77 @@ def mesh_rank(rank: int, tmp: str) -> int:
         if job["stream"]:
             _placement_stream(torch, g, expect, job["seed"], False,
                               job["card"], tag, want=None)
+        if job["extra"]:
+            out += _rank_extra(torch, g, d, job, expect, rank, tag)
     finally:
         multihost.shutdown()
     (d / f"rank{rank}.json").write_text(json.dumps(out))
     return 0
+
+
+def _rank_extra(torch, g, d: Path, job: dict, expect, rank: int,
+                tag: str) -> list:
+    """One rank's part of phase_ranks' extra runs: (e) under sharded(x) and
+    amsf(skip=lmax) under sharded(x) against the single path's results in
+    ``d``, then the served closed loop under SERVE_EXEC (rank 0 serves and
+    writes its commit log; every rank writes its final labels)."""
+    import pickle
+
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.serve import Follower
+
+    extra = pickle.loads((d / "extra.pkl").read_bytes())
+    out = _placement_dynamic(torch, g, extra["dyn"], job["seed"], False,
+                             job["card"], execs=("sharded(x)",), tag=tag,
+                             trace=False)
+    w = np.fromfile(d / "weights.f32", dtype=np.float32)
+    apps = dict(extra["apps"], weights=torch.from_numpy(w).cuda(),
+                wh=w[: g.m])
+    # the graph's sorted edge keys, as phase_oracle's
+    keys = (g.senders[: g.m].cpu().numpy().astype(np.int64) * (g.n + 1)
+            + g.receivers[: g.m].cpu().numpy())
+    out += _placement_amsf(torch, g, expect, keys, apps, False,
+                           job["card"], execs=("sharded(x)",),
+                           specs=("amsf(skip=lmax)",), tag=tag, trace=False)
+    session = ConnectIt(MAIN_VARIANT, exec=SERVE_EXEC, device="cuda")
+    server = serve_server(session, g, dynamic=False)
+    t0 = time.perf_counter()
+    if isinstance(server, Follower):
+        replayed = server.run()
+        require(not server.errors, f"rank {rank}: the follower's replays "
+                f"raised {server.errors}")
+        print(f"[placements] {tag}serve {SERVE_EXEC}: rank {rank} followed "
+              f"{replayed} operations (warmup and commits) to epoch "
+              f"{server.epoch} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        store = server.store
+    else:
+        log = _ServeLog(server)
+        try:
+            serve_preload(torch, server, g, job["seed"], dynamic=False)
+            res = serve_closed_loop(server, False, job["seed"])
+        finally:
+            server.stop_followers()
+        ms = [w * 1e3 for w in log.walls]
+        print(_serve_row(f"[placements] {tag}serve {SERVE_EXEC} rank 0",
+                         f"closed {SERVE_CLIENTS}x{SERVE_REQUESTS}", res))
+        print(f"[placements] {tag}serve {SERVE_EXEC}: rank 0 served to "
+              f"epoch {server.epoch}; closed loop {len(ms)} commits, commit "
+              f"wall p50 {_pct(ms, 0.5):.4f} ms; saturation "
+              f"{res.achieved_qps:.1f} query requests/s, p99 "
+              f"{res.p99_ms:.4f} ms, committed {res.edges_per_s:.1f} "
+              f"edges/s; card {job['card']}", flush=True)
+        np.concatenate([np.stack([c[1], c[2]], 1).ravel()
+                        for c in log.commits]).astype(np.int32).tofile(
+            d / "commits.i32")
+        store = server.store
+    store.labels.cpu().numpy().tofile(d / f"served{rank}.i32")
+    out.append({"variant": MAIN_VARIANT, "exec": f"{SERVE_EXEC} serve",
+                "rounds": store.rounds_total, "edges_per_device": [],
+                "dispatch_sizes": [store.epoch]})
+    return out
 
 
 def _csr(n: int, rows, cols, data=None):
@@ -2629,10 +3120,7 @@ def _trace_serve_window(torch, server, seed: int) -> None:
 def _trace_stream_steps(torch, g, seed: int) -> None:
     """One traced stream batch and one traced dynamic step, each after the
     steps before it, with their launches."""
-    import numpy as np
-
     from repro_torch import ConnectIt
-    from repro_torch.graphs.generators import sliding_window
     from repro_torch.kernels import ops
 
     B = STREAM_BATCH
@@ -2644,14 +3132,10 @@ def _trace_stream_steps(torch, g, seed: int) -> None:
     _trace(torch, f"stream batch 9 of {B} edges",
            lambda: st.insert(u[8 * B: 9 * B], v[8 * B: 9 * B]))
     print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
-    batch = min(1 << 20, g.n // 4)
     d = ConnectIt(MAIN_VARIANT, device="cuda").stream(
-        g.n, dynamic=True, log=1 << (8 * batch - 1).bit_length())
-    for step, (ins, dels, q) in enumerate(sliding_window(
-            g.n, steps=5, batch=batch, window=4, queries=1 << 16, seed=seed)):
-        args = [torch.from_numpy(np.ascontiguousarray(x)).cuda()
-                for x in (dels[:, 0], dels[:, 1], ins[:, 0], ins[:, 1],
-                          q[:, 0], q[:, 1])]
+        g.n, dynamic=True, log=sliding_batch_log(g.n)[1])
+    for step, (ins, dels, q, args) in enumerate(
+            sliding_steps(torch, g.n, seed, 5)):
         if step < 4:
             d.process(*args)
     ops.reset_launch_counts()
@@ -2722,19 +3206,19 @@ def main() -> int:
         timed("forest", phase_forest, torch, g, expect, keys, exact)
         timed("stream", phase_stream, torch, g, expect, args.seed, exact,
               card)
-        timed("dynamic", phase_dynamic, torch, g, expect, keys, args.seed,
-              exact, card)
+        dyn = timed("dynamic", phase_dynamic, torch, g, expect, keys,
+                    args.seed, exact, card)
         server = timed("serve", phase_serve, torch, g, args.seed, card)
         edges = timed("ingest", phase_ingest, torch, g, expect, args.seed,
                       args.log_m, exact, card)
-        weights = timed("apps", phase_apps, torch, g, expect, keys, exact,
-                        card)
-        timed("placements", phase_placements, torch, g, expect, args.seed,
-              exact, card)
+        apps = timed("apps", phase_apps, torch, g, expect, keys, exact,
+                     card)
+        timed("placements", phase_placements, torch, g, expect, keys,
+              args.seed, exact, card, dyn, apps)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
-              args.seed, edges, weights, args.log_m, server)
+              args.seed, edges, apps["weights"], args.log_m, server)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

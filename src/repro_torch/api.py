@@ -39,12 +39,13 @@ calls (``repro_torch.launch.multihost``):
 
     ci = ConnectIt("kout_hybrid_k2+uf_sync_full", exec="sharded(x)")
 
-Connectivity, streams and SCAN run on the placement; spanning forests and
-out-of-core ingest run on the single-device driver under any placement, as
-in the reference. What is not ported raises ``NotImplementedError`` naming
-the ROADMAP queue item that ports it: "auto" variants and ``tune`` (item
-14), and on a mesh placement AMSF/MSF, dynamic streams and serving (item
-13, second part).
+Connectivity, streams, dynamic streams, AMSF, SCAN and serving run on the
+placement; spanning forests, out-of-core ingest, ``amsf(mode=coo)`` and MSF
+run on the single-device driver under any placement, as in the reference.
+A served placement over several ranks runs the server on rank 0 and a
+follower on every other rank (``repro_torch.serve.mesh``). What is not
+ported raises ``NotImplementedError`` naming the ROADMAP queue item that
+ports it: "auto" variants and ``tune`` (item 14).
 """
 
 from __future__ import annotations
@@ -55,9 +56,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .core import driver, streaming
+from .core import driver
 from .core.apps import amsf as _amsf_impl
-from .core.apps import single as _apps
 from .core.apps.spec import AppSpec, AppSpecLike, as_app_spec
 from .core.execution import ExecutionSpec, as_execution_spec, make_backend
 from .core.finish import (
@@ -541,37 +541,45 @@ class Stream:
 
 class DynamicStream:
     """Batch-dynamic connectivity: mixed insert/delete/query batches
-    (``repro_torch.dynamic``), bound to one forest-capable variant.
+    (``repro_torch.dynamic``), bound to one forest-capable variant and one
+    execution placement.
 
     The device state extends the stream labeling with the spanning forest
     (recorded during inserts) and a fixed-capacity tombstoned edge log.
     Deletions that miss the forest cost only the tombstone; forest hits
     start the bounded replacement search (``search_rounds`` rounds, then a
     rebuild of the affected components). Within one batch the order is
-    deletes, inserts, queries.
+    deletes, inserts, queries. On a mesh placement the labels follow the
+    placement, the forest is whole on every rank and the log is split like
+    insert batches; every rank passes the whole batches.
 
-    The three size axes (deletes, inserts, queries) are padded to powers of
-    two apart. Log capacity is tracked on the host with a bound that ignores
-    tombstones; the true occupancy is read from the device only when the
-    bound would overflow."""
+    The three size axes (deletes, inserts, queries) are padded apart under
+    the placement's pad policy. Log capacity is tracked on the host with a
+    per-shard bound that ignores tombstones; the true per-shard occupancy
+    is read from the device only when the bound would overflow."""
 
-    def __init__(self, n: int, *, device, variant: str = "",
+    def __init__(self, n: int, *, backend, variant: str = "",
                  compress: str = "full", log: int = 0,
                  search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS):
         self.n = n
         self.variant = variant
-        self.device = device
-        self._ops = dyn_engine.dynamic_ops(n, device=device,
-                                           compress=compress, log=log,
-                                           search_rounds=search_rounds)
-        self._exec = "single:dynamic" + (f",log={log}" if log else "")
+        self._backend = backend
+        self.device = backend.device
+        self._ops = backend.dynamic_ops(n, compress=compress, log=log,
+                                        search_rounds=search_rounds)
+        self._exec = dataclasses.replace(backend.spec, dynamic=True, log=log)
         self.state = self._ops.init()
         self.batches = 0
         self._dispatch_sizes: list[int] = []
-        self._edges = torch.zeros((), dtype=torch.int64, device=device)
-        self._deletes = torch.zeros((), dtype=torch.int64, device=device)
+        self._edges = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._deletes = torch.zeros((), dtype=torch.int64,
+                                    device=self.device)
         self._rounds = 0
-        self._bound = 0  # occupancy bound of the log
+        # per-shard occupancy bound (tombstones never shrink it; a predicted
+        # overflow reads the true per-shard live counts)
+        shards = self._ops.edge_shards
+        self._cap_local = self._ops.log_cap // shards
+        self._bound = np.zeros((shards,), np.int64)
 
     def _pad(self, u, v, size_fn):
         u, v = _as_index(u, self.device), _as_index(v, self.device)
@@ -579,19 +587,23 @@ class DynamicStream:
         size = size_fn(k)
         return _pad(u, size, self.n), _pad(v, size, self.n), k, size
 
-    def _ensure_capacity(self, k: int) -> None:
-        cap = self._ops.log_cap
-        if self._bound + k <= cap:
-            self._bound += k
+    def _ensure_capacity(self, k: int, size: int) -> None:
+        incoming = np.asarray(driver._per_chunk_counts(
+            k, size, self._ops.edge_shards))
+        if (self._bound + incoming <= self._cap_local).all():
+            self._bound += incoming
             return
         # the bound ignores tombstones: read the true occupancy once, then
         # check again (the only sync on the capacity path)
-        self._bound = int(self._ops.used(self.state).sum())
-        if self._bound + k > cap:
+        self._bound = self._ops.used(self.state).cpu().numpy().astype(
+            np.int64)
+        if (self._bound + incoming > self._cap_local).any():
             raise ValueError(
-                f"edge log full: occupancy {self._bound} + batch {k} exceeds "
-                f"{cap} slots — build the stream with a larger log=")
-        self._bound += k
+                f"edge log full: shard occupancy {self._bound.tolist()} + "
+                f"batch {incoming.tolist()} exceeds {self._cap_local} "
+                f"slots/shard — build the stream with a larger log= "
+                f"(total capacity {self._ops.log_cap})")
+        self._bound += incoming
 
     def process(self, du, dv, u, v, qa, qb) -> torch.Tensor:
         """One mixed batch: delete ``(du, dv)``, insert ``(u, v)``, then
@@ -599,7 +611,7 @@ class DynamicStream:
         du, dv, _, _ = self._pad(du, dv, self._ops.delete_size)
         u, v, k, size = self._pad(u, v, self._ops.batch_size)
         qa, qb, qk, _ = self._pad(qa, qb, self._ops.batch_size)
-        self._ensure_capacity(k)
+        self._ensure_capacity(k, size)
         self.state, ans, rounds = self._ops.update(
             self.state, du, dv, u, v, qa, qb)
         self.batches += 1
@@ -657,12 +669,16 @@ class DynamicStream:
         """ConnectivityStats of the dynamic stream (syncs on read).
         ``edges_total`` counts inserts net of deletes submitted;
         ``edges_finish`` is twice the inserts, as for ``Stream``."""
+        spec = self._exec
+        shards = self._ops.edge_shards
         padded = 2 * sum(self._dispatch_sizes)
         return driver.ConnectivityStats(
-            variant=self.variant, exec=self._exec,
+            variant=self.variant, exec=str(spec), placement=spec.placement,
+            devices=self._backend.devices, fused=spec.fused,
             edges_total=self.edges_inserted - self.edges_deleted,
             edges_finish=2 * self.edges_inserted,
-            edges_finish_padded=padded, dispatch_sizes=(padded,),
+            edges_finish_padded=padded,
+            dispatch_sizes=(padded // shards,) * shards,
             batch_shapes=tuple(sorted(set(self._dispatch_sizes))),
             finish_rounds=self._rounds)
 
@@ -676,9 +692,6 @@ def _check_exec(spec: ExecutionSpec) -> None:
             f"takes the plain version, a CUDA tensor the CUDA kernel)")
     if spec.tune:
         raise _not_ported(f"the tune opt of {str(spec)!r}", "Queue 1 item 14")
-    if spec.dynamic:
-        raise _not_ported(f"the dynamic opt of {str(spec)!r}",
-                          "Queue 1 item 13 (second part)")
 
 
 class ConnectIt:
@@ -727,11 +740,6 @@ class ConnectIt:
         return (f"ConnectIt({str(self.spec)!r}{ex}, "
                 f"device={str(self.device)!r})")
 
-    def _on_mesh(self, what: str) -> None:
-        if self.exec.placement != "single":
-            raise _not_ported(f"{what} on the {self.exec.placement} "
-                              f"placement", "Queue 1 item 13 (second part)")
-
     def connectivity(self, g, *, generator: Optional[torch.Generator] = None,
                      fused: Optional[bool] = None,
                      return_stats: bool = False):
@@ -779,35 +787,37 @@ class ConnectIt:
             variant=str(self.spec))
         return edges
 
-    def stream(self, n: int, *, dynamic: bool = False,
+    def stream(self, n: int, *, dynamic: Optional[bool] = None,
                log: Optional[int] = None,
                search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS
                ) -> Union[Stream, DynamicStream]:
         """A fresh batch-incremental handle over ``n`` vertices (paper
-        §3.5) on the session's device.
+        §3.5) under this session's placement.
 
-        With ``dynamic=True`` the handle is a ``DynamicStream``: mixed
-        insert/delete/query batches backed by a spanning forest and a
-        tombstoned edge log of capacity ``log`` (a power of two; default
-        the next power of two >= 4n). It needs a root-based finish.
+        With ``dynamic=True`` (or an exec carrying the ``dynamic`` opt) the
+        handle is a ``DynamicStream``: mixed insert/delete/query batches
+        backed by a spanning forest and a tombstoned edge log of capacity
+        ``log`` (a power of two; default the exec's ``log=``, else the next
+        power of two >= 4n). It needs a root-based finish.
         ``search_rounds`` bounds the replacement search before a deletion
         falls back to rebuilding the affected components."""
-        if not dynamic:
+        dyn = self.exec.dynamic if dynamic is None else bool(dynamic)
+        if not dyn:
             if log:
                 raise ValueError("log= is a dynamic-stream knob — pass "
-                                 "dynamic=True")
+                                 "dynamic=True (or use a ':dynamic' exec)")
             return Stream(n, self._finish, backend=self._backend,
                           variant=str(self.spec))
-        self._on_mesh("a dynamic stream")
         if not self.spec.forest_capable:
             raise ValueError(
                 f"dynamic streams maintain a spanning forest and need a "
                 f"root-based finish ({'/'.join(FOREST_METHODS)}), not "
                 f"{self.spec.finish_str!r} — paper §3.4")
-        cap = log or 0
+        cap = self.exec.log if log is None else log
         if cap and cap & (cap - 1):
             raise ValueError(f"log must be a power of two, got {cap}")
-        return DynamicStream(n, device=self.device, variant=str(self.spec),
+        return DynamicStream(n, backend=self._backend,
+                             variant=str(self.spec),
                              compress=self.spec.forest_compress, log=cap,
                              search_rounds=search_rounds)
 
@@ -856,19 +866,25 @@ class ConnectIt:
         app = as_app_spec(spec)
         if app.app == "scan":
             raise ValueError("scan specs run via .scan(g, sims, spec)")
-        self._on_mesh(app.app)
         self._check_device(g)
         stats = self._app_stats(app, g)
         weights = torch.as_tensor(weights, device=self.device)
         if app.app == "msf":
             edges, _ = _amsf_impl.boruvka_msf(g, weights)
+            # Borůvka is one single-device program under every placement,
+            # as in the reference: the stats say what ran
+            stats.exec = "single"
+            stats.placement = "single"
+            stats.devices = 1
             stats.edges_finish = g.m
             stats.edges_finish_padded = g.m_pad
             stats.edges_per_device = (g.m,)
             stats.dispatch_sizes = (g.m_pad,)
         else:
             forest_fn = self.spec.build_forest_finish()
-            fu, fv = _apps.amsf(g, weights, app, forest_fn, stats=stats)
+            fu, fv = self._backend.amsf(
+                g, weights, app, forest_fn,
+                compress=self.spec.forest_compress, stats=stats)
             edges = _amsf_impl.forest_edges(fu, fv)
         self._stats = stats
         if return_stats:
@@ -906,26 +922,32 @@ class ConnectIt:
         return labels, is_core
 
     def serve(self, n: Optional[int] = None, *, tenants=None, config=None,
-              dynamic: bool = False, log: Optional[int] = None,
+              dynamic: Optional[bool] = None, log: Optional[int] = None,
               search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS,
               **knobs):
         """Async serving front-end over a live graph (``repro_torch.serve``)
-        on the session's device.
+        under this session's placement.
 
         Returns a not-yet-started ``repro_torch.serve.Server``: an asyncio
         admission layer (``submit_inserts`` / ``query`` coroutines) that
-        coalesces concurrent client traffic into pow2-bucketed batches, with
-        double-buffered snapshot epochs so that queries always read a stable
-        committed snapshot. Pass ``n`` for one logical graph, or
-        ``tenants={"name": n, ...}`` to serve several tenant namespaces from
-        one shared state. ``config`` is a ``repro_torch.serve.ServeConfig``;
-        extra ``knobs`` (``max_batch_edges=...``, ``flush_ms=...``, ...)
-        override its fields.
+        coalesces concurrent client traffic into batches padded under the
+        placement's pad policy, with double-buffered snapshot epochs so that
+        queries always read a stable committed snapshot. Pass ``n`` for one
+        logical graph, or ``tenants={"name": n, ...}`` to serve several
+        tenant namespaces from one shared state. ``config`` is a
+        ``repro_torch.serve.ServeConfig``; extra ``knobs``
+        (``max_batch_edges=...``, ``flush_ms=...``, ...) override its
+        fields.
 
-        With ``dynamic=True`` the server also accepts ``submit_deletes``:
-        deletions coalesce into the same commit pipeline (a root-based
-        finish is required; ``log`` sizes the tombstoned edge log as in
-        ``stream``).
+        With ``dynamic=True`` (or a ``:dynamic`` exec) the server also
+        accepts ``submit_deletes``: deletions coalesce into the same commit
+        pipeline (a root-based finish is required; ``log`` sizes the
+        tombstoned edge log as in ``stream``).
+
+        On a placement over several ranks every rank calls ``serve`` with
+        the same arguments: rank 0 gets the ``Server``, every other rank a
+        ``repro_torch.serve.Follower``, whose ``run()`` replays rank 0's
+        commits until rank 0's ``server.stop_followers()``.
 
         >>> server = ConnectIt("none+uf_sync_full").serve(1 << 16)
         >>> async with server:
@@ -933,30 +955,33 @@ class ConnectIt:
         ...     ans, at_epoch = await server.query(qa, qb)
         """
         from .serve import ServeConfig, Server, TenantRegistry
-        self._on_mesh("serving")
+        from .serve.mesh import Follower, channel_for
         registry = TenantRegistry.build(n=n, tenants=tenants)
         cfg = config or ServeConfig()
         if knobs:
             cfg = dataclasses.replace(cfg, **knobs)
-        if dynamic:
+        dyn = self.exec.dynamic if dynamic is None else bool(dynamic)
+        if dyn:
             if not self.spec.forest_capable:
                 raise ValueError(
                     f"dynamic serving needs a root-based finish "
                     f"({'/'.join(FOREST_METHODS)}), not "
                     f"{self.spec.finish_str!r} — paper §3.4")
-            cap = log or 0
+            cap = self.exec.log if log is None else log
             if cap and cap & (cap - 1):
                 raise ValueError(f"log must be a power of two, got {cap}")
-            ops = dyn_engine.dynamic_snapshot_ops(
-                registry.total, device=self.device,
-                compress=self.spec.forest_compress, log=cap,
+            ops = self._backend.dynamic_snapshot_ops(
+                registry.total, compress=self.spec.forest_compress, log=cap,
                 search_rounds=search_rounds, donate=cfg.donate)
         else:
             if log:
                 raise ValueError("log= is a dynamic-serving knob — pass "
-                                 "dynamic=True")
-            ops = streaming.snapshot_ops(registry.total, self._finish,
-                                         device=self.device,
-                                         donate=cfg.donate)
+                                 "dynamic=True (or use a ':dynamic' exec)")
+            ops = self._backend.snapshot_ops(registry.total, self._finish,
+                                             donate=cfg.donate)
+        channel = channel_for(self._backend)
+        if channel is not None and not channel.leader:
+            return Follower(ops, registry.total, channel)
         return Server(ops, registry, config=cfg, variant=str(self.spec),
-                      exec_str="single", devices=1)
+                      exec_str=str(self.exec),
+                      devices=self._backend.devices, channel=channel)

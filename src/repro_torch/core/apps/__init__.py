@@ -1,7 +1,8 @@
 """ConnectIt applications (paper §5): AMSF and SCAN GS*-Query as consumers
 of the variant space. ``AppSpec`` (spec.py) is the declarative grammar;
-``amsf`` and ``scan`` hold the programs, ``single`` the session glue behind
-``repro_torch.api.ConnectIt.amsf`` / ``.msf`` / ``.scan``."""
+``amsf`` and ``scan`` hold the programs; the backends of
+``core/execution.py`` run them behind ``repro_torch.api.ConnectIt.amsf`` /
+``.msf`` / ``.scan``."""
 
 from . import amsf, scan  # noqa: F401
 from .spec import (  # noqa: F401

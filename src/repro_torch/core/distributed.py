@@ -31,6 +31,13 @@ value that is the same on every rank (merged labels, or a count reduced
 over the mesh), so all ranks enter the same collectives in the same order;
 the round counts are the reference's. The local finish runs its own
 host-checked fixpoint, which calls no collective.
+
+The AMSF bucket sweep and the batch-dynamic update record forest edges, one
+per hooked root, so their hook round is merged every round
+(``_global_forest_round``): the hook values, the winning global edge ids and
+the winners' endpoints are each ``pmin``-merged over the edge axes before
+any rank applies them, and the labels and forest buffers stay whole and
+equal on every rank.
 """
 
 from __future__ import annotations
@@ -39,11 +46,14 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from ..dynamic import engine
 from ..graphs.containers import round_up
 from ..kernels import ops
 from ..kernels.index import take
 from . import collectives as coll
-from .primitives import INT_MAX, full_compress, iterate_to_fixpoint
+from .apps.amsf import _skip_lmax_mask
+from .finish import _compress, _labels_changed
+from .primitives import INT_MAX, full_compress, iterate_to_fixpoint, parents_of
 
 # Fixpoint cap floor of the outer merge loop (rounds=0): label information
 # crosses at least one shard boundary per outer round, so the cap is the
@@ -348,3 +358,279 @@ def make_sharded_stream(mesh, edge_axes: Sequence[str], label_axis: str,
     return _stream_programs(
         run, make_sharded_compress(mesh, label_axis),
         lambda shard: coll.all_gather(shard, mesh, (label_axis,)))
+
+
+# ---------------------------------------------------------------------------
+# The AMSF bucket forest (paper §5) on a mesh.
+#
+# Forest recording across ranks needs one deterministic winner per hooked
+# root (Theorem 6), so every forest hook round is merged: each rank proposes
+# its local min-hooks, the winning (value, global edge id, endpoints) buffers
+# are pmin-merged over the edge axes, and only then does every rank apply
+# the hooks and record the one global winner.
+# ---------------------------------------------------------------------------
+
+def _global_forest_round(P, fu, fv, s, r, gid, active, mesh, axes, *,
+                         compress: str = "full"):
+    """One merged forest hook round (and its compression) on this rank's
+    edge block → ``(P, fu, fv, changed)``.
+
+    ``gid`` is the global edge id of each local slot. ``P``, ``fu`` and
+    ``fv`` are whole and equal on every rank. Pass 1 (the hook value) alone
+    decides whether any root hooks: its merged buffer is the same on every
+    rank, so the host reads it with no further collective, and a round that
+    hooks nothing skips the edge-id and endpoint passes."""
+    n1 = P.shape[0]
+    pu = P[s]  # int32 indices: no int64 copy of the edge block
+    pv = P[r]
+    act = active & (pu != pv)
+    root_u = parents_of(P, pu) == pu
+    mask = act & root_u & (pv < pu)
+
+    def big(size):
+        return torch.full((size,), INT_MAX, dtype=torch.int32,
+                          device=P.device)
+
+    # pass 1: the winning hook value of each root, merged over the ranks
+    vbuf = coll.pmin(ops.scatter_min(big(n1), pu, pv, mask), mesh, axes)
+    hooked = bool((vbuf < INT_MAX).any())  # the round's host wait
+    if hooked:
+        # pass 2: the winning global edge id among the value's achievers
+        safe_pu = pu.clamp(0, n1 - 1).long()
+        achieve = mask & (pv == vbuf[safe_pu])
+        ebuf = coll.pmin(ops.scatter_min(big(n1), pu, gid, achieve), mesh,
+                         axes)
+        # pass 3: the one winning rank publishes both endpoints through one
+        # stacked (2·n1 + 1,) buffer: targets pu and pu + n1, slot 2·n1
+        # takes the masked entries
+        mine = achieve & (gid == ebuf[safe_pu])
+        uw = ops.scatter_min(big(2 * n1 + 1), torch.cat([pu, pu + n1]),
+                             torch.cat([s, r]), torch.cat([mine, mine]))
+        uw = coll.pmin(uw[: 2 * n1], mesh, axes)
+        # apply: hook the roots, record first-time hooks
+        sel = (ebuf < INT_MAX) & (fu == -1)
+        fu = torch.where(sel, uw[:n1], fu)
+        fv = torch.where(sel, uw[n1:], fv)
+        P2 = _compress(torch.minimum(P, vbuf), compress)
+        return P2, fu, fv, True
+    if compress == "full":
+        # P stays fully compressed between rounds: no hook is the fixpoint
+        return P, fu, fv, False
+    # partial compression can unlock hooks on a hook-free round, so it runs,
+    # and the changed flag follows P
+    P2 = _compress(P, compress)
+    return P2, fu, fv, not torch.equal(P2, P)
+
+
+def _shard_gid(mesh, axes: Sequence[str], m_local: int, device):
+    """Global int32 edge ids of this rank's slots, in the block order of
+    ``coll.shard_index``."""
+    base = coll.shard_index(mesh, axes) * m_local
+    return torch.arange(base, base + m_local, dtype=torch.int32,
+                        device=device)
+
+
+def _bucket_sweep(P, fu, fv, s, r, bids, gid, mesh, axes, *, compress: str,
+                  skip: bool, cap: int):
+    """The bucket sweep on whole labels → ``(P, fu, fv, buckets,
+    rounds)``. Each bucket runs merged forest rounds until one changes
+    nothing (that round counts), at most ``cap``."""
+    local = torch.where(bids < INT_MAX, bids, -1)
+    bmax_local = (local.max() if local.numel() else
+                  torch.tensor(-1, dtype=torch.int32, device=P.device))
+    bmax = int(coll.pmax(bmax_local.reshape(1).to(torch.int32), mesh,
+                         axes))
+    tot = 0
+    for b in range(bmax + 1):
+        active = bids == b
+        if skip:
+            active &= _skip_lmax_mask(P, s, r)
+        go, k = True, 0
+        while go and k < cap:
+            P, fu, fv, go = _global_forest_round(
+                P, fu, fv, s, r, gid, active, mesh, axes, compress=compress)
+            k += 1
+        tot += k
+    return P, fu, fv, bmax + 1, tot
+
+
+def make_replicated_amsf(mesh, axes: Sequence[str], *, compress: str = "full",
+                         skip: bool = False,
+                         max_rounds: Optional[int] = None):
+    """The AMSF bucket sweep with the edges and their bucket ids split over
+    ``axes`` and the labels and forest buffers whole on every rank →
+    ``program(P, fu, fv, s, r, bids) -> (P, fu, fv, buckets, rounds)`` on
+    this rank's edge blocks."""
+    axes = tuple(axes)
+    cap = _fixpoint_cap(mesh, axes, max_rounds)
+
+    def program(labels, fu, fv, s, r, bids):
+        gid = _shard_gid(mesh, axes, s.shape[0], labels.device)
+        return _bucket_sweep(labels, fu, fv, s, r, bids, gid, mesh, axes,
+                             compress=compress, skip=skip, cap=cap)
+
+    return program
+
+
+def make_sharded_amsf(mesh, edge_axes: Sequence[str], label_axis: str, *,
+                      compress: str = "full", skip: bool = False,
+                      max_rounds: Optional[int] = None):
+    """The AMSF bucket sweep with the labels split over ``label_axis``: the
+    window is gathered once, the sweep runs on the whole array with merges
+    over the edge axes, and the rank takes its window back at the end. The
+    forest buffers are whole on every rank."""
+    edge_axes = tuple(edge_axes)
+    cap = _fixpoint_cap(mesh, edge_axes, max_rounds)
+
+    def program(lab_shard, fu, fv, s, r, bids):
+        shard_len = lab_shard.shape[0]
+        labels = coll.all_gather(lab_shard, mesh, (label_axis,))
+        gid = _shard_gid(mesh, edge_axes, s.shape[0], labels.device)
+        labels, fu, fv, b, tot = _bucket_sweep(
+            labels, fu, fv, s, r, bids, gid, mesh, edge_axes,
+            compress=compress, skip=skip, cap=cap)
+        lo = coll.axis_index(mesh, label_axis) * shard_len
+        return labels[lo: lo + shard_len].clone(), fu, fv, b, tot
+
+    return program
+
+
+# ---------------------------------------------------------------------------
+# Batch-dynamic programs (``repro_torch.dynamic`` on a mesh).
+#
+# The delete and rebuild steps are the engine's; the forest hook round is
+# the merged ``_global_forest_round``. The labels and forest buffers are
+# whole and equal on every rank after each merge; the edge log is split
+# like insert batches (each rank appends its own block); delete batches are
+# whole on every rank, so each rank tombstones its own log slots and every
+# rank finds the same forest hits with no collective.
+# ---------------------------------------------------------------------------
+
+class DynamicPrograms(NamedTuple):
+    """Mesh programs behind ``repro_torch.api.DynamicStream`` on a
+    placement. ``update`` takes the whole delete batch and this rank's block
+    of the insert batch and log; ``query`` answers a whole query batch;
+    ``used`` is the ``(edge_shards,)`` live log entries, on every rank."""
+
+    update: Callable  # (P, fu, fv, log_u, log_v, du, dv, bu, bv) -> (...)
+    query: Callable   # (labels, qa, qb) -> bool[q]
+    used: Callable    # (log_u) -> (edge_shards,) live log entries
+
+
+def _dynamic_body(labels, fu, fv, log_u, log_v, du, dv, bu, bv, *, n: int,
+                  mesh, axes: Sequence[str], compress: str,
+                  search_rounds: int, cap: int):
+    """A mixed-batch update on whole labels: ``engine.make_update`` with its
+    hook round swapped for the merged forest round. The host branches read
+    the forest (whole and equal on every rank) and round counts, so every
+    rank takes them alike."""
+    dev = labels.device
+
+    def round_(st, s, r, gid):
+        P2, fu2, fv2, _ = _global_forest_round(
+            st[0], st[1], st[2], s, r, gid, s < n, mesh, axes,
+            compress=compress)
+        return P2, fu2, fv2
+
+    def fixpoint(st, s, r, gid, bound):
+        return iterate_to_fixpoint(lambda t: round_(t, s, r, gid), st, bound,
+                                   changed_fn=_labels_changed)
+
+    # -- delete phase: tombstone, then rebuild only on forest hits ----------
+    slo, shi = engine.sorted_pairs(du, dv, n)
+    dead = engine.pairs_member(slo, shi, log_u, log_v)
+    log_u = torch.where(dead, n, log_u)
+    log_v = torch.where(dead, n, log_v)
+    hit = engine.pairs_member(slo, shi, fu, fv)
+    drounds = 0
+    if bool(hit.any()):
+        aff = engine.affected_mask(labels, fu, hit)
+        ids = torch.arange(n + 1, dtype=labels.dtype, device=dev)
+        st = (torch.where(aff, ids, labels), torch.where(aff, -1, fu),
+              torch.where(aff, -1, fv))
+        s, r = engine.masked_log_edges(log_u, log_v, aff, n)
+        gid = _shard_gid(mesh, axes, s.shape[0], dev)
+        st, drounds = fixpoint(st, s, r, gid, search_rounds)
+        if drounds >= search_rounds:  # the bound is exhausted: go on
+            st, k2 = fixpoint(st, s, r, gid, cap)
+            drounds += k2
+        labels, fu, fv = st
+
+    # -- insert phase: log append, then merged forest rounds ----------------
+    bu2, bv2 = engine.sanitize_pairs(bu, bv, n)
+    log_u, log_v = engine.append_log(log_u, log_v, bu2, bv2, n)
+    s = torch.cat([bu2, bv2])
+    r = torch.cat([bv2, bu2])
+    gid = _shard_gid(mesh, axes, s.shape[0], dev)
+    (labels, fu, fv), irounds = fixpoint((labels, fu, fv), s, r, gid, cap)
+    return (full_compress(labels), fu, fv, log_u, log_v,
+            drounds + irounds)
+
+
+def _dynamic_used(mesh, axes: Sequence[str], n: int):
+    def used(log_u):
+        local = (log_u < n).sum(dtype=torch.int32).reshape(1)
+        # gather the last axis first: the result is in shard_index order
+        return coll.all_gather(local, mesh, tuple(reversed(axes)))
+
+    return used
+
+
+def make_replicated_dynamic(mesh, axes: Sequence[str], n: int, *,
+                            compress: str = "full", search_rounds: int = 4,
+                            max_rounds: Optional[int] = None
+                            ) -> DynamicPrograms:
+    """Batch-dynamic programs with the labels and forest whole on every
+    rank, the edge log and insert batches split over ``axes`` and delete
+    batches whole."""
+    axes = tuple(axes)
+    cap = _fixpoint_cap(mesh, axes, max_rounds)
+
+    def update(labels, fu, fv, log_u, log_v, du, dv, bu, bv):
+        return _dynamic_body(labels, fu, fv, log_u, log_v, du, dv, bu, bv,
+                             n=n, mesh=mesh, axes=axes, compress=compress,
+                             search_rounds=search_rounds, cap=cap)
+
+    def query(labels, qa, qb):
+        return take(labels, qa) == take(labels, qb)
+
+    return DynamicPrograms(update, query, _dynamic_used(mesh, axes, n))
+
+
+def make_sharded_dynamic(mesh, edge_axes: Sequence[str], label_axis: str,
+                         n: int, *, compress: str = "full",
+                         search_rounds: int = 4,
+                         max_rounds: Optional[int] = None
+                         ) -> DynamicPrograms:
+    """Batch-dynamic programs with the labels split over ``label_axis``: the
+    window is gathered once an update, the body runs on the whole array with
+    merges over the edge axes, and the rank takes its window back. The
+    padded tail above the dump row is cut off before the body and rebuilt
+    after: its slots are self-rooted and no edge reaches them."""
+    edge_axes = tuple(edge_axes)
+    cap = _fixpoint_cap(mesh, edge_axes, max_rounds)
+
+    def full_labels(lab_shard):
+        return coll.all_gather(lab_shard, mesh, (label_axis,))
+
+    def update(lab_shard, fu, fv, log_u, log_v, du, dv, bu, bv):
+        shard_len = lab_shard.shape[0]
+        full = full_labels(lab_shard)
+        length = full.shape[0]
+        labels, fu, fv, log_u, log_v, rounds = _dynamic_body(
+            full[: n + 1], fu, fv, log_u, log_v, du, dv, bu, bv, n=n,
+            mesh=mesh, axes=edge_axes, compress=compress,
+            search_rounds=search_rounds, cap=cap)
+        if length > n + 1:
+            tail = torch.arange(n + 1, length, dtype=labels.dtype,
+                                device=labels.device)
+            labels = torch.cat([labels, tail])
+        lo = coll.axis_index(mesh, label_axis) * shard_len
+        return (labels[lo: lo + shard_len].clone(), fu, fv, log_u, log_v,
+                rounds)
+
+    def query(lab_shard, qa, qb):
+        full = full_labels(lab_shard)
+        return take(full, qa) == take(full, qb)
+
+    return DynamicPrograms(update, query, _dynamic_used(mesh, edge_axes, n))

@@ -28,13 +28,12 @@ and round-trips are canonical, as in the reference. A placement's mesh is a
 row-major as JAX orders devices (``plan_mesh``); every rank makes the same
 session call and the ranks meet in collectives (``core/distributed.py``).
 
-Three knobs parse but do not run here: ``kernels=`` other than ``auto``
-(the port dispatches by tensor device, with no policy knob), ``tune``
-(the tuned selection cache, ROADMAP Queue 1 item 14) and ``dynamic`` /
-``log=`` (dynamic programs on a placement, Queue 1 item 13, second part);
+Two knobs parse but do not run here: ``kernels=`` other than ``auto``
+(the port dispatches by tensor device, with no policy knob) and ``tune``
+(the tuned selection cache, ROADMAP Queue 1 item 14);
 ``repro_torch.api.ConnectIt`` refuses a session with them. ``donate`` is
-accepted and changes nothing: no program keeps the caller's label buffer
-past its first round.
+accepted and changes nothing on the finish programs: no program keeps the
+caller's label buffer past its first round (serving reads it, per call).
 
 A session plans its backend once (``make_backend``); the meshes are
 memoized per process group (``make_axis_mesh``).
@@ -44,27 +43,39 @@ from __future__ import annotations
 
 import dataclasses
 import re
-from typing import Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..dynamic import engine as dyn_engine
 from ..graphs.containers import round_up
+from ..kernels.index import take
 from . import collectives as coll
 from . import driver, streaming
+from .apps import amsf as amsf_impl
 from .apps import scan as scan_impl
-from .apps import single as single_apps
 from .distributed import (
+    make_replicated_amsf,
+    make_replicated_dynamic,
     make_replicated_finish,
     make_replicated_stream,
+    make_sharded_amsf,
+    make_sharded_dynamic,
     make_sharded_finish,
     make_sharded_stream,
 )
-from .primitives import canonical_labels, init_labels, num_components
+from .primitives import (
+    INT_MAX,
+    canonical_labels,
+    init_forest,
+    init_labels,
+    num_components,
+)
 
 __all__ = ["ExecutionSpec", "PLACEMENTS", "KERNEL_POLICIES", "make_backend",
            "plan_mesh", "make_axis_mesh", "bucket_size",
-           "as_execution_spec"]
+           "as_execution_spec", "ShardedEpoch", "served_labels"]
 
 PLACEMENTS = ("single", "replicated", "sharded")
 PAD_POLICIES = ("pow2", "multiple")
@@ -379,6 +390,76 @@ def _resize_device_edges(arrs: tuple, fills: tuple, size: int) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Application helpers shared by the backends (paper §5).
+# ---------------------------------------------------------------------------
+
+def _fill_amsf_stats(stats, nb, rounds, counts, *, size: int, m_real: int,
+                     shards: int) -> None:
+    """The AMSF fields of ConnectivityStats after a masked sweep.
+
+    ``edges_finish`` counts finite-weight real edges (each in exactly one
+    bucket); every bucket scatters the full ``size`` list once, hence
+    ``edges_finish_padded = buckets * size``."""
+    nb = int(nb)
+    counts = counts.cpu().numpy()
+    stats.buckets = nb
+    stats.finish_rounds = int(rounds)
+    stats.edges_per_bucket = tuple(
+        int(c) for c in counts[: min(nb, counts.shape[0])])
+    stats.edges_finish = int(counts.sum())
+    stats.edges_finish_padded = nb * size
+    stats.edges_per_device = _per_chunk_counts(min(m_real, size), size,
+                                               shards)
+    stats.dispatch_sizes = (size // shards,) * shards
+
+
+def _amsf_coo_host(g, weights, app, forest_fn, stats):
+    """AMSF-COO: the host's bucket compaction is a single-device loop under
+    every placement, as in the reference (the spanning-forest precedent);
+    each bucket's dispatch is padded to a power of two."""
+    _, fu, fv, nb, rounds, counts, sizes = amsf_impl.amsf_coo_run(
+        g, weights, eps=app.eps, forest_fn=forest_fn)
+    cap = amsf_impl.STATS_BUCKET_CAP
+    if len(counts) > cap:  # fold the overflow as the device histogram does
+        counts = counts[: cap - 1] + [sum(counts[cap - 1:])]
+    stats.buckets = nb
+    stats.finish_rounds = rounds
+    stats.edges_per_bucket = tuple(counts)
+    stats.edges_finish = sum(counts)
+    stats.edges_finish_padded = sum(sizes)
+    stats.edges_per_device = (sum(counts),)
+    stats.dispatch_sizes = tuple(sizes)
+    return fu, fv
+
+
+# ---------------------------------------------------------------------------
+# Served state.
+# ---------------------------------------------------------------------------
+
+class ShardedEpoch(NamedTuple):
+    """A served epoch under the sharded placement: this rank's state (its
+    label window, or a ``DynamicState`` whose ``P`` is the window) and the
+    epoch's whole labels ``P``, gathered once at the end of the commit that
+    made the epoch. Queries read ``P`` and enter no collective, so only
+    commits do (serve/mesh.py)."""
+
+    state: Any
+    P: torch.Tensor
+
+
+def served_labels(state) -> torch.Tensor:
+    """The whole labels of a served epoch, read with no collective: a raw
+    label buffer, or the ``P`` of a ``DynamicState`` or a
+    ``ShardedEpoch``."""
+    return state if isinstance(state, torch.Tensor) else state.P
+
+
+def _served_query(state, qa, qb) -> torch.Tensor:
+    P = served_labels(state)
+    return take(P, qa) == take(P, qb)
+
+
+# ---------------------------------------------------------------------------
 # Backends.
 # ---------------------------------------------------------------------------
 
@@ -406,6 +487,21 @@ class _Backend:
                            pad_multiple=self.spec.pad_multiple,
                            shards=self.edge_shards)
 
+    def _delete_bucket(self, k: int) -> int:
+        # delete batches are whole on every rank (each rank tombstones its
+        # own log slots), so no shard-multiple constraint
+        return bucket_size(k, pad=self.spec.pad,
+                           pad_multiple=self.spec.pad_multiple, shards=1)
+
+    def _log_cap(self, n: int, log: int) -> int:
+        cap = log or self.spec.log or dyn_engine.default_log_cap(n)
+        return round_up(cap, self.edge_shards)
+
+    def _donate(self, donate: Optional[bool]) -> bool:
+        # an override, not spec.donate: single pins donate=False for the
+        # finish, but the serve rotation may drop its shadow on any placement
+        return bool(donate) if donate is not None else self.spec.donate
+
     def _base_stats(self, variant: str) -> driver.ConnectivityStats:
         return driver.ConnectivityStats(
             variant=variant, exec=str(self.spec),
@@ -415,8 +511,9 @@ class _Backend:
     def spanning_forest(self, g, sampler_fn, generator=None, *,
                         compress: str = "full", variant: str = ""):
         # the single-device driver under every placement, as in the
-        # reference: forest recording needs a tie-break across ranks (one
-        # edge per hooked root, paper §3.4)
+        # reference: a recorded spanning forest of a static graph needs a
+        # tie-break across ranks per round, which only AMSF and the dynamic
+        # programs pay for (core/distributed.py)
         return driver.run_spanning_forest(
             g, sampler_fn, generator, compress=compress, variant=variant,
             compact_pad=self.spec.pad_multiple, pad=self.spec.pad)
@@ -445,14 +542,66 @@ class SingleBackend(_Backend):
         ops = streaming.stream_ops(n, finish_fn, device=self.device)
         return ops._replace(batch_size=self._bucket)
 
+    def snapshot_ops(self, n: int, finish_fn, *,
+                     donate: Optional[bool] = None) -> streaming.SnapshotOps:
+        ops = streaming.snapshot_ops(n, finish_fn, device=self.device,
+                                     donate=self._donate(donate))
+        return ops._replace(batch_size=self._bucket)
+
+    # -- batch-dynamic (repro_torch.dynamic) ----------------------------------
+
+    def dynamic_ops(self, n: int, *, compress: str = "full", log: int = 0,
+                    search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS
+                    ) -> dyn_engine.DynamicOps:
+        ops = dyn_engine.dynamic_ops(
+            n, device=self.device, compress=compress,
+            log=self._log_cap(n, log), search_rounds=search_rounds)
+        return ops._replace(batch_size=self._bucket,
+                            delete_size=self._delete_bucket)
+
+    def dynamic_snapshot_ops(self, n: int, *, compress: str = "full",
+                             log: int = 0,
+                             search_rounds: int =
+                             dyn_engine.DEFAULT_SEARCH_ROUNDS,
+                             donate: Optional[bool] = None
+                             ) -> dyn_engine.DynamicSnapshotOps:
+        ops = dyn_engine.dynamic_snapshot_ops(
+            n, device=self.device, compress=compress,
+            log=self._log_cap(n, log), search_rounds=search_rounds,
+            donate=self._donate(donate))
+        return ops._replace(batch_size=self._bucket,
+                            delete_size=self._delete_bucket)
+
+    # -- applications (paper §5) ------------------------------------------------
+
+    def amsf(self, g, weights, app, forest_fn, *, compress: str, stats):
+        if app.mode == "coo":
+            return _amsf_coo_host(g, weights, app, forest_fn, stats)
+        P0 = init_labels(g.n, device=g.device)
+        fu0, fv0 = init_forest(g.n, device=g.device)
+        _, fu, fv, nb, rounds, counts = amsf_impl.amsf_device(
+            P0, fu0, fv0, g.senders, g.receivers, weights,
+            eps=app.eps, skip=(app.skip == "lmax"), forest_fn=forest_fn)
+        _fill_amsf_stats(stats, nb, rounds, counts, size=g.m_pad,
+                         m_real=g.m, shards=1)
+        return fu, fv
+
     def scan(self, g, sims, app, finish_fn, stats):
-        return single_apps.scan(g, sims, app, finish_fn, stats)
+        labels, is_core, rounds, edges_core = scan_impl.gs_query_device(
+            g.senders, g.receivers, g.edge_mask, sims, eps=app.eps,
+            mu=app.mu, finish_fn=finish_fn, n=g.n)
+        stats.finish_rounds = int(rounds)
+        stats.edges_finish = int(edges_core)
+        stats.edges_finish_padded = g.m_pad
+        stats.edges_per_device = (int(edges_core),)
+        stats.dispatch_sizes = (g.m_pad,)
+        return labels, is_core
 
 
 class _MeshBackend(_Backend):
-    """Shared distributed machinery: edge placement, the finish and stream
-    programs, canonicalization. Every rank holds the whole graph and takes
-    its own blocks."""
+    """Shared distributed machinery: edge placement, the finish, stream,
+    dynamic and AMSF programs, the served epochs, canonicalization. Every
+    rank holds the whole graph and takes its own blocks."""
 
     def _edge_block(self, *arrs):
         """This rank's block of each padded edge-aligned array: block ``i``
@@ -539,6 +688,153 @@ class _MeshBackend(_Backend):
             batch_size=self._bucket,
         )
 
+    # -- served epochs (repro_torch.serve) --------------------------------------
+    #
+    # A commit is the placement's program on this rank's blocks; the epoch
+    # it makes carries whole labels (``_epoch``), so that a query enters no
+    # collective. Every rank runs every commit (serve/mesh.py).
+
+    def _epoch(self, state, full=None):
+        """The served epoch of a placed state (``full``: its whole labels
+        where they are known without a collective)."""
+        return state
+
+    def _placed(self, epoch):
+        """The placed state of a served epoch."""
+        return epoch
+
+    def snapshot_ops(self, n: int, finish_fn, *,
+                     donate: Optional[bool] = None) -> streaming.SnapshotOps:
+        progs = self._build_stream(finish_fn)
+
+        def commit(committed, shadow, u, v):
+            del shadow  # every op writes out of place; the shadow is dead
+            labels, rounds = progs.insert(self._placed(committed),
+                                          *self._edge_block(u, v))
+            return self._epoch(labels), rounds
+
+        def init():
+            P0 = init_labels(n, device=self.device)
+            return self._epoch(self._place_labels(P0),
+                               self._pad_labels(P0))
+
+        return streaming.SnapshotOps(
+            init=init,
+            commit=commit,
+            query=_served_query,
+            labels=lambda st: served_labels(st)[:n],
+            ncomp=lambda st: num_components(served_labels(st)[: n + 1]),
+            edge_shards=self.edge_shards,
+            batch_size=self._bucket,
+            device=self.device,
+            donate=self._donate(donate),
+        )
+
+    # -- batch-dynamic (repro_torch.dynamic) ------------------------------------
+
+    def _init_dynamic_state(self, n: int, cap: int):
+        """Labels placed, the forest whole, this rank's block of the log."""
+        st = dyn_engine.init_dynamic(n, cap, device=self.device)
+        log_u, log_v = self._edge_block(st.log_u, st.log_v)
+        return dyn_engine.DynamicState(self._place_labels(st.P), st.fu,
+                                       st.fv, log_u.clone(), log_v.clone())
+
+    def _dynamic_programs(self, n: int, compress: str, search_rounds: int):
+        progs = self._build_dynamic(n, compress=compress,
+                                    search_rounds=search_rounds)
+
+        def raw_update(state, du, dv, u, v):
+            out = progs.update(*state, du, dv, *self._edge_block(u, v))
+            return dyn_engine.DynamicState(*out[:5]), out[5]
+
+        return progs, raw_update
+
+    def dynamic_ops(self, n: int, *, compress: str = "full", log: int = 0,
+                    search_rounds: int = dyn_engine.DEFAULT_SEARCH_ROUNDS
+                    ) -> dyn_engine.DynamicOps:
+        cap = self._log_cap(n, log)
+        progs, raw_update = self._dynamic_programs(n, compress,
+                                                   search_rounds)
+
+        def update(state, du, dv, u, v, qa, qb):
+            state, rounds = raw_update(state, du, dv, u, v)
+            return state, progs.query(state.P, qa, qb), rounds
+
+        return dyn_engine.DynamicOps(
+            init=lambda: self._init_dynamic_state(n, cap),
+            update=update,
+            query=lambda st, qa, qb: progs.query(st.P, qa, qb),
+            labels=lambda st: self._full_labels(st.P)[:n],
+            ncomp=lambda st: num_components(
+                self._full_labels(st.P)[: n + 1]),
+            used=lambda st: progs.used(st.log_u),
+            forest=lambda st: (st.fu, st.fv),
+            edge_shards=self.edge_shards,
+            batch_size=self._bucket,
+            delete_size=self._delete_bucket,
+            log_cap=cap,
+        )
+
+    def dynamic_snapshot_ops(self, n: int, *, compress: str = "full",
+                             log: int = 0,
+                             search_rounds: int =
+                             dyn_engine.DEFAULT_SEARCH_ROUNDS,
+                             donate: Optional[bool] = None
+                             ) -> dyn_engine.DynamicSnapshotOps:
+        cap = self._log_cap(n, log)
+        progs, raw_update = self._dynamic_programs(n, compress,
+                                                   search_rounds)
+
+        def commit(committed, shadow, du, dv, u, v):
+            del shadow  # every op writes out of place; the shadow is dead
+            state, rounds = raw_update(self._placed(committed), du, dv, u, v)
+            return self._epoch(state), rounds
+
+        def init():
+            st = self._init_dynamic_state(n, cap)
+            return self._epoch(st, self._pad_labels(
+                init_labels(n, device=self.device)))
+
+        return dyn_engine.DynamicSnapshotOps(
+            init=init,
+            commit=commit,
+            query=_served_query,
+            labels=lambda st: served_labels(st)[:n],
+            ncomp=lambda st: num_components(served_labels(st)[: n + 1]),
+            used=lambda st: progs.used(self._placed(st).log_u),
+            edge_shards=self.edge_shards,
+            batch_size=self._bucket,
+            delete_size=self._delete_bucket,
+            log_cap=cap,
+            device=self.device,
+            donate=self._donate(donate),
+        )
+
+    # -- applications (paper §5) ------------------------------------------------
+
+    def amsf(self, g, weights, app, forest_fn, *, compress: str, stats):
+        if app.mode == "coo":
+            return _amsf_coo_host(g, weights, app, forest_fn, stats)
+        size = self._bucket(g.m)
+        senders, receivers = _resize_device_edges(
+            (g.senders, g.receivers), (g.n, g.n), size)
+        bids = amsf_impl.bucket_ids(weights, app.eps)
+        (bids,) = _resize_device_edges((bids,), (INT_MAX,), size)
+        bids = torch.where(senders < g.n, bids, INT_MAX)
+        counts = amsf_impl.bucket_histogram(bids)
+        P0 = init_labels(g.n, device=g.device)
+        # the forest buffers span the whole (padded) label array
+        fu0 = torch.full((self._pad_labels(P0).shape[0],), -1,
+                         dtype=torch.int32, device=g.device)
+        program = self._build_amsf(compress=compress,
+                                   skip=(app.skip == "lmax"))
+        _, fu, fv, nb, rounds = program(
+            self._place_labels(P0), fu0, fu0.clone(),
+            *self._edge_block(senders, receivers, bids))
+        _fill_amsf_stats(stats, nb, rounds, counts, size=size, m_real=g.m,
+                         shards=self.edge_shards)
+        return fu, fv
+
     def scan(self, g, sims, app, finish_fn, stats):
         s, r, is_core, core_pad, similar, edges_core = scan_impl.scan_pre(
             g.senders, g.receivers, g.edge_mask, sims, eps=app.eps,
@@ -577,6 +873,18 @@ class ReplicatedBackend(_MeshBackend):
         return make_replicated_stream(self.mesh, self.spec.axes, finish_fn,
                                       rounds=self.spec.rounds)
 
+    def _build_amsf(self, *, compress: str, skip: bool):
+        return make_replicated_amsf(self.mesh, self.spec.axes,
+                                    compress=compress, skip=skip)
+
+    def _build_dynamic(self, n: int, *, compress: str, search_rounds: int):
+        return make_replicated_dynamic(self.mesh, self.spec.axes, n,
+                                       compress=compress,
+                                       search_rounds=search_rounds)
+
+    def _pad_labels(self, P0):
+        return P0
+
     def _place_labels(self, P0):
         return P0
 
@@ -605,21 +913,46 @@ class ShardedBackend(_MeshBackend):
             reduce_scatter=self.spec.fused, rounds=self.spec.rounds,
             frontier=self.spec.frontier, overlap=self.spec.overlap)
 
-    def _place_labels(self, P0):
-        """This rank's window of ``(n + 1,)`` labels padded to a multiple of
-        the label shards; the extra slots are self-rooted ids above the
-        dump row, fixed points of every finish."""
+    def _build_amsf(self, *, compress: str, skip: bool):
+        return make_sharded_amsf(self.mesh, self.spec.axes,
+                                 self.spec.label_axis, compress=compress,
+                                 skip=skip)
+
+    def _build_dynamic(self, n: int, *, compress: str, search_rounds: int):
+        return make_sharded_dynamic(self.mesh, self.spec.axes,
+                                    self.spec.label_axis, n,
+                                    compress=compress,
+                                    search_rounds=search_rounds)
+
+    def _pad_labels(self, P0):
+        """``(n + 1,)`` labels padded to a multiple of the label shards; the
+        extra slots are self-rooted ids above the dump row, fixed points of
+        every finish."""
         n1 = P0.shape[0]
         L = round_up(n1, self.label_shards)
-        if L != n1:
-            tail = torch.arange(n1, L, dtype=P0.dtype, device=P0.device)
-            P0 = torch.cat([P0, tail])
-        per = L // self.label_shards
+        if L == n1:
+            return P0
+        tail = torch.arange(n1, L, dtype=P0.dtype, device=P0.device)
+        return torch.cat([P0, tail])
+
+    def _place_labels(self, P0):
+        """This rank's window of the padded labels."""
+        P0 = self._pad_labels(P0)
+        per = P0.shape[0] // self.label_shards
         i = coll.axis_index(self.mesh, self.spec.label_axis)
         return P0[i * per: (i + 1) * per].clone()
 
     def _full_labels(self, shard):
         return coll.all_gather(shard, self.mesh, (self.spec.label_axis,))
+
+    def _epoch(self, state, full=None):
+        if full is None:  # the epoch's one gather, at the end of its commit
+            window = state if isinstance(state, torch.Tensor) else state.P
+            full = self._full_labels(window)
+        return ShardedEpoch(state, full)
+
+    def _placed(self, epoch):
+        return epoch.state
 
 
 _PLACEMENT_BACKENDS = {"single": SingleBackend,

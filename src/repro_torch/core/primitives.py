@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ..kernels import ops
+from ..kernels.index import take
 
 INT_MAX = torch.iinfo(torch.int32).max
 DEFAULT_MAX_ROUNDS = 1 << 20
@@ -32,8 +33,10 @@ def init_labels(n: int, *, device, dtype=torch.int32) -> torch.Tensor:
 
 
 def parents_of(P: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Gather ``P[x]`` treating negative labels as fixed points."""
-    return torch.where(x < 0, x, P[x.clamp_min(0).long()])
+    """Gather ``P[x]`` treating negative labels as fixed points; an ``x``
+    past the end reads the last slot, as the JAX package's gather does (a
+    mesh stream hands its finish raw batch ends)."""
+    return torch.where(x < 0, x, take(P, x.clamp_min(0)))
 
 
 def write_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,

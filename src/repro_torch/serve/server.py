@@ -27,6 +27,11 @@ event loop's thread. "Epoch e committed" means the device state is real,
 and insert latency measured by the load generator includes device time.
 Queries overlap the in-flight commit and read the prior epoch; their
 answers come to the host in a worker thread too.
+
+On a placement over several ranks this server runs on rank 0, and every
+other rank follows its commits (serve/mesh.py): queries read whole labels
+and enter no collective, so only commits, one at a time, meet across
+ranks.
 """
 
 from __future__ import annotations
@@ -103,14 +108,17 @@ class Server:
 
     def __init__(self, ops, tenants: TenantRegistry, *,
                  config: Optional[ServeConfig] = None,
-                 variant: str = "", exec_str: str = "", devices: int = 1):
+                 variant: str = "", exec_str: str = "", devices: int = 1,
+                 channel=None):
         self.config = config or ServeConfig()
         self.tenants = tenants
         self.variant = variant
         self.exec_str = exec_str
         self.devices = devices
         self.n = tenants.total
-        self.store = SnapshotStore(ops, self.n)
+        # ``channel``: rank 0 of a placement over several ranks, whose
+        # store broadcasts its commits to the followers (serve/mesh.py)
+        self.store = SnapshotStore(ops, self.n, channel=channel)
         self._inserts: deque = deque()
         self._queries: deque = deque()
         self._pending_edges = 0      # queued, not yet cut into a batch
@@ -177,6 +185,12 @@ class Server:
             t.cancel()
         await asyncio.gather(*self._tasks, return_exceptions=True)
         self._tasks = []
+
+    def stop_followers(self) -> None:
+        """End the followers' loops (serve/mesh.py); no commit can run
+        after it. A no-op where rank 0 serves alone."""
+        if self.store._channel is not None:
+            self.store._channel.send_stop()
 
     async def __aenter__(self) -> "Server":
         return await self.start()

@@ -48,6 +48,7 @@ import numpy as np
 import torch
 
 from ..core.driver import _per_chunk_counts
+from ..core.execution import served_labels
 
 __all__ = ["PendingCommit", "SnapshotStore"]
 
@@ -69,9 +70,12 @@ class PendingCommit(NamedTuple):
 class SnapshotStore:
     """Double-buffered snapshot state for one served vertex space."""
 
-    def __init__(self, ops, n: int):
+    def __init__(self, ops, n: int, channel=None):
         self._ops = ops
         self.n = n
+        # rank 0 of a served placement over several ranks: every operation
+        # that enters a collective is broadcast first (serve/mesh.py)
+        self._channel = channel
         self.device = ops.device
         self.epoch = 0
         # a DynamicSnapshotOps bundle (deletes in the commit pipeline)
@@ -107,9 +111,9 @@ class SnapshotStore:
         """The committed state, to be read on the caller's current stream:
         the caching allocator is told, so that a block dropped by a later
         rotation is not reused before this stream's reads of it are done.
-        Reads go through its labels only."""
+        Reads go through its whole labels only (``served_labels``)."""
         state = self._committed
-        P = state.P if self.dynamic else state
+        P = served_labels(state)
         if P.is_cuda:
             P.record_stream(torch.cuda.current_stream(P.device))
         return state
@@ -185,6 +189,8 @@ class SnapshotStore:
             raise RuntimeError(
                 "deletions need a dynamic snapshot store — serve with "
                 "dynamic=True")
+        if self._channel is not None:
+            self._channel.send_commit(u, v, du, dv)
         with self._on_commit_stream():
             uj, vj, size = self._pad_edges(u, v)
             k = int(np.sum(np.asarray(u, np.int64) < self.n))
@@ -272,6 +278,8 @@ class SnapshotStore:
         warms the caching allocator on both streams, so that no request
         pays for either."""
         n = self.n
+        if self._channel is not None:
+            self._channel.send_warm(edge_sizes, query_sizes, delete_sizes)
 
         def pads(size):
             return torch.full((size,), n, dtype=torch.int32,

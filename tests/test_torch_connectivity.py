@@ -416,24 +416,13 @@ def test_unported_specs_name_their_queue_item(text, item):
 
 
 def test_unported_surfaces_name_their_queue_item():
-    second = r"Queue 1 item 13 \(second part\)"
     v = "kout_hybrid_k2+uf_sync_full"
-    g = _port(GRAPHS["path"])
-    for exec_str in ("replicated(x)", "sharded(x)"):
-        ci = tapi.ConnectIt(v, exec=exec_str, device="cpu")
-        with pytest.raises(NotImplementedError, match=second):
-            ci.serve(8)
-        with pytest.raises(NotImplementedError, match=second):
-            ci.stream(8, dynamic=True)
-        for spec in ("amsf", "msf"):
-            with pytest.raises(NotImplementedError, match=second):
-                ci.amsf(g, torch.ones(g.m_pad), spec)
-    for exec_str in ("single:dynamic,log=64", "sharded(x):dynamic"):
-        with pytest.raises(NotImplementedError, match=second):
-            tapi.ConnectIt(v, exec=exec_str, device="cpu")
-    for exec_str in ("single:tune", "sharded(x):tune"):
+    for exec_str in ("single:tune", "sharded(x):tune",
+                     "single:dynamic,tune"):
         with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
             tapi.ConnectIt(v, exec=exec_str, device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
+        tapi.ConnectIt("auto", device="cpu")
 
 
 def test_bad_specs_raise_value_errors():

@@ -17,7 +17,9 @@ sharded mesh programs over ``torch.distributed``. Here:
     ranks' sampler outputs equal, and at 4 ranks the stats, stream answers
     and SCAN output equal to ``repro``'s on 4 forced host devices (this file
     run as a script in a subprocess with
-    ``XLA_FLAGS=--xla_force_host_platform_device_count=4``);
+    ``XLA_FLAGS=--xla_force_host_platform_device_count=4``); dynamic streams
+    and AMSF forests equal to ``repro``'s there, and a served run with rank 0
+    serving and the other ranks following, whose state equals rank 0's;
   * streams and SCAN on the placements, the refusals, a failed rendezvous,
     the multihost CLI; ``gpu``-marked: the one-rank NCCL placements on the
     card equal to the CPU path.
@@ -25,6 +27,7 @@ sharded mesh programs over ``torch.distributed``. Here:
 Every comparison is exact.
 """
 
+import asyncio
 import dataclasses
 import json
 import os
@@ -61,6 +64,11 @@ SCAN_CASES = [("sharded(x)", "scan(eps=0.3,mu=2)"),
               ("sharded(x)", "scan(eps=0.6,mu=3)"),
               ("replicated(x)", "scan(eps=0.3,mu=2)")]
 STREAM_SIZES = (200, 37, 300, 1, 64, 129)
+DYN_EXECS = ["replicated(x):dynamic,log=256", "sharded(x):dynamic,log=256"]
+AMSF_CASES = [("replicated(x)", "amsf"), ("sharded(x)", "amsf(skip=lmax)")]
+SERVE_EXECS = ["replicated(x)", "sharded(x):dynamic,log=256"]
+SERVE_CONFIG = dict(max_batch_edges=256, max_batch_queries=256, flush_ms=0.5,
+                    warmup=True)
 STATS = ("variant", "exec", "placement", "devices", "edges_total",
          "edges_finish", "edges_finish_padded", "edges_per_device",
          "dispatch_sizes", "batch_shapes", "lmax_count", "finish_rounds",
@@ -97,6 +105,47 @@ def _stream_batches(jg) -> list:
     return out
 
 
+def _dynamic_batches(jg, steps: int = 8) -> list:
+    """Mixed batches: 16 of the graph's edges inserted, from the third step
+    4 earlier inserts deleted, 8 query pairs (one shape each, so that the
+    reference compiles its update once)."""
+    s = np.asarray(jg.senders)[: jg.m]
+    r = np.asarray(jg.receivers)[: jg.m]
+    rng = np.random.default_rng(7)
+    out, live = [], []
+    for i in range(steps):
+        e = rng.integers(0, jg.m, size=16)
+        d = ([live[j] for j in rng.integers(0, len(live), size=4)]
+             if i >= 2 else [])
+        q = rng.integers(0, jg.n, size=(2, 8))
+        out.append([[a for a, _ in d], [b for _, b in d], s[e].tolist(),
+                    r[e].tolist(), q[0].tolist(), q[1].tolist()])
+        live += list(zip(s[e].tolist(), r[e].tolist()))
+    return out
+
+
+def _serve_ops(jg, dynamic: bool) -> list:
+    """Requests one at a time: inserts, deletes of inserted edges on a
+    dynamic server, and queries."""
+    s = np.asarray(jg.senders)[: jg.m]
+    r = np.asarray(jg.receivers)[: jg.m]
+    rng = np.random.default_rng(13)
+    ops = []
+    for i in range(5):
+        e = rng.integers(0, jg.m, size=24)
+        ops.append(["ins", s[e].tolist(), r[e].tolist()])
+        if dynamic:
+            ops.append(["del", s[e[:5]].tolist(), r[e[:5]].tolist()])
+        q = rng.integers(0, jg.n, size=(2, 16))
+        ops.append(["q", q[0].tolist(), q[1].tolist()])
+    return ops
+
+
+def _weights(jg) -> list:
+    from repro.graphs import generators as jgen
+    return np.asarray(jgen.with_weights(jg, seed=1)).tolist()
+
+
 def _cases(jg, sims, replays: dict) -> dict:
     """Every case a world runs, in order: connectivity with the session's
     own sampler, then with ``repro``'s sampler output replayed; streams;
@@ -116,6 +165,14 @@ def _cases(jg, sims, replays: dict) -> dict:
         "scan": [{"exec": e, "variant": "none+uf_sync_full", "spec": sp,
                   "sims": np.asarray(sims).tolist()}
                  for e, sp in SCAN_CASES],
+        "weights": _weights(jg),
+        "dynamic": [{"exec": e, "variant": "none+uf_sync_full",
+                     "batches": _dynamic_batches(jg)} for e in DYN_EXECS],
+        "amsf": [{"exec": e, "variant": "kout_afforest_k2+uf_sync_full",
+                  "spec": sp} for e, sp in AMSF_CASES],
+        "serve": [{"exec": e, "variant": "none+uf_sync_full",
+                   "ops": _serve_ops(jg, "dynamic" in e)}
+                  for e in SERVE_EXECS],
     }
 
 
@@ -123,16 +180,29 @@ def _cases(jg, sims, replays: dict) -> dict:
 # The reference on 4 forced host devices: this file run as a script.
 # ---------------------------------------------------------------------------
 
+def _served_arrays(store, n: int) -> dict:
+    """The committed served state's whole labels (and forest), by name."""
+    st = store._committed
+    P = np.asarray(st.P if store.dynamic else st)
+    out = {"P": P[: n + 1].tolist(), "epoch": store.epoch,
+           "epoch_edges": store.epoch_edges, "rounds": store.rounds_total}
+    if store.dynamic:
+        out.update(fu=np.asarray(st.fu).tolist(),
+                   fv=np.asarray(st.fv).tolist())
+    return out
+
+
 def _jax_reference(cases_path: str, out_path: str) -> int:
     import jax
     from repro.api import ConnectIt
+    from repro.serve import ServeConfig
 
     with open(cases_path) as f:
         cases = json.load(f)
     jg = _graph()
     assert np.asarray(jg.senders).tolist() == cases["graph"]["senders"]
     out = {"devices": jax.device_count(), "connectivity": [], "stream": [],
-           "scan": []}
+           "scan": [], "dynamic": [], "amsf": [], "serve": []}
     for c in cases["connectivity"]:
         if c["replay"] is not None:  # the reference draws its own P0
             continue
@@ -154,6 +224,46 @@ def _jax_reference(cases_path: str, out_path: str) -> int:
         out["scan"].append({"labels": np.asarray(labels).tolist(),
                             "cores": np.asarray(cores).tolist(),
                             "stats": _stats(st)})
+    for c in cases["dynamic"]:
+        h = ConnectIt(c["variant"], exec=c["exec"]).stream(jg.n)
+        answers = [np.asarray(h.process(*(np.asarray(x, np.int32)
+                                          for x in b))).tolist()
+                   for b in c["batches"]]
+        out["dynamic"].append({
+            "answers": answers, "labels": np.asarray(h.labels).tolist(),
+            **{f: np.asarray(getattr(h.state, f)).tolist()
+               for f in ("fu", "fv", "log_u", "log_v")},
+            "used": h.log_used(), "stats": _stats(h.stats)})
+    w = np.asarray(cases["weights"], np.float32)
+    for c in cases["amsf"]:
+        edges, st = ConnectIt(c["variant"], exec=c["exec"]).amsf(
+            jg, w, c["spec"], return_stats=True)
+        out["amsf"].append({"edges": np.asarray(edges).tolist(),
+                            "stats": _stats(st), "buckets": st.buckets,
+                            "edges_per_bucket": list(st.edges_per_bucket)})
+    for c in cases["serve"]:
+        server = ConnectIt(c["variant"], exec=c["exec"]).serve(
+            jg.n, config=ServeConfig(**SERVE_CONFIG))
+        answers = []
+
+        async def main():
+            async with server:
+                for op, a, b in c["ops"]:
+                    a, b = np.asarray(a, np.int32), np.asarray(b, np.int32)
+                    if op == "ins":
+                        await server.submit_inserts(a, b)
+                    elif op == "del":
+                        await server.submit_deletes(a, b)
+                    else:
+                        ans, epoch = await server.query(a, b)
+                        answers.append([np.asarray(ans).tolist(), epoch])
+
+        asyncio.run(main())
+        stats = dataclasses.asdict(server.stats())
+        stats = {k: list(v) if isinstance(v, tuple) else v
+                 for k, v in stats.items()}
+        out["serve"].append({"answers": answers, "stats": stats,
+                             **_served_arrays(server.store, jg.n)})
     with open(out_path, "w") as f:
         json.dump(out, f)
     return 0
@@ -665,6 +775,69 @@ def test_spawned_scan_matches_repro(worlds, world, case):
         assert got["cores"] == want["cores"]
         if world == 4:
             assert got["stats"] == want["stats"]
+
+
+@pytest.mark.parametrize("exec_str", DYN_EXECS)
+@pytest.mark.parametrize("world", [2, 4])
+def test_spawned_dynamic_streams_match_repro(worlds, world, exec_str):
+    """Answers after every batch, labels, the forest, rounds and the live
+    log equal repro's; the edge ids are global, so the forest is the same
+    at 2 ranks; at 4 the ranks' log blocks concatenate to repro's log."""
+    i = DYN_EXECS.index(exec_str)
+    want = worlds["jax"]["dynamic"][i]
+    got = [r["dynamic"][i] for r in worlds[world]]
+    for g in got:
+        for f in ("answers", "labels", "fu", "fv", "used"):
+            assert g[f] == want[f], f
+        for f in RANK_FREE + ("batch_shapes",):
+            assert g["stats"][f] == want["stats"][f], f
+        assert g["stats"]["finish_rounds"] == want["stats"]["finish_rounds"]
+    log = [sum((g[f] for g in got), []) for f in ("log_u", "log_v")]
+    if world == 4:
+        assert log == [want["log_u"], want["log_v"]]
+        assert all(g["stats"] == want["stats"] for g in got)
+    else:  # the same live edges, in blocks of 2 ranks
+        assert sorted(zip(*log)) == sorted(zip(want["log_u"],
+                                               want["log_v"]))
+
+
+@pytest.mark.parametrize("case", range(len(AMSF_CASES)))
+@pytest.mark.parametrize("world", [2, 4])
+def test_spawned_amsf_matches_repro(worlds, world, case):
+    want = worlds["jax"]["amsf"][case]
+    for r in worlds[world]:
+        got = r["amsf"][case]
+        assert got["edges"] == want["edges"]
+        for f in ("buckets", "edges_per_bucket"):
+            assert got[f] == want[f], f
+        for f in RANK_FREE + ("finish_rounds",):
+            assert got["stats"][f] == want["stats"][f], f
+        if world == 4:
+            assert got["stats"] == want["stats"]
+
+
+@pytest.mark.parametrize("exec_str", SERVE_EXECS)
+@pytest.mark.parametrize("world", [2, 4])
+def test_spawned_serving_follows_rank_0(worlds, world, exec_str):
+    """Rank 0 serves one request at a time; the other ranks follow its
+    warmup and commits. Rank 0's answers, epochs, state and counters equal
+    repro's on the same requests; every follower ends in rank 0's state."""
+    i = SERVE_EXECS.index(exec_str)
+    want = worlds["jax"]["serve"][i]
+    leader, *followers = [r["serve"][i] for r in worlds[world]]
+    assert leader["role"] == "leader"
+    assert leader["answers"] == want["answers"]
+    state = ("P", "fu", "fv", "epoch", "epoch_edges", "rounds")
+    for f in state:
+        assert leader.get(f) == want.get(f), f
+    stats = dict(want["stats"], devices=world)
+    assert leader["stats"] == stats
+    commits = leader["epoch"]
+    for fo in followers:
+        assert fo["role"] == "follower" and fo["errors"] == []
+        assert fo["replayed"] == commits + 1  # and the warmup
+        for f in state:
+            assert fo.get(f) == leader.get(f), f
 
 
 def test_failed_rendezvous_raises(spawned):

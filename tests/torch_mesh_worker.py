@@ -7,9 +7,12 @@ tests/test_torch_execution.py; it imports neither jax nor repro).
 arrays and the cases; every rank runs them all in the same order (the
 placements' collectives pair up across ranks) and writes what it saw to
 ``OUT.json``: labels, stats, the sampler's labels ``P0``, stream answers,
-SCAN labels and cores.
+SCAN labels and cores, dynamic streams (answers, labels, forest, this
+rank's log block), AMSF forests, and the served runs (rank 0 serves, the
+other ranks follow).
 """
 
+import asyncio
 import dataclasses
 import json
 import sys
@@ -73,6 +76,74 @@ def run_scan(tapi, g, case: dict) -> dict:
             "stats": _stats(stats)}
 
 
+def run_dynamic(tapi, n: int, case: dict) -> dict:
+    st = tapi.ConnectIt(case["variant"], exec=case["exec"],
+                        device="cpu").stream(n)
+    answers = [st.process(*b).tolist() for b in case["batches"]]
+    state = st.state
+    return {"answers": answers, "labels": st.labels.tolist(),
+            "fu": state.fu.tolist(), "fv": state.fv.tolist(),
+            "log_u": state.log_u.tolist(), "log_v": state.log_v.tolist(),
+            "used": st.log_used(), "stats": _stats(st.stats)}
+
+
+def run_amsf(tapi, g, weights, case: dict) -> dict:
+    ci = tapi.ConnectIt(case["variant"], exec=case["exec"], device="cpu")
+    edges, stats = ci.amsf(g, weights, case["spec"], return_stats=True)
+    return {"edges": edges.tolist(), "stats": _stats(stats),
+            "buckets": stats.buckets,
+            "edges_per_bucket": list(stats.edges_per_bucket)}
+
+
+def _served(store, n: int) -> dict:
+    from repro_torch.core.execution import served_labels
+    st = store._committed
+    out = {"P": served_labels(st)[: n + 1].tolist(), "epoch": store.epoch,
+           "epoch_edges": store.epoch_edges,
+           "rounds": store.rounds_total}
+    if store.dynamic:
+        dyn = getattr(st, "state", st)
+        out.update(fu=dyn.fu.tolist(), fv=dyn.fv.tolist())
+    return out
+
+
+def run_serve(tapi, n: int, case: dict) -> dict:
+    """Rank 0 serves ``case["ops"]`` one request at a time (each its own
+    commit, so the epochs are the ops' order); the others follow."""
+    from repro_torch.serve import Follower, ServeConfig
+    cfg = ServeConfig(max_batch_edges=256, max_batch_queries=256,
+                      flush_ms=0.5, warmup=True)
+    server = tapi.ConnectIt(case["variant"], exec=case["exec"],
+                            device="cpu").serve(n, config=cfg)
+    if isinstance(server, Follower):
+        replayed = server.run()
+        return {"role": "follower", "replayed": replayed,
+                "errors": [repr(e) for e in server.errors],
+                **_served(server.store, n)}
+    answers = []
+
+    async def main():
+        async with server:
+            for op, a, b in case["ops"]:
+                if op == "ins":
+                    await server.submit_inserts(a, b)
+                elif op == "del":
+                    await server.submit_deletes(a, b)
+                else:
+                    ans, epoch = await server.query(a, b)
+                    answers.append([ans.tolist(), epoch])
+
+    try:
+        asyncio.run(main())
+    finally:
+        server.stop_followers()
+    stats = dataclasses.asdict(server.stats())
+    stats = {k: list(v) if isinstance(v, tuple) else v
+             for k, v in stats.items()}
+    return {"role": "leader", "answers": answers, "stats": stats,
+            **_served(server.store, n)}
+
+
 def main(cases_path: str, out_path: str, rank: int) -> int:
     torch.set_num_threads(1)
     from repro_torch import api as tapi
@@ -88,12 +159,18 @@ def main(cases_path: str, out_path: str, rank: int) -> int:
     multihost.initialize(init_method=f"file://{cases['store']}",
                          num_processes=cases["world"], process_id=rank,
                          backend="gloo", timeout=120)
+    weights = torch.tensor(np.asarray(cases["weights"], np.float32))
     try:
         out = {"connectivity": [run_connectivity(tapi, g, c)
                                 for c in cases["connectivity"]],
                "stream": [run_stream(tapi, g.n, c)
                           for c in cases["stream"]],
-               "scan": [run_scan(tapi, g, c) for c in cases["scan"]]}
+               "scan": [run_scan(tapi, g, c) for c in cases["scan"]],
+               "dynamic": [run_dynamic(tapi, g.n, c)
+                           for c in cases["dynamic"]],
+               "amsf": [run_amsf(tapi, g, weights, c)
+                        for c in cases["amsf"]],
+               "serve": [run_serve(tapi, g.n, c) for c in cases["serve"]]}
     finally:
         multihost.shutdown()
     with open(out_path, "w") as f:
