@@ -170,13 +170,28 @@ Phases, in order; any failure exits non-zero:
               to a temporary directory: replicated(x), sharded(x),
               sharded(x):frontier=0, each against scipy's labels (which
               (a)'s equal), with wall and rounds;
- 15. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+ 15. tune     the tuning loop on the card, each part in a cache file of its
+              own: (a) the five connectivity kernels at every block size
+              of the ladder (256 threads, the one they are built for)
+              against the plain versions bit for bit on tune_block_m's
+              problem (n = 2^22 parents, 2^24 uniform edges), and refusing
+              any other; each point's time_fn median beside a CUDA-event
+              mean of 20 launches, then tune_block_m; (b) tune_variant over
+              the seven fast variants on the graph, each variant's median
+              and the winner; (c) ConnectIt("auto") on that cache runs the
+              winner: labels equal scipy's, finish rounds the winner's
+              explicit run's; (d) ConnectIt("auto", exec="single:tune") on
+              a fresh cache measures once for two calls; (e) python -m
+              repro_torch.launch.tune --smoke exits 0, then the full CLI
+              on its proxies, whose device-global winner is printed beside
+              (b)'s; (f) the cold cache resolves 256 threads again;
+ 16. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
- 16. profile  where the compacted main path's time goes: wall time per
+ 17. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
@@ -195,9 +210,15 @@ wall, rounds, edges per rank and launches; then (e) and amsf(skip=lmax)
 under sharded(x), against the single path's runs in this process, and one
 served closed loop under sharded(x), rank 0 serving and the other ranks
 following its commits, every rank's final labels equal to rank 0's and to
-scipy's on rank 0's commit log.
+scipy's on rank 0's commit log; last ConnectIt("auto",
+exec="sharded(x):tune"), each rank on a cache file of its own: every rank
+elects rank 0's winner, only rank 0's file is written, and every rank's
+labels equal scipy's.
 
-Each phase prints its seconds.
+The whole script reads a tuning cache of its own, an empty file under a
+temporary directory (REPRO_TORCH_TUNE_CACHE, printed first), so every
+kernel launches 256 threads a block outside the tune phase whatever a
+cache in the home directory holds. Each phase prints its seconds.
 The line before the last holds the per-kernel JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or outside a
 checkout of the repository, it prints no result and exits 1.
@@ -287,6 +308,8 @@ PLACEMENT_AMSF_COUNTS = {
 SERVE_EXEC = "sharded(x)"
 # the placements the two gloo ranks sharing the card run (MAIN_VARIANT)
 GLOO_EXECS = ("replicated(x)", "sharded(x)", "sharded(x):frontier=0")
+# the tune phase: launches each block size is timed over with CUDA events
+TUNE_EVENT_ITERS = 20
 # samplings whose stats take no random draw, so the card's equal the CPU's
 DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
@@ -2629,7 +2652,7 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
         (tmp / "job.json").write_text(json.dumps(
             {"n": g.n, "m": g.m, "world": world, "backend": backend,
              "runs": runs, "stream": stream, "seed": seed, "card": card,
-             "extra": extra is not None}))
+             "extra": extra is not None, "tune": extra is not None}))
         if extra is not None:
             extra["weights"].tofile(tmp / "weights.f32")
             (tmp / "extra.pkl").write_bytes(pickle.dumps(
@@ -2664,12 +2687,21 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
         res = [json.loads((tmp / f"rank{r}.json").read_text())
                for r in range(world)]
         for i, run in enumerate(res[0]):
-            keys = ("rounds", "edges_per_device", "dispatch_sizes")
+            keys = ("variant", "rounds", "edges_per_device", "dispatch_sizes")
             require(all({k: x[i][k] for k in keys} ==
                         {k: run[k] for k in keys} for x in res),
                     f"placements {backend} {run['variant']} {run['exec']}: "
                     f"the ranks disagree: {[x[i] for x in res]}")
         if extra is not None:
+            written = [r for r in range(world)
+                       if (tmp / f"tune{r}.json").exists()]
+            require(written == [0], f"placements {backend} auto "
+                    f"sharded(x):tune: cache files written by ranks "
+                    f"{written}, only rank 0's may be")
+            print(f"[placements] {backend} {world} ranks auto "
+                  f"sharded(x):tune: every rank elected "
+                  f"{res[0][-1]['variant']}; only rank 0's cache file "
+                  f"written")
             served = [np.fromfile(tmp / f"served{r}.i32", dtype=np.int32)
                       for r in range(world)]
             for r in range(1, world):
@@ -2761,6 +2793,8 @@ def mesh_rank(rank: int, tmp: str) -> int:
                               job["card"], tag, want=None)
         if job["extra"]:
             out += _rank_extra(torch, g, d, job, expect, rank, tag)
+        if job.get("tune"):
+            out.append(_rank_tune(torch, g, d, expect, rank, tag))
     finally:
         multihost.shutdown()
     (d / f"rank{rank}.json").write_text(json.dumps(out))
@@ -2830,6 +2864,239 @@ def _rank_extra(torch, g, d: Path, job: dict, expect, rank: int,
                 "rounds": store.rounds_total, "edges_per_device": [],
                 "dispatch_sizes": [store.epoch]})
     return out
+
+
+def phase_tune(torch, g, expect, card: str) -> None:
+    """The tuning loop on the card, each part on a cache file of its own
+    under a temporary directory: (a) the five connectivity kernels at the
+    ladder's block size against their plain versions, timed, then
+    tune_block_m; (b) tune_variant on the graph; (c) ConnectIt("auto") on
+    that cache; (d) the tune opt on a fresh cache; (e) launch.tune --smoke,
+    then on its full proxies; (f) the script's cold cache resolves 256
+    threads again."""
+    import contextlib
+    import functools
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import ConnectIt, tune
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.edge_relabel.ref import (
+        edge_relabel_ref,
+        edge_rewrite_ref,
+    )
+    from repro_torch.kernels.hook_compress.ref import hook_compress_ref
+    from repro_torch.kernels.pointer_jump.ref import pointer_jump_ref
+    from repro_torch.kernels.scatter_min.ref import scatter_min_ref
+    from repro_torch.launch import tune as tlaunch
+    from repro_torch.tune.space import BLOCK_M_FULL
+
+    # the drivers' calls of each primitive (harness.primitive_drivers)
+    plain = {"scatter_min": lambda P, s, r, v: scatter_min_ref(P, s, v),
+             "pointer_jump": lambda P, s, r, v: pointer_jump_ref(P, k=3),
+             "hook_compress": lambda P, s, r, v: hook_compress_ref(P, s, r,
+                                                                   k=1),
+             "edge_relabel": lambda P, s, r, v: edge_relabel_ref(P, s, r),
+             "edge_rewrite": lambda P, s, r, v: edge_rewrite_ref(P, s, r)}
+
+    def same(got, want) -> bool:
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        return all(torch.equal(a, b) for a, b in zip(got, want, strict=True))
+
+    cold = os.environ[tune.ENV_VAR]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_tune_"))
+    try:
+        # (a) every block size of the ladder, bit for bit, before any timing
+        t0 = time.perf_counter()
+        n, m = g.n, 4 * g.n
+        problem = tune.primitive_problem(n, m, seed=0, device="cuda")
+        drivers = tune.primitive_drivers(n, m, seed=0, device="cuda")
+        for name in tune.PRIMITIVES:
+            want = plain[name](*problem)
+            for b in BLOCK_M_FULL:
+                require(same(drivers[name](block_m=b), want),
+                        f"tune: {name} at {b} threads differs from its plain "
+                        f"version on tune_block_m's problem")
+            try:
+                drivers[name](block_m=2 * ops.DEFAULT_BLOCK_M)
+                refused = False
+            except ValueError:
+                refused = True
+            require(refused, f"tune: {name} launched at a block size off "
+                    f"the ladder")
+        torch.cuda.synchronize()
+        print(f"[tune] (a) the five kernels at {list(BLOCK_M_FULL)} threads "
+              f"a block == their plain versions on tune_block_m's problem "
+              f"(n = {n}, m = {m}), and refuse "
+              f"{2 * ops.DEFAULT_BLOCK_M}: {time.perf_counter() - t0:.1f} s")
+        print(f"[tune] (a) ms a call at n = {n}, m = {m}: the time_fn "
+              f"median (3 after 1, host clock, synchronized) and the "
+              f"CUDA-event mean of {TUNE_EVENT_ITERS}; card {card}")
+        for name in tune.PRIMITIVES:
+            row = []
+            for b in BLOCK_M_FULL:
+                med = tune.time_fn(drivers[name], block_m=b, trials=3,
+                                   warmup=1, device="cuda") * 1e3
+                ev = time_ms(torch, functools.partial(drivers[name],
+                                                      block_m=b),
+                             iters=TUNE_EVENT_ITERS)
+                row.append(f"{b}: median {med:.4f} event {ev:.4f}")
+            print(f"[tune]   {name:14s} " + "; ".join(row))
+        cache = tune.SelectionCache(str(tmp / "tune.json"))
+        rows = tune.tune_block_m(tune.TuneSpec(), cache=cache, n=n, m=m,
+                                 device="cuda")
+        winners = {r["primitive"]: r["block_m"] for r in rows if r["winner"]}
+        print(f"[tune] (a) tune_block_m(TuneSpec()) over "
+              f"{list(tune.TuneSpec().block_m_candidates())}: " + "; ".join(
+                  f"{r['primitive']} {r['block_m']} "
+                  f"{r['time_s'] * 1e3:.4f} ms" + (" *" if r["winner"] else "")
+                  for r in rows))
+        require(sorted(winners) == sorted(tune.PRIMITIVES),
+                f"tune: block winners {winners}")
+
+        # (b) the variant on the graph
+        t0 = time.perf_counter()
+        fam = tune.fingerprint_graph(g)
+        winner = tune.tune_variant(g, tune.TuneSpec(), cache=cache)
+        entry = cache.get(tune.make_key("variant", fam, device=g.device))
+        print(f"[tune] (b) tune_variant on the graph (family {fam}), median "
+              f"ms of 3 after 1: " + "; ".join(
+                  f"{v} {t * 1e3:.4f}" for v, t in entry["candidates"].items())
+              + f"; winner {winner} ({time.perf_counter() - t0:.1f} s; card "
+              f"{card})")
+        require(entry["winner"] == winner
+                and winner in tune.TuneSpec().variant_candidates(),
+                f"tune: variant entry {entry}")
+
+        # (c) the whole loop: persist, reload, resolve, run the winner
+        os.environ[tune.ENV_VAR] = cache.path
+        tune.reset_default_cache()
+        ops.clear_tuned_blocks()
+        blocks = {p: ops.tuned_block_m(p, g.device) for p in tune.PRIMITIVES}
+        require(blocks == winners, f"tune: resolved blocks {blocks}, tuned "
+                f"{winners}")
+        ci = ConnectIt("auto", device="cuda")
+        labels, st = ci.connectivity(g, return_stats=True)
+        _, want = ConnectIt(winner, device="cuda").connectivity(
+            g, return_stats=True)
+        torch.cuda.synchronize()
+        require(st.variant == winner, f"tune: auto ran {st.variant}, the "
+                f"cache names {winner}")
+        require(np.array_equal(labels.cpu().numpy(), expect),
+                "tune: auto's labels differ from scipy's")
+        require(st.finish_rounds == want.finish_rounds,
+                f"tune: auto's finish rounds {st.finish_rounds}, the "
+                f"winner's {want.finish_rounds}")
+        print(f"[tune] (c) ConnectIt('auto') on that cache: {st.variant} at "
+              f"blocks {blocks}; labels == scipy; finish_rounds "
+              f"{st.finish_rounds} == the explicit run's")
+
+        # (d) the tune opt on a fresh cache: one measurement, two calls
+        os.environ[tune.ENV_VAR] = str(tmp / "fresh.json")
+        tune.reset_default_cache()
+        ops.clear_tuned_blocks()
+        ci = ConnectIt("auto", exec="single:tune", device="cuda")
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            labels = ci.connectivity(g)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            require(np.array_equal(labels.cpu().numpy(), expect),
+                    "tune: the tune opt's labels differ from scipy's")
+        fresh = tune.SelectionCache(str(tmp / "fresh.json"))
+        require(ci._tuned_families == {fam}
+                and fresh.keys() == [tune.make_key("variant", fam,
+                                                   device=g.device)],
+                f"tune: the tune opt measured {ci._tuned_families}, cache "
+                f"{fresh.keys()}")
+        print(f"[tune] (d) ConnectIt('auto', exec='single:tune') on a fresh "
+              f"cache: one family measured, winner "
+              f"{fresh.winner(fresh.keys()[0])}, ran {ci.stats.variant}; "
+              f"two calls {walls[0]:.2f} s (measuring) and "
+              f"{walls[1] * 1e3:.2f} ms; labels == scipy")
+
+        # (e) the CLI's smoke on the card
+        t0 = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.tune", "--smoke",
+             "--cache", str(tmp / "cli.json")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        require(cli.returncode == 0,
+                f"tune: launch.tune --smoke exited {cli.returncode}:\n"
+                f"{(cli.stdout + cli.stderr)[-4000:]}")
+        print(f"[tune] (e) python -m repro_torch.launch.tune --smoke: exit 0 "
+              f"in {time.perf_counter() - t0:.1f} s; "
+              f"{cli.stdout.strip().splitlines()[-1]}")
+        # the CLI on its full proxies, in this process: is the
+        # device-global winner of small graphs the §4 graph's?
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = tlaunch.main(["--cache", str(tmp / "full.json")])
+        full = tune.SelectionCache(str(tmp / "full.json"))
+        star = full.winner(tune.make_key("variant", "*", device=g.device))
+        require(rc == 0 and star in tune.TuneSpec().variant_candidates(),
+                f"tune: launch.tune exited {rc}, '*' winner {star}")
+        for line in out.getvalue().splitlines():
+            if line.strip():
+                print(f"[tune]   {line}")
+        print(f"[tune] (e) python -m repro_torch.launch.tune (full proxies, "
+              f"2^11-2^13 vertices): '*' winner {star}, (b)'s on the graph "
+              f"{winner}: {'the same' if star == winner else 'they differ'}"
+              f"; {time.perf_counter() - t0:.1f} s; card {card}")
+    finally:
+        os.environ[tune.ENV_VAR] = cold
+        tune.reset_default_cache()
+        ops.clear_tuned_blocks()
+        shutil.rmtree(tmp, ignore_errors=True)
+    # (f) the script's cold cache again
+    blocks = {p: ops.tuned_block_m(p, g.device) for p in tune.PRIMITIVES}
+    require(set(blocks.values()) == {ops.DEFAULT_BLOCK_M},
+            f"tune: the cold cache resolves {blocks}")
+    print(f"[tune] (f) cold cache {cold}: every kernel at "
+          f"{ops.DEFAULT_BLOCK_M} threads a block")
+
+
+def _rank_tune(torch, g, d: Path, expect, rank: int, tag: str) -> dict:
+    """phase_ranks' last run: ConnectIt("auto", exec="sharded(x):tune") with
+    this rank's own cache file in ``d`` (only rank 0's is written)."""
+    import os
+
+    import numpy as np
+
+    from repro_torch import ConnectIt, tune
+
+    cold = os.environ.get(tune.ENV_VAR)
+    os.environ[tune.ENV_VAR] = str(d / f"tune{rank}.json")
+    tune.reset_default_cache()
+    try:
+        t0 = time.perf_counter()
+        ci = ConnectIt("auto", exec="sharded(x):tune", device="cuda")
+        labels, st = ci.connectivity(g, return_stats=True)
+        torch.cuda.synchronize()
+    finally:
+        if cold is None:
+            del os.environ[tune.ENV_VAR]
+        else:
+            os.environ[tune.ENV_VAR] = cold
+        tune.reset_default_cache()
+    require(np.array_equal(labels.cpu().numpy(), expect),
+            f"rank {rank}: auto sharded(x):tune: labels differ from scipy's")
+    print(f"[placements] {tag}auto sharded(x):tune: rank {rank} measured "
+          f"and ran {st.variant} in {time.perf_counter() - t0:.1f} s; labels "
+          f"== scipy", flush=True)
+    return {"variant": st.variant, "exec": "sharded(x):tune",
+            "rounds": st.finish_rounds,
+            "edges_per_device": list(st.edges_per_device),
+            "dispatch_sizes": list(st.dispatch_sizes)}
 
 
 def _csr(n: int, rows, cols, data=None):
@@ -3168,7 +3435,7 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    if args.mesh_rank is not None:
+    if args.mesh_rank is not None:  # the parent's isolated cache, inherited
         try:
             return mesh_rank(args.mesh_rank, args.mesh_dir)
         except SmokeFailure as e:
@@ -3181,6 +3448,22 @@ def main() -> int:
         print(f"[time] phase {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    import os
+    import tempfile
+
+    from repro_torch import tune
+    from repro_torch.kernels import ops
+
+    # a tuning cache of the script's own, empty: a cache in the home
+    # directory must not change the launch shapes between two runs
+    cache_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cache_")
+    os.environ[tune.ENV_VAR] = os.path.join(cache_dir.name, "tune.json")
+    open(os.environ[tune.ENV_VAR], "w").close()
+    tune.reset_default_cache()
+    ops.clear_tuned_blocks()
+    print(f"[cache] tuning cache {os.environ[tune.ENV_VAR]} (empty: every "
+          f"kernel launches {ops.DEFAULT_BLOCK_M} threads a block outside "
+          f"the tune phase)")
     try:
         device = timed("device", phase_device, torch)
         card = _card_line()
@@ -3215,6 +3498,8 @@ def main() -> int:
                      card)
         timed("placements", phase_placements, torch, g, expect, keys,
               args.seed, exact, card, dyn, apps)
+        timed("tune", phase_tune, torch, g, expect,
+              card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
@@ -3222,6 +3507,8 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        cache_dir.cleanup()
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -43,9 +43,15 @@ Connectivity, streams, dynamic streams, AMSF, SCAN and serving run on the
 placement; spanning forests, out-of-core ingest, ``amsf(mode=coo)`` and MSF
 run on the single-device driver under any placement, as in the reference.
 A served placement over several ranks runs the server on rank 0 and a
-follower on every other rank (``repro_torch.serve.mesh``). What is not
-ported raises ``NotImplementedError`` naming the ROADMAP queue item that
-ports it: "auto" variants and ``tune`` (item 14).
+follower on every other rank (``repro_torch.serve.mesh``).
+
+``ConnectIt("auto", device=...)`` takes the variant from the tuning cache
+(``repro_torch.tune``): per graph family for ``connectivity``, the
+device-global winner for every other surface, the paper's default on a
+cold cache; with a ``:tune`` exec it measures the fast grid on the first
+graph of each family and persists the winner:
+
+    ci = ConnectIt("auto", exec="single:tune")
 """
 
 from __future__ import annotations
@@ -95,11 +101,6 @@ _SAMPLING_FIELDS = {
 }
 SAMPLING_SCHEMES = tuple(_SAMPLING_FIELDS)
 _SAMPLING_DEFAULTS: dict = {}  # filled from the dataclass fields below
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 def _fmt_float(x: float) -> str:
@@ -302,11 +303,16 @@ class VariantSpec:
             object.__setattr__(self, "alter", True)
 
     @classmethod
-    def parse(cls, text: str) -> "VariantSpec":
-        """Parse ``"<sampling>+<finish>"`` (or a bare ``"<finish>"``)."""
+    def parse(cls, text: str, *, device=DEFAULT_DEVICE) -> "VariantSpec":
+        """Parse ``"<sampling>+<finish>"`` (or a bare ``"<finish>"``).
+
+        ``"auto"`` resolves through the tuning cache (``repro_torch.tune``):
+        the device-global winner tuned on ``device``, else the paper's
+        recommended default. A resolution request, not a canonical form, so
+        it does not round-trip; ``device`` is read for ``"auto"`` only."""
         if text.strip().lower() == "auto":
-            raise _not_ported("'auto' variant resolution (the tuned "
-                              "selection cache)", "Queue 1 item 14")
+            from .tune.tuner import resolve_variant  # lazy: tune imports api
+            return cls.parse(resolve_variant(device=device))
         if "+" in text:
             # split on the LAST '+': finish tokens never contain one, while
             # a float sampling parameter may (repr(1e16) == '1e+16')
@@ -684,14 +690,12 @@ class DynamicStream:
 
 
 def _check_exec(spec: ExecutionSpec) -> None:
-    """Refuse the knobs that parse but do not run in the port."""
+    """Refuse the knob that parses but does not run in the port."""
     if spec.kernels != "auto":
         raise ValueError(
             f"kernels={spec.kernels} has no meaning in repro_torch: it "
             f"dispatches by tensor device, with no policy knob (a CPU tensor "
             f"takes the plain version, a CUDA tensor the CUDA kernel)")
-    if spec.tune:
-        raise _not_ported(f"the tune opt of {str(spec)!r}", "Queue 1 item 14")
 
 
 class ConnectIt:
@@ -708,19 +712,32 @@ class ConnectIt:
     session's device. ``exec`` is an ExecutionSpec (string); a mesh
     placement runs over the ranks of the ``torch.distributed`` group (one
     rank when none is configured), on ``mesh`` when one is given: a
-    ``DeviceMesh`` that names the spec's axes."""
+    ``DeviceMesh`` that names the spec's axes.
+
+    ``ConnectIt("auto", ...)`` leaves the variant to the tuning cache of
+    the session's device (``repro_torch.tune``): each ``.connectivity(g)``
+    resolves the winner recorded for ``g``'s graph-family fingerprint, else
+    the device-global winner, else the paper's recommended default. A
+    lookup, memoized per family, so a warm call measures nothing. With the
+    ``tune`` exec opt the session instead measures the fast grid on the
+    first graph of each family it sees and persists the winner. The other
+    surfaces (forests, streams, ingest, the apps, serving) bind the
+    device-global winner at construction. On a mesh placement the mesh's
+    first rank resolves (its cache, its fingerprint) and every rank runs
+    its variant, so that ranks with different cache files run one
+    program."""
 
     def __init__(self, spec: SpecLike = "none+uf_sync_naive",
                  exec: ExecLike = "single", *, mesh=None,
                  device=DEFAULT_DEVICE):
-        if isinstance(spec, str):
+        auto = isinstance(spec, str) and spec.strip().lower() == "auto"
+        if isinstance(spec, str) and not auto:
             spec = VariantSpec.parse(spec)
-        if not isinstance(spec, VariantSpec):
+        if not (auto or isinstance(spec, VariantSpec)):
             raise TypeError(f"spec must be a VariantSpec or string, "
                             f"got {type(spec).__name__}")
         exec_spec = as_execution_spec(exec)
         _check_exec(exec_spec)
-        self.spec = spec
         self.exec = exec_spec
         self.device = resolve_device(device)
         if exec_spec.placement != "single" and mesh is None:
@@ -730,6 +747,14 @@ class ConnectIt:
             if not dist.is_initialized():
                 initialize()  # the configured group, else one rank
         self._backend = make_backend(exec_spec, mesh=mesh, device=self.device)
+        self._auto = auto
+        self._auto_specs: dict = {}      # family fingerprint -> programs
+        self._tuned_families: set = set()
+        if auto:
+            from .tune.tuner import resolve_variant  # lazy: tune imports api
+            spec = VariantSpec.parse(self._on_leader(
+                lambda: resolve_variant(device=self.device)))
+        self.spec = spec
         self._sampler = spec.sampling.build()
         self._finish = spec.build_finish()
         self._stats: Optional[driver.ConnectivityStats] = None
@@ -740,6 +765,41 @@ class ConnectIt:
         return (f"ConnectIt({str(self.spec)!r}{ex}, "
                 f"device={str(self.device)!r})")
 
+    def _on_leader(self, fn):
+        """``fn()`` on the mesh's origin rank (coordinate 0 on every axis),
+        passed to every rank of the mesh (each makes this call); ``fn()``
+        where the placement has no mesh."""
+        mesh = self._backend.mesh
+        if mesh is None:
+            return fn()
+        import torch.distributed as dist
+
+        from .core import collectives as coll
+        mine = fn() if dist.get_rank() == coll.origin_rank(mesh) else None
+        return coll.broadcast_object(mine, mesh, device=self.device)
+
+    def _resolve_auto(self, g) -> tuple:
+        """(spec, sampler, finish) of an ``"auto"`` session for ``g``: the
+        cached winner of its family fingerprint, memoized per family. Under
+        the ``tune`` exec opt the first graph of each family is measured
+        once a session (``tune_variant``; on a mesh every rank measures and
+        the mesh's origin writes) and the winner persisted."""
+        from .tune.cache import fingerprint_graph
+        from .tune.tuner import resolve_variant, tune_variant
+        fam = self._on_leader(lambda: fingerprint_graph(g))
+        if self.exec.tune and fam not in self._tuned_families:
+            tune_variant(g, family=fam,
+                         exec=str(dataclasses.replace(self.exec, tune=False)),
+                         mesh=self._backend.mesh)
+            self._tuned_families.add(fam)
+            self._auto_specs.pop(fam, None)
+        if fam not in self._auto_specs:
+            spec = VariantSpec.parse(self._on_leader(
+                lambda: resolve_variant(fam, device=self.device)))
+            self._auto_specs[fam] = (spec, spec.sampling.build(),
+                                     spec.build_finish())
+        return self._auto_specs[fam]
+
     def connectivity(self, g, *, generator: Optional[torch.Generator] = None,
                      fused: Optional[bool] = None,
                      return_stats: bool = False):
@@ -749,11 +809,13 @@ class ConnectIt:
         it is part of the ExecutionSpec and cannot be overridden per call.
         ``generator`` draws the sampler's random numbers: k-out columns, BFS
         sources, LDD shifts (seeded 0 when None; on a mesh every rank draws
-        the same)."""
+        the same). An ``"auto"`` session resolves the variant for ``g``'s
+        family first."""
         self._check_device(g)
+        spec, sampler, finish = ((self.spec, self._sampler, self._finish)
+                                 if not self._auto else self._resolve_auto(g))
         labels, stats = self._backend.connectivity(
-            g, self._sampler, self._finish, generator,
-            variant=str(self.spec), fused=fused)
+            g, sampler, finish, generator, variant=str(spec), fused=fused)
         self._stats = stats
         if return_stats:
             return labels, stats

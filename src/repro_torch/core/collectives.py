@@ -32,7 +32,8 @@ _all_gather = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
 __all__ = ["axis_size", "axis_index", "mesh_size", "shard_index", "pmin",
-           "pmax", "all_gather", "all_to_all"]
+           "pmax", "all_gather", "all_to_all", "origin_rank",
+           "broadcast_object"]
 
 
 def axis_size(mesh, axis: str) -> int:
@@ -99,3 +100,23 @@ def all_to_all(chunks: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     dist.all_to_all_single(out, chunks.contiguous(),
                            group=mesh.get_group(axis))
     return out
+
+
+def origin_rank(mesh) -> int:
+    """The global rank at coordinate 0 on every axis of ``mesh``."""
+    return int(mesh.mesh.flatten()[0])
+
+
+def broadcast_object(obj, mesh, *, device=None):
+    """The origin rank's ``obj`` on every rank of ``mesh``: a broadcast from
+    coordinate 0 along each axis in turn. Every rank of the mesh makes this
+    call with an ``obj`` of its own, and only the origin's is read."""
+    box, coord = [obj], mesh.get_coordinate()
+    for i, axis in enumerate(mesh.mesh_dim_names):
+        if mesh.shape[i] > 1:
+            at = list(coord)
+            at[i] = 0
+            dist.broadcast_object_list(box, src=int(mesh.mesh[tuple(at)]),
+                                       group=mesh.get_group(axis),
+                                       device=device)
+    return box[0]

@@ -28,10 +28,10 @@ and round-trips are canonical, as in the reference. A placement's mesh is a
 row-major as JAX orders devices (``plan_mesh``); every rank makes the same
 session call and the ranks meet in collectives (``core/distributed.py``).
 
-Two knobs parse but do not run here: ``kernels=`` other than ``auto``
-(the port dispatches by tensor device, with no policy knob) and ``tune``
-(the tuned selection cache, ROADMAP Queue 1 item 14);
-``repro_torch.api.ConnectIt`` refuses a session with them. ``donate`` is
+One knob parses but does not run here: ``kernels=`` other than ``auto``
+(the port dispatches by tensor device, with no policy knob);
+``repro_torch.api.ConnectIt`` refuses a session with it. ``tune`` makes an
+``"auto"`` session measure its variant (``repro_torch.tune``). ``donate`` is
 accepted and changes nothing on the finish programs: no program keeps the
 caller's label buffer past its first round (serving reads it, per call).
 

@@ -47,6 +47,45 @@ def rmat(n: int, m: int, *, a: float = 0.5, b: float = 0.1, c: float = 0.1,
                        device=device)
 
 
+def barabasi_albert(n: int, k: int, *, seed: int = 0,
+                    device=DEFAULT_DEVICE) -> Graph:
+    """BA preferential attachment: each new vertex draws k edges, its
+    targets uniform over the endpoint history (a host loop, the
+    reference's draws in the reference's order)."""
+    rng = np.random.default_rng(seed)
+    targets = np.zeros(n * k, dtype=np.int64)
+    sources = np.zeros(n * k, dtype=np.int64)
+    hist = np.zeros(2 * n * k, dtype=np.int64)
+    hlen = 0
+    e = 0
+    for v in range(1, n):
+        for _ in range(k):
+            t = hist[rng.integers(0, hlen)] if hlen else 0
+            sources[e] = v
+            targets[e] = t
+            hist[hlen] = v
+            hist[hlen + 1] = t
+            hlen += 2
+            e += 1
+    return build_graph(np.stack([sources[:e], targets[:e]], 1), n,
+                       device=device)
+
+
+def torus(dims: tuple, *, device=DEFAULT_DEVICE) -> Graph:
+    """d-dimensional torus; each vertex joins its 2d neighbours (Fig. 4b)."""
+    dims = tuple(int(d) for d in dims)
+    n = int(np.prod(dims))
+    coords = np.indices(dims).reshape(len(dims), -1)  # (d, n)
+    strides = np.array([int(np.prod(dims[i + 1:])) for i in range(len(dims))])
+    vid = (coords * strides[:, None]).sum(0)
+    edges = []
+    for axis, size in enumerate(dims):
+        nxt = coords.copy()
+        nxt[axis] = (nxt[axis] + 1) % size
+        edges.append(np.stack([vid, (nxt * strides[:, None]).sum(0)], 1))
+    return build_graph(np.concatenate(edges, 0), n, device=device)
+
+
 def grid2d(rows: int, cols: int, *, device=DEFAULT_DEVICE) -> Graph:
     """2-D grid — a high-diameter road-network stand-in."""
     vid = np.arange(rows * cols).reshape(rows, cols)
@@ -98,6 +137,10 @@ def star(n: int, *, device=DEFAULT_DEVICE) -> Graph:
 def path(n: int, *, device=DEFAULT_DEVICE) -> Graph:
     ids = np.arange(n - 1, dtype=np.int64)
     return build_graph(np.stack([ids, ids + 1], 1), n, device=device)
+
+
+def empty_graph(n: int, *, device=DEFAULT_DEVICE) -> Graph:
+    return build_graph(np.zeros((0, 2), dtype=np.int64), n, device=device)
 
 
 def with_weights(g: Graph, *, seed: int = 0, mean: float = 1.0) -> torch.Tensor:

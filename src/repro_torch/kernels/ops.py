@@ -22,6 +22,13 @@ This layer owns the contract between core label arrays and the kernels:
 
 The CUDA kernels mask their ragged tails themselves, so nothing is padded.
 
+**Block sizes.** Each connectivity kernel launches ``DEFAULT_BLOCK_M``
+(256) threads a block, ``csrc/common.cuh``'s ``kThreads``: the tuner's
+block ladder is that one point (``repro_torch.tune.space``). The ops take
+the reference's ``block_m``; on the card they refuse any other explicit
+value, and the plain versions ignore it, as the reference's ``ref`` policy
+does. ``tuned_block_m`` is what the tuning cache resolves to.
+
 ``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper, dispatched in
 ``kernels/legacy``, so that ``launch_counts()`` covers every kernel.
 """
@@ -46,7 +53,16 @@ from .scatter_min.ref import scatter_min_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
            "edge_rewrite", "compact_mask", "embedding_bag", "launch_counts",
-           "reset_launch_counts", "KERNELS"]
+           "reset_launch_counts", "tuned_block_m", "clear_tuned_blocks",
+           "KERNELS", "KERNEL_CONTRACT_VERSION", "DEFAULT_BLOCK_M"]
+
+# The dispatch contract the tuning cache's winners were measured under
+# (repro_torch.tune.cache drops entries of another version): the dump-slot
+# and -1 semantics above, and a block size that is a kernel's threads a
+# block. Bump it when either changes.
+KERNEL_CONTRACT_VERSION = 1
+# the one block size the connectivity kernels are built for (kThreads)
+DEFAULT_BLOCK_M = 256
 
 # the CUDA wrappers, each with its ``launches`` counter
 KERNELS = {
@@ -69,8 +85,37 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+_TUNED_BLOCKS: dict = {}
+
+
+def tuned_block_m(primitive: str, device="cuda") -> int:
+    """The block size the tuning cache resolves for ``primitive`` on
+    ``device`` (``repro_torch.tune.resolve_block_m``), else
+    ``DEFAULT_BLOCK_M``; memoized per process and device,
+    ``clear_tuned_blocks`` drops the memo."""
+    key = (primitive, device)
+    if key not in _TUNED_BLOCKS:
+        from ..tune.tuner import resolve_block_m  # lazy: tune imports ops
+        _TUNED_BLOCKS[key] = resolve_block_m(primitive, device=device)
+    return _TUNED_BLOCKS[key]
+
+
+def clear_tuned_blocks() -> None:
+    """Forget the memoized block sizes: the next lookup reads the cache."""
+    _TUNED_BLOCKS.clear()
+
+
+def _check_block(primitive: str, block_m: Optional[int]) -> None:
+    """A CUDA launch takes no block size but the one it is built for."""
+    if block_m is not None and block_m != DEFAULT_BLOCK_M:
+        raise ValueError(f"{primitive}: block_m={block_m!r}, but the CUDA "
+                         f"kernels are built for {DEFAULT_BLOCK_M} threads "
+                         f"a block only")
+
+
 def scatter_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
-                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                mask: Optional[torch.Tensor] = None, *,
+                block_m: Optional[int] = None) -> torch.Tensor:
     """``P[idx] = min(P[idx], vals)`` — the paper's writeMin (Appendix A).
 
     Negative, masked, and out-of-range targets are dumped (no-op scatter of
@@ -84,24 +129,28 @@ def scatter_min(P: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
     idx = torch.where(ok, idx, n).to(torch.int32)
     vals = torch.where(ok, vals.to(P.dtype), big)
     if on_cuda(P):
+        _check_block("scatter_min", block_m)
         return _scatter_min_kernel.scatter_min(P, idx, vals)
     return scatter_min_ref(P, idx, vals)
 
 
-def pointer_jump(labels: torch.Tensor, *, k: int = 1) -> torch.Tensor:
+def pointer_jump(labels: torch.Tensor, *, k: int = 1,
+                 block_m: Optional[int] = None) -> torch.Tensor:
     """``k`` chained shortcut hops through the round-start snapshot.
 
     ``k=1`` is exactly one ``P ← P[P]`` round; chained hops compose, so
     ``k=3`` in one call equals two successive rounds (FindHalve). ``-1``
     labels and self-labeled slots are fixed points."""
     if on_cuda(labels):
+        _check_block("pointer_jump", block_m)
         return _pointer_jump_kernel.pointer_jump(labels, k=k)
     return pointer_jump_ref(labels, k=k)
 
 
 def hook_compress(P: torch.Tensor, senders: torch.Tensor,
                   receivers: torch.Tensor, *, k: int = 1,
-                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  mask: Optional[torch.Tensor] = None,
+                  block_m: Optional[int] = None) -> torch.Tensor:
     """One fused uf_sync round: root-masked min-hook + ``k`` shortcut hops.
 
     Equivalent to ``write_min(P, P[s], P[r], root-mask)`` followed by
@@ -113,25 +162,29 @@ def hook_compress(P: torch.Tensor, senders: torch.Tensor,
         senders = torch.where(mask, senders, dump).to(senders.dtype)
         receivers = torch.where(mask, receivers, dump).to(receivers.dtype)
     if on_cuda(P):
+        _check_block("hook_compress", block_m)
         return _hook_compress_kernel.hook_compress(P, senders, receivers, k=k)
     return hook_compress_ref(P, senders, receivers, k=k)
 
 
 def edge_relabel(labels: torch.Tensor, senders: torch.Tensor,
-                 receivers: torch.Tensor) -> torch.Tensor:
+                 receivers: torch.Tensor, *,
+                 block_m: Optional[int] = None) -> torch.Tensor:
     """One relabel round: propose each endpoint's label to the other, merge
     with scatter-min (the Liu–Tarjan ParentConnect rule). Negative endpoints
     propose their value but are never targets."""
     if on_cuda(labels):
+        _check_block("edge_relabel", block_m)
         return _edge_relabel_kernel.edge_relabel(labels, senders, receivers)
     return edge_relabel_ref(labels, senders, receivers)
 
 
 def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
-                 receivers: torch.Tensor):
+                 receivers: torch.Tensor, *, block_m: Optional[int] = None):
     """Rewrite edge endpoints to their parents (the Liu–Tarjan alter step):
     ``e ← P[e]`` with ``-1`` fixed points."""
     if on_cuda(labels):
+        _check_block("edge_rewrite", block_m)
         return _edge_relabel_kernel.edge_rewrite(labels, senders, receivers)
     return edge_rewrite_ref(labels, senders, receivers)
 

@@ -407,22 +407,62 @@ def test_invalid_liu_tarjan_rule_mixes_raise():
                          connect="bogus")
 
 
+@pytest.fixture()
+def tune_cache(tmp_path, monkeypatch):
+    """An empty tuning cache of the port's, installed as its default."""
+    from repro_torch import tune as ttune
+    from repro_torch.kernels import ops as tops
+    monkeypatch.setenv("REPRO_TORCH_TUNE_CACHE", str(tmp_path / "tune.json"))
+    ttune.reset_default_cache()
+    tops.clear_tuned_blocks()
+    yield ttune
+    ttune.reset_default_cache()
+    tops.clear_tuned_blocks()
+
+
 @pytest.mark.parametrize("text,item", [
     ("auto", "Queue 1 item 14"),
 ])
-def test_unported_specs_name_their_queue_item(text, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tapi.VariantSpec.parse(text)
+def test_unported_specs_name_their_queue_item(text, item, tune_cache):
+    """``item`` is ported: "auto" resolves through the tuning cache, to the
+    paper's default on a cold one, and does not round-trip."""
+    spec = tapi.VariantSpec.parse(text, device="cpu")
+    assert str(spec) == tune_cache.PAPER_DEFAULT_VARIANT
+    assert str(spec) == str(japi.VariantSpec.parse(spec.__str__()))
 
 
-def test_unported_surfaces_name_their_queue_item():
+def test_unported_surfaces_name_their_queue_item(tune_cache):
+    """Queue 1 item 14 is ported: the ``tune`` exec opt and ``"auto"``
+    construct and run. A non-auto session with ``tune`` runs as without
+    it; an auto one measures its variant on the first graph."""
+    from repro_torch.launch import multihost
+    jg = GRAPHS["rmat"]
+    g = _port(jg)
+    want = components_oracle(g)
     v = "kout_hybrid_k2+uf_sync_full"
-    for exec_str in ("single:tune", "sharded(x):tune",
-                     "single:dynamic,tune"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-            tapi.ConnectIt(v, exec=exec_str, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tapi.ConnectIt("auto", device="cpu")
+    try:
+        for exec_str in ("single:tune", "sharded(x):tune",
+                         "single:dynamic,tune"):
+            ci = tapi.ConnectIt(v, exec=exec_str, device="cpu")
+            np.testing.assert_array_equal(ci.connectivity(g).numpy(), want)
+            assert ci.stats.variant == v and ci.stats.exec == exec_str
+        st = tapi.ConnectIt(v, exec="single:dynamic,tune",
+                            device="cpu").stream(g.n, log=4096)
+        none = torch.zeros(0, dtype=torch.int32)
+        ans = st.process(none, none, g.senders[: g.m], g.receivers[: g.m],
+                         torch.tensor([0, 1]), torch.tensor([1, 3]))
+        np.testing.assert_array_equal(ans.numpy(),
+                                      [want[0] == want[1],
+                                       want[1] == want[3]])
+        ci = tapi.ConnectIt("auto", device="cpu")
+        np.testing.assert_array_equal(ci.connectivity(g).numpy(), want)
+        assert ci.stats.variant == tune_cache.PAPER_DEFAULT_VARIANT
+        ci = tapi.ConnectIt("auto", exec="single:tune", device="cpu")
+        np.testing.assert_array_equal(ci.connectivity(g).numpy(), want)
+        assert ci.stats.variant in \
+            tune_cache.TuneSpec().variant_candidates()
+    finally:
+        multihost.shutdown()
 
 
 def test_bad_specs_raise_value_errors():

@@ -20,6 +20,10 @@ sharded mesh programs over ``torch.distributed``. Here:
     ``XLA_FLAGS=--xla_force_host_platform_device_count=4``); dynamic streams
     and AMSF forests equal to ``repro``'s there, and a served run with rank 0
     serving and the other ranks following, whose state equals rank 0's;
+  * a 2-rank world of ``ConnectIt("auto", exec="sharded(x)")`` whose ranks
+    read tuning caches with conflicting winners runs rank 0's variant on
+    both ranks, and under ``:tune`` both ranks elect one winner that only
+    rank 0 writes;
   * streams and SCAN on the placements, the refusals, a failed rendezvous,
     the multihost CLI; ``gpu``-marked: the one-rank NCCL placements on the
     card equal to the CPU path.
@@ -635,14 +639,21 @@ def _env(**extra) -> dict:
     return env
 
 
+# the 2-rank auto world: each rank's tuning cache names other winners
+# (device-global, and for the graph's family)
+TUNE_WINNERS = [("none+liu_tarjan_CRFA", "none+uf_sync_full"),
+                ("none+uf_sync_naive", "none+shiloach_vishkin")]
+
+
 class _Spawned:
     """The subprocesses of this module, started together before its first
     test so that they run beside the in-process tests: the 2-rank and
-    4-rank worlds, the 4-device reference, a rendezvous that must fail and
-    the multihost CLI on 2 ranks."""
+    4-rank worlds, the 4-device reference, a rendezvous that must fail, the
+    multihost CLI on 2 ranks and the 2-rank auto world."""
 
     def __init__(self, tmp: Path, cases: dict):
         self.tmp, self.cases, self.procs = tmp, cases, {}
+        self._start_tune_world(tmp, cases["graph"])
         for world in (2, 4):
             path = tmp / f"cases{world}.json"
             with open(path, "w") as f:
@@ -665,6 +676,33 @@ class _Spawned:
                 "-m", "repro_torch.launch.multihost", "--device", "cpu",
                 "--exec", "sharded(x)", "--n", "512", "--num-processes", "2",
                 "--init-method", f"file://{tmp}/cli", "--process-id", str(r)])
+
+    def _start_tune_world(self, tmp: Path, graph: dict):
+        """Each rank's cache names the winners of ``TUNE_WINNERS``. The
+        first case runs on the whole world, the second on a mesh over rank
+        1 alone."""
+        from repro_torch import tune as ttune
+        fam = ttune.fingerprint_graph(_port(JG))
+        caches = [str(tmp / f"tune{r}.json") for r in range(2)]
+        for path, (glob, family) in zip(caches, TUNE_WINNERS):
+            cache = ttune.SelectionCache(path)
+            cache.put(ttune.make_key("variant", device="cpu"), glob)
+            cache.put(ttune.make_key("variant", fam, device="cpu"), family)
+        path = tmp / "tune_cases.json"
+        with open(path, "w") as f:
+            json.dump({"graph": graph, "world": 2,
+                       "store": str(tmp / "store_tune"),
+                       "tune": [{"exec": "sharded(x)", "caches": caches,
+                                 "fresh": [str(tmp / f"fresh{r}.json")
+                                           for r in range(2)]},
+                                {"exec": "sharded(x)", "caches": caches,
+                                 "ranks": [1],
+                                 "fresh": [str(tmp / f"sub_fresh{r}.json")
+                                           for r in range(2)]}]}, f)
+        for rank in range(2):
+            self._start(("tune", rank),
+                        [str(TESTS / "torch_mesh_worker.py"), str(path),
+                         str(tmp / f"tune_out{rank}.json"), str(rank)])
 
     def _start(self, key, args, **env):
         self.procs[key] = subprocess.Popen(
@@ -708,6 +746,39 @@ def worlds(spawned):
     assert outs["jax"]["devices"] == 4
     outs["cases"] = spawned.cases
     return outs
+
+
+def test_spawned_auto_runs_rank_0s_variant(spawned):
+    """Two ranks whose caches name different winners run rank 0's: the
+    device-global winner at construction, the family's for the graph. Under
+    ``:tune`` every rank measures, the ranks elect one winner (the times'
+    pmax), and only rank 0 writes its cache file. On a mesh over rank 1
+    alone, rank 1 resolves from its own cache and writes its own file."""
+    outs = []
+    for rank in range(2):
+        rc, log = spawned.wait(("tune", rank))
+        assert rc == 0, (rank, log[-3000:])
+        with open(spawned.tmp / f"tune_out{rank}.json") as f:
+            outs.append(json.load(f)["tune"])
+    from repro_torch import tune as ttune
+    key = ttune.make_key("variant", ttune.fingerprint_graph(_port(JG)),
+                         device="cpu")
+    for case, (glob, family), ranks, prefix in (
+            (0, TUNE_WINNERS[0], (0, 1), "fresh"),
+            (1, TUNE_WINNERS[1], (1,), "sub_fresh")):
+        for rank in ranks:
+            out = outs[rank][case]
+            assert (out["global"], out["variant"]) == (glob, family)
+            assert out["tuned_exec"] == "sharded(x):tune"
+            for name in ("labels", "tuned_labels"):
+                np.testing.assert_array_equal(np.asarray(out[name]), ORACLE)
+        assert len({outs[r][case]["tuned"] for r in ranks}) == 1
+        fresh = [spawned.tmp / f"{prefix}{r}.json" for r in range(2)]
+        assert [p.exists() for p in fresh] == [r == ranks[0]
+                                               for r in range(2)]
+        assert ttune.SelectionCache(str(fresh[ranks[0]])).winner(key) == \
+            outs[ranks[0]][case]["tuned"]
+    assert outs[0][1] == {}
 
 
 def _conn_index(exec_str, variant, replay=False) -> int:

@@ -8,13 +8,16 @@ arrays and the cases; every rank runs them all in the same order (the
 placements' collectives pair up across ranks) and writes what it saw to
 ``OUT.json``: labels, stats, the sampler's labels ``P0``, stream answers,
 SCAN labels and cores, dynamic streams (answers, labels, forest, this
-rank's log block), AMSF forests, and the served runs (rank 0 serves, the
-other ranks follow).
+rank's log block), AMSF forests, the served runs (rank 0 serves, the
+other ranks follow) and ``ConnectIt("auto")`` sessions, each rank on the
+tuning cache its environment names. A section missing from the cases is
+skipped.
 """
 
 import asyncio
 import dataclasses
 import json
+import os
 import sys
 
 import numpy as np
@@ -144,6 +147,36 @@ def run_serve(tapi, n: int, case: dict) -> dict:
             **_served(server.store, n)}
 
 
+def run_tune(tapi, g, case: dict, rank: int) -> dict:
+    """``ConnectIt("auto")`` under ``case["exec"]`` on this rank's cache
+    ``case["caches"][rank]``, then under ``exec + ":tune"`` on the fresh
+    cache file ``case["fresh"][rank]``. With ``case["ranks"]`` the session
+    runs on a mesh over those ranks only, which every rank makes, and the
+    other ranks return ``{}``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch import tune
+    mesh = None
+    if "ranks" in case:
+        mesh = DeviceMesh("cpu", case["ranks"], mesh_dim_names=("x",))
+        if rank not in case["ranks"]:
+            return {}
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = case["caches"][rank]
+    tune.reset_default_cache()
+    ci = tapi.ConnectIt("auto", exec=case["exec"], mesh=mesh, device="cpu")
+    labels, stats = ci.connectivity(g, return_stats=True)
+    out = {"global": str(ci.spec), "variant": stats.variant,
+           "labels": labels.tolist()}
+    os.environ["REPRO_TORCH_TUNE_CACHE"] = case["fresh"][rank]
+    tune.reset_default_cache()
+    ci = tapi.ConnectIt("auto", exec=f"{case['exec']}:tune", mesh=mesh,
+                        device="cpu")
+    labels, stats = ci.connectivity(g, return_stats=True)
+    out.update(tuned=stats.variant, tuned_labels=labels.tolist(),
+               tuned_exec=stats.exec)
+    return out
+
+
 def main(cases_path: str, out_path: str, rank: int) -> int:
     torch.set_num_threads(1)
     from repro_torch import api as tapi
@@ -159,18 +192,19 @@ def main(cases_path: str, out_path: str, rank: int) -> int:
     multihost.initialize(init_method=f"file://{cases['store']}",
                          num_processes=cases["world"], process_id=rank,
                          backend="gloo", timeout=120)
-    weights = torch.tensor(np.asarray(cases["weights"], np.float32))
+    weights = torch.tensor(np.asarray(cases.get("weights", ()), np.float32))
+    sections = {
+        "connectivity": lambda c: run_connectivity(tapi, g, c),
+        "stream": lambda c: run_stream(tapi, g.n, c),
+        "scan": lambda c: run_scan(tapi, g, c),
+        "dynamic": lambda c: run_dynamic(tapi, g.n, c),
+        "amsf": lambda c: run_amsf(tapi, g, weights, c),
+        "serve": lambda c: run_serve(tapi, g.n, c),
+        "tune": lambda c: run_tune(tapi, g, c, rank),
+    }
     try:
-        out = {"connectivity": [run_connectivity(tapi, g, c)
-                                for c in cases["connectivity"]],
-               "stream": [run_stream(tapi, g.n, c)
-                          for c in cases["stream"]],
-               "scan": [run_scan(tapi, g, c) for c in cases["scan"]],
-               "dynamic": [run_dynamic(tapi, g.n, c)
-                           for c in cases["dynamic"]],
-               "amsf": [run_amsf(tapi, g, weights, c)
-                        for c in cases["amsf"]],
-               "serve": [run_serve(tapi, g.n, c) for c in cases["serve"]]}
+        out = {name: [run(c) for c in cases[name]]
+               for name, run in sections.items() if name in cases}
     finally:
         multihost.shutdown()
     with open(out_path, "w") as f:
