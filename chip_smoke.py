@@ -6,9 +6,9 @@
     python3 chip_smoke.py --log-n 14 --log-m 17   # a short compile check
                                                   # (DLRM vocab, batches and
                                                   # candidates cut to 2^14)
-    python3 chip_smoke.py --ranks 4               # only the placements, on
-                                                  # 4 cards, a rank each
-                                                  # (dynamic, AMSF, serving)
+    python3 chip_smoke.py --ranks 4               # only the placements and
+                                                  # the sharded cells, on 4
+                                                  # cards, a rank each
 
 Phases, in order; any failure exits non-zero:
 
@@ -64,7 +64,18 @@ Phases, in order; any failure exits non-zero:
               pointer_jump's) and under sharded(x):overlap (scatter_min's,
               hook_compress's on the two half-blocks), and
               kout_hybrid_k2+liu_tarjan_PUFA's edge_relabel and
-              edge_rewrite calls under sharded(x).
+              edge_rewrite calls under sharded(x); and, one run at a time
+              (LATE_RUNS), the connectit cells' calls at their published
+              sizes: the first and last hook_compress round of
+              static_1b_edges (2^30 edges on 2^26 + 1 labels) with the
+              pointer_jump call of its exactness check's compression (run
+              kind "cell"), of ingest_256m_batch (its batch mirrored to
+              2^29 entries) with its stream's pointer_jump ("cell
+              ingest"), and of static_8b_edges_sharded at one rank (2^31
+              edges on 2^28 + 1 labels) with its 7 scatter_min frontier
+              applies into the window plus a dump slot ("cell sharded").
+              The plain hook proposes 2^26 edges a pass, so it fits beside
+              2^31 edges.
               Bounds count the bytes this run's data needs (edge_rewrite:
               the label slots its non-negative ends read). embedding_bag
               on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
@@ -185,13 +196,36 @@ Phases, in order; any failure exits non-zero:
               repro_torch.launch.tune --smoke exits 0, then the full CLI
               on its proxies, whose device-global winner is printed beside
               (b)'s; (f) the cold cache resolves 256 threads again;
- 16. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
+ 16. cells    the connectit cells (launch.steps.build_cell, CONNECTIT_SHAPES)
+              at their published sizes on a one-rank (data, model) mesh
+              over NCCL, each on a planted graph generated on the card
+              (2^20 blocks: a random tree in each, the rest of the edges
+              uniform inside a block; exact iff every edge's ends share a
+              root and the roots number the blocks): static_1b_edges
+              (2^26 vertices, 2^30 edges; wall of the counted run and
+              median of CELL_TIMING_REPEATS after it), ingest_256m_batch
+              (one 2^28-edge batch, 2^20 uniform query pairs against block
+              identity; batch edges/s), static_8b_edges_sharded and
+              static_8b_sharded_fused (2^28 vertices, 2^31 edges), each
+              with its peak above the inputs, outer rounds and launches
+              (CELL_COUNTS, asserted on the default graph); the legacy
+              shims on the graph (connectivity(g, sample="kout",
+              finish="uf_sync"), get_finish("liu_tarjan_CRFA") through
+              run_connectivity, make_replicated_connectivity at one rank)
+              against scipy; every wall so far timed with nothing else
+              running; then python -m repro_torch.launch.dryrun --all
+              --mesh both beside python -m repro_torch.launch.ingest on the
+              graph's rmat (n = 2^22, 2^25 edges, batches of 2^20): plain,
+              stopped after CLI_STOP_STEPS batches with --ckpt-dir and
+              resumed, each against scipy, and --chunked (chunks of 2^22)
+              against scipy on its stream;
+ 17. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
               the embedding_bag kernel and held against the same model
               through the plain version, with step times, peak memory and
               launches per step;
- 17. profile  where the compacted main path's time goes: wall time per
+ 18. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
               of kout_hybrid_k2+liu_tarjan_PUFA fused (its per-round state
@@ -213,7 +247,10 @@ following its commits, every rank's final labels equal to rank 0's and to
 scipy's on rank 0's commit log; last ConnectIt("auto",
 exec="sharded(x):tune"), each rank on a cache file of its own: every rank
 elects rank 0's winner, only rank 0's file is written, and every rank's
-labels equal scipy's.
+labels equal scipy's. Then the two sharded cells at their published sizes
+on a (data, model) mesh of N processes, one rank a card: each rank
+generates only its edge block and label window, and the gathered labels
+pass the planted check on every rank.
 
 The whole script reads a tuning cache of its own, an empty file under a
 temporary directory (REPRO_TORCH_TUNE_CACHE, printed first), so every
@@ -308,6 +345,38 @@ PLACEMENT_AMSF_COUNTS = {
 SERVE_EXEC = "sharded(x)"
 # the placements the two gloo ranks sharing the card run (MAIN_VARIANT)
 GLOO_EXECS = ("replicated(x)", "sharded(x)", "sharded(x):frontier=0")
+# the cells phase: the connectit cells (CONNECTIT_SHAPES) on planted graphs
+# of CELL_BLOCKS components, generated CELL_CHUNK edge slots at a time;
+# static_1b_edges timed CELL_TIMING_REPEATS times after its counted run; the
+# ingest CLI stopped after CLI_STOP_STEPS batches and resumed; the legacy
+# replicated factory's fixed rounds on the graph phase's graph
+CELL_BLOCKS = 1 << 20
+CELL_CHUNK = 1 << 26
+CELL_TIMING_REPEATS = 3
+CLI_STOP_STEPS = 20
+SHIM_MESH_ROUNDS = 64
+# each cell's launches of PATH_KERNELS in one run and its outer rounds, at
+# the published sizes (the sharded cells at one rank)
+CELL_COUNTS = {
+    "static_1b_edges": ((12, 0, 0, 0, 0), 8),
+    "ingest_256m_batch": ((8, 1, 0, 0, 0), 4),
+    "static_8b_edges_sharded": ((13, 0, 7, 0, 0), 8),
+    "static_8b_sharded_fused": ((13, 0, 7, 0, 0), 8),
+}
+# the connectit cells' finish (ConnectItConfig.finish, no sampling). Their
+# recorded run kinds, at the published sizes: "cell" (static_1b_edges, then
+# the exactness check's compression: 2^30 edges, 2^26 + 1 labels), "cell
+# ingest" (ingest_256m_batch: its batch mirrored to 2^29 entries) and "cell
+# sharded" (static_8b_edges_sharded at one rank: 2^31 edges, 2^28 + 1
+# labels, frontier applies into the window plus a dump slot). Each keeps
+# the first and the last call of CELL_FIRST_LAST's kernels and every call
+# of the others.
+CELL_VARIANT = "none+uf_sync_naive"
+CELL_FIRST_LAST = ("hook_compress", "pointer_jump")
+# recorded runs whose calls the kernels phase compares last, one run at a
+# time with every other input freed: a cell's calls and their plain
+# versions would not fit beside the other runs' calls
+LATE_RUNS = ("cell", "cell ingest", "cell sharded")
 # the tune phase: launches each block size is timed over with CUDA events
 TUNE_EVENT_ITERS = 20
 # samplings whose stats take no random draw, so the card's equal the CPU's
@@ -560,6 +629,9 @@ RECORDED = (
     ("hook_compress", MAIN_VARIANT, ("ingest", "serve", "placement sharded",
                                      "placement overlap")),
     ("hook_compress", "kout_afforest_k2+uf_sync_full", ("ingest powerlaw",)),
+    ("hook_compress", CELL_VARIANT, LATE_RUNS),
+    ("pointer_jump", CELL_VARIANT, ("cell", "cell ingest")),
+    ("scatter_min", CELL_VARIANT, ("cell sharded",)),
 )
 # the placement a recorded run's session takes
 RECORDED_EXEC = {"placement sharded": "sharded(x)",
@@ -692,7 +764,10 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             if (forest_rounds and name == "scatter_min"
                     and args[0].shape[0] > 2 * (g.n + 1)):
                 key = "scatter_min stacked"
-            if made[key] % stride[key] == 0:
+            if (run in LATE_RUNS and name in CELL_FIRST_LAST
+                    and len(calls[key]) == 2):
+                calls[key][1] = (*args, *kw.values())  # the newest
+            elif made[key] % stride[key] == 0:
                 calls[key].append((*args, *kw.values()))
                 if (run in SAMPLED_RUNS
                         and len(calls[key]) == 2 * RECORDED_SAMPLED_CALLS):
@@ -709,7 +784,7 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     # for that module is patched, so the wrapper itself, and its launch
     # count, stay as they are
     with ExitStack() as stack:
-        if placement:
+        if placement or run in LATE_RUNS:
             stack.callback(multihost.shutdown)
         for module in {sys.modules[ops.KERNELS[x].__module__] for x in names}:
             attr = next(k for k, v in vars(ops).items() if v is module)
@@ -729,6 +804,8 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
             session.from_chunks(ingest_source(torch, g, seed, log_m))
         elif run == "ingest powerlaw":
             session.from_chunks(powerlaw_source(g, log_m, log_m))
+        elif run in LATE_RUNS:
+            _record_cell(torch, run, g.n.bit_length() - 1, seed)
         elif run in ("amsf", "placement amsf"):
             session.amsf(g, with_weights(g, seed=0), "amsf")
         elif run == "placement dynamic":
@@ -752,6 +829,42 @@ def _recorded_calls(torch, g, names: tuple, variant: str, run: str,
     return {x: (tuple(calls[x]), made[x], stride[x]) for x in kept}
 
 
+def _record_cell(torch, run: str, log_n: int, seed: int) -> None:
+    """A recorded cell run (LATE_RUNS) on its planted graph at one rank:
+    "cell" runs static_1b_edges, then the exactness check's compression;
+    "cell ingest" ingest_256m_batch's batch and queries; "cell sharded"
+    static_8b_edges_sharded on the whole label window."""
+    from repro_torch.core.primitives import full_compress
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell
+
+    arch = cell_arch(log_n)
+    multihost.initialize()
+    shape = {"cell": "static_1b_edges", "cell ingest": "ingest_256m_batch",
+             "cell sharded": "static_8b_edges_sharded"}[run]
+    n = arch.shapes[shape]["n"]
+    cell = build_cell(arch, shape, make_smoke_mesh("cuda"), device="cuda")
+    perm, starts = planted_structure(torch, n, cell_blocks(n), seed)
+    ingest = run == "cell ingest"
+    s, r = planted_edges(torch, perm, starts, cell.args[1].shape[0],
+                         seed + ingest, symmetric=not ingest)
+    del perm, starts
+    P0 = torch.arange(cell.args[0].shape[0], dtype=torch.int32,
+                      device="cuda")
+    if ingest:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        q = [torch.randint(0, n, (cell.args[3].shape[0],), generator=gen,
+                           device="cuda", dtype=torch.int32)
+             for _ in range(2)]
+        cell.fn(P0, s, r, *q)
+        return
+    P, _ = cell.fn(P0, s, r)
+    if run == "cell":
+        full_compress(P)
+
+
 def run_calls(name: str, fn, calls) -> tuple:
     """``fn``, a kernel's wrapper or its plain version, on each of
     ``calls`` in turn (pointer_jump's and hook_compress's hop count is a
@@ -763,69 +876,26 @@ def run_calls(name: str, fn, calls) -> tuple:
     return tuple(fn(*c) for c in calls)
 
 
-def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
-    """(P, sets): the phase's labels P (chains, roots, ~10% -1) and, per
-    kernel, the named tuples of calls it is timed on. hook_compress at k =
-    0 and 3 (and 1 on the graph) on one (labels, senders, receivers) each:
-    (a) "graph", P on the graph edges; (b) "floor", all labels -1 (a
-    streamed read and one gather, no hook); (c) "identity", each edge
-    proposing to its own sender with no slot contended; (d) the main
-    path's first rounds. scatter_min on (n+1,) sanitized targets, ~10% carrying the
-    dump sentinel as masked entries do: "uniform"; a synthetic "hub" taking
-    ~98% of them with random values, which no path produces (the worst case
-    for one slot); the canonicalization's own call. edge_relabel on the
-    graph edges with P ("graph") and with ~10% of the endpoints -1 ("neg",
-    as the alter step leaves them), and edge_rewrite on both. pointer_jump
-    on P at k = 1 and 3. Then the calls of the RECORDED runs (``seed``
-    permutes the stream's and the ingest's edges; ``log_m`` sizes the
-    ingest's chunks and power-law stream). Also used by
-    compare_kernels.py."""
+def _recorded_sets(torch, g, log_m: int, seed: int,
+                   late: str | None = None) -> list:
+    """``[(kernel, key, calls)]`` of the RECORDED runs not in LATE_RUNS, or
+    of the one LATE_RUNS run ``late``, each run once, recording every kernel
+    RECORDED asks of it; a line each on what the calls hold."""
     from repro_torch.kernels.edge_relabel.ref import edge_rewrite_ref
 
-    L = g.n + 1
-    m = g.m_pad
-    P = _labels_with_virtual_min(torch, L, gen)
-    idx = torch.randint(0, L, (L,), generator=gen, device="cuda",
-                        dtype=torch.int32)
-    vals = torch.randint(-1, L, (L,), generator=gen, device="cuda",
-                         dtype=torch.int32)
-    dumped = torch.rand(L, generator=gen, device="cuda") < 0.1
-    idx[dumped] = L - 1
-    vals[dumped] = INT32_MAX
-    hub = torch.where(torch.rand(L, generator=gen, device="cuda") < 0.98,
-                      L // 3, idx).to(torch.int32)
-    hub[dumped] = L - 1
-    s, r = g.senders, g.receivers
-    s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
-                        -1, s).to(torch.int32)
-    r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
-                        -1, r).to(torch.int32)
-    main = _main_path_inputs(torch, g)
-    hook = {"graph": (P, s, r), "floor": (torch.full_like(P, -1), s, r),
-            "identity": (torch.arange(L, dtype=torch.int32, device="cuda"),
-                         s, r),
-            **{x: main[x] for x in ("sampled", "compacted", "fused")}}
-    sets = {
-        "hook_compress": {f"{x} k={k}": ((*args, k),)
-                          for x, args in hook.items()
-                          for k in ((0, 1, 3) if x == "graph" else (0, 3))},
-        "scatter_min": {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
-                        "canonicalization": (main["canonicalization"],)},
-        "edge_relabel": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
-        "edge_rewrite": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
-        "pointer_jump": {"k=1": ((P, 1),), "k=3": ((P, 3),)},
-    }
-    # each run once, recording every kernel RECORDED asks of it
+    out = []
     wanted = {}
     for name, variant, runs in RECORDED:
         for run in runs:
-            wanted.setdefault((variant, run), []).append(name)
+            if (run == late) if late else run not in LATE_RUNS:
+                wanted.setdefault((variant, run), []).append(name)
     recorded = {key: _recorded_calls(torch, g, tuple(names), *key, log_m,
                                      seed)
                 for key, names in wanted.items()}
     for name, variant, runs in RECORDED:
         finish = variant.split("+")[1]
         for run, part in ((run, part) for run in runs
+                          if (variant, run) in recorded
                           for part in (name, f"{name} stacked")
                           if part in recorded[variant, run]):
             calls, made, stride = recorded[variant, run][part]
@@ -864,7 +934,62 @@ def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
             kept = (f"{len(calls)}" if stride == 1 else
                      f"{len(calls)} of {made} (1 in {stride})")
             print(f"[kernels] {key} ({variant}): {kept} {name} calls {what}")
-            sets[name][key] = calls
+            out.append((name, key, calls))
+    return out
+
+
+def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
+    """(P, sets): the phase's labels P (chains, roots, ~10% -1) and, per
+    kernel, the named tuples of calls it is timed on. hook_compress at k =
+    0 and 3 (and 1 on the graph) on one (labels, senders, receivers) each:
+    (a) "graph", P on the graph edges; (b) "floor", all labels -1 (a
+    streamed read and one gather, no hook); (c) "identity", each edge
+    proposing to its own sender with no slot contended; (d) the main
+    path's first rounds. scatter_min on (n+1,) sanitized targets, ~10% carrying the
+    dump sentinel as masked entries do: "uniform"; a synthetic "hub" taking
+    ~98% of them with random values, which no path produces (the worst case
+    for one slot); the canonicalization's own call. edge_relabel on the
+    graph edges with P ("graph") and with ~10% of the endpoints -1 ("neg",
+    as the alter step leaves them), and edge_rewrite on both. pointer_jump
+    on P at k = 1 and 3. Then the calls of the RECORDED runs but
+    LATE_RUNS' (``seed`` permutes the stream's and the ingest's edges;
+    ``log_m`` sizes the ingest's chunks and power-law stream). Also used by
+    compare_kernels.py."""
+    L = g.n + 1
+    m = g.m_pad
+    P = _labels_with_virtual_min(torch, L, gen)
+    idx = torch.randint(0, L, (L,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    vals = torch.randint(-1, L, (L,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    dumped = torch.rand(L, generator=gen, device="cuda") < 0.1
+    idx[dumped] = L - 1
+    vals[dumped] = INT32_MAX
+    hub = torch.where(torch.rand(L, generator=gen, device="cuda") < 0.98,
+                      L // 3, idx).to(torch.int32)
+    hub[dumped] = L - 1
+    s, r = g.senders, g.receivers
+    s_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, s).to(torch.int32)
+    r_neg = torch.where(torch.rand(m, generator=gen, device="cuda") < 0.1,
+                        -1, r).to(torch.int32)
+    main = _main_path_inputs(torch, g)
+    hook = {"graph": (P, s, r), "floor": (torch.full_like(P, -1), s, r),
+            "identity": (torch.arange(L, dtype=torch.int32, device="cuda"),
+                         s, r),
+            **{x: main[x] for x in ("sampled", "compacted", "fused")}}
+    sets = {
+        "hook_compress": {f"{x} k={k}": ((*args, k),)
+                          for x, args in hook.items()
+                          for k in ((0, 1, 3) if x == "graph" else (0, 3))},
+        "scatter_min": {"uniform": ((P, idx, vals),), "hub": ((P, hub, vals),),
+                        "canonicalization": (main["canonicalization"],)},
+        "edge_relabel": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
+        "edge_rewrite": {"graph": ((P, s, r),), "neg": ((P, s_neg, r_neg),)},
+        "pointer_jump": {"k=1": ((P, 1),), "k=3": ((P, 3),)},
+    }
+    for name, key, calls in _recorded_sets(torch, g, log_m, seed):
+        sets[name][key] = calls
     return P, sets
 
 
@@ -893,8 +1018,10 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
         # can take a hook (a -1 label never hooks)
         total = 0
         for lab, e, _, _ in hook_sets[x]:
-            pu = lab[e.long()]
-            hooks = int(((pu >= 0) & (pu < lab.shape[0])).sum())
+            hooks = 0
+            for lo in range(0, e.shape[0], CELL_CHUNK):
+                pu = lab[e[lo: lo + CELL_CHUNK].long()]
+                hooks += int(((pu >= 0) & (pu < lab.shape[0])).sum())
             total += 4 * (2 * lab.shape[0] + e.shape[0] + hooks)
         return total
 
@@ -1032,42 +1159,62 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
         },
     }
     results = {}
+
+    def measure(name, x) -> None:
+        c = cases[name]
+        got = c["kernel"](x)
+        want = c["plain"](x)
+        torch.cuda.synchronize()
+        err = _max_abs_err(torch, got, want)
+        require(err == 0, f"{name} {x}: kernel disagrees with its plain "
+                f"version (max_abs_err={err}; -1 is a shape or dtype "
+                f"mismatch)")
+        ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
+        plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
+        lib_ms = None
+        lib = c["library"](x) if c["library"] is not None else None
+        if lib is not None:
+            require(_max_abs_err(torch, lib(), want) == 0,
+                    f"{name} {x}: the library call differs from the "
+                    f"plain version")
+            lib_ms = time_ms(torch, lib, iters=20)
+        del got, want
+        nbytes = c["bytes"](x)
+        b_ms, b_by = bound_ms(nbytes, c["ops"](x))
+        print(f"[kernels] {name} {x} {c['shapes'](x)}: exact match; "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
+              f"3.35 TB/s) kernel/bound={ms / b_ms:.2f}")
+        results.setdefault(name, {"inputs": {}})["inputs"][x] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+        if x == c["main"]:
+            results[name].update({
+                "name": name, "route": "cuda", "source": c["source"],
+                "replaces": c["replaces"], "launches": 0,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
+                "main": x})
+
     for name, c in cases.items():
-        inputs = {}
         for x in c["sweep"]:
-            got = c["kernel"](x)
-            want = c["plain"](x)
-            torch.cuda.synchronize()
-            err = _max_abs_err(torch, got, want)
-            require(err == 0, f"{name} {x}: kernel disagrees with its plain "
-                    f"version (max_abs_err={err}; -1 is a shape or dtype "
-                    f"mismatch)")
-            ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
-            plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
-            lib_ms = None
-            lib = c["library"](x) if c["library"] is not None else None
-            if lib is not None:
-                require(_max_abs_err(torch, lib(), want) == 0,
-                        f"{name} {x}: the library call differs from the "
-                        f"plain version")
-                lib_ms = time_ms(torch, lib, iters=20)
-            nbytes = c["bytes"](x)
-            b_ms, b_by = bound_ms(nbytes, c["ops"](x))
-            print(f"[kernels] {name} {x} {c['shapes'](x)}: exact match; "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-                  f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
-                  f"3.35 TB/s) kernel/bound={ms / b_ms:.2f}")
-            inputs[x] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
-            if x == c["main"]:
-                results[name] = {
-                    "name": name, "route": "cuda", "source": c["source"],
-                    "replaces": c["replaces"], "launches": 0,
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms,
-                    "main": x}
-        results[name]["inputs"] = inputs
+            measure(name, x)
+    # the recorded calls of LATE_RUNS last, one run at a time, with every
+    # other input freed: one cell's calls hold up to 2^31 edges (16 GiB)
+    for d in sets.values():
+        d.clear()
+    del P
+    for late in LATE_RUNS:
+        torch.cuda.empty_cache()
+        recorded = _recorded_sets(torch, g, log_m, seed, late)
+        while recorded:
+            name, key, calls = recorded.pop(0)
+            sets[name][key] = calls
+            del calls
+            measure(name, key)
+            sets[name].clear()
+    torch.cuda.empty_cache()
     hook = results["hook_compress"]["inputs"]
     a, b, c0 = (hook[f"{x} k=0"]["ms"] for x in ("graph", "floor", "identity"))
     print(f"[kernels] hook pass (k=0: copy + hook) on the graph edges: "
@@ -2643,7 +2790,6 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
     import numpy as np
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ranks_"))
-    procs = []
     try:
         t0 = time.perf_counter()
         for name in ("senders", "receivers", "indptr", "indices"):
@@ -2658,28 +2804,8 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
             (tmp / "extra.pkl").write_bytes(pickle.dumps(
                 {k: v for k, v in extra.items() if k != "weights"}))
         t_write = time.perf_counter() - t0
-        logs = [tmp / f"rank{r}.log" for r in range(world)]
-        for r in range(world):
-            with open(logs[r], "w") as f:
-                procs.append(subprocess.Popen(
-                    [sys.executable, str(ROOT / "chip_smoke.py"),
-                     "--mesh-rank", str(r), "--mesh-dir", str(tmp)],
-                    stdout=f, stderr=subprocess.STDOUT))
-        # a rank that fails leaves the others waiting in a collective
-        deadline = time.monotonic() + 900
-        while (any(p.poll() is None for p in procs)
-               and not any(p.poll() for p in procs)
-               and time.monotonic() < deadline):
-            time.sleep(0.5)
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for r, p in enumerate(procs):
-            log = logs[r].read_text()
-            require(p.returncode == 0,
-                    f"placements {backend} rank {r} of {world} exited "
-                    f"{p.returncode}:\n{log[-4000:]}")
+        logs = _run_rank_procs(tmp, world, f"placements {backend}")
+        for r, log in enumerate(logs):
             for line in log.splitlines():
                 if line.startswith(("[placements]", "[check]")):
                     head, rest = line.split("]", 1)
@@ -2721,11 +2847,39 @@ def _run_ranks(torch, g, expect, seed: int, world: int, backend: str,
               f"in {t_write:.2f} s; every rank's labels == scipy's; the "
               f"ranks agree on rounds and stats")
     finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _run_rank_procs(tmp: Path, world: int, what: str) -> list:
+    """Run ``world`` processes of this script (--mesh-rank R --mesh-dir
+    tmp) to their end; every one must exit 0 → their logs."""
+    logs = [tmp / f"rank{r}.log" for r in range(world)]
+    procs = []
+    try:
+        for r in range(world):
+            with open(logs[r], "w") as f:
+                procs.append(subprocess.Popen(
+                    [sys.executable, str(ROOT / "chip_smoke.py"),
+                     "--mesh-rank", str(r), "--mesh-dir", str(tmp)],
+                    stdout=f, stderr=subprocess.STDOUT))
+        # a rank that fails leaves the others waiting in a collective
+        deadline = time.monotonic() + 900
+        while (any(p.poll() is None for p in procs)
+               and not any(p.poll() for p in procs)
+               and time.monotonic() < deadline):
+            time.sleep(0.5)
+    finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(tmp, ignore_errors=True)
+    out = []
+    for r, p in enumerate(procs):
+        log = logs[r].read_text()
+        require(p.returncode == 0, f"{what} rank {r} of {world} exited "
+                f"{p.returncode}:\n{log[-4000:]}")
+        out.append(log)
+    return out
 
 
 def mesh_rank(rank: int, tmp: str) -> int:
@@ -2742,6 +2896,8 @@ def mesh_rank(rank: int, tmp: str) -> int:
 
     d = Path(tmp)
     job = json.loads((d / "job.json").read_text())
+    if job.get("cells"):
+        return _rank_cells(rank, d, job)
     world, tag = job["world"], f"{job['backend']} {job['world']} ranks "
     arrays = [np.fromfile(d / f"{k}.i32", dtype=np.int32)
               for k in ("senders", "receivers", "indptr", "indices")]
@@ -3131,6 +3287,524 @@ def _scipy_labels(n: int, edges):
     return connected_components(_csr(n, key // n, key % n), directed=False)
 
 
+# ---------------------------------------------------------------------------
+# The connectit production cells (phase "cells") on a planted graph.
+# ---------------------------------------------------------------------------
+
+def cell_shapes(log_n: int) -> dict:
+    """CONNECTIT_SHAPES at their published sizes on the default graph; a
+    short check (--log-n below 22) cuts every count by the same power of
+    two."""
+    from repro_torch.configs.base import CONNECTIT_SHAPES
+    cut = max(0, DEFAULT_GRAPH[0] - log_n)
+    return {k: {f: (v >> cut if f in ("n", "m", "batch", "queries") else v)
+                for f, v in spec.items()}
+            for k, spec in CONNECTIT_SHAPES.items()}
+
+
+def cell_arch(log_n: int):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("connectit"),
+                               shapes=cell_shapes(log_n))
+
+
+def cell_blocks(n: int) -> int:
+    """The planted components: 2^20 at every published size."""
+    return min(CELL_BLOCKS, n // 64)
+
+
+def planted_structure(torch, n: int, k: int, seed: int) -> tuple:
+    """The planted partition of [0, n) into ``k`` blocks, the same on every
+    rank for one seed: ``perm`` (n,) int32, a random order of the vertices,
+    and ``starts`` (k + 1,) int32, the sorted random cut points (0 first, n
+    last). Block b is the vertices perm[starts[b]:starts[b + 1]]."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    perm = torch.randperm(n, generator=gen, device="cuda", dtype=torch.int32)
+    cuts = torch.randperm(n - 1, generator=gen, device="cuda")[: k - 1] + 1
+    starts = torch.cat([torch.zeros(1, dtype=torch.int64, device="cuda"),
+                        cuts.sort().values,
+                        torch.full((1,), n, dtype=torch.int64,
+                                   device="cuda")]).to(torch.int32)
+    return perm, starts
+
+
+def planted_edges(torch, perm, starts, m: int, seed: int, *, shard: int = 0,
+                  shards: int = 1, symmetric: bool = True) -> tuple:
+    """Block ``shard`` of ``shards`` of an m-slot planted edge list, int32 on
+    the card, generated CELL_CHUNK slots at a time from (seed, shard, chunk)
+    so that ranks with one data index make the same block. The n - k tree
+    edges (every non-first vertex of a block to a uniform earlier vertex of
+    its block) are split among the shards by position range and among a
+    shard's chunks evenly; the rest are edges with both ends uniform in one
+    block (the block drawn by size). ``symmetric`` stores each edge both
+    ways (a static cell's list); otherwise once (a stream batch). Each chunk
+    is shuffled."""
+    n, k = perm.shape[0], starts.shape[0] - 1
+    per_edge = 2 if symmetric else 1
+    size = m // shards
+    require(size * shards == m and size % per_edge == 0,
+            f"planted edges: {m} slots over {shards} shards")
+    trees = n - k
+    t_lo, t_hi = shard * trees // shards, (shard + 1) * trees // shards
+    chunk = min(CELL_CHUNK, size)
+    nch = -(-size // chunk)
+    before = starts[:-1] - torch.arange(k, dtype=torch.int32, device="cuda")
+    s_out = torch.empty(size, dtype=torch.int32, device="cuda")
+    r_out = torch.empty(size, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda")
+    for c in range(nch):
+        lo, hi = c * chunk, min((c + 1) * chunk, size)
+        und = (hi - lo) // per_edge
+        a = t_lo + c * (t_hi - t_lo) // nch
+        b = t_lo + (c + 1) * (t_hi - t_lo) // nch
+        require(b - a <= und, "planted edges: the tree does not fit")
+        gen.manual_seed((seed << 32) + (shard << 16) + c + 1)
+        # tree edge t: the (t - before[blk])-th non-first vertex of its block
+        t = torch.arange(a, b, dtype=torch.int32, device="cuda")
+        blk = torch.searchsorted(before, t, right=True, out_int32=True) - 1
+        p = starts[blk] + 1 + (t - before[blk])
+        off = (torch.rand(b - a, generator=gen, device="cuda")
+               * (p - starts[blk])).to(torch.int32)
+        q = starts[blk] + torch.minimum(off, p - starts[blk] - 1)
+        # the rest: both ends uniform in the block of a uniform position
+        x = torch.randint(0, n, (und - (b - a),), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        blk = torch.searchsorted(starts, x, right=True, out_int32=True) - 1
+        width = starts[blk + 1] - starts[blk]
+        off = (torch.rand(x.shape[0], generator=gen, device="cuda")
+               * width).to(torch.int32)
+        y = starts[blk] + torch.minimum(off, width - 1)
+        u = perm[torch.cat([p, x])]
+        v = perm[torch.cat([q, y])]
+        if symmetric:
+            u, v = torch.cat([u, v]), torch.cat([v, u])
+        order = torch.randperm(u.shape[0], generator=gen, device="cuda")
+        s_out[lo:hi] = u[order]
+        r_out[lo:hi] = v[order]
+    return s_out, r_out
+
+
+def block_of(torch, perm, starts):
+    """(n,) int32: each vertex's planted block."""
+    n = perm.shape[0]
+    pos = torch.arange(n, dtype=torch.int32, device="cuda")
+    out = torch.empty(n, dtype=torch.int32, device="cuda")
+    out[perm.long()] = torch.searchsorted(starts, pos, right=True,
+                                          out_int32=True) - 1
+    return out
+
+
+def planted_misses(torch, labels, s, r, n: int) -> tuple:
+    """(edges whose ends' roots differ, distinct roots in [0, n)) of
+    ``labels`` (n + 1 slots at least) compressed to roots. Labels are exact
+    iff both are (0, k): every block lies in one class, and there are as
+    many classes as blocks."""
+    from repro_torch.core.primitives import full_compress
+    P = full_compress(labels[: n + 1].contiguous())
+    require(torch.equal(P[P.long()], P), "cells: labels not compressed")
+    miss = 0
+    for lo in range(0, s.shape[0], CELL_CHUNK):
+        a, b = s[lo: lo + CELL_CHUNK], r[lo: lo + CELL_CHUNK]
+        miss += int((P[a] != P[b]).sum())
+    roots = int((P[:n] == torch.arange(n, dtype=P.dtype,
+                                        device=P.device)).sum())
+    return miss, roots
+
+
+def _cell_run(torch, fn, args, repeats: int = 0) -> tuple:
+    """(output, launches, peak bytes above the inputs, wall s of the
+    counted run, walls of ``repeats`` more runs)."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    walls = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return out, counts, peak, wall, walls
+
+
+def _check_cell_counts(shape: str, counts: dict, rounds: int,
+                       exact: bool) -> None:
+    got = tuple(counts[x] for x in PATH_KERNELS)
+    want = CELL_COUNTS.get(shape)
+    require(counts["hook_compress"] > 0,
+            f"cells {shape}: hook_compress never launched")
+    if exact:
+        require(want == (got, rounds), f"cells {shape}: launches {got} and "
+                f"rounds {rounds}, want {want}")
+    print(f"[cells] {shape}: launches of {'/'.join(PATH_KERNELS)} {got} "
+          f"(CELL_COUNTS {want}{'' if exact else ', not asserted'}), "
+          f"rounds {rounds}")
+
+
+def phase_cells(torch, g, expect, seed: int, log_n: int, log_m: int,
+                exact: bool, card: str) -> None:
+    """The connectit cells through launch.steps.build_cell on a one-rank
+    (data, model) mesh over NCCL, at their published sizes on planted
+    graphs; then the legacy shims, the dry run and the ingest CLIs."""
+    import statistics
+
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.steps import build_cell, local_block
+
+    arch = cell_arch(log_n)
+    multihost.initialize()
+    clis = None
+    try:
+        mesh = make_smoke_mesh("cuda")
+        # static_1b_edges: replicated labels
+        shape = "static_1b_edges"
+        spec = arch.shapes[shape]
+        t0 = time.perf_counter()
+        n, k = spec["n"], cell_blocks(spec["n"])
+        perm, starts = planted_structure(torch, n, k, seed)
+        cell = build_cell(arch, shape, mesh, device="cuda")
+        s, r = planted_edges(torch, perm, starts, cell.args[1].shape[0], seed)
+        torch.cuda.synchronize()
+        print(f"[cells] {shape}: planted n={n} k={k} m={s.shape[0]} "
+              f"generated on the card in {time.perf_counter() - t0:.2f} s")
+        P0 = torch.arange(n + 1, dtype=torch.int32, device="cuda")
+        args = [local_block(x, sh, mesh)
+                for x, sh in zip((P0, s, r), cell.in_shardings)]
+        (P, rounds), counts, peak, wall, walls = _cell_run(
+            torch, cell.fn, args, repeats=CELL_TIMING_REPEATS)
+        miss, roots = planted_misses(torch, P, s, r, n)
+        require((miss, roots) == (0, k), f"cells {shape}: {miss} edges "
+                f"across classes, {roots} classes for {k} blocks")
+        _check_cell_counts(shape, counts, int(rounds), exact)
+        inputs = sum(x.numel() * 4 for x in args)
+        print(f"[cells] {shape}: exact (every edge inside a class, {roots} "
+              f"classes = {k} blocks); wall {wall:.4f} s first, median of "
+              f"{len(walls)} after it {statistics.median(walls):.4f} s "
+              f"({[round(w, 4) for w in walls]}); peak "
+              f"{peak} bytes above the {inputs} bytes of inputs; outer "
+              f"rounds {int(rounds)}; card {card}")
+        del s, r, P, args, cell
+        # ingest_256m_batch: one planted batch and uniform queries
+        shape = "ingest_256m_batch"
+        spec = arch.shapes[shape]
+        cell = build_cell(arch, shape, mesh, device="cuda")
+        u, v = planted_edges(torch, perm, starts, cell.args[1].shape[0],
+                             seed + 1, symmetric=False)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        qa, qb = (torch.randint(0, n, (cell.args[3].shape[0],),
+                                generator=gen, device="cuda",
+                                dtype=torch.int32) for _ in range(2))
+        args = [local_block(x, sh, mesh)
+                for x, sh in zip((P0, u, v, qa, qb), cell.in_shardings)]
+        (P, ans, rounds), counts, peak, wall, walls = _cell_run(
+            torch, cell.fn, args, repeats=1)
+        miss, roots = planted_misses(torch, P, u, v, n)
+        require((miss, roots) == (0, k), f"cells {shape}: {miss} edges "
+                f"across classes, {roots} classes for {k} blocks")
+        bid = block_of(torch, perm, starts)
+        want = bid[qa.long()] == bid[qb.long()]
+        require(torch.equal(ans, want), f"cells {shape}: answers differ "
+                f"from block identity")
+        _check_cell_counts(shape, counts, int(rounds), exact)
+        print(f"[cells] {shape}: exact; {int(ans.sum())} of {ans.shape[0]} "
+              f"query pairs connected, every answer == block identity; "
+              f"{u.shape[0] / walls[0]:.4e} batch edges/s (wall "
+              f"{walls[0]:.4f} s; first run {wall:.4f} s); peak {peak} "
+              f"bytes above the inputs; rounds {int(rounds)}; card {card}")
+        del u, v, P, ans, args, cell, bid, want, perm, starts
+        # the sharded cells at one rank, on one planted 2^31-slot list
+        sharded_cells(torch, arch, mesh, seed, exact, card)
+        multihost.shutdown()
+        torch.cuda.empty_cache()
+        _shims_on_card(torch, g, expect)
+        # every wall above is timed alone; the ingest CLIs generate their
+        # graphs on the host from here on, beside the dry run (no card)
+        clis = _start_ingest_clis(log_n, log_m, seed)
+        _dryrun_cli()
+        _finish_ingest_clis(g, expect, clis, log_n, log_m, seed)
+    finally:
+        multihost.shutdown()
+        for p in (clis or {}).get("procs", {}).values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def sharded_cells(torch, arch, mesh, seed: int, exact: bool,
+                  card: str) -> None:
+    """static_8b_edges_sharded and static_8b_sharded_fused on ``mesh``:
+    each rank generates only its own edge block and label window, and
+    checks the gathered labels (its own block's edges, the count reduced
+    over the mesh)."""
+    from repro_torch.core import collectives as coll
+    from repro_torch.launch.steps import build_cell
+
+    shapes = ("static_8b_edges_sharded", "static_8b_sharded_fused")
+    spec = arch.shapes[shapes[0]]
+    n, k = spec["n"], cell_blocks(spec["n"])
+    t0 = time.perf_counter()
+    perm, starts = planted_structure(torch, n, k, seed)
+    cell = build_cell(arch, shapes[0], mesh, device="cuda")
+    eaxes = cell.in_shardings[1]
+    s, r = planted_edges(torch, perm, starts, cell.args[1].shape[0], seed,
+                         shard=coll.shard_index(mesh, eaxes),
+                         shards=coll.mesh_size(mesh, eaxes))
+    del perm, starts
+    torch.cuda.synchronize()
+    rank = f"rank {coll.shard_index(mesh, mesh.mesh_dim_names)} of " \
+           f"{mesh.size()}"
+    print(f"[cells] {shapes[0][:-8]}: {rank} planted n={n} k={k}, its block "
+          f"of {s.shape[0]} of {cell.args[1].shape[0]} edge slots generated "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    n1 = cell.args[0].shape[0]
+    per = n1 // coll.axis_size(mesh, "model")
+    lo = coll.axis_index(mesh, "model") * per
+    window = torch.arange(lo, lo + per, dtype=torch.int32, device="cuda")
+    for shape in shapes:
+        cell = build_cell(arch, shape, mesh, device="cuda")
+        (P, rounds), counts, peak, wall, _ = _cell_run(
+            torch, cell.fn, (window, s, r))
+        full = coll.all_gather(P, mesh, ("model",))
+        del P
+        miss, roots = planted_misses(torch, full, s, r, n)
+        miss = int(coll.pmax(torch.tensor([miss], device="cuda"), mesh,
+                             mesh.mesh_dim_names))
+        require((miss, roots) == (0, k), f"cells {shape} {rank}: {miss} "
+                f"edges across classes, {roots} classes for {k} blocks")
+        if mesh.size() == 1:
+            _check_cell_counts(shape, counts, int(rounds), exact)
+        print(f"[cells] {shape}: {rank} exact (every edge inside a class, "
+              f"{roots} classes = {k} blocks); wall {wall:.4f} s; peak "
+              f"{peak} bytes above the {(window.numel() + 2 * s.numel()) * 4} "
+              f"bytes of inputs; rounds {int(rounds)}; launches "
+              f"{json.dumps(counts)}; card {card}", flush=True)
+        del full
+
+
+def _dryrun_cli() -> None:
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+         "--mesh", "both"], cwd=ROOT, env=_src_env(), capture_output=True,
+        text=True, timeout=300)
+    require(proc.returncode == 0, f"dryrun exited {proc.returncode}:\n"
+            f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    summary = [x for x in proc.stdout.splitlines()
+               if x.startswith("DRY-RUN SUMMARY")]
+    print(f"[cells] python -m repro_torch.launch.dryrun --all --mesh both: "
+          f"exit 0 in {time.perf_counter() - t0:.1f} s; {summary[0]}")
+
+
+def _src_env() -> dict:
+    import os
+    return dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+
+def _ingest_args(log_n: int, log_m: int, seed: int) -> list:
+    return ["--n", str(1 << log_n), "--edges", str(1 << log_m),
+            "--seed", str(seed)]
+
+
+def _start_ingest_clis(log_n: int, log_m: int, seed: int) -> dict:
+    """Start the plain, the stopped (--ckpt-dir, --max-steps) and the
+    chunked ingest CLI, together: each generates its graph on the host."""
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ingest_"))
+    base = [sys.executable, "-m", "repro_torch.launch.ingest"] + \
+        _ingest_args(log_n, log_m, seed)
+    batch = ["--batch", str(1 << (log_m - 5))]
+    runs = {
+        "plain": base + batch + ["--out", str(tmp / "plain.npy")],
+        "stopped": base + batch + ["--ckpt-dir", str(tmp / "ckpt"),
+                                   "--max-steps", str(CLI_STOP_STEPS)],
+        "chunked": base + ["--chunked", "--batch", str(1 << (log_m - 3)),
+                           "--out", str(tmp / "chunked.npy")],
+    }
+    procs = {k: subprocess.Popen(cmd, cwd=ROOT, env=_src_env(),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.STDOUT, text=True)
+             for k, cmd in runs.items()}
+    return {"tmp": tmp, "procs": procs, "cmds": runs, "t0": time.perf_counter()}
+
+
+def _wait_cli(clis: dict, key: str) -> str:
+    proc = clis["procs"][key]
+    out, _ = proc.communicate(timeout=600)
+    require(proc.returncode == 0, f"ingest CLI {key} exited "
+            f"{proc.returncode}:\n{out[-3000:]}")
+    return out.strip().splitlines()[-1]
+
+
+def _finish_ingest_clis(g, expect, clis: dict, log_n: int, log_m: int,
+                        seed: int) -> None:
+    """Every ingest CLI's labels against scipy: the plain and the resumed
+    run's on the graph of the graph phase (the same rmat), the chunked
+    run's on its own stream's edges."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.graphs.generators import rmat_chunks
+    from repro_torch.legacy import checkpoint as ckpt
+
+    tmp = clis["tmp"]
+    try:
+        # the resumed run starts as soon as the stopped one has ended: the
+        # two host generations in a row are the phase's longest chain
+        print(f"[cells] ingest CLI stopped: {_wait_cli(clis, 'stopped')}")
+        stopped = ckpt.latest_step(str(tmp / "ckpt"))
+        require(stopped is not None and stopped > 0,
+                "ingest CLI stopped: no checkpoint written")
+        resume = clis["cmds"]["stopped"][:-2] + ["--out",
+                                                 str(tmp / "resumed.npy")]
+        clis["procs"]["resumed"] = subprocess.Popen(
+            resume, cwd=ROOT, env=_src_env(), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        # the chunked stream's scipy labels, while the CLIs run
+        src = rmat_chunks(1 << log_n, 1 << log_m, chunk=1 << (log_m - 3),
+                          seed=seed)
+        edges = np.concatenate(list(src.chunks()))
+        _, lab = _scipy_labels(1 << log_n, edges)
+        chunk_expect = canonical(lab)
+        del edges, lab
+        for key in ("plain", "chunked"):
+            print(f"[cells] ingest CLI {key}: {_wait_cli(clis, key)}")
+        print(f"[cells] ingest CLI resumed from step {stopped}: "
+              f"{_wait_cli(clis, 'resumed')}")
+        plain = np.load(tmp / "plain.npy")
+        resumed = np.load(tmp / "resumed.npy")
+        require(np.array_equal(resumed, plain),
+                "ingest CLI: the resumed run's labels differ from the "
+                "uninterrupted run's")
+        # the CLI's rmat is the graph phase's (one n, m and seed)
+        require(np.array_equal(canonical(plain), expect),
+                "ingest CLI: labels differ from scipy's")
+        require(np.array_equal(canonical(np.load(tmp / "chunked.npy")),
+                               chunk_expect),
+                "ingest CLI --chunked: labels differ from scipy's")
+        print(f"[cells] ingest CLIs (n=2^{log_n}, 2^{log_m} edges): plain == "
+              f"resumed == scipy's labels; --chunked == scipy's on its "
+              f"stream; {time.perf_counter() - clis['t0']:.1f} s in all")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _shims_on_card(torch, g, expect) -> None:
+    """The legacy shims on the graph phase's graph, each against scipy,
+    with the launches each made."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import distributed as tdist
+    from repro_torch.core import driver
+    from repro_torch.core.finish import get_finish
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    def run(what, fn):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            labels = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        labels = labels.cpu().numpy()[: g.n]
+        require(np.array_equal(canonical(labels), expect),
+                f"shim {what}: labels differ from scipy's")
+        print(f"[cells] shim {what}: labels == scipy's; wall {wall:.4f} s; "
+              f"launches {json.dumps(counts)}")
+        return counts
+
+    run('connectivity(g, sample="kout", finish="uf_sync")',
+        lambda: driver.connectivity(g, sample="kout", finish="uf_sync"))
+    run('get_finish("liu_tarjan_CRFA") through run_connectivity',
+        lambda: driver.run_connectivity(g, None,
+                                        get_finish("liu_tarjan_CRFA"))[0])
+    multihost.initialize()
+    try:
+        mesh = make_smoke_mesh("cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            prog = tdist.make_replicated_connectivity(
+                mesh, ("data", "model"), rounds=SHIM_MESH_ROUNDS)
+            step = tdist.make_replicated_step(mesh, ("data", "model"))
+        P0 = torch.arange(g.n + 1, dtype=torch.int32, device="cuda")
+        out = {}
+
+        def legacy():
+            out["P"] = prog(P0, g.senders, g.receivers)
+            return out["P"]
+
+        counts = run(f"make_replicated_connectivity(rounds="
+                     f"{SHIM_MESH_ROUNDS}) at one rank", legacy)
+        require(torch.equal(step(out["P"], g.senders, g.receivers),
+                            out["P"]),
+                "shim make_replicated_connectivity: not at its fixpoint")
+        require(counts["scatter_min"] > 0 and counts["pointer_jump"] > 0,
+                "shim make_replicated_connectivity: scatter_min or "
+                "pointer_jump never launched")
+    finally:
+        multihost.shutdown()
+
+
+def phase_cells_ranks(torch, seed: int, world: int, card: str) -> None:
+    """``--ranks N``: the two sharded cells at their published sizes on a
+    (data, model) mesh over N processes of this script, one rank a card over
+    NCCL; every rank generates its own edge block and checks the gathered
+    labels."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cells_"))
+    try:
+        (tmp / "job.json").write_text(json.dumps(
+            {"cells": True, "world": world, "backend": "cpu:gloo,cuda:nccl",
+             "seed": seed, "card": card, "log_n": DEFAULT_GRAPH[0]}))
+        for r, log in enumerate(_run_rank_procs(tmp, world, "cells")):
+            for line in log.splitlines():
+                if line.startswith("[cells]"):
+                    print(f"[cells] {world} ranks, rank {r}:{line[7:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_cells(rank: int, d: Path, job: dict) -> int:
+    """One rank of phase_cells_ranks."""
+    import torch
+
+    from repro_torch.launch import multihost
+    from repro_torch.launch.mesh import make_smoke_mesh
+
+    multihost.initialize(init_method=f"file://{d}/rendezvous",
+                         num_processes=job["world"], process_id=rank,
+                         backend=job["backend"], timeout=300)
+    try:
+        mesh = make_smoke_mesh("cuda")
+        print(f"[cells] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} "
+              f"on cuda:{torch.cuda.current_device()}", flush=True)
+        sharded_cells(torch, cell_arch(job["log_n"]), mesh, job["seed"],
+                      False, job["card"])
+    finally:
+        multihost.shutdown()
+    return 0
+
+
 def phase_dlrm(torch, cap: int, seed: int, results: dict):
     """DLRM-RM2 serving on the card: each cell through the embedding_bag
     kernel against the same model through the plain version. Returns the
@@ -3475,6 +4149,8 @@ def main() -> int:
             expect, _ = timed("oracle", phase_oracle, g)
             timed("ranks", phase_ranks, torch, g, expect, args.seed,
                   args.ranks, card)
+            timed("cells ranks", phase_cells_ranks, torch, args.seed,
+                  args.ranks, card)
             print(json.dumps({"ok": True, "device": device}))
             return 0
         # the DLRM phases' size cap: at the default 2^22 it cuts nothing, so
@@ -3500,6 +4176,8 @@ def main() -> int:
               args.seed, exact, card, dyn, apps)
         timed("tune", phase_tune, torch, g, expect,
               card)
+        timed("cells", phase_cells, torch, g, expect, args.seed, args.log_n,
+              args.log_m, exact, card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,

@@ -7,6 +7,20 @@ import dataclasses
 import importlib
 from typing import Any, Dict
 
+# the reference's arch ids, in its order; the port registers the ones it
+# has ported (the LM and GNN models are ROADMAP Queue 1 item 16)
+ARCH_IDS = [
+    # LM-family (5)
+    "h2o-danube-3-4b", "qwen3-4b", "stablelm-3b",
+    "deepseek-moe-16b", "granite-moe-3b-a800m",
+    # GNN (4)
+    "pna", "egnn", "gin-tu", "nequip",
+    # recsys (1)
+    "dlrm-rm2",
+    # the paper's own workload
+    "connectit",
+]
+
 RECSYS_SHAPES: Dict[str, dict] = {
     "train_batch": dict(kind="train", batch=65536),
     "serve_p99": dict(kind="serve", batch=512),
@@ -14,14 +28,36 @@ RECSYS_SHAPES: Dict[str, dict] = {
     "retrieval_cand": dict(kind="retrieval", batch=1, n_candidates=1_000_000),
 }
 
+# ConnectIt production-scale cells: the reference's, key for key.
+CONNECTIT_SHAPES: Dict[str, dict] = {
+    "static_1b_edges": dict(kind="static", n=1 << 26, m=1 << 30,
+                            labels="replicated", rounds=8),
+    "static_8b_edges_sharded": dict(kind="static", n=1 << 28, m=1 << 31,
+                                    labels="sharded", rounds=8),
+    "ingest_256m_batch": dict(kind="ingest", n=1 << 26, batch=1 << 28,
+                              queries=1 << 20, rounds=4),
+    "static_8b_sharded_fused": dict(kind="static", n=1 << 28, m=1 << 31,
+                                    labels="sharded", rounds=8, jumps=8,
+                                    variant="fused"),
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str            # recsys (lm | gnn | connectit: not ported yet)
+    family: str            # recsys | connectit (lm | gnn: not ported yet)
     model: Any
     shapes: Dict[str, dict]
     smoke: Dict[str, Any]  # reduced-config overrides for CPU tests
+
+    def shape_names(self) -> list[str]:
+        return list(self.shapes)
+
+    def supports(self, shape_name: str) -> bool:
+        """Whether the arch runs the shape. The reference's one refusal,
+        a long-context LM shape without sub-quadratic attention, is of a
+        family the port has not yet (ROADMAP Queue 1 item 16)."""
+        return shape_name in self.shapes
 
 
 _REGISTRY: Dict[str, Arch] = {}
@@ -41,11 +77,14 @@ def get_arch(name: str) -> Arch:
 
 
 def all_archs() -> list[str]:
+    """The registered archs in the reference's order (``ARCH_IDS``)."""
     if not _REGISTRY:
         load_all()
-    return list(_REGISTRY)
+    return [a for a in ARCH_IDS if a in _REGISTRY]
 
 
 def load_all() -> None:
+    for mod in ["connectit_cfg"]:
+        importlib.import_module(f"repro_torch.configs.{mod}")
     for mod in ["dlrm_rm2"]:
         importlib.import_module(f"repro_torch.configs.legacy.{mod}")

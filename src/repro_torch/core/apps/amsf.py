@@ -21,6 +21,7 @@ each cost one host compare, as every finish loop of the port does.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import numpy as np
@@ -28,6 +29,7 @@ import torch
 
 from ...graphs.containers import Graph
 from ..driver import bucket_size, forest_edges  # noqa: F401  (re-exported)
+from ..finish import make_forest_finish
 from ..primitives import (
     INT_MAX,
     full_compress,
@@ -222,3 +224,45 @@ def forest_weight(edges: np.ndarray, g: Graph, weights) -> float:
         raise KeyError("forest edge not present in the graph's edge list")
     w = weights[: g.m][order[pos]].cpu().numpy()
     return float(w.sum())
+
+
+# ---------------------------------------------------------------------------
+# Legacy entrypoints (deprecation shims over the spec path).
+# ---------------------------------------------------------------------------
+
+_DEPRECATION = ("%s is deprecated; use repro_torch.api.ConnectIt(variant)"
+                ".amsf(g, weights, spec=%r)")
+
+
+def _legacy_amsf(g: Graph, weights, *, eps: float, skip: bool):
+    forest_fn = make_forest_finish("uf_sync", compress="full")
+    P, fu, fv, _, _, _ = amsf_device(
+        init_labels(g.n, device=g.device), *init_forest(g.n, device=g.device),
+        g.senders, g.receivers, torch.as_tensor(weights, device=g.device),
+        eps=float(eps), skip=skip, forest_fn=forest_fn)
+    return forest_edges(fu, fv), P
+
+
+def amsf_nf(g: Graph, weights, *, eps: float = 0.25):
+    """Deprecated: ``ConnectIt(v).amsf(g, weights, "amsf")`` → (host forest
+    edges, labels)."""
+    warnings.warn(_DEPRECATION % ("amsf_nf", "amsf"),
+                  DeprecationWarning, stacklevel=2)
+    return _legacy_amsf(g, weights, eps=eps, skip=False)
+
+
+def amsf_nf_s(g: Graph, weights, *, eps: float = 0.25):
+    """Deprecated: ``ConnectIt(v).amsf(g, weights, "amsf(skip=lmax)")``."""
+    warnings.warn(_DEPRECATION % ("amsf_nf_s", "amsf(skip=lmax)"),
+                  DeprecationWarning, stacklevel=2)
+    return _legacy_amsf(g, weights, eps=eps, skip=True)
+
+
+def amsf_coo(g: Graph, weights, *, eps: float = 0.25):
+    """Deprecated: ``ConnectIt(v).amsf(g, weights, "amsf(mode=coo)")``."""
+    warnings.warn(_DEPRECATION % ("amsf_coo", "amsf(mode=coo)"),
+                  DeprecationWarning, stacklevel=2)
+    forest_fn = make_forest_finish("uf_sync", compress="full")
+    P, fu, fv, _, _, _, _ = amsf_coo_run(g, weights, eps=eps,
+                                         forest_fn=forest_fn)
+    return forest_edges(fu, fv), P

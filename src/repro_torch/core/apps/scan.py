@@ -19,12 +19,14 @@ point.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable
 
 import numpy as np
 import torch
 
 from ...graphs.containers import Graph
+from ..finish import resolve_finish
 from ..primitives import full_compress, init_labels, write_min
 
 
@@ -118,4 +120,23 @@ def gs_query_sequential(g: Graph, sims, eps: float, *, mu: int = 3):
                         comp.append(w)
                     elif not is_core[w]:
                         labels[w] = min(labels[w], cid)
+    return labels, is_core
+
+
+# ---------------------------------------------------------------------------
+# Legacy entrypoint (deprecation shim over the spec path).
+# ---------------------------------------------------------------------------
+
+def gs_query_parallel(g: Graph, sims, eps: float, *, mu: int = 3,
+                      finish: str = "uf_sync_full"):
+    """Deprecated: use ``repro_torch.api.ConnectIt(variant).scan(g, sims,
+    "scan(eps=...,mu=...)")`` → (labels, is_core)."""
+    warnings.warn(
+        "gs_query_parallel is deprecated; use repro_torch.api.ConnectIt"
+        "(variant).scan(g, sims, spec='scan(eps=...,mu=...)')",
+        DeprecationWarning, stacklevel=2)
+    labels, is_core, _, _ = gs_query_device(
+        g.senders, g.receivers, g.edge_mask,
+        torch.as_tensor(sims, device=g.device), eps=float(eps), mu=int(mu),
+        finish_fn=resolve_finish(finish), n=g.n)
     return labels, is_core

@@ -42,6 +42,7 @@ equal on every rank.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -634,3 +635,171 @@ def make_sharded_dynamic(mesh, edge_axes: Sequence[str], label_axis: str,
         return take(full, qa) == take(full, qb)
 
     return DynamicPrograms(update, query, _dynamic_used(mesh, edge_axes, n))
+
+
+# ---------------------------------------------------------------------------
+# Legacy factories (deprecation shims; the reference's pre-ExecutionSpec
+# programs, round for round).
+#
+# These hardwire ``jumps`` pointer-jump hops a round, run a fixed number of
+# rounds, and share no stats with the session layer. Like every program
+# above, each takes this rank's blocks: its edge block, and the whole labels
+# (replicated) or its window of the label axis (sharded). The proposals go
+# through ``ops.scatter_min`` and the ``P[P]`` hops through
+# ``ops.pointer_jump``; the fused round's hops gather through the
+# round-start labels (``take``), as the reference's do.
+# New code builds a ``repro_torch.api.ExecutionSpec`` (or uses
+# ``repro_torch.core.execution.make_backend``).
+# ---------------------------------------------------------------------------
+
+_DEPRECATION = (
+    "%s is deprecated; declare the placement with "
+    "repro_torch.api.ExecutionSpec (e.g. ConnectIt(spec, "
+    "exec='replicated(x)')) or build programs via "
+    "repro_torch.core.execution.make_backend")
+
+
+def _warn_legacy(name: str) -> None:
+    warnings.warn(_DEPRECATION % name, DeprecationWarning, stacklevel=3)
+
+
+def _local_proposals(labels, s, r):
+    """Scatter-min proposals of sender labels into receiver slots (and the
+    reverse) on a buffer of the dtype's max."""
+    buf = torch.full_like(labels, torch.iinfo(labels.dtype).max)
+    buf = ops.scatter_min(buf, r, take(labels, s))
+    return ops.scatter_min(buf, s, take(labels, r))
+
+
+def _jump_min(labels):
+    """One ``labels = min(labels, labels[labels])`` hop."""
+    return torch.minimum(labels, ops.pointer_jump(labels, k=1))
+
+
+def make_replicated_step(mesh, axes: Sequence[str], *, jumps: int = 2,
+                         _warn: bool = True):
+    """Deprecated: one fixed pointer-jump round; see
+    ``make_replicated_finish``."""
+    if _warn:
+        _warn_legacy("make_replicated_step")
+    axes = tuple(axes)
+
+    def step(labels, s, r):
+        prop = coll.pmin(_local_proposals(labels, s, r), mesh, axes)
+        labels = torch.minimum(labels, prop)
+        for _ in range(jumps):
+            labels = _jump_min(labels)
+        return labels
+
+    return step
+
+
+def _fixed_rounds(step, rounds: int):
+    def run(labels, senders, receivers):
+        for _ in range(rounds):
+            labels = step(labels, senders, receivers)
+        return labels
+
+    return run
+
+
+def make_replicated_connectivity(mesh, axes: Sequence[str], *, rounds: int,
+                                 jumps: int = 2):
+    """Deprecated: fixed-round replicated connectivity."""
+    _warn_legacy("make_replicated_connectivity")
+    return _fixed_rounds(
+        make_replicated_step(mesh, axes, jumps=jumps, _warn=False), rounds)
+
+
+def make_sharded_step(mesh, edge_axes: Sequence[str], label_axis: str, *,
+                      jumps: int = 2, use_reduce_scatter: bool = False,
+                      _warn: bool = True):
+    """Deprecated: one sharded-label pointer-jump round."""
+    if _warn:
+        _warn_legacy("make_sharded_step")
+    edge_axes = tuple(edge_axes)
+    merge_axes = tuple(dict.fromkeys(edge_axes + (label_axis,)))
+    nshards = coll.axis_size(mesh, label_axis)
+
+    def window(full, shard_len):
+        lo = coll.axis_index(mesh, label_axis) * shard_len
+        return full[lo: lo + shard_len]
+
+    def step(labels_shard, s, r):
+        shard_len = labels_shard.shape[0]
+        labels = coll.all_gather(labels_shard, mesh, (label_axis,))
+        prop = _local_proposals(labels, s, r)
+        if use_reduce_scatter:
+            chunks = prop.reshape(nshards, shard_len)
+            prop_local = coll.all_to_all(chunks, mesh, label_axis).amin(0)
+            prop_local = coll.pmin(prop_local, mesh, edge_axes)
+        else:
+            prop_local = window(coll.pmin(prop, mesh, merge_axes), shard_len)
+        new_shard = torch.minimum(labels_shard, prop_local)
+        full = coll.all_gather(new_shard, mesh, (label_axis,))
+        for _ in range(jumps):
+            full = _jump_min(full)
+        return window(full, shard_len).clone()
+
+    return step
+
+
+def make_sharded_connectivity(mesh, edge_axes: Sequence[str],
+                              label_axis: str, *, rounds: int, jumps: int = 2,
+                              use_reduce_scatter: bool = False):
+    """Deprecated: fixed-round sharded connectivity."""
+    _warn_legacy("make_sharded_connectivity")
+    return _fixed_rounds(
+        make_sharded_step(mesh, edge_axes, label_axis, jumps=jumps,
+                          use_reduce_scatter=use_reduce_scatter,
+                          _warn=False), rounds)
+
+
+def make_sharded_step_fused(mesh, edge_axes: Sequence[str], label_axis: str,
+                            *, jumps: int = 2, _warn: bool = True):
+    """Deprecated: single-gather sharded round (use ExecutionSpec
+    ``:fused``). Its hops read the round-start labels."""
+    if _warn:
+        _warn_legacy("make_sharded_step_fused")
+    edge_axes = tuple(edge_axes)
+    nshards = coll.axis_size(mesh, label_axis)
+
+    def step(labels_shard, s, r):
+        shard_len = labels_shard.shape[0]
+        labels = coll.all_gather(labels_shard, mesh, (label_axis,))
+        jumped = torch.minimum(labels, _local_proposals(labels, s, r))
+        for _ in range(jumps):
+            jumped = torch.minimum(jumped, take(labels, jumped))
+        chunks = jumped.reshape(nshards, shard_len)
+        prop_local = coll.all_to_all(chunks, mesh, label_axis).amin(0)
+        prop_local = coll.pmin(prop_local, mesh, edge_axes)
+        return torch.minimum(labels_shard, prop_local)
+
+    return step
+
+
+def make_sharded_connectivity_fused(mesh, edge_axes: Sequence[str],
+                                    label_axis: str, *, rounds: int,
+                                    jumps: int = 2):
+    """Deprecated: fixed-round fused sharded connectivity."""
+    _warn_legacy("make_sharded_connectivity_fused")
+    return _fixed_rounds(
+        make_sharded_step_fused(mesh, edge_axes, label_axis, jumps=jumps,
+                                _warn=False), rounds)
+
+
+def make_streaming_ingest(mesh, axes: Sequence[str], *, rounds: int = 4,
+                          jumps: int = 2):
+    """Deprecated: folded into the execution-aware
+    ``repro_torch.api.Stream`` (``ConnectIt(spec,
+    exec='replicated(...)').stream(n)``). ``ingest(labels, bu, bv, qa, qb)
+    -> (labels, answers)`` on this rank's batch and query blocks."""
+    _warn_legacy("make_streaming_ingest")
+    run = _fixed_rounds(make_replicated_step(mesh, axes, jumps=jumps,
+                                             _warn=False), rounds)
+
+    def ingest(labels, bu, bv, qa, qb):
+        labels = run(labels, bu, bv)
+        return labels, take(labels, qa) == take(labels, qb)
+
+    return ingest

@@ -24,13 +24,14 @@ the sampler's partial forest.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..graphs.containers import Graph, round_up
-from .finish import uf_sync_forest
+from .finish import resolve_finish, uf_sync_forest
 from .primitives import (
     full_compress,
     init_labels,
@@ -39,6 +40,7 @@ from .primitives import (
     relabel_lmax,
     restore_lmax,
 )
+from .sampling import resolve_sampler
 
 
 @dataclasses.dataclass
@@ -234,3 +236,69 @@ def run_spanning_forest(
     stats.edges_per_device = (stats.edges_finish,)
     stats.dispatch_sizes = (stats.edges_finish_padded,)
     return forest_edges(st.fu, st.fv), stats
+
+
+# ---------------------------------------------------------------------------
+# Legacy string-keyed entrypoints (deprecation shims over the impl above).
+# ---------------------------------------------------------------------------
+
+_DEPRECATION = ("%s with flat string keys is deprecated; build a "
+                "repro_torch.api.VariantSpec and use repro_torch.api.ConnectIt "
+                "instead")
+
+
+def connectivity(
+    g: Graph,
+    *,
+    sample: Optional[str] = None,
+    finish: str = "uf_sync",
+    generator: Optional[torch.Generator] = None,
+    return_stats: bool = False,
+):
+    """Deprecated: use ``repro_torch.api.ConnectIt(spec).connectivity(g)``.
+    ``generator`` stands in for the reference's ``key``."""
+    warnings.warn(_DEPRECATION % "connectivity(g, sample=..., finish=...)",
+                  DeprecationWarning, stacklevel=2)
+    sampler_fn = None if sample is None else resolve_sampler(sample)
+    labels, stats = run_connectivity(
+        g, sampler_fn, resolve_finish(finish), generator,
+        variant=f"{sample or 'none'}+{finish}")
+    if return_stats:
+        return labels, stats
+    return labels
+
+
+def connectivity_fused(P, senders, receivers, finish: str = "uf_sync",
+                       use_sampling_relabel: bool = False):
+    """Deprecated single-dispatch connectivity on a (pre-sampled) labeling
+    → ``(P, rounds)``, ``P`` the ``(n + 1,)`` min-vertex-id canonical labels.
+    ``run_connectivity_fused`` (or ``ConnectIt(spec).connectivity(g,
+    fused=True)``) is the replacement."""
+    warnings.warn(_DEPRECATION % "connectivity_fused(..., finish=...)",
+                  DeprecationWarning, stacklevel=2)
+    if use_sampling_relabel:
+        P = full_compress(P)
+        lmax, _ = most_frequent(P)
+        P = relabel_lmax(P, lmax)
+    return _finish_phase(P, senders, receivers, resolve_finish(finish))
+
+
+def spanning_forest(
+    g: Graph,
+    *,
+    sample: Optional[str] = None,
+    generator: Optional[torch.Generator] = None,
+) -> np.ndarray:
+    """Deprecated: use ``repro_torch.api.ConnectIt(spec).spanning_forest(g)``
+    → the host ``(k, 2)`` forest edges."""
+    warnings.warn(_DEPRECATION % "spanning_forest(g, sample=...)",
+                  DeprecationWarning, stacklevel=2)
+    sampler_fn = None if sample is None else resolve_sampler(sample)
+    return run_spanning_forest(g, sampler_fn, generator)[0]
+
+
+def connected_components(g: Graph, **kw) -> np.ndarray:
+    """Convenience: numpy canonical labels (delegates to the legacy shim)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        return connectivity(g, **kw).cpu().numpy()

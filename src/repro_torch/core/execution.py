@@ -56,6 +56,7 @@ from . import driver, streaming
 from .apps import amsf as amsf_impl
 from .apps import scan as scan_impl
 from .distributed import (
+    StreamPrograms,
     make_replicated_amsf,
     make_replicated_dynamic,
     make_replicated_finish,
@@ -616,6 +617,11 @@ class _MeshBackend(_Backend):
         path)."""
         return self._build_finish(finish_fn)
 
+    def stream_programs(self, finish_fn) -> StreamPrograms:
+        """The raw insert, query and process programs on this rank's
+        blocks (``stream_ops`` is the session path)."""
+        return self._build_stream(finish_fn)
+
     def _prep_edges(self, g, sampler_fn, generator, stats):
         """Sampling phase + compaction + shard-even padding, the same on
         every rank. Without sampling there is nothing to compact, and the
@@ -667,7 +673,7 @@ class _MeshBackend(_Backend):
         return labels[: g.n], stats
 
     def stream_ops(self, n: int, finish_fn) -> streaming.StreamOps:
-        progs = self._build_stream(finish_fn)
+        progs = self.stream_programs(finish_fn)
 
         def insert(state, u, v):
             return progs.insert(state, *self._edge_block(u, v))

@@ -34,6 +34,7 @@ spanning-forest edge per hooked root (paper §3.4).
 from __future__ import annotations
 
 import inspect
+import warnings
 from typing import Callable, NamedTuple
 
 import torch
@@ -52,6 +53,7 @@ from .primitives import (
     rewrite_edges,
     write_min,
 )
+from .registry import make_legacy_resolver
 
 FinishFn = Callable[..., tuple]
 
@@ -283,6 +285,50 @@ _FACTORIES: dict = {
 METHODS = tuple(sorted(_FACTORIES))
 # make_finish(method, **params) -> the memoized finish callable
 make_finish = memoized_factory("finish method", _FACTORIES)
+
+
+# ---------------------------------------------------------------------------
+# Legacy string-keyed entrypoints (deprecation shims).
+#
+# The seed exposed one registration per (method, parameter) combination;
+# those flat names remain valid through ``get_finish`` (warns) and
+# ``resolve_finish`` (silent, for code paths that accept legacy names on
+# their own deprecated surface and must not double-warn).
+# ---------------------------------------------------------------------------
+
+_LEGACY_FINISH: dict[str, tuple[str, dict]] = {
+    "uf_sync": ("uf_sync", {}),  # paper-fastest analogue (FindNaive)
+    "uf_sync_naive": ("uf_sync", {"compress": "naive"}),
+    "uf_sync_halve": ("uf_sync", {"compress": "halve"}),
+    "uf_sync_full": ("uf_sync", {"compress": "full"}),
+    "shiloach_vishkin": ("shiloach_vishkin", {}),
+    "label_prop": ("label_prop", {}),
+    "stergiou": ("stergiou", {}),
+    "liu_tarjan": ("liu_tarjan", {}),  # paper-fastest LT variant (CRFA)
+}
+_LEGACY_FINISH.update({
+    f"liu_tarjan_{v}": ("liu_tarjan", {"variant": v})
+    for v in LIU_TARJAN_VARIANTS
+})
+
+resolve_finish = make_legacy_resolver(_LEGACY_FINISH, make_finish,
+                                      "finish method")
+
+
+def get_finish(name: str) -> FinishFn:
+    """Deprecated: use ``make_finish(method, **params)`` or
+    ``repro_torch.api``."""
+    warnings.warn(
+        "get_finish(name) with flat string keys is deprecated; use "
+        "make_finish(method, **params) or repro_torch.api.FinishSpec/"
+        "VariantSpec",
+        DeprecationWarning, stacklevel=2)
+    return resolve_finish(name)
+
+
+def finish_names() -> list[str]:
+    """Legacy flat name list (kept for the string-keyed shim surface)."""
+    return sorted(_LEGACY_FINISH)
 
 
 # ---------------------------------------------------------------------------

@@ -31,6 +31,7 @@ through ``ops.scatter_min`` (``write_min``).
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional
 
 import torch
@@ -45,6 +46,7 @@ from .primitives import (
     init_labels,
     write_min,
 )
+from .registry import make_legacy_resolver
 
 # (g, generator, *, want_forest=False) -> labels, or a ForestState
 SamplerFn = Callable[..., object]
@@ -263,3 +265,67 @@ def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
 _FACTORIES: dict = {"kout": make_kout, "bfs": make_bfs, "ldd": make_ldd}
 # make_sampler(scheme, **params) -> the memoized sampler callable
 make_sampler = memoized_factory("sampling scheme", _FACTORIES)
+
+
+# ---------------------------------------------------------------------------
+# Legacy string-keyed entrypoints (deprecation shims).
+# ---------------------------------------------------------------------------
+
+_LEGACY_SAMPLERS: dict[str, tuple[str, dict]] = {
+    "kout": ("kout", {}),  # paper default: hybrid, k=2
+    "kout_afforest": ("kout", {"variant": "afforest"}),
+    "kout_pure": ("kout", {"variant": "pure"}),
+    "kout_hybrid": ("kout", {"variant": "hybrid"}),
+    "kout_maxdeg": ("kout", {"variant": "maxdeg"}),
+    "bfs": ("bfs", {}),
+    "ldd": ("ldd", {}),
+}
+
+# silent resolver (internal drivers never pass per-call kwargs)
+resolve_sampler = make_legacy_resolver(_LEGACY_SAMPLERS, make_sampler,
+                                       "sampler")
+
+# the seed's sampler callables accepted per-call keyword parameters; the
+# deprecation shim translates them onto the factory parameterization
+_LEGACY_CALL_KW: dict[str, dict[str, str]] = {
+    "kout": {},
+    "bfs": {"c": "num_sources", "threshold": "threshold"},
+    "ldd": {"beta": "beta", "max_rounds": "max_rounds"},
+}
+
+
+def get_sampler(name: str) -> SamplerFn:
+    """Deprecated: use ``make_sampler(scheme, **params)`` or
+    ``repro_torch.api``.
+
+    Returns a wrapper preserving the seed's call surface, including its
+    per-call keyword parameters (``c``/``threshold``/``beta``/...); the
+    reference's ``key`` is a ``torch.Generator`` here."""
+    warnings.warn(
+        "get_sampler(name) with flat string keys is deprecated; use "
+        "make_sampler(scheme, **params) or repro_torch.api.SamplingSpec/"
+        "VariantSpec",
+        DeprecationWarning, stacklevel=2)
+    if name not in _LEGACY_SAMPLERS:
+        raise KeyError(
+            f"unknown sampler {name!r}; have {sorted(_LEGACY_SAMPLERS)}")
+    scheme, base_params = _LEGACY_SAMPLERS[name]
+
+    def legacy_sampler(g, generator=None, *, want_forest: bool = False,
+                       **kw):
+        params = dict(base_params)
+        for k, v in kw.items():
+            if k not in _LEGACY_CALL_KW[scheme]:
+                raise TypeError(f"{name} sampler got an unexpected keyword "
+                                f"argument {k!r}")
+            params[_LEGACY_CALL_KW[scheme][k]] = v
+        return make_sampler(scheme, **params)(g, generator,
+                                              want_forest=want_forest)
+
+    legacy_sampler.__name__ = name
+    return legacy_sampler
+
+
+def sampler_names() -> list[str]:
+    """Legacy flat name list (kept for the string-keyed shim surface)."""
+    return sorted(_LEGACY_SAMPLERS)

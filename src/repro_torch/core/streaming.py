@@ -17,6 +17,7 @@ epoch programs behind ``repro_torch.serve``.
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 
 from ..kernels.index import take
 from .driver import bucket_size
+from .finish import resolve_finish
 from .primitives import full_compress, init_labels, num_components, rewrite_edges
 
 
@@ -175,3 +177,31 @@ def snapshot_ops(n: int, finish_fn: Callable, *, device,
         device=torch.device(device),
         donate=bool(donate),
     )
+
+
+# ---------------------------------------------------------------------------
+# Legacy string-keyed entrypoints (deprecation shims).
+# ---------------------------------------------------------------------------
+
+_DEPRECATION = ("%s with flat string finish keys is deprecated; use "
+                "repro_torch.api.ConnectIt(spec).stream(n) or the *_fn "
+                "variants with a resolved finish callable")
+
+
+def insert_batch(state: StreamState, batch_u, batch_v,
+                 finish: str = "uf_sync_full") -> StreamState:
+    """Deprecated: use ``insert_batch_fn`` / ``repro_torch.api`` stream
+    handles."""
+    warnings.warn(_DEPRECATION % "insert_batch(..., finish=...)",
+                  DeprecationWarning, stacklevel=2)
+    return insert_batch_fn(state, batch_u, batch_v, resolve_finish(finish))
+
+
+def process_batch(state: StreamState, batch_u, batch_v, qa, qb,
+                  finish: str = "uf_sync_full"):
+    """Deprecated: use ``process_batch_fn`` / ``repro_torch.api`` stream
+    handles."""
+    warnings.warn(_DEPRECATION % "process_batch(..., finish=...)",
+                  DeprecationWarning, stacklevel=2)
+    return process_batch_fn(state, batch_u, batch_v, qa, qb,
+                            resolve_finish(finish))

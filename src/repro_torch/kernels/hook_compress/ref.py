@@ -18,6 +18,11 @@ import torch
 from ..index import take
 from ..pointer_jump.ref import pointer_jump_ref
 
+# edges proposed per pass of the hook: the proposals read only the
+# round-start labels, so passes over slices of the edges min-combine into
+# the same hooked array, and the int64 temporaries stay a slice's size
+EDGE_CHUNK = 1 << 26
+
 
 def hook_compress_ref(labels: torch.Tensor, senders: torch.Tensor,
                       receivers: torch.Tensor, *, k: int = 1) -> torch.Tensor:
@@ -28,12 +33,13 @@ def hook_compress_ref(labels: torch.Tensor, senders: torch.Tensor,
     (``index.take``)."""
     big = torch.iinfo(labels.dtype).max
     dump = labels.shape[0] - 1
-    pu = take(labels, senders)
-    pv = take(labels, receivers)
-    ppu = torch.where(pu < 0, pu, labels[pu.clamp_min(0).long()])
-    ok = (pu >= 0) & (ppu == pu) & (pv < pu)
-    tgt = torch.where(ok, pu, dump)
-    val = torch.where(ok, pv, big)
-    hooked = labels.scatter_reduce(0, tgt.long(), val, "amin",
-                                   include_self=True)
+    hooked = labels.clone()
+    for lo in range(0, senders.shape[0], EDGE_CHUNK):
+        pu = take(labels, senders[lo: lo + EDGE_CHUNK])
+        pv = take(labels, receivers[lo: lo + EDGE_CHUNK])
+        ppu = torch.where(pu < 0, pu, labels[pu.clamp_min(0).long()])
+        ok = (pu >= 0) & (ppu == pu) & (pv < pu)
+        tgt = torch.where(ok, pu, dump)
+        val = torch.where(ok, pv, big)
+        hooked.scatter_reduce_(0, tgt.long(), val, "amin", include_self=True)
     return pointer_jump_ref(hooked, k=k)

@@ -1,2 +1,3 @@
-"""Seed-era ML stack of the reference (``repro.legacy``), ported as its
-paths are: the DLRM model (serving) and its data stream so far."""
+"""Seed-era stack of the reference (``repro.legacy``), ported as its paths
+are: the DLRM model (serving), the data streams (DLRM batches, streaming
+insert batches) and checkpoints."""

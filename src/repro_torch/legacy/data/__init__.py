@@ -1,15 +1,18 @@
 """Deterministic synthetic data streams (mirrors ``repro.legacy.data``).
 
-Every batch is a function of ``(seed, step)`` alone, drawn on the target
-device from a ``torch.Generator`` seeded with both. The recipe is the
-reference's; the draws are not ``jax.random``'s, so the parity tests hand
-both packages the same numpy inputs instead.
+Every batch is a function of ``(seed, step)`` alone: the DLRM stream's is
+drawn on the target device from a ``torch.Generator`` seeded with both (the
+recipe is the reference's; the draws are not ``jax.random``'s, so the
+parity tests hand both packages the same numpy inputs instead), and the
+edge stream's is a slice of its host edge list.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
+import numpy as np
 import torch
 
 from ...device import DEFAULT_DEVICE, resolve_device
@@ -42,3 +45,32 @@ class RecsysStream:
         labels = (torch.rand(self.batch, generator=g, device=dev)
                   < torch.sigmoid(logit)).to(torch.int32)
         return {"dense": dense, "sparse": sparse, "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class EdgeStream:
+    """Streaming-connectivity insert batches drawn from a host edge list."""
+
+    senders: np.ndarray
+    receivers: np.ndarray
+    batch: int
+    n: int
+    seed: int = 0
+    device: Any = DEFAULT_DEVICE
+
+    def num_batches(self) -> int:
+        return -(-len(self.senders) // self.batch)
+
+    def batch_at(self, step: int) -> dict:
+        """``{"u": (batch,), "v": (batch,)}`` int32 on the stream's device:
+        edges ``[step * batch, (step + 1) * batch)``, the tail padded with
+        the dump id ``n`` on the host."""
+        lo = step * self.batch
+        hi = min(lo + self.batch, len(self.senders))
+        bu = np.full((self.batch,), self.n, np.int32)
+        bv = np.full((self.batch,), self.n, np.int32)
+        bu[: hi - lo] = self.senders[lo:hi]
+        bv[: hi - lo] = self.receivers[lo:hi]
+        dev = resolve_device(self.device)
+        return {"u": torch.from_numpy(bu).to(dev),
+                "v": torch.from_numpy(bv).to(dev)}

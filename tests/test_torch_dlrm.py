@@ -52,7 +52,7 @@ _j_retrieval = jax.jit(jdlrm.retrieval_score, static_argnums=4,
 
 
 def test_registry_matches_jax():
-    assert all_archs() == ["dlrm-rm2"]
+    assert all_archs() == ["dlrm-rm2", "connectit"]
     assert ARCH.family == "recsys"
     assert dataclasses.asdict(ARCH.model) == dataclasses.asdict(J_RM2)
     assert ARCH.shapes == J_RECSYS_SHAPES

@@ -117,6 +117,26 @@ def test_hook_compress_plain_matches_jax(n_pad, m_pad, block_m, k):
     _assert_same(hook_compress_ref(_t(P), _t(s), _t(r), k=k), pallas, ref)
 
 
+@pytest.mark.parametrize("chunk", [1, 7, 64, 4096])
+@pytest.mark.parametrize("m_pad", [0, 100, 1000])
+@pytest.mark.parametrize("k", [0, 2])
+def test_hook_compress_plain_in_edge_slices_matches_jax(monkeypatch, chunk,
+                                                        m_pad, k):
+    """The plain hook proposes EDGE_CHUNK edges a pass: any slice size gives
+    the JAX package's one-pass round, and the result never aliases the
+    input labels (k = 0, no edges)."""
+    from repro_torch.kernels.hook_compress import ref as hook_ref
+    monkeypatch.setattr(hook_ref, "EDGE_CHUNK", chunk)
+    P = _labels_with_virtual_min(256)
+    s = RNG.integers(-300, 300, m_pad).astype(np.int32)
+    r = RNG.integers(0, 256, m_pad).astype(np.int32)
+    want = j_hook_ref(jnp.asarray(P), jnp.asarray(s), jnp.asarray(r), k=k)
+    labels = _t(P)
+    got = hook_compress_ref(labels, _t(s), _t(r), k=k)
+    _assert_same(got, want)
+    assert got.data_ptr() != labels.data_ptr()
+
+
 def _endpoints(n_pad: int, m_pad: int, negative: bool) -> np.ndarray:
     """Edge endpoints in [0, n_pad), or in {-1} ∪ [0, n_pad) with ~10% -1
     as Liu–Tarjan altered edges carry."""
