@@ -81,19 +81,40 @@ Phases, in order; any failure exits non-zero:
               on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
               one (B=65536, L=8, ~10% on the dump row, and with wrapped and
               clamped ids), sum / mean / max, float32 / bfloat16;
+              embedding_bag_backward (float32, no TPU counterpart) on the
+              same table for each mode: RM2's train shape (B=65536, L=1,
+              zipfian), a hub (half the bags on row 0), the multi-hot and
+              the wrapped ids, each against the plain version (index_add_
+              of each position's share) within the worst case of two float32
+              sums of the same terms in other orders, the same bits on a
+              second run, beside index_add_ (sum, L=1) and the zeroing of
+              the gradient alone; then the 26 calls recorded from one
+              full-width train_batch step (RECORDED's run kind "train");
+              threefry_randint (the main path's k-out column: randint
+              over the graph's degrees under PRNGKey(0)'s column key) and
+              threefry_bits (2^22 words) against their plain versions, bit
+              for bit;
   5. small    every variant of enumerate_variants() (148) on a small graph,
               compacted and fused, on the card, against the CPU path and
               scipy; the spanning forest of its 28 forest-capable variants,
               valid on the card and the CPU path, and equal row for row on
               the deterministic samplings;
+  7b. threefry repro_torch.random on the card against the CPU: keys, bits and
+              randint with the graph's degrees as maxval, bit for bit; the
+              graph's k-out selection under PRNGKey(0) (the main path's
+              draw) on the card against the same on a CPU copy; the main
+              path's wall with the default key beside the same path drawing
+              from a torch.Generator (the port's draws before), and the
+              column draw alone each way;
   6. oracle   scipy's labels of the big graph and its sorted edge keys
               (each scipy oracle's CSR input is sorted, counted and, for
               components, deduplicated on the card);
   7. paths    on the big graph, each against the scipy oracle, with wall
               time, stats, peak memory and each kernel's launch count; each
               path names its launches per kernel and finish rounds on the
-              default graph, asserted there (LDD's follow the random stream
-              and are printed):
+              default graph, asserted there (every sampler draws
+              jax.random's numbers from PRNGKey(0), LDD's too); the main
+              path's k-out column is one threefry_randint launch:
                 kout_hybrid_k2+uf_sync_full      compacted, fused (the main path)
                 kout_hybrid_k2+liu_tarjan_PUFA   compacted, fused
                 kout_hybrid_k2+liu_tarjan_CRFA   compacted, fused
@@ -103,7 +124,7 @@ Phases, in order; any failure exits non-zero:
               on the big graph, each forest checked on the host: n -
               #components edges, the graph's components, every edge in the
               graph; wall time, peak memory, launches and finish rounds
-              (asserted on the default graph but for BFS and LDD);
+              (asserted on the default graph);
   9. stream   the graph's undirected edges permuted by --seed through
               ConnectIt(MAIN_VARIANT).stream(n) in batches of 2^20 and, for
               the first 2^22, of 2^16, with 2^16 query pairs a batch: labels
@@ -234,7 +255,26 @@ Phases, in order; any failure exits non-zero:
               8-chunk source, one amsf(skip=lmax) with the main variant and
               one msf, one closed-loop window of the serve phase's static
               server (with the host's waits a commit), and of one DLRM-RM2
-              serve_bulk and one serve_p99 step.
+              serve_bulk and one serve_p99 step;
+ 19. train    DLRM-RM2 training at full width, after the serve model is
+              freed: the train_batch cell (B=65536, 26 x 1,000,448 x 64
+              float32 tables, AdamW with the reference's OptimizerConfig)
+              from init_dlrm(key=PRNGKey(seed)) on RecsysStream batches:
+              one warm step, one counted step (26 embedding_bag and 26
+              embedding_bag_backward launches, nothing else), TRAIN_STEPS
+              timed steps (step wall p50, samples/s, the peak above the
+              model and optimizer state, first and last loss, finite), one
+              traced step; one step twice from the same state (saved to the
+              host), the parameters and moments equal bit for bit, after a
+              diagnostic step under torch.use_deterministic_algorithms
+              (warn_only) that names any op without a deterministic kernel;
+              one step through the kernels against the same step through
+              the plain versions at TRAIN_CHECK_VOCAB rows a table (the
+              loss equal, each leaf within TRAIN_LEAF_TOL of its largest
+              magnitude); python -m repro_torch.launch.train --arch dlrm-rm2
+              --device cuda stopped by --simulate-failure and rerun, its
+              final checkpoint equal leaf for leaf to an uninterrupted
+              run's.
 
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
@@ -281,27 +321,24 @@ PATH_KERNELS = UF_KERNELS + ("edge_relabel", "edge_rewrite")
 # above 0, at any size.
 PATHS = (
     (MAIN_VARIANT, (False, True), (7, 12, 1, 0, 0), 3),
-    ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True), (4, 15, 1, 3, 3), 3),
-    ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True), (4, 16, 9, 0, 4), 4),
+    ("kout_hybrid_k2+liu_tarjan_PUFA", (False, True), (4, 14, 1, 3, 3), 3),
+    ("kout_hybrid_k2+liu_tarjan_CRFA", (False, True), (4, 15, 9, 0, 4), 4),
     ("none+stergiou", (False,), (0, 5, 1, 4, 4), 4),
-    ("ldd_b0.2+uf_sync_full", (False,), (2, 4, 82, 0, 0), 2),
+    ("ldd_b0.2+uf_sync_full", (False,), (3, 5, 81, 0, 0), 3),
 )
-# paths whose counts follow the random stream (LDD's shifts, BFS's
-# sources): printed, not asserted
-RANDOM_STREAM_PATHS = ("ldd_b0.2+uf_sync_full", "bfs_c3+uf_sync_full")
 DEFAULT_GRAPH = (22, 25, 0)  # log n, log m, seed
 # the path whose compacted run reports the two edge kernels' launches
 EDGE_PATH = "kout_hybrid_k2+liu_tarjan_PUFA"
 # spanning forests on the big graph: (variant, (launches of PATH_KERNELS,
-# finish rounds) on the default graph), asserted there but for
-# RANDOM_STREAM_PATHS
+# finish rounds) on the default graph), asserted there. Every sampler draws
+# jax.random's numbers from PRNGKey(0), so the sampled runs are asserted too
 FOREST_PATHS = (
-    (MAIN_VARIANT, ((0, 19, 14, 0, 0), 3)),
+    (MAIN_VARIANT, ((0, 18, 14, 0, 0), 3)),
     ("none+uf_sync_full", ((0, 11, 8, 0, 0), 4)),
     ("kout_afforest_k2+uf_sync_full", ((0, 16, 12, 0, 0), 2)),
-    ("bfs_c3+uf_sync_full", ((0, 9, 20, 0, 0), 4)),
-    ("ldd_b0.2+uf_sync_full", ((0, 4, 166, 0, 0), 2)),
-    ("kout_hybrid_k2+shiloach_vishkin", ((0, 19, 14, 0, 0), 3)),
+    ("bfs_c3+uf_sync_full", ((0, 9, 19, 0, 0), 4)),
+    ("ldd_b0.2+uf_sync_full", ((0, 5, 166, 0, 0), 3)),
+    ("kout_hybrid_k2+shiloach_vishkin", ((0, 18, 14, 0, 0), 3)),
 )
 # the stream phase's launches of PATH_KERNELS and finish rounds per batch
 # size, and the dynamic phase's for (a) and (b), on the default graph
@@ -327,7 +364,7 @@ PLACEMENT_COUNTS = {
     (MAIN_VARIANT, "sharded(x,y)"): ((8, 13, 3, 0, 0), 2),
     ("none+uf_sync_full", "replicated(x)"): ((5, 8, 1, 0, 0), 2),
     ("none+uf_sync_full", "sharded(x)"): ((5, 8, 2, 0, 0), 2),
-    (EDGE_PATH, "sharded(x)"): ((4, 17, 3, 5, 5), 2),
+    (EDGE_PATH, "sharded(x)"): ((4, 16, 3, 5, 5), 2),
 }
 # the placements phase's stream under sharded(x), 2^20-edge batches
 PLACEMENT_STREAM_COUNTS = ((135, 177, 63, 0, 0), 64)
@@ -392,6 +429,15 @@ BAG_MODES = ("sum", "mean", "max")
 # (exact); longer bags sum in another order (the reference test's
 # tolerances, rtol = atol)
 BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
+# the train phase: timed steps at full width; the vocab of its kernels-vs-
+# plain step; that step's tolerance per leaf, relative to the leaf's largest
+# magnitude (the table gradients are float32 sums of up to ~4,000 terms in
+# another order: the kernel's chunks against index_add_'s atomics), moments
+# and parameters; and the CLI run's steps, checkpoint interval and failure
+TRAIN_STEPS = 10
+TRAIN_CHECK_VOCAB = 1 << 16
+TRAIN_LEAF_TOL = {"moments": 1e-4, "params": 1e-6}
+TRAIN_CLI = dict(steps=12, every=4, fail=6)
 
 
 class SmokeFailure(Exception):
@@ -632,6 +678,8 @@ RECORDED = (
     ("hook_compress", CELL_VARIANT, LATE_RUNS),
     ("pointer_jump", CELL_VARIANT, ("cell", "cell ingest")),
     ("scatter_min", CELL_VARIANT, ("cell sharded",)),
+    # DLRM-RM2: one full-width train_batch step's 26 backward calls
+    ("embedding_bag_backward", "dlrm-rm2", ("train",)),
 )
 # the placement a recorded run's session takes
 RECORDED_EXEC = {"placement sharded": "sharded(x)",
@@ -885,14 +933,16 @@ def _recorded_sets(torch, g, log_m: int, seed: int,
 
     out = []
     wanted = {}
-    for name, variant, runs in RECORDED:
+    # the DLRM run is recorded apart (_embedding_bag_backward_cases)
+    connectivity = [x for x in RECORDED if x[0] in PATH_KERNELS]
+    for name, variant, runs in connectivity:
         for run in runs:
             if (run == late) if late else run not in LATE_RUNS:
                 wanted.setdefault((variant, run), []).append(name)
     recorded = {key: _recorded_calls(torch, g, tuple(names), *key, log_m,
                                      seed)
                 for key, names in wanted.items()}
-    for name, variant, runs in RECORDED:
+    for name, variant, runs in connectivity:
         finish = variant.split("+")[1]
         for run, part in ((run, part) for run in runs
                           if (variant, run) in recorded
@@ -1223,6 +1273,9 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
           f"uncontended proposals, (a) - (c) = {a - c0:.4f} ms of what the "
           f"phase labels add")
     results["embedding_bag"] = _embedding_bag_cases(torch, cap)
+    results["embedding_bag_backward"] = _embedding_bag_backward_cases(
+        torch, cap, seed)
+    results.update(_threefry_cases(torch, g))
     return results
 
 
@@ -1331,6 +1384,292 @@ def _embedding_bag_cases(torch, cap: int) -> dict:
     return main
 
 
+# integer operations of one threefry2x32 block as csrc/threefry.cu runs it:
+# 2 key adds, 20 x (add, rotate, xor), 5 key injections of 3 adds, the
+# counter's high word, the parity word and the output xor
+THREEFRY_OPS = 81
+# randint's span arithmetic besides its two blocks: subtract, compare,
+# select, 4 remainders, 2 multiplies, 2 adds, 1 remainder
+RANDINT_OPS = 12
+
+
+def _threefry_cases(torch, g) -> dict:
+    """The threefry kernels against their plain versions, bit for bit, at
+    the main path's shapes: randint over the graph's n degrees (the k-out
+    column of PRNGKey(0), as the main path draws it) and 2^22 bits (an
+    LDD shift draw over n vertices, a DLRM table's slice)."""
+    from repro_torch import random as trandom
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.threefry.ref import (
+        threefry_bits_ref,
+        threefry_randint_ref,
+    )
+
+    n = g.n
+    span = (g.indptr[1: n + 1] - g.indptr[:n]).clamp_min(1).contiguous()
+    column = trandom.split(trandom.PRNGKey(0, device="cuda"), 1)[0]
+    keys = [tuple(k) for k in trandom.split(column, 2).tolist()]
+    words = tuple(trandom.PRNGKey(0, device="cuda").tolist())
+    cases = {
+        "threefry_randint": dict(
+            kernel=lambda: ops.KERNELS["threefry_randint"](span, 0, *keys),
+            plain=lambda: threefry_randint_ref(span, 0, *keys),
+            nbytes=8 * n, nops=n * (2 * THREEFRY_OPS + RANDINT_OPS),
+            shape=f"maxval ({n},) int32, the graph's degrees"),
+        "threefry_bits": dict(
+            kernel=lambda: ops.KERNELS["threefry_bits"](
+                torch.empty(1 << 22, dtype=torch.int64, device="cuda"),
+                *words, 0),
+            plain=lambda: threefry_bits_ref(
+                torch.empty(1 << 22, dtype=torch.int64, device="cuda"),
+                *words, 0),
+            nbytes=8 << 22, nops=(1 << 22) * THREEFRY_OPS,
+            shape="2^22 int64 words"),
+    }
+    out = {}
+    for name, c in cases.items():
+        got, want = c["kernel"](), c["plain"]()
+        torch.cuda.synchronize()
+        require(torch.equal(got, want), f"{name}: kernel disagrees with its "
+                f"plain version")
+        ms = time_ms(torch, c["kernel"], iters=20)
+        plain_ms = time_ms(torch, c["plain"], iters=5)
+        b_ms, b_by = bound_ms(c["nbytes"], c["nops"])
+        print(f"[kernels] {name} {c['shape']}: exact match; kernel_ms="
+              f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (torch's "
+              f"generators draw other numbers) bound_ms={b_ms:.4f} ({b_by}) "
+              f"kernel/bound={ms / b_ms:.2f}")
+        out[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/threefry.cu",
+            "replaces": "none: no Pallas kernel (jax.random's threefry2x32, "
+                        "plain jnp that XLA fuses)",
+            "launches": 0, "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return out
+
+
+def _bag_backward_tol(torch, table, idx, grad_out, mode: str):
+    """Per element, the worst case of two float32 sums of the same k terms
+    in different orders: 2 (k - 1) 2^-24 sum|term|, k the positions that
+    read the row (the plain version's atomics add in any order, the
+    kernel's in its chunks' order)."""
+    from repro_torch.kernels.legacy.embedding_bag.ref import (
+        embedding_bag_backward_ref,
+        wrap_and_clamp,
+    )
+    mag = embedding_bag_backward_ref(table, idx, grad_out.abs(), mode)
+    k = torch.bincount(wrap_and_clamp(idx, table.shape[0]).flatten(),
+                       minlength=table.shape[0]).to(torch.float32)
+    return 2 * (k[:, None] - 1).clamp(min=0) * 2.0 ** -24 * mag
+
+
+class _TrainRecorder:
+    """The (table, idx, grad_out, mode) of every embedding_bag_backward
+    call made while it is entered, the calls still launched as they were."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        from types import SimpleNamespace
+
+        import repro_torch.kernels.legacy as legacy
+
+        # the autograd function reaches the wrapper through the legacy
+        # package's name for its module: that name is patched, so the
+        # wrapper itself, and its launch count, stay as they are
+        self._legacy, self._module = legacy, legacy._embedding_bag_kernel
+        launch = self._module.embedding_bag_backward
+
+        def record(table, idx, grad_out, *, mode="sum"):
+            self.calls.append((table, idx.clone(), grad_out.clone(), mode))
+            return launch(table, idx, grad_out, mode=mode)
+        legacy._embedding_bag_kernel = SimpleNamespace(
+            **{**vars(self._module), "embedding_bag_backward": record})
+        return self
+
+    def __exit__(self, *exc):
+        self._legacy._embedding_bag_kernel = self._module
+
+
+def _rm2_config(cap: int, vocab: int = RM2_VOCAB):
+    """DLRM-RM2's config, its vocab cut to ``min(vocab, cap)``."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch("dlrm-rm2").model
+    v = min(vocab, cap)
+    if v < RM2_VOCAB:
+        cfg = dataclasses.replace(cfg, vocab_sizes=(v,) * cfg.n_sparse)
+    return cfg
+
+
+def _record_train(torch, cap: int, seed: int) -> list:
+    """RECORDED's "train" run: one full-width train_batch step from
+    init_dlrm(key=PRNGKey(seed)) on RecsysStream's batch 0, recording its
+    embedding_bag_backward calls (the tables stay referenced; the moments,
+    gradients and batch are freed)."""
+    from repro_torch import random as trandom
+    from repro_torch.launch.steps import train_step
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models import dlrm as dlrm_mod
+
+    cfg = _rm2_config(cap)
+    model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(seed, device="cuda"))
+    state = optim.init_adam(model.params())
+    batch = RecsysStream(batch=min(65536, cap), n_dense=cfg.n_dense,
+                         n_sparse=cfg.n_sparse, vocab=cfg.vocab_sizes[0],
+                         multi_hot=cfg.multi_hot, seed=seed).batch_at(
+                             0, device="cuda")
+    with _TrainRecorder() as rec:
+        train_step(model, state, batch["dense"], batch["sparse"],
+                   batch["labels"])
+    torch.cuda.synchronize()
+    del model, state, batch
+    torch.cuda.empty_cache()
+    return rec.calls
+
+
+def _embedding_bag_backward_cases(torch, cap: int, seed: int) -> dict:
+    """embedding_bag_backward against its plain version: synthetic ids on
+    one RM2-width table for each mode, then the recorded train calls (the
+    JSON's row). The plain version on the card is index_add_ of each
+    position's share; the library call, where one computes the function
+    (sum, L = 1), index_add_ into a zeroed gradient."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.legacy.embedding_bag.ref import (
+        embedding_bag_backward_ref,
+        wrap_and_clamp,
+    )
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models.dlrm import table_rows
+
+    launch = ops.KERNELS["embedding_bag_backward"]
+    vocab = min(RM2_VOCAB, cap)
+    rows, D = table_rows(vocab), 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    table = torch.randn(rows, D, generator=gen, device="cuda") / 8.0
+    table[vocab:] = 0.0
+
+    def zipf_ids(batch: int, bag: int):
+        s = RecsysStream(batch=batch, n_dense=13, n_sparse=1, vocab=vocab,
+                         multi_hot=bag, seed=4).batch_at(0, device="cuda")
+        return s["sparse"][:, 0].contiguous()
+
+    B = min(65536, cap)
+    train_ids = zipf_ids(B, 1)
+    hub = train_ids.clone()
+    hub[torch.rand(hub.shape, generator=gen, device="cuda") < 0.5] = 0
+    multi = zipf_ids(B, 8)
+    multi[torch.rand(multi.shape, generator=gen, device="cuda") < 0.1] = (
+        rows - 1)
+    wrapped = multi.clone()
+    u = torch.rand(wrapped.shape, generator=gen, device="cuda")
+    wrapped[u < 0.01] = -1
+    wrapped[(u >= 0.01) & (u < 0.02)] = -rows - 2
+    wrapped[(u >= 0.02) & (u < 0.03)] = rows + 3
+    synthetic = {"train_shape": train_ids, "hub": hub, "multi_hot": multi,
+                 "wrapped": wrapped}
+    zero_ms = time_ms(torch, lambda: torch.zeros_like(table), iters=20)
+    print(f"[kernels] embedding_bag_backward: zeroing one ({rows}, {D}) "
+          f"float32 gradient alone {zero_ms:.4f} ms (bound "
+          f"{rows * D * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
+
+    def measure(tag: str, calls: list) -> dict:
+        """calls: (table, idx, grad_out, mode); timed back to back."""
+        got = [launch(*c[:3], mode=c[3]) for c in calls]
+        again = [launch(*c[:3], mode=c[3]) for c in calls]
+        want = [embedding_bag_backward_ref(*c) for c in calls]
+        torch.cuda.synchronize()
+        err = 0.0
+        for (t, i, g, mode), a, b, w in zip(calls, got, again, want):
+            require(torch.equal(a, b), f"embedding_bag_backward {tag}: two "
+                    f"runs of one call differ")
+            over = (a - w).abs() - _bag_backward_tol(torch, t, i, g, mode)
+            require(bool((over <= 0).all()),
+                    f"embedding_bag_backward {tag}: kernel disagrees with "
+                    f"its plain version beyond the reordering bound "
+                    f"(by {float(over.max())})")
+            err = max(err, float((a - w).abs().max()))
+        del got, again, want
+        ms = time_ms(torch, lambda: [launch(*c[:3], mode=c[3])
+                                     for c in calls], iters=10)
+        plain_ms = time_ms(torch, lambda: [embedding_bag_backward_ref(*c)
+                                           for c in calls], iters=5)
+        lib_ms = None
+        # index_add_ computes the function where every bag is one id inside
+        # the table, summed
+        if all(c[3] == "sum" and c[1].shape[1] == 1
+               and bool(((c[1] >= 0) & (c[1] < c[0].shape[0])).all())
+               for c in calls):
+            src = [(c[0], c[1].long().flatten(), c[2]) for c in calls]
+
+            def lib():
+                return [torch.zeros_like(t).index_add_(0, i, g)
+                        for t, i, g in src]
+            for a, c in zip(lib(), calls):
+                over = (a - embedding_bag_backward_ref(*c)).abs() - \
+                    _bag_backward_tol(torch, *c)
+                require(bool((over <= 0).all()),
+                        f"index_add_ {tag} differs from the plain version")
+            lib_ms = time_ms(torch, lib, iters=10)
+        # bytes: each call's ids and grad_out read once, its whole
+        # gradient written once (the zeroing, ~all of it), and for max the
+        # distinct table rows read; the touched rows alone beside it
+        total = touched = 0
+        for t, i, g, mode in calls:
+            u = int(torch.unique(wrap_and_clamp(i, t.shape[0])).numel())
+            own = i.numel() * 4 + g.numel() * 4 + (
+                u * t.shape[1] * 4 if mode == "max" else 0)
+            total += own + t.numel() * 4
+            touched += own + u * t.shape[1] * 4
+        b_ms, b_by = bound_ms(total, sum(c[1].numel() * c[0].shape[1]
+                                         for c in calls))
+        t0, i0 = calls[0][0], calls[0][1]
+        print(f"[kernels] embedding_bag_backward {tag}: {len(calls)} x "
+              f"table {tuple(t0.shape)} ids {tuple(i0.shape)}: within the "
+              f"reordering bound (max_abs_err={err:.3e}), the same bits "
+              f"twice; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+              f"bound_ms={b_ms:.4f} ({b_by}, {total} bytes at 3.35 TB/s) "
+              f"touched_rows_bound_ms="
+              f"{touched / HBM_BYTES_PER_S * 1e3:.4f} zeroing_ms="
+              f"{zero_ms * len(calls):.4f}")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "zeroing_ms": zero_ms * len(calls)}
+
+    inputs = {}
+    for ids_name, ids in synthetic.items():
+        g = torch.randn(ids.shape[0], D, generator=gen, device="cuda") / B
+        for mode in BAG_MODES:
+            inputs[f"{ids_name} {mode}"] = measure(
+                f"{ids_name} {mode}", [(table, ids, g, mode)])
+    del table, synthetic
+    torch.cuda.empty_cache()
+    runs = [r for name, _, r in RECORDED if name == "embedding_bag_backward"]
+    main = None
+    for run in (x for r in runs for x in r):
+        calls = _record_train(torch, cap, seed)
+        require(len(calls) == 26, f"train: {len(calls)} backward calls")
+        inputs[run] = main = measure(f"recorded {run}", calls)
+        del calls
+        torch.cuda.empty_cache()
+    return {"name": "embedding_bag_backward", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+            "replaces": "none: no Pallas kernel (the reference's gradient "
+                        "is XLA's transpose of the gather at "
+                        "src/repro/kernels/legacy/embedding_bag/ref.py:20)",
+            "launches": 0, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "inputs": inputs,
+            "main": "train"}
+
+
 def phase_small(torch) -> None:
     """The whole variant grid on a small graph: card vs CPU vs scipy."""
     import numpy as np
@@ -1433,7 +1772,7 @@ def phase_paths(torch, g, expect, results: dict, exact: bool) -> None:
                         f"{variant} {path}: kernel {name} never launched")
             same = (got_counts == want_counts
                     and stats.finish_rounds == want_rounds)
-            if exact and variant not in RANDOM_STREAM_PATHS:
+            if exact:
                 require(same, f"{variant} {path}: launches {got_counts} and "
                         f"finish_rounds {stats.finish_rounds}, want "
                         f"{want_counts} and {want_rounds}")
@@ -1441,19 +1780,91 @@ def phase_paths(torch, g, expect, results: dict, exact: bool) -> None:
                 print(f"[paths] {variant} {path}: launches {got_counts} and "
                       f"finish_rounds {stats.finish_rounds} differ from the "
                       f"default graph's {want_counts} and {want_rounds} "
-                      f"(not asserted: "
-                      f"{'random stream' if exact else 'another graph'})")
+                      f"(not asserted: another graph)")
             print(f"[paths] {variant} {path}: labels == scipy oracle; "
                   f"wall {wall:.4f} s; finish_rounds {stats.finish_rounds}; "
                   f"peak device memory {peak} bytes; launches "
                   f"{json.dumps(counts)}")
             print(f"[paths]   stats {stats}")
             if not fused and variant == MAIN_VARIANT:
-                for name in UF_KERNELS:
+                require(counts["threefry_randint"] > 0,
+                        f"{variant}: the k-out column was not drawn by the "
+                        f"threefry_randint kernel")
+                for name in (*UF_KERNELS, "threefry_randint"):
                     results[name]["launches"] = counts[name]
             if not fused and variant == EDGE_PATH:
                 for name in ("edge_relabel", "edge_rewrite"):
                     results[name]["launches"] = counts[name]
+
+
+def phase_threefry(torch, g, card: str) -> None:
+    """repro_torch.random on the card against the CPU, bit for bit; the
+    main path's k-out selection under PRNGKey(0) on the card against a CPU
+    copy of the graph; the main path's wall with its default key beside the
+    same path drawing from a torch.Generator, and each column draw alone."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch import random as trandom
+    from repro_torch.core.sampling import _random_offsets, _select_kout_edges
+    from repro_torch.graphs import graph_from_arrays
+
+    n = g.n
+    deg = g.indptr[1: n + 1] - g.indptr[:n]
+    span, span_cpu = deg.clamp_min(1), deg.cpu().clamp_min(1)
+    for seed in (0, 1, 2**31 - 1):
+        ck = trandom.PRNGKey(seed, device="cpu")
+        gk = trandom.PRNGKey(seed, device="cuda")
+        pairs = (("split", lambda k: trandom.split(k, 7)),
+                 ("fold_in", lambda k: trandom.fold_in(k, 123)),
+                 ("bits", lambda k: trandom.bits(k, (1 << 20,))),
+                 ("randint", lambda k: trandom.randint(
+                     k, (n,), 0, span if k.is_cuda else span_cpu)))
+        for what, fn in pairs:
+            require(torch.equal(fn(gk).cpu(), fn(ck)),
+                    f"threefry {what} of seed {seed}: the card's differ "
+                    f"from the CPU's")
+    print(f"[threefry] keys (split, fold_in), 2^20 bits and randint over "
+          f"the graph's {n} degrees as maxval: the card's equal the CPU's "
+          f"for seeds 0, 1, 2^31 - 1")
+    host = graph_from_arrays(*(x.cpu().numpy() for x in (
+        g.senders, g.receivers, g.indptr, g.indices)), n, g.m, device="cpu")
+    t0 = time.perf_counter()
+    want = _select_kout_edges(host, trandom.PRNGKey(0, device="cpu"), 2,
+                              "hybrid")
+    cpu_s = time.perf_counter() - t0
+    got = _select_kout_edges(g, trandom.PRNGKey(0, device="cuda"), 2,
+                             "hybrid")
+    require(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+            "threefry: the graph's k-out selection on the card differs "
+            "from the CPU's")
+    del host, want, got
+    print(f"[threefry] kout_hybrid_k2 selection of the graph under "
+          f"PRNGKey(0) ({2 * n} directed edges): the card's equals the "
+          f"CPU's ({cpu_s:.2f} s there)")
+    session = ConnectIt(MAIN_VARIANT, device="cuda")
+    gen = torch.Generator(device="cuda")
+    walls = {"key": [], "generator": []}
+    for draw in ("key", "generator", "generator", "key") * 2:
+        kw = {} if draw == "key" else {"generator": gen.manual_seed(0)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.connectivity(g, **kw)
+        torch.cuda.synchronize()
+        walls[draw].append(time.perf_counter() - t0)
+    key = trandom.split(trandom.PRNGKey(0, device="cuda"), 1)[0]
+    key_ms = time_ms(torch, lambda: trandom.randint(key, (n,), 0, span),
+                     iters=10)
+    gen_ms = time_ms(torch, lambda: _random_offsets(n, deg,
+                                                    gen.manual_seed(0)),
+                     iters=10)
+    med = {k: float(np.median(v)) for k, v in walls.items()}
+    print(f"[threefry] {MAIN_VARIANT} compacted, median of 4 each in turns: "
+          f"wall {med['key']:.4f} s with the default key (jax.random's "
+          f"draws) beside {med['generator']:.4f} s drawing from a "
+          f"torch.Generator; the random column alone {key_ms:.4f} ms "
+          f"(threefry randint over {n} rows) beside {gen_ms:.4f} ms "
+          f"(torch.randint); card {card}")
 
 
 def canonical(labels):
@@ -1525,7 +1936,7 @@ def phase_forest(torch, g, expect, keys, exact: bool) -> None:
             require(counts[name] > 0, f"forest {variant}: kernel {name} "
                     f"never launched")
         _check_counts(f"forest {variant}", counts, stats.finish_rounds, want,
-                      exact and variant not in RANDOM_STREAM_PATHS)
+                      exact)
         print(f"[forest] {variant}: {len(edges)} edges, a spanning forest "
               f"(size, components, edges checked on the host in "
               f"{t_check:.2f} s); wall {wall:.4f} s (to the host array); "
@@ -3925,6 +4336,269 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
     return model, serve_inputs
 
 
+def phase_train(torch, cap: int, seed: int, results: dict, card: str):
+    """DLRM-RM2's train_batch cell at full width on the card, its
+    determinism, the kernels against the plain versions on one step, and
+    launch.train's simulated failure and resume."""
+    import warnings
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.legacy.embedding_bag.ref import (
+        embedding_bag_backward_ref,
+        embedding_bag_ref,
+    )
+    from repro_torch.launch.steps import OPT, build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models import dlrm as dlrm_mod
+
+    precision = torch.get_float32_matmul_precision()
+    require(precision == "highest" and not torch.backends.cuda.matmul.allow_tf32,
+            f"float32 matmuls must run in full float32, got {precision!r}")
+    arch = get_arch("dlrm-rm2")
+    cell = build_cell(arch, "train_batch")
+    B = min(cell.args[0].shape[0], cap)
+
+    def setup(cfg):
+        model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(seed,
+                                                            device="cuda"))
+        stream = RecsysStream(batch=B, n_dense=cfg.n_dense,
+                              n_sparse=cfg.n_sparse, vocab=cfg.vocab_sizes[0],
+                              multi_hot=cfg.multi_hot, seed=seed)
+        return model, [optim.init_adam(model.params())], stream
+
+    def step(model, state, batch) -> dict:
+        _, state[0], info = cell.fn(model, state[0], batch["dense"],
+                                    batch["sparse"], batch["labels"])
+        return info
+
+    def leaves(model, state) -> list:
+        return optim.tree_leaves((model.params(), state[0]))
+
+    class PlainBag(torch.autograd.Function):
+        """The bag through its plain versions, forward and backward."""
+
+        @staticmethod
+        def forward(ctx, table, idx, mode):
+            ctx.save_for_backward(table, idx)
+            ctx.mode = mode
+            return embedding_bag_ref(table, idx, mode)
+
+        @staticmethod
+        def backward(ctx, g):
+            table, idx = ctx.saved_tensors
+            return (embedding_bag_backward_ref(table, idx, g, ctx.mode), None,
+                    None)
+
+    @torch.no_grad()
+    def load(model, state, saved) -> None:
+        for dst, src in zip(leaves(model, state), saved):
+            dst.copy_(src)
+
+    cfg = _rm2_config(cap)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model, state, stream = setup(cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_bytes = sum(x.numel() * x.element_size()
+                      for x in leaves(model, state))
+    print(f"[train] {cfg.name} train_batch B={B}: {cfg.n_sparse} tables of "
+          f"{tuple(model.tables[0].shape)} float32; parameters and AdamW "
+          f"moments {state_bytes} bytes, drawn on the card from "
+          f"PRNGKey({seed}) (jax.random's numbers) in {init_s:.2f} s; "
+          f"float32 matmul precision {precision!r}, TF32 off; cell meta "
+          f"{cell.meta}, donate {cell.donate}")
+    batches = [stream.batch_at(i, device="cuda")
+               for i in range(TRAIN_STEPS + 2)]
+    losses = [float(step(model, state, batches[0])["loss"])]  # warm
+    # the counted step draws its batch too (batches[1] again): RecsysStream's
+    # normal and two uniforms, a threefry_bits launch each
+    ops.reset_launch_counts()
+    info = step(model, state, stream.batch_at(1, device="cuda"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(embedding_bag=cfg.n_sparse,
+                embedding_bag_backward=cfg.n_sparse, threefry_bits=3)
+    require(counts == want, f"train: launches {counts}, want {want}")
+    for name in ("embedding_bag_backward", "threefry_bits"):
+        results[name]["launches"] = counts[name]
+    losses.append(float(info["loss"]))
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(2, TRAIN_STEPS + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = step(model, state, batches[i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(info["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    require(all(np.isfinite(losses)), f"train: losses {losses}")
+    p50 = float(np.median(walls))
+    print(f"[train] {TRAIN_STEPS} timed steps: step wall p50 {p50:.4f} s "
+          f"(min {min(walls):.4f}, max {max(walls):.4f}), {B / p50:.1f} "
+          f"samples/s; peak above the model, moments and batches {peak} "
+          f"bytes; losses first {losses[0]:.6f} last {losses[-1]:.6f} "
+          f"({len(losses)} steps, all finite); lr {float(info['lr']):.3e} "
+          f"grad_norm {float(info['grad_norm']):.6f}; launches a step "
+          f"{json.dumps(counts)}; card {card}")
+    _trace(torch, f"dlrm-rm2 train_batch step B={B}",
+           lambda: step(model, state, batches[0]))
+    # AdamW alone on one step's gradients: its bound reads the parameters,
+    # gradients and both moments and writes the parameters and moments
+    params = model.params()
+    b = batches[0]
+    grads = optim.tree_unflatten(params, torch.autograd.grad(
+        model.loss(b["dense"], b["sparse"], b["labels"]),
+        optim.tree_leaves(params)))
+    adam_ms = time_ms(torch, lambda: optim.update(
+        OPT, params, grads, state[0]), iters=5, warmup=1)
+    adam_bound = 7 * state_bytes / 3 / HBM_BYTES_PER_S * 1e3
+    print(f"[train] AdamW alone (optim.update, plain per-leaf ops) on one "
+          f"step's gradients: {adam_ms:.4f} ms a step, {adam_ms / adam_bound:.2f}x "
+          f"its bytes bound {adam_bound:.4f} ms (7 x {state_bytes // 3} "
+          f"bytes at 3.35 TB/s)")
+    del grads, params
+
+    # the same step twice from one state saved to the host: the same bits
+    saved = [x.detach().cpu() for x in leaves(model, state)]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(model, state, batches[1])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).split("\n")[0] for w in caught
+                    if "deterministic" in str(w.message)})
+    print(f"[train] diagnostic step under "
+          f"torch.use_deterministic_algorithms(warn_only=True): "
+          f"{len(named)} ops named without a deterministic kernel"
+          + "".join(f"\n[train]   {x[:200]}" for x in named))
+    load(model, state, saved)
+    step(model, state, batches[1])
+    first = [x.detach().cpu() for x in leaves(model, state)]
+    load(model, state, saved)
+    step(model, state, batches[1])
+    torch.cuda.synchronize()
+    same = [torch.equal(x.cpu(), y) for x, y in zip(leaves(model, state),
+                                                    first)]
+    require(all(same), f"train: one step twice from the same state gives "
+            f"other bits in {same.count(False)} of {len(same)} leaves")
+    print(f"[train] one step twice from the same saved state: all "
+          f"{len(same)} parameter and moment leaves equal bit for bit")
+    del model, state, batches, saved, first
+    torch.cuda.empty_cache()
+
+    # one step through the kernels against the plain versions
+    small = _rm2_config(cap, TRAIN_CHECK_VOCAB)
+    model, state, stream = setup(small)
+    batch = stream.batch_at(0, device="cuda")
+    start = [x.detach().clone() for x in leaves(model, state)]
+    kinfo = step(model, state, batch)
+    kernel = [x.detach().clone() for x in leaves(model, state)]
+    load(model, state, start)
+    before = ops.launch_counts()
+    with mock.patch.object(dlrm_mod, "embedding_bag",
+                           lambda t, i, mode="sum": PlainBag.apply(t, i,
+                                                                   mode)):
+        pinfo = step(model, state, batch)
+    torch.cuda.synchronize()
+    require(ops.launch_counts() == before,
+            "train: the plain step launched a kernel")
+    require(float(kinfo["loss"]) == float(pinfo["loss"]),
+            f"train: the loss through the kernels {float(kinfo['loss'])!r} "
+            f"differs from the plain step's {float(pinfo['loss'])!r}")
+    n_params = len(optim.tree_leaves(model.params()))
+    worst = {"params": 0.0, "moments": 0.0}
+    for i, (k, p) in enumerate(zip(kernel, leaves(model, state))):
+        if p.dim() == 0:  # the step
+            require(torch.equal(k, p), "train: the steps differ")
+            continue
+        part = "params" if i < n_params else "moments"
+        scale = float(p.abs().max())
+        rel = float((k - p).abs().max()) / max(scale, 1e-30)
+        worst[part] = max(worst[part], rel)
+        require(rel <= TRAIN_LEAF_TOL[part],
+                f"train: {part} leaf {i} through the kernels differs from "
+                f"the plain step's by {rel:.3e} of its largest magnitude "
+                f"(tolerance {TRAIN_LEAF_TOL[part]})")
+    print(f"[train] one step at vocab {small.vocab_sizes[0]} through the "
+          f"kernels against the plain versions: loss equal "
+          f"({float(kinfo['loss']):.6f}); largest leaf difference "
+          f"{worst['params']:.3e} of the leaf's magnitude in the parameters, "
+          f"{worst['moments']:.3e} in the moments (tolerances "
+          f"{TRAIN_LEAF_TOL})")
+    del model, state, start, kernel, batch
+    torch.cuda.empty_cache()
+    _train_cli(seed)
+
+
+def _train_cli(seed: int) -> None:
+    """launch.train on the card: a run stopped by --simulate-failure, rerun
+    to its end, against an uninterrupted run (the two first runs side by
+    side); the final checkpoints equal leaf for leaf."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    c = TRAIN_CLI
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           "dlrm-rm2", "--device", "cuda", "--steps", str(c["steps"]),
+           "--ckpt-every", str(c["every"]), "--seed", str(seed)]
+    t0 = time.perf_counter()
+    try:
+        procs = {d: subprocess.Popen(
+            cmd + ["--ckpt-dir", str(tmp / d)] + extra, cwd=ROOT,
+            env=_src_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+            for d, extra in (("stopped", ["--simulate-failure",
+                                          str(c["fail"])]),
+                             ("whole", []))}
+        out = {d: p.communicate(timeout=300)[0] for d, p in procs.items()}
+        require(procs["stopped"].returncode == 42,
+                f"launch.train --simulate-failure exited "
+                f"{procs['stopped'].returncode}:\n{out['stopped'][-2000:]}")
+        require(procs["whole"].returncode == 0,
+                f"launch.train exited {procs['whole'].returncode}:\n"
+                f"{out['whole'][-2000:]}")
+        rerun = subprocess.run(cmd + ["--ckpt-dir", str(tmp / "stopped")],
+                               cwd=ROOT, env=_src_env(), capture_output=True,
+                               text=True, timeout=300)
+        resumed = c["fail"] // c["every"] * c["every"]
+        require(rerun.returncode == 0 and
+                f"resumed from step {resumed}" in rerun.stdout,
+                f"launch.train rerun exited {rerun.returncode}:\n"
+                f"{rerun.stdout[-2000:]}{rerun.stderr[-2000:]}")
+        name = f"ckpt_{c['steps']:010d}.npz"
+        with np.load(tmp / "stopped" / name) as a, \
+                np.load(tmp / "whole" / name) as b:
+            require(sorted(a.files) == sorted(b.files),
+                    "launch.train: the checkpoints hold other leaves")
+            bad = [k for k in a.files if not np.array_equal(a[k], b[k])]
+            n_leaves = len(a.files)
+        require(not bad, f"launch.train: the resumed run's final checkpoint "
+                f"differs from the uninterrupted run's in {bad}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[train] python -m repro_torch.launch.train --arch dlrm-rm2 "
+          f"--device cuda --steps {c['steps']} --ckpt-every {c['every']}: "
+          f"--simulate-failure {c['fail']} exited 42, the rerun resumed from "
+          f"step {resumed}, its final checkpoint equal to an uninterrupted "
+          f"run's in all {n_leaves} leaves ({time.perf_counter() - t0:.1f} s)")
+
+
 def _trace(torch, tag: str, fn, top: int = 15) -> dict:
     """One run of ``fn`` under torch.profiler: wall time, the device's busy
     share, the collectives' device time (NCCL's kernels) and the ``top``
@@ -3974,8 +4648,6 @@ def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
     from repro_torch.core import driver
 
     session = ConnectIt(MAIN_VARIANT, device="cuda")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     steps = {}
 
     def step(name, fn):
@@ -3986,7 +4658,8 @@ def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
         steps[name] = time.perf_counter() - t0
         return out
 
-    P = step("sample (kout + uf_sync_full)", lambda: session._sampler(g, gen))
+    P = step("sample (kout + uf_sync_full)",
+             lambda: session._sampler(g, None))
     P, keep, _, _ = step("prep (compress, L_max, keep mask)",
                          lambda: driver._prep_sampled(P, g.senders,
                                                       g.receivers))
@@ -4162,6 +4835,7 @@ def main() -> int:
         timed("small", phase_small, torch)
         expect, keys = timed("oracle", phase_oracle, g)
         timed("paths", phase_paths, torch, g, expect, results, exact)
+        timed("threefry", phase_threefry, torch, g, card)
         timed("forest", phase_forest, torch, g, expect, keys, exact)
         timed("stream", phase_stream, torch, g, expect, args.seed, exact,
               card)
@@ -4182,6 +4856,9 @@ def main() -> int:
                                     results)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
               args.seed, edges, apps["weights"], args.log_m, server)
+        del model, serve_inputs  # the train phase holds ~27 GB of its own
+        torch.cuda.empty_cache()
+        timed("train", phase_train, torch, cap, args.seed, results, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -62,6 +62,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from . import random as trandom
 from .core import driver
 from .core.apps import amsf as _amsf_impl
 from .core.apps.spec import AppSpec, AppSpecLike, as_app_spec
@@ -800,22 +801,26 @@ class ConnectIt:
                                      spec.build_finish())
         return self._auto_specs[fam]
 
-    def connectivity(self, g, *, generator: Optional[torch.Generator] = None,
+    def connectivity(self, g, *, key: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None,
                      fused: Optional[bool] = None,
                      return_stats: bool = False):
         """Canonical min-vertex-id connectivity labels of ``g``, ``(n,)``
         int32 on the session's device (whole on every rank). ``fused``
         skips the compaction of L_max-internal edges; on a mesh placement
         it is part of the ExecutionSpec and cannot be overridden per call.
-        ``generator`` draws the sampler's random numbers: k-out columns, BFS
-        sources, LDD shifts (seeded 0 when None; on a mesh every rank draws
-        the same). An ``"auto"`` session resolves the variant for ``g``'s
-        family first."""
+        ``key`` draws the sampler's random numbers (k-out columns, BFS
+        sources, LDD shifts) as the reference's ``key`` does, with its
+        default ``PRNGKey(0)`` (``repro_torch.random``), so the stats equal
+        ``repro``'s; ``generator`` draws torch's numbers instead (one of the
+        two, not both). On a mesh every rank draws the same. An ``"auto"``
+        session resolves the variant for ``g``'s family first."""
         self._check_device(g)
+        rng = trandom.choose(key, generator)
         spec, sampler, finish = ((self.spec, self._sampler, self._finish)
                                  if not self._auto else self._resolve_auto(g))
         labels, stats = self._backend.connectivity(
-            g, sampler, finish, generator, variant=str(spec), fused=fused)
+            g, sampler, finish, rng, variant=str(spec), fused=fused)
         self._stats = stats
         if return_stats:
             return labels, stats
@@ -831,13 +836,14 @@ class ConnectIt:
             raise ValueError(f"graph lives on {g.device}, session on "
                              f"{self.device}")
 
-    def spanning_forest(self, g, *,
+    def spanning_forest(self, g, *, key: Optional[torch.Tensor] = None,
                         generator: Optional[torch.Generator] = None
                         ) -> np.ndarray:
         """Spanning forest edges, a host ``(k, 2)`` int32 array (paper
         §3.4). Valid only for root-based finish methods (the uf_sync family
         and Shiloach-Vishkin): the forest invariant needs one recorded edge
-        per hooked root. ``stats`` holds the run's ConnectivityStats."""
+        per hooked root. ``key``/``generator`` as for ``connectivity``.
+        ``stats`` holds the run's ConnectivityStats."""
         if not self.spec.forest_capable:
             raise ValueError(
                 f"spanning forest requires a root-based finish "
@@ -845,7 +851,8 @@ class ConnectIt:
                 f"{self.spec.finish_str!r} — paper §3.4")
         self._check_device(g)
         edges, self._stats = self._backend.spanning_forest(
-            g, self._sampler, generator, compress=self.spec.forest_compress,
+            g, self._sampler, trandom.choose(key, generator),
+            compress=self.spec.forest_compress,
             variant=str(self.spec))
         return edges
 
@@ -883,7 +890,7 @@ class ConnectIt:
                              compress=self.spec.forest_compress, log=cap,
                              search_rounds=search_rounds)
 
-    def from_chunks(self, source, *,
+    def from_chunks(self, source, *, key: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None,
                     survivor_cap: Optional[int] = None,
                     sample_chunks: int = 1, return_stats: bool = False):
@@ -892,11 +899,12 @@ class ConnectIt:
 
         The sampling phase runs on the stream's head; then every chunk goes
         through relabel-and-filter into a bounded survivor buffer. The
-        labels equal ``.connectivity``'s on the same edges. ``.stats``
-        reports the chunks, spills and survivors beside the usual
-        fields."""
+        labels equal ``.connectivity``'s on the same edges. ``key``/
+        ``generator`` as for ``connectivity``. ``.stats`` reports the
+        chunks, spills and survivors beside the usual fields."""
         result = ingest_chunks(
-            source, self._sampler, self._finish, generator,
+            source, self._sampler, self._finish,
+            trandom.choose(key, generator),
             device=self.device, survivor_cap=survivor_cap,
             sample_chunks=sample_chunks)
         stats = ingest_stats(result, variant=str(self.spec))

@@ -1,6 +1,6 @@
 """ConnectIt two-phase driver (paper Algorithm 1).
 
-``run_connectivity(g, sampler_fn, finish_fn, generator)`` is the
+``run_connectivity(g, sampler_fn, finish_fn, rng)`` is the
 orchestrator behind ``repro_torch.api.ConnectIt``:
 
   1. run the sampling phase → partial labeling P
@@ -30,6 +30,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import random as trandom
 from ..graphs.containers import Graph, round_up
 from .finish import resolve_finish, uf_sync_forest
 from .primitives import (
@@ -126,18 +127,17 @@ def _compact(senders, receivers, keep, n_dump: int, pad_multiple: int = 8,
     return s_out, r_out, kept
 
 
-def _default_generator(g: Graph, generator):
-    if generator is None:
-        generator = torch.Generator(device=g.device)
-        generator.manual_seed(0)
-    return generator
+def _default_rng(g: Graph, rng):
+    """The sampler's source: ``rng`` on ``g``'s device, ``PRNGKey(0)`` when
+    None (the reference's default key)."""
+    return trandom.resolve(rng, g.device)
 
 
 def run_connectivity(
     g: Graph,
     sampler_fn: Optional[Callable],
     finish_fn: Callable,
-    generator: Optional[torch.Generator] = None,
+    rng=None,
     *,
     variant: str = "",
     compact_pad: int = 8,
@@ -154,7 +154,7 @@ def run_connectivity(
         stats.edges_finish = g.m
         stats.edges_finish_padded = g.m_pad
     else:
-        P = sampler_fn(g, _default_generator(g, generator))
+        P = sampler_fn(g, _default_rng(g, rng))
         P, keep, _, cnt = _prep_sampled(P, g.senders, g.receivers)
         senders, receivers, kept = _compact(g.senders, g.receivers, keep, g.n,
                                             compact_pad, pad)
@@ -172,7 +172,7 @@ def run_connectivity_fused(
     g: Graph,
     sampler_fn: Optional[Callable],
     finish_fn: Callable,
-    generator: Optional[torch.Generator] = None,
+    rng=None,
     *,
     variant: str = "",
 ) -> tuple[torch.Tensor, ConnectivityStats]:
@@ -182,7 +182,7 @@ def run_connectivity_fused(
     if sampler_fn is None:
         P = init_labels(g.n, device=g.device)
     else:
-        P = full_compress(sampler_fn(g, _default_generator(g, generator)))
+        P = full_compress(sampler_fn(g, _default_rng(g, rng)))
         lmax, cnt = most_frequent(P)
         P = relabel_lmax(P, lmax)
         stats.lmax_count = int(cnt)
@@ -203,7 +203,7 @@ def forest_edges(fu: torch.Tensor, fv: torch.Tensor) -> np.ndarray:
 def run_spanning_forest(
     g: Graph,
     sampler_fn: Optional[Callable],
-    generator: Optional[torch.Generator] = None,
+    rng=None,
     *,
     compress: str = "full",
     variant: str = "",
@@ -222,7 +222,7 @@ def run_spanning_forest(
         stats.edges_finish = g.m
         stats.edges_finish_padded = g.m_pad
     else:
-        st0 = sampler_fn(g, _default_generator(g, generator),
+        st0 = sampler_fn(g, _default_rng(g, rng),
                          want_forest=True)
         P, keep, _, cnt = _prep_sampled(st0.P, g.senders, g.receivers)
         senders, receivers, kept = _compact(g.senders, g.receivers, keep, g.n,
@@ -252,16 +252,19 @@ def connectivity(
     *,
     sample: Optional[str] = None,
     finish: str = "uf_sync",
-    generator: Optional[torch.Generator] = None,
+    key=None,
+    generator=None,
     return_stats: bool = False,
 ):
     """Deprecated: use ``repro_torch.api.ConnectIt(spec).connectivity(g)``.
-    ``generator`` stands in for the reference's ``key``."""
+    ``key`` is the reference's (a threefry key, ``PRNGKey(0)`` when None);
+    ``generator``, in its place, draws torch's numbers."""
     warnings.warn(_DEPRECATION % "connectivity(g, sample=..., finish=...)",
                   DeprecationWarning, stacklevel=2)
     sampler_fn = None if sample is None else resolve_sampler(sample)
     labels, stats = run_connectivity(
-        g, sampler_fn, resolve_finish(finish), generator,
+        g, sampler_fn, resolve_finish(finish),
+        trandom.choose(key, generator),
         variant=f"{sample or 'none'}+{finish}")
     if return_stats:
         return labels, stats
@@ -287,14 +290,16 @@ def spanning_forest(
     g: Graph,
     *,
     sample: Optional[str] = None,
-    generator: Optional[torch.Generator] = None,
+    key=None,
+    generator=None,
 ) -> np.ndarray:
     """Deprecated: use ``repro_torch.api.ConnectIt(spec).spanning_forest(g)``
     → the host ``(k, 2)`` forest edges."""
     warnings.warn(_DEPRECATION % "spanning_forest(g, sample=...)",
                   DeprecationWarning, stacklevel=2)
     sampler_fn = None if sample is None else resolve_sampler(sample)
-    return run_spanning_forest(g, sampler_fn, generator)[0]
+    return run_spanning_forest(g, sampler_fn,
+                               trandom.choose(key, generator))[0]
 
 
 def connected_components(g: Graph, **kw) -> np.ndarray:

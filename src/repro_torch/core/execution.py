@@ -509,14 +509,14 @@ class _Backend:
             placement=self.spec.placement, devices=self.devices,
             fused=self.spec.fused)
 
-    def spanning_forest(self, g, sampler_fn, generator=None, *,
+    def spanning_forest(self, g, sampler_fn, rng=None, *,
                         compress: str = "full", variant: str = ""):
         # the single-device driver under every placement, as in the
         # reference: a recorded spanning forest of a static graph needs a
         # tie-break across ranks per round, which only AMSF and the dynamic
         # programs pay for (core/distributed.py)
         return driver.run_spanning_forest(
-            g, sampler_fn, generator, compress=compress, variant=variant,
+            g, sampler_fn, rng, compress=compress, variant=variant,
             compact_pad=self.spec.pad_multiple, pad=self.spec.pad)
 
 
@@ -525,15 +525,15 @@ class SingleBackend(_Backend):
 
     placement = "single"
 
-    def connectivity(self, g, sampler_fn, finish_fn, generator=None, *,
+    def connectivity(self, g, sampler_fn, finish_fn, rng=None, *,
                      variant: str = "", fused: Optional[bool] = None):
         fused = self.spec.fused if fused is None else fused
         if fused:
             labels, stats = driver.run_connectivity_fused(
-                g, sampler_fn, finish_fn, generator, variant=variant)
+                g, sampler_fn, finish_fn, rng, variant=variant)
         else:
             labels, stats = driver.run_connectivity(
-                g, sampler_fn, finish_fn, generator, variant=variant,
+                g, sampler_fn, finish_fn, rng, variant=variant,
                 compact_pad=self.spec.pad_multiple, pad=self.spec.pad)
         # the spec that ran: a per-call fused override shows in stats.exec
         stats.exec = str(dataclasses.replace(self.spec, fused=fused))
@@ -622,7 +622,7 @@ class _MeshBackend(_Backend):
         blocks (``stream_ops`` is the session path)."""
         return self._build_stream(finish_fn)
 
-    def _prep_edges(self, g, sampler_fn, generator, stats):
+    def _prep_edges(self, g, sampler_fn, rng, stats):
         """Sampling phase + compaction + shard-even padding, the same on
         every rank. Without sampling there is nothing to compact, and the
         graph's arrays are resized (pad slots carry the dump id ``n``)."""
@@ -633,7 +633,7 @@ class _MeshBackend(_Backend):
             senders, receivers = _resize_device_edges(
                 (g.senders, g.receivers), (g.n, g.n), size)
         else:
-            P0 = sampler_fn(g, driver._default_generator(g, generator))
+            P0 = sampler_fn(g, driver._default_rng(g, rng))
             P0, keep, _, cnt = driver._prep_sampled(P0, g.senders,
                                                     g.receivers)
             s, r = g.senders[keep], g.receivers[keep]
@@ -648,7 +648,7 @@ class _MeshBackend(_Backend):
         stats.dispatch_sizes = (size // shards,) * shards
         return P0, senders, receivers
 
-    def connectivity(self, g, sampler_fn, finish_fn, generator=None, *,
+    def connectivity(self, g, sampler_fn, finish_fn, rng=None, *,
                      variant: str = "", fused: Optional[bool] = None):
         if fused is not None and fused != self.spec.fused:
             if self.spec.placement == "replicated":
@@ -663,7 +663,7 @@ class _MeshBackend(_Backend):
                 "instead of overriding per call")
         stats = self._base_stats(variant)
         stats.edges_total = g.m
-        P0, senders, receivers = self._prep_edges(g, sampler_fn, generator,
+        P0, senders, receivers = self._prep_edges(g, sampler_fn, rng,
                                                   stats)
         program = self.finish_program(finish_fn)
         labels, rounds = program(self._place_labels(P0),

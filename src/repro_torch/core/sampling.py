@@ -16,14 +16,16 @@ k-out selects about ``k`` edges per vertex and runs uf_sync(full) over them:
     maxdeg    the neighbor of maximum degree plus k - 1 random ones
 
 ``make_sampler(scheme, **params)`` returns the memoized sampler of one
-parameterization; a sampler is called as ``sampler(g, generator)``, and with
+parameterization; a sampler is called as ``sampler(g, rng)``, and with
 ``want_forest=True`` also returns the partial spanning forest it found
 (Def. B.2) as a ``ForestState``: k-out records one edge per hooked root, BFS
 each visited vertex's discovery edge, LDD each covered vertex's.
 
-The random numbers (k-out columns, BFS sources, LDD shifts) come from a
-``torch.Generator``, which gives other numbers than the JAX package's
-``jax.random`` key; the labels after the finish phase are the same all the
+The random numbers (k-out columns, BFS sources, LDD shifts) come from
+``rng``: a threefry key (``repro_torch.random``, ``PRNGKey(0)`` when None)
+draws the JAX package's numbers, key for key and in its order, so the
+partial labeling is ``repro``'s; a ``torch.Generator`` draws torch's, whose
+partial labeling differs while the labels after the finish phase are the
 same, since canonical min-vertex labels are unique for a partition. The
 frontier loops check their condition on the host once a round, and scatter
 through ``ops.scatter_min`` (``write_min``).
@@ -32,10 +34,11 @@ through ``ops.scatter_min`` (``write_min``).
 from __future__ import annotations
 
 import warnings
-from typing import Callable, Optional
+from typing import Callable, Union
 
 import torch
 
+from .. import random as trandom
 from ..graphs.containers import Graph
 from .finish import ForestState, make_finish, memoized_factory, uf_sync_forest
 from .primitives import (
@@ -48,8 +51,10 @@ from .primitives import (
 )
 from .registry import make_legacy_resolver
 
-# (g, generator, *, want_forest=False) -> labels, or a ForestState
+# (g, rng, *, want_forest=False) -> labels, or a ForestState; rng is a key,
+# a torch.Generator or None (PRNGKey(0))
 SamplerFn = Callable[..., object]
+Rng = Union[torch.Tensor, torch.Generator, None]
 
 KOUT_VARIANTS = ("afforest", "pure", "hybrid", "maxdeg")
 
@@ -62,8 +67,17 @@ def _random_offsets(n: int, deg: torch.Tensor,
     return (draw % deg.clamp_min(1).long()).to(torch.int32)
 
 
-def _select_kout_edges(g: Graph, generator: Optional[torch.Generator], k: int,
-                       variant: str):
+def _offset_columns(n: int, deg: torch.Tensor, rng, count: int) -> list:
+    """``count`` columns of uniform row offsets ``[0, max(deg, 1))``: from a
+    key, ``repro``'s ``randint`` of each of ``split(key, max(count, 1))``."""
+    if isinstance(rng, torch.Generator):
+        return [_random_offsets(n, deg, rng) for _ in range(count)]
+    keys = trandom.split(rng, max(count, 1))
+    span = deg.clamp_min(1)
+    return [trandom.randint(keys[j], (n,), 0, span) for j in range(count)]
+
+
+def _select_kout_edges(g: Graph, rng, k: int, variant: str):
     """Return (senders, receivers) of the ~n*k selected directed edges."""
     n = g.n
     dev = g.device
@@ -100,8 +114,7 @@ def _select_kout_edges(g: Graph, generator: Optional[torch.Generator], k: int,
             nbuf = nbuf.scatter_reduce(
                 0, s, torch.where(hit, g.receivers, -1), "amax")
             cols.append(torch.where(nbuf[:n] >= 0, nbuf[:n], ids))
-        for _ in range(n_rand):
-            cols.append(take(_random_offsets(n, deg, generator)))
+        cols += [take(c) for c in _offset_columns(n, deg, rng, n_rand)]
     else:
         raise ValueError(variant)
     receivers = torch.cat(cols)
@@ -120,9 +133,9 @@ def make_kout(k: int = 2, variant: str = "hybrid") -> SamplerFn:
     if k < 1:
         raise ValueError(f"k-out needs k >= 1, got {k}")
 
-    def kout(g: Graph, generator: Optional[torch.Generator] = None, *,
-             want_forest: bool = False):
-        s, r = _select_kout_edges(g, generator, k, variant)
+    def kout(g: Graph, rng: Rng = None, *, want_forest: bool = False):
+        s, r = _select_kout_edges(g, trandom.resolve(rng, g.device), k,
+                                  variant)
         P = init_labels(g.n, device=g.device)
         if want_forest:
             st, _ = uf_sync_forest(P, s, r, compress="full")
@@ -162,6 +175,20 @@ def _bfs_from(g: Graph, src: torch.Tensor, *,
     return visited, parent
 
 
+def _bfs_sources(n: int, num_sources: int, rng) -> torch.Tensor:
+    """The ``(num_sources,)`` int32 sources in the order tried: from a key,
+    ``repro``'s chain ``key, sub = split(key)``, ``randint(sub, (), 0, n)``
+    per source."""
+    if isinstance(rng, torch.Generator):
+        return torch.randint(0, n, (num_sources,), generator=rng,
+                             device=rng.device, dtype=torch.int32)
+    sources = []
+    for _ in range(num_sources):
+        rng, sub = trandom.split(rng)
+        sources.append(trandom.randint(sub, (), 0, n))
+    return torch.stack(sources)
+
+
 def make_bfs(num_sources: int = 3, threshold: float = 0.1) -> SamplerFn:
     """BFS sampler: try up to ``num_sources`` random sources in the order
     drawn, accept the first whose component covers more than
@@ -172,13 +199,12 @@ def make_bfs(num_sources: int = 3, threshold: float = 0.1) -> SamplerFn:
     if not 0.0 < threshold <= 1.0:
         raise ValueError(f"bfs threshold must be in (0, 1], got {threshold}")
 
-    def bfs(g: Graph, generator: Optional[torch.Generator] = None, *,
-            want_forest: bool = False):
+    def bfs(g: Graph, rng: Rng = None, *, want_forest: bool = False):
         n = g.n
         ids = init_labels(n, device=g.device)
         min_cover = int(threshold * n)
-        sources = torch.randint(0, n, (num_sources,), generator=generator,
-                                device=g.device, dtype=torch.int32)
+        sources = _bfs_sources(n, num_sources,
+                               trandom.resolve(rng, g.device))
         P = ids
         fu, fv = init_forest(n, device=g.device)
         for src in sources:
@@ -205,13 +231,19 @@ def make_ldd(beta: float = 0.2, max_rounds: int = DEFAULT_MAX_ROUNDS
     if not beta > 0.0:
         raise ValueError(f"ldd needs beta > 0, got {beta}")
 
-    def ldd(g: Graph, generator: Optional[torch.Generator] = None, *,
-            want_forest: bool = False):
+    def ldd(g: Graph, rng: Rng = None, *, want_forest: bool = False):
         n = g.n
         dev = g.device
         s, r = g.senders.long(), g.receivers.long()
-        shifts = torch.empty(n, dtype=torch.float32, device=dev).exponential_(
-            generator=generator) / beta
+        rng = trandom.resolve(rng, dev)
+        if isinstance(rng, torch.Generator):
+            shifts = torch.empty(n, dtype=torch.float32,
+                                 device=dev).exponential_(generator=rng)
+        else:
+            shifts = trandom.exponential(rng, (n,))
+        # a float32 divide, as the reference's (a CPU scalar divisor would
+        # make CUDA multiply by its reciprocal instead)
+        shifts = shifts / torch.tensor(beta, dtype=torch.float32, device=dev)
         shifts = shifts.clamp_max(float(max_rounds - 2))
         # MPX: vertex v starts its own cluster at time δ_max − δ_v (the
         # LARGEST shift races first; most vertices are covered before they
@@ -299,8 +331,9 @@ def get_sampler(name: str) -> SamplerFn:
     ``repro_torch.api``.
 
     Returns a wrapper preserving the seed's call surface, including its
-    per-call keyword parameters (``c``/``threshold``/``beta``/...); the
-    reference's ``key`` is a ``torch.Generator`` here."""
+    per-call keyword parameters (``c``/``threshold``/``beta``/...); its
+    ``key`` is a threefry key (``repro_torch.random``) or a
+    ``torch.Generator``."""
     warnings.warn(
         "get_sampler(name) with flat string keys is deprecated; use "
         "make_sampler(scheme, **params) or repro_torch.api.SamplingSpec/"
@@ -311,15 +344,14 @@ def get_sampler(name: str) -> SamplerFn:
             f"unknown sampler {name!r}; have {sorted(_LEGACY_SAMPLERS)}")
     scheme, base_params = _LEGACY_SAMPLERS[name]
 
-    def legacy_sampler(g, generator=None, *, want_forest: bool = False,
-                       **kw):
+    def legacy_sampler(g, rng=None, *, want_forest: bool = False, **kw):
         params = dict(base_params)
         for k, v in kw.items():
             if k not in _LEGACY_CALL_KW[scheme]:
                 raise TypeError(f"{name} sampler got an unexpected keyword "
                                 f"argument {k!r}")
             params[_LEGACY_CALL_KW[scheme][k]] = v
-        return make_sampler(scheme, **params)(g, generator,
+        return make_sampler(scheme, **params)(g, rng,
                                               want_forest=want_forest)
 
     legacy_sampler.__name__ = name

@@ -45,6 +45,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .. import random as trandom
 from ..core.driver import ConnectivityStats, bucket_size
 from ..core.primitives import (
     full_compress,
@@ -150,7 +151,7 @@ def ingest_chunks(
     source: ChunkedEdgeSource,
     sampler_fn: Optional[Callable],
     finish_fn: Callable,
-    generator: Optional[torch.Generator] = None,
+    rng=None,
     *,
     device,
     survivor_cap: Optional[int] = None,
@@ -164,8 +165,9 @@ def ingest_chunks(
     survivors must fit the empty buffer: the flush comes before the
     append). ``sample_chunks`` chunks of the head seed the sampling phase;
     the head is streamed again afterwards, so the sample changes speed,
-    never labels. ``generator`` draws the sampler's random numbers (seeded
-    0 when None)."""
+    never labels. ``rng`` draws the sampler's random numbers: a threefry
+    key (``PRNGKey(0)`` when None, the reference's default) or a
+    ``torch.Generator``."""
     n = int(source.n)
     it = iter(source.chunks())
     head: list[torch.Tensor] = []
@@ -175,11 +177,8 @@ def ingest_chunks(
             break
 
     if sampler_fn is not None and sum(c.shape[0] for c in head):
-        if generator is None:
-            generator = torch.Generator(device=device)
-            generator.manual_seed(0)
         g0 = build_graph(torch.cat(head), n, device=device)
-        P = sampler_fn(g0, generator)
+        P = sampler_fn(g0, trandom.resolve(rng, g0.device))
         del g0
     else:
         P = init_labels(n, device=device)

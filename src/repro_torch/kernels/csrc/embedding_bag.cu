@@ -152,6 +152,190 @@ int embedding_bag(const void* table, const void* idx, void* out, int64_t rows,
                                    static_cast<cudaStream_t>(stream));
 }
 
+// ---------------------------------------------------------------------------
+// Backward: d table of a float32 bag, into a zeroed (rows, D) gradient.
+//
+// Replaces no TPU kernel: the JAX package's gradient is XLA's transpose of
+// the gather (a scatter-add). Added so that DLRM trains on the card.
+//
+// grad[r] = sum over the positions p = b * L + l that read row r of
+//   sum:  grad_out[b]
+//   mean: grad_out[b] / max(#valid ids of bag b, 1)
+//   max:  grad_out[b] / (#ties of the bag's max on that column), where
+//         the position's id is valid and its row equals the max there
+// with rows read through the forward's id contract (wrap once, clamp).
+//
+// Deterministic: a float add is not associative, and atomics add in an
+// order that changes from run to run, so the positions are put in a fixed
+// order instead. keys (launch 1) writes each position's row; the wrapper
+// sorts (row, position) stably (a library sort: it orders the work and adds
+// nothing); then reduce (launch 2) gives each warp a chunk of kChunk sorted
+// positions and sums each run of one row in position order. A run inside
+// one chunk is written whole. A run across chunks (RecsysStream's hub row
+// 0 is read by ~5% of the bags, ~3,300 of 65,536) leaves one partial per
+// chunk, and combine (launch 3) adds a run's partials in chunk order, so no
+// row is summed by one warp alone from end to end.
+//
+// Bound: bytes. The ids (B*L), grad_out (B*D) and the touched rows of the
+// gradient (written once); max also reads the bags' table rows. The zeroing
+// of the whole gradient (rows*D) is the wrapper's, counted apart.
+
+constexpr int kChunk = 32;  // sorted positions per warp
+constexpr int kWarp = 32;
+
+__device__ __forceinline__ int bag_row(int raw, int64_t rows) {
+  int64_t r = raw < 0 ? raw + rows : static_cast<int64_t>(raw);
+  r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
+  return static_cast<int>(r);
+}
+
+// keys[p] = the row position p reads; for max, also contrib[p, :] = the
+// gradient that position p passes to its row (0 where it is not a max).
+__global__ void bag_backward_keys(const float* __restrict__ table,
+                                  const int* __restrict__ idx,
+                                  const float* __restrict__ grad_out,
+                                  int* __restrict__ keys,
+                                  float* __restrict__ contrib, int64_t rows,
+                                  int64_t D, int64_t B, int64_t L, int mode) {
+  const int64_t N = B * L;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t p = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       p < N; p += stride) {
+    keys[p] = bag_row(idx[p], rows);
+  }
+  if (mode != kMax) return;
+  // one thread per (bag, column): the masked max over L, its ties, and each
+  // position's share
+  const float neg = -FLT_MAX;
+  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       t < B * D; t += stride) {
+    const int64_t b = t / D, c = t % D;
+    const int* ids = idx + b * L;
+    float mx = neg;
+    for (int64_t l = 0; l < L; ++l) {
+      const bool valid = static_cast<int64_t>(ids[l]) < rows - 1;
+      const float v = valid ? table[bag_row(ids[l], rows) * D + c] : neg;
+      mx = fmaxf(mx, v);
+    }
+    int ties = 0;
+    for (int64_t l = 0; l < L; ++l) {
+      const bool valid = static_cast<int64_t>(ids[l]) < rows - 1;
+      const float v = valid ? table[bag_row(ids[l], rows) * D + c] : neg;
+      ties += v == mx;
+    }
+    const float share = grad_out[b * D + c] / static_cast<float>(ties);
+    for (int64_t l = 0; l < L; ++l) {
+      const bool valid = static_cast<int64_t>(ids[l]) < rows - 1;
+      const float v = valid ? table[bag_row(ids[l], rows) * D + c] : neg;
+      contrib[(b * L + l) * D + c] = valid && v == mx ? share : 0.0f;
+    }
+  }
+}
+
+// The value that sorted position p passes to column c of its row.
+__device__ __forceinline__ float bag_value(const float* __restrict__ src,
+                                           const int* __restrict__ idx,
+                                           int64_t p, int64_t c, int64_t rows,
+                                           int64_t D, int64_t L, int mode) {
+  if (mode == kMax) return src[p * D + c];
+  const int64_t b = p / L;
+  const float g = src[b * D + c];
+  if (mode == kSum) return g;
+  int64_t n_valid = 0;
+  for (int64_t l = 0; l < L; ++l) {
+    n_valid += static_cast<int64_t>(idx[b * L + l]) < rows - 1;
+  }
+  return g / static_cast<float>(n_valid > 0 ? n_valid : 1);
+}
+
+// One warp per chunk of sorted positions; lanes over columns.
+__global__ void bag_backward_reduce(const float* __restrict__ src,
+                                    const int* __restrict__ idx,
+                                    const int* __restrict__ sorted_rows,
+                                    const int64_t* __restrict__ perm,
+                                    float* __restrict__ grad,
+                                    float* __restrict__ head,
+                                    float* __restrict__ tail, int64_t rows,
+                                    int64_t D, int64_t B, int64_t L,
+                                    int mode) {
+  const int64_t N = B * L;
+  const int64_t n_chunks = (N + kChunk - 1) / kChunk;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
+  for (int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x / kWarp) +
+                   threadIdx.x / kWarp;
+       k < n_chunks; k += warps) {
+    const int64_t c0 = k * kChunk;
+    const int64_t c1 = c0 + kChunk < N ? c0 + kChunk : N;
+    const bool from_before = c0 > 0 && sorted_rows[c0 - 1] == sorted_rows[c0];
+    const bool to_after = c1 < N && sorted_rows[c1] == sorted_rows[c1 - 1];
+    for (int64_t c = lane; c < D; c += kWarp) {
+      int cur = sorted_rows[c0];
+      bool is_head = from_before;
+      float acc = 0.0f;
+      for (int64_t i = c0; i < c1; ++i) {
+        const int r = sorted_rows[i];
+        if (r != cur) {  // the run of cur ended inside this chunk
+          (is_head ? head + k * D : grad + static_cast<int64_t>(cur) * D)[c] =
+              acc;
+          cur = r;
+          is_head = false;
+          acc = 0.0f;
+        }
+        acc += bag_value(src, idx, perm[i], c, rows, D, L, mode);
+      }
+      if (is_head) {
+        head[k * D + c] = acc;
+      } else if (to_after) {
+        tail[k * D + c] = acc;
+      } else {
+        grad[static_cast<int64_t>(cur) * D + c] = acc;
+      }
+    }
+  }
+}
+
+// One warp per chunk whose last run starts in it and goes on past it: that
+// run's partials, in chunk order, into its row.
+__global__ void bag_backward_combine(const int* __restrict__ sorted_rows,
+                                     float* __restrict__ grad,
+                                     const float* __restrict__ head,
+                                     const float* __restrict__ tail,
+                                     int64_t D, int64_t N) {
+  const int64_t n_chunks = (N + kChunk - 1) / kChunk;
+  const int lane = threadIdx.x & (kWarp - 1);
+  const int64_t warps = static_cast<int64_t>(gridDim.x) * (blockDim.x / kWarp);
+  for (int64_t k = blockIdx.x * static_cast<int64_t>(blockDim.x / kWarp) +
+                   threadIdx.x / kWarp;
+       k < n_chunks; k += warps) {
+    const int64_t c0 = k * kChunk;
+    const int64_t c1 = c0 + kChunk < N ? c0 + kChunk : N;
+    const int row = sorted_rows[c1 - 1];
+    const bool to_after = c1 < N && sorted_rows[c1] == row;
+    const bool starts_here = !(c0 > 0 && sorted_rows[c0 - 1] == row);
+    if (!(to_after && starts_here)) continue;
+    for (int64_t c = lane; c < D; c += kWarp) {
+      float acc = tail[k * D + c];
+      for (int64_t j = k + 1; j < n_chunks; ++j) {
+        acc += head[j * D + c];
+        const int64_t e = (j + 1) * kChunk;
+        if (!(e < N && sorted_rows[e] == row)) break;  // the run ends in j
+      }
+      grad[static_cast<int64_t>(row) * D + c] = acc;
+    }
+  }
+}
+
+unsigned warp_grid(int64_t n_chunks) {
+  const int64_t per_block = connectit::kThreads / kWarp;
+  int64_t blocks = (n_chunks + per_block - 1) / per_block;
+  if (blocks < 1) blocks = 1;
+  if (blocks > connectit::kMaxBlocks) blocks = connectit::kMaxBlocks;
+  return static_cast<unsigned>(blocks);
+}
+
 }  // namespace
 
 extern "C" int embedding_bag_f32(const void* table, const void* idx, void* out, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
@@ -161,4 +345,43 @@ extern "C" int embedding_bag_f32(const void* table, const void* idx, void* out, 
 extern "C" int embedding_bag_bf16(const void* table, const void* idx, void* out, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
   return embedding_bag<__nv_bfloat16>(table, idx, out, rows, D, B, L, mode,
                                       stream);
+}
+
+// Launch 1 of the backward: keys (B*L,) int32 rows; for max also contrib
+// (B*L, D) float32. table is read for max only.
+extern "C" int embedding_bag_backward_keys_f32(const void* table, const void* idx, const void* grad_out, void* keys, void* contrib, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
+  if (mode < kSum || mode > kMax || rows < 1 || D < 1 || B < 1 || L < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int64_t work = mode == kMax && B * D > B * L ? B * D : B * L;
+  bag_backward_keys<<<connectit::grid_for(work), connectit::kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(table), static_cast<const int*>(idx),
+      static_cast<const float*>(grad_out), static_cast<int*>(keys),
+      static_cast<float*>(contrib), rows, D, B, L, mode);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launches 2 and 3: src is grad_out (B, D) for sum and mean, contrib
+// (B*L, D) for max; sorted_rows/perm the stable sort of keys; head/tail
+// (ceil(B*L / 32), D) scratch; grad (rows, D) zeroed.
+extern "C" int embedding_bag_backward_f32(const void* src, const void* idx, const void* sorted_rows, const void* perm, void* grad, void* head, void* tail, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
+  if (mode < kSum || mode > kMax || rows < 1 || D < 1 || B < 1 || L < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t n_chunks = (B * L + kChunk - 1) / kChunk;
+  bag_backward_reduce<<<warp_grid(n_chunks), connectit::kThreads, 0, st>>>(
+      static_cast<const float*>(src), static_cast<const int*>(idx),
+      static_cast<const int*>(sorted_rows),
+      static_cast<const int64_t*>(perm), static_cast<float*>(grad),
+      static_cast<float*>(head), static_cast<float*>(tail), rows, D, B, L,
+      mode);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  bag_backward_combine<<<warp_grid(n_chunks), connectit::kThreads, 0, st>>>(
+      static_cast<const int*>(sorted_rows), static_cast<float*>(grad),
+      static_cast<const float*>(head), static_cast<const float*>(tail), D,
+      B * L);
+  return static_cast<int>(cudaGetLastError());
 }

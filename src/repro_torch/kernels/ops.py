@@ -29,8 +29,10 @@ the reference's ``block_m``; on the card they refuse any other explicit
 value, and the plain versions ignore it, as the reference's ``ref`` policy
 does. ``tuned_block_m`` is what the tuning cache resolves to.
 
-``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper, dispatched in
-``kernels/legacy``, so that ``launch_counts()`` covers every kernel.
+``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper and its
+backward, dispatched in ``kernels/legacy``, and the threefry draws of
+``repro_torch.random`` (``threefry_bits``, ``threefry_randint``, dispatched
+here), so that ``launch_counts()`` covers every kernel.
 """
 
 from __future__ import annotations
@@ -50,9 +52,12 @@ from .pointer_jump import kernel as _pointer_jump_kernel
 from .pointer_jump.ref import pointer_jump_ref
 from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
+from .threefry import kernel as _threefry_kernel
+from .threefry.ref import threefry_bits_ref, threefry_randint_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
-           "edge_rewrite", "compact_mask", "embedding_bag", "launch_counts",
+           "edge_rewrite", "compact_mask", "embedding_bag", "threefry_bits",
+           "threefry_randint", "launch_counts",
            "reset_launch_counts", "tuned_block_m", "clear_tuned_blocks",
            "KERNELS", "KERNEL_CONTRACT_VERSION", "DEFAULT_BLOCK_M"]
 
@@ -72,6 +77,9 @@ KERNELS = {
     "edge_relabel": _edge_relabel_kernel.edge_relabel,
     "edge_rewrite": _edge_relabel_kernel.edge_rewrite,
     "embedding_bag": _embedding_bag_kernel.embedding_bag,
+    "embedding_bag_backward": _embedding_bag_kernel.embedding_bag_backward,
+    "threefry_bits": _threefry_kernel.threefry_bits,
+    "threefry_randint": _threefry_kernel.threefry_randint,
 }
 
 
@@ -187,6 +195,26 @@ def edge_rewrite(labels: torch.Tensor, senders: torch.Tensor,
         _check_block("edge_rewrite", block_m)
         return _edge_relabel_kernel.edge_rewrite(labels, senders, receivers)
     return edge_rewrite_ref(labels, senders, receivers)
+
+
+def threefry_bits(out: torch.Tensor, k1: int, k2: int,
+                  start: int) -> torch.Tensor:
+    """Fill the int64 ``out`` (n,) with ``jax.random``'s threefry bits of
+    elements ``start`` .. ``start + n - 1`` under the key words
+    ``(k1, k2)`` (``repro_torch.random``'s draws)."""
+    if on_cuda(out):
+        return _threefry_kernel.threefry_bits(out, k1, k2, start)
+    return threefry_bits_ref(out, k1, k2, start)
+
+
+def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
+                     lower_key: tuple) -> torch.Tensor:
+    """``jax.random.randint``'s int32 draw in ``[minval, maxval)`` for each
+    of the int32 ``maxval`` (n,), from ``split(key)``'s two key words."""
+    if on_cuda(maxval):
+        return _threefry_kernel.threefry_randint(maxval, minval, higher_key,
+                                                 lower_key)
+    return threefry_randint_ref(maxval, minval, higher_key, lower_key)
 
 
 def compact_mask(mask: torch.Tensor, vals: torch.Tensor, cap: int) -> tuple:

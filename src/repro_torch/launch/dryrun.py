@@ -17,8 +17,10 @@ needed for 256 or 512 ranks. Per cell it reports:
 The reference's ``memory_analysis``, ``cost_analysis`` and HLO collective
 columns come from XLA's compiled program and have no counterpart here; they
 are left out. The port's DLRM cells run on one card (no mesh): they are
-planned at one rank. A shape the port has not built yet (DLRM
-``train_batch``) is reported as not ported, not as a failure.
+planned at one rank, with the model's parameters among the inputs, and for
+``train_batch`` AdamW's two moments and its step too (the state the step
+updates in place). A cell the port has not built yet (of a family still to
+port) is reported as not ported, not as a failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -67,13 +69,19 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
                   f"({e}) ==")
         return dict(arch=arch_name, shape=shape_name, mesh=mesh_kind,
                     status="not ported (item 16)")
+    shape = arch.shapes[shape_name]
     build_s = time.time() - t0
     if arch.family == "connectit":
         plan = mesh
         arg_bytes = local_bytes(cell, mesh)
     else:  # one card: the model's parameters are inputs too
         plan = ShapeMesh((1,), ("data",))
-        arg_bytes = local_bytes(cell, plan) + _dlrm_param_bytes(arch.model)
+        # training also holds AdamW's mu and nu (one each per parameter)
+        # and its int32 step
+        states = 3 if shape["kind"] == "train" else 1
+        arg_bytes = (local_bytes(cell, plan)
+                     + states * _dlrm_param_bytes(arch.model)
+                     + (4 if shape["kind"] == "train" else 0))
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev
     touched = cell.meta.get("bytes_touched", local_bytes(cell, plan) * n_dev)

@@ -10,9 +10,9 @@ through ``ConnectIt(variant).from_chunks``): the edge stream is generated a
 chunk at a time, never materialized, and reported with its survivor and
 spill counts.
 
-Queries are drawn from a ``torch.Generator`` seeded with the batch's step
-(``step`` and ``step + 1`` for the two ends), where the reference draws
-``jax.random.PRNGKey(step)``: the pairs differ, the labels do not.
+Queries are the reference's: the two ends of a batch's pairs are
+``randint`` from ``PRNGKey(step)`` and ``PRNGKey(step + 1)``
+(``repro_torch.random``, ``jax.random``'s numbers).
 
 Two flags beyond the reference's: ``--max-steps K`` stops after K batches
 of this run, as a preemption would (a rerun with the same ``--ckpt-dir``
@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import random as trandom
 from ..core import streaming
 from ..core.finish import resolve_finish
 from ..device import DEFAULT_DEVICE, resolve_device
@@ -54,13 +55,10 @@ def _sync(dev: torch.device) -> None:
 
 
 def _queries(step: int, nq: int, n: int, dev: torch.device) -> tuple:
-    g = torch.Generator(device=dev)
-    ends = []
-    for seed in (step, step + 1):
-        g.manual_seed(seed)
-        ends.append(torch.randint(0, n, (nq,), generator=g, device=dev,
-                                  dtype=torch.int32))
-    return tuple(ends)
+    """The reference's query pairs: ``randint(PRNGKey(step), (nq,), 0, n)``
+    and the same from ``PRNGKey(step + 1)``."""
+    return tuple(trandom.randint(trandom.PRNGKey(s, device=dev), (nq,), 0, n)
+                 for s in (step, step + 1))
 
 
 def run_ingest(n: int, edges: int, batch: int, finish: str = "uf_sync_full",

@@ -19,9 +19,11 @@ a ``shard_map`` body takes its blocks.
     label axis under the sharded placement. Built on a real mesh the cell
     runs; built on a ``launch.mesh.ShapeMesh`` with ``device="meta"`` it
     only plans (``launch/dryrun.py``).
-  * ``recsys``: DLRM serving and retrieval on one device; ``fn(model,
-    *inputs)``. DLRM training is queued with the bag's backward (ROADMAP
-    Queue 1 item 16), and so are the LM and GNN families.
+  * ``recsys``: DLRM training, serving and retrieval on one device;
+    ``fn(model, *inputs)``, and for training ``fn(model, opt_state,
+    *inputs)``, which updates the model and the optimizer state in place
+    (the reference donates both). The LM and GNN families are queued
+    (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -37,19 +39,23 @@ from ..core import collectives as coll
 from ..core.execution import ExecutionSpec, make_backend
 from ..core.finish import make_finish
 from ..graphs.containers import round_up
+from ..legacy import optim
 from ..legacy.models.dlrm import DLRM, DLRMConfig
 from .mesh import all_axes, data_axes, make_smoke_mesh
+
+
+OPT = optim.OptimizerConfig()
 
 
 @dataclasses.dataclass
 class Cell:
     arch: str
     shape: str
-    fn: Callable        # fn(*blocks); recsys: fn(model, *inputs)
+    fn: Callable        # fn(*blocks); recsys: fn(model, [opt_state,] *inputs)
     args: tuple         # the inputs' global shapes, as meta tensors
     in_shardings: tuple = ()  # per input: the mesh axes it is split over
-    donate: tuple = ()  # the inputs the reference donates (every program
-    # here writes out of place)
+    donate: tuple = ()  # the arguments of fn the reference donates: the
+    # connectivity programs write out of place, the train step in place
     meta: dict = dataclasses.field(default_factory=dict)
 
 
@@ -98,6 +104,22 @@ def serve_step(model: DLRM, dense: torch.Tensor,
         return torch.sigmoid(model(dense, sparse))
 
 
+def train_step(model: DLRM, opt_state: optim.AdamState, dense: torch.Tensor,
+               sparse: torch.Tensor, labels: torch.Tensor,
+               ocfg: optim.OptimizerConfig = OPT):
+    """One step of the reference's DLRM ``train_step``: the loss, its
+    gradient with respect to every parameter, and ``optim.update``, in place
+    on ``model``'s parameters and ``opt_state``'s moments → ``(model,
+    opt_state, {"loss", "lr", "grad_norm"})``."""
+    params = model.params()
+    with torch.enable_grad():
+        loss = model.loss(dense, sparse, labels)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    _, opt_state, info = optim.update(
+        ocfg, params, optim.tree_unflatten(params, grads), opt_state)
+    return model, opt_state, {"loss": loss.detach(), **info}
+
+
 def retrieve(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor,
              cand: torch.Tensor, top_k: int = 100):
     """``(values, indices)`` of the top ``top_k`` candidates for one query."""
@@ -121,9 +143,10 @@ def _dlrm_cell(arch: Arch, shape_name: str, cfg: DLRMConfig) -> Cell:
                     ((), (), ()), meta=dict(model_flops=2 * n_cand * cfg.embed_dim,
                               batch=1))
     if kind == "train":
-        raise NotImplementedError(
-            f"{arch.name} {shape_name}: DLRM training is not ported yet; it "
-            f"needs a backward for embedding_bag (ROADMAP Queue 1 item 16)")
+        labels = _meta((B,), torch.int32)
+        return Cell(arch.name, shape_name, train_step, (dense, sparse, labels),
+                    ((), (), ()), donate=(0, 1),
+                    meta=dict(model_flops=_dlrm_model_flops(cfg, B), batch=B))
     raise ValueError(f"{arch.name}: unknown shape kind {kind!r}")
 
 

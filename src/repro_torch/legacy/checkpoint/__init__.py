@@ -18,43 +18,14 @@ import json
 import os
 import re
 import tempfile
-from typing import Any, Callable, Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from ..tree import flatten
+
 _CKPT_RE = re.compile(r"ckpt_(\d+)\.npz")
-
-
-def _flatten(tree) -> tuple[list, Callable]:
-    """``(leaves, rebuild)``: the leaves in the reference's order, and a
-    function that puts new leaves back into the same structure."""
-    if isinstance(tree, dict):
-        keys = sorted(tree)
-        parts = [_flatten(tree[k]) for k in keys]
-
-        def rebuild(leaves):
-            out, i = {}, 0
-            for k, (ls, rb) in zip(keys, parts):
-                out[k] = rb(leaves[i: i + len(ls)])
-                i += len(ls)
-            return out
-        return [x for ls, _ in parts for x in ls], rebuild
-    if isinstance(tree, (tuple, list)):
-        parts = [_flatten(x) for x in tree]
-
-        def rebuild(leaves):
-            out, i = [], 0
-            for ls, rb in parts:
-                out.append(rb(leaves[i: i + len(ls)]))
-                i += len(ls)
-            if hasattr(tree, "_fields"):  # a NamedTuple
-                return type(tree)(*out)
-            return type(tree)(out)
-        return [x for ls, _ in parts for x in ls], rebuild
-    if tree is None:
-        return [], lambda leaves: None
-    return [tree], lambda leaves: leaves[0]
 
 
 def _host(x) -> np.ndarray:
@@ -68,7 +39,7 @@ def save(path: str, tree: Any, *, step: int, keep: int = 3,
     """Write a checkpoint atomically to ``<path>/ckpt_<step>.npz`` (and its
     meta JSON) → the file's path."""
     os.makedirs(path, exist_ok=True)
-    leaves, _ = _flatten(tree)
+    leaves, _ = flatten(tree)
     arrays = {f"leaf_{i}": _host(x) for i, x in enumerate(leaves)}
     meta = {"step": int(step), "treedef": type(tree).__name__,
             "n_leaves": len(leaves)}
@@ -115,7 +86,7 @@ def restore(path: str, tree_like: Any, *, step: Optional[int] = None,
     step = latest_step(path) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {path}")
-    leaves, rebuild = _flatten(tree_like)
+    leaves, rebuild = flatten(tree_like)
     with np.load(os.path.join(path, f"ckpt_{step:010d}.npz")) as data:
         if len(leaves) != len(data.files):
             raise ValueError(f"checkpoint has {len(data.files)} leaves, the "

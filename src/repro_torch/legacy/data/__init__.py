@@ -1,10 +1,10 @@
 """Deterministic synthetic data streams (mirrors ``repro.legacy.data``).
 
 Every batch is a function of ``(seed, step)`` alone: the DLRM stream's is
-drawn on the target device from a ``torch.Generator`` seeded with both (the
-recipe is the reference's; the draws are not ``jax.random``'s, so the
-parity tests hand both packages the same numpy inputs instead), and the
-edge stream's is a slice of its host edge list.
+the reference's, drawn on the target device from ``fold_in(PRNGKey(seed),
+step)`` with ``repro_torch.random`` (``jax.random``'s numbers: the ids and
+labels are the reference's, the dense features within ``normal``'s ulps),
+and the edge stream's is a slice of its host edge list.
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ... import random as trandom
 from ...device import DEFAULT_DEVICE, resolve_device
 
 
@@ -32,17 +33,24 @@ class RecsysStream:
     def batch_at(self, step: int, *, device=DEFAULT_DEVICE) -> dict:
         """``{"dense": (B, n_dense) float32, "sparse": (B, n_sparse, L)
         int32 ids in [0, vocab), "labels": (B,) int32}``."""
-        dev = resolve_device(device)
-        g = torch.Generator(device=dev)
-        g.manual_seed((self.seed << 32) + step)
-        dense = torch.randn(self.batch, self.n_dense, generator=g, device=dev)
-        u = torch.rand(self.batch, self.n_sparse, self.multi_hot,
-                       generator=g, device=dev) * (1 - 1e-6) + 1e-6
-        zipf = (self.vocab ** u - 1.0) / (self.vocab - 1.0) * self.vocab
+        key = trandom.fold_in(trandom.PRNGKey(self.seed, device=device),
+                              step)
+        kd, ks, kl = trandom.split(key, 3)
+        dense = trandom.normal(kd, (self.batch, self.n_dense))
+        u = trandom.uniform(ks, (self.batch, self.n_sparse, self.multi_hot),
+                            minval=1e-6)
+        # vocab ** u in float64, rounded once: the reference's float32 pow
+        # (glibc's powf on the CPU) agrees but for ~0.06% of draws, where
+        # the two differ by an ulp; float32 tensors as the divisor, so
+        # that CUDA divides as the reference does
+        f32 = dict(dtype=torch.float32, device=u.device)
+        pw = torch.pow(float(self.vocab), u.double()).float()
+        zipf = (pw - 1.0) / torch.tensor(self.vocab - 1.0, **f32) \
+            * torch.tensor(float(self.vocab), **f32)
         sparse = zipf.to(torch.int32).clamp_(0, self.vocab - 1)
         logit = (dense.sum(-1) * 0.3
                  + (sparse[..., 0].sum(-1) % 7 - 3).float() * 0.2)
-        labels = (torch.rand(self.batch, generator=g, device=dev)
+        labels = (trandom.uniform(kl, (self.batch,))
                   < torch.sigmoid(logit)).to(torch.int32)
         return {"dense": dense, "sparse": sparse, "labels": labels}
 

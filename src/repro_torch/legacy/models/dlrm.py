@@ -9,8 +9,12 @@ interaction (strict lower triangle); top MLP → CTR logit.
 ``retrieval_score`` is the retrieval_cand cell: one user vector against
 10⁶ candidate embeddings as one GEMV and a top-k.
 
-Serving only: the module's parameters take no gradient. Training needs a
-backward for the bag and is queued (ROADMAP Queue 1 item 16).
+Trainable: the bag is a ``torch.autograd.Function`` whose backward is the
+hand-written CUDA ``embedding_bag_backward`` on the card. ``params()`` is
+the reference's parameter pytree (``{"tables": [...], "bot": {...}, "top":
+{...}}``) of the module's own tensors, which ``legacy.optim`` updates in
+place and ``legacy.checkpoint`` saves in the reference's leaf order.
+Serving runs under ``inference_mode`` (``launch/steps.py``).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ... import random as trandom
 from ...kernels.legacy import embedding_bag
-from .layers import MLP, mlp_init
+from .layers import MLP, mlp_init, normal
 
 ROW_PAD = 512  # tables are padded to a multiple of this many rows
 
@@ -70,11 +75,16 @@ class DLRM(nn.Module):
         self.tables = nn.ParameterList(tables)
         self.bot = bot
         self.top = top
-        self.requires_grad_(False)
         f = cfg.n_sparse + 1
         # jnp.tril_indices(f, k=-1) order, which the top MLP's weights follow
         self.register_buffer("tril", torch.tril_indices(
             f, f, offset=-1, device=tables[0].device), persistent=False)
+
+    def params(self) -> dict:
+        """The reference's pytree of this module's parameters (the tensors
+        themselves, not copies)."""
+        return {"tables": list(self.tables), "bot": self.bot.params(),
+                "top": self.top.params()}
 
     def bags(self, sparse_idx: torch.Tensor) -> list:
         """The ``n_sparse`` sum-bags ``(B, D)`` of ``sparse_idx`` (B, n_sparse,
@@ -95,7 +105,7 @@ class DLRM(nn.Module):
 
     def loss(self, dense: torch.Tensor, sparse_idx: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
-        """Mean binary cross-entropy of the logits (forward only)."""
+        """Mean binary cross-entropy of the logits."""
         logit = self.forward(dense, sparse_idx).float()
         y = labels.float()
         return torch.mean(torch.clamp(logit, min=0) - logit * y
@@ -112,23 +122,38 @@ class DLRM(nn.Module):
         return torch.topk(scores, top_k)
 
 
-def init_dlrm(cfg: DLRMConfig, *, generator: torch.Generator, device,
+def init_dlrm(cfg: DLRMConfig, *, key=None, generator=None, device=None,
               dtype=torch.float32) -> DLRM:
-    """Random weights drawn on ``device`` from ``generator`` (which must
-    live there): tables normal / sqrt(D) with the rows from ``V`` on zero,
-    MLPs as ``mlp_init``. Each table is drawn where it lives, so the 6.66 GB
-    of RM2's tables never pass through the host."""
+    """Random weights: tables normal / sqrt(D) with the rows from ``V`` on
+    zero, MLPs as ``mlp_init``. From a threefry ``key`` (on ``device``, the
+    key's own when None) they are the reference's ``init_dlrm(key, cfg)``:
+    table ``i`` draws from ``split(key, n_sparse + 2)[i]``, the bottom MLP
+    from the one before last, the top MLP from the last. From a
+    ``generator`` (which must live on ``device``) they are torch's numbers.
+    Each table is drawn where it lives, so the 6.66 GB of RM2's tables
+    never pass through the host."""
+    if (key is None) == (generator is None):
+        raise ValueError("init_dlrm: pass one of key= and generator=")
+    if key is not None:
+        key = key.to(device) if device is not None else key
+        device = key.device
+        ks = trandom.split(key, cfg.n_sparse + 2)
+        draw = [dict(key=ks[i]) for i in range(cfg.n_sparse)]
+        bot_kw, top_kw = dict(key=ks[-2]), dict(key=ks[-1])
+    else:
+        draw = [dict(generator=generator)] * cfg.n_sparse
+        bot_kw = top_kw = dict(generator=generator, device=device)
+    root_d = torch.tensor(math.sqrt(cfg.embed_dim), device=device)
     tables = []
-    for v in cfg.vocab_sizes:
-        t = torch.randn(table_rows(v), cfg.embed_dim, generator=generator,
-                        device=device, dtype=torch.float32)
-        t.div_(math.sqrt(cfg.embed_dim))
+    for v, kw in zip(cfg.vocab_sizes, draw):
+        t = normal((table_rows(v), cfg.embed_dim), device=device, **kw)
+        t.div_(root_d)  # a float32 divide, as the reference's
         t[v:] = 0.0
         tables.append(t.to(dtype))
-    bot = mlp_init([cfg.n_dense, *cfg.bot_mlp], generator=generator,
-                   device=device, dtype=dtype, final_relu=True)
+    bot = mlp_init([cfg.n_dense, *cfg.bot_mlp], dtype=dtype, final_relu=True,
+                   **bot_kw)
     top = mlp_init([cfg.n_interactions + cfg.embed_dim, *cfg.top_mlp],
-                   generator=generator, device=device, dtype=dtype)
+                   dtype=dtype, **top_kw)
     return DLRM(cfg, tables, bot, top)
 
 

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from .. import random as trandom
 from ..device import DEFAULT_DEVICE
 from ..kernels.ops import DEFAULT_BLOCK_M
 from .cache import SelectionCache, default_cache, fingerprint_graph, make_key
@@ -129,17 +130,19 @@ def tune_block_m(spec: TuneSpecLike = TuneSpec(), *,
 
 
 def _tune_variant(g, spec: TuneSpec, cache: SelectionCache, exec: str,
-                  family: str, names: tuple, timer, generator,
+                  family: str, names: tuple, timer, rng,
                   mesh=None) -> tuple:
     """(winner, its time, whether this rank wrote the cache)."""
     from ..api import ConnectIt  # lazy: api imports this module
     if not names:
         raise ValueError("no variant candidates to tune over")
     times, session = [], None
+    draws = ({"generator": rng} if isinstance(rng, torch.Generator)
+             else {"key": rng})
     for name in names:
         session = ConnectIt(name, exec=exec, mesh=mesh, device=g.device)
         times.append(time_fn(
-            lambda: session.connectivity(g, generator=generator),
+            lambda: session.connectivity(g, **draws),
             trials=spec.trials, warmup=spec.warmup, timer=timer,
             device=g.device))
     mesh = session._backend.mesh
@@ -166,15 +169,16 @@ def tune_variant(g, spec: TuneSpecLike = TuneSpec(), *,
                  family: Optional[str] = None,
                  candidates: Optional[Sequence[str]] = None,
                  timer: Optional[Callable[[], float]] = None,
+                 key: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
                  mesh=None) -> str:
     """Time candidate variants end to end on ``g`` (on its device) and
     persist the winner under the graph's family fingerprint.
 
-    One full ``connectivity`` per trial; with ``generator=None`` every call
-    draws from a generator seeded 0, as the reference passes a fixed PRNG
-    key, so sampling variants are charged for their sampling phase on the
-    same draws each trial. Ties go to candidate order (the fast grid lists
+    One full ``connectivity`` per trial, every call drawing from ``key``
+    (``PRNGKey(0)`` when None, as the reference's; or from ``generator``),
+    so sampling variants are charged for their sampling phase on the same
+    draws each trial. Ties go to candidate order (the fast grid lists
     the paper default first). ``mesh`` is the placement's ``DeviceMesh``
     (the whole group when None), as ``ConnectIt`` takes it. Returns the
     winning variant string."""
@@ -184,7 +188,7 @@ def tune_variant(g, spec: TuneSpecLike = TuneSpec(), *,
     names = tuple(spec.variant_candidates() if candidates is None
                   else candidates)
     return _tune_variant(g, spec, cache, exec, family, names, timer,
-                         generator, mesh)[0]
+                         trandom.choose(key, generator), mesh)[0]
 
 
 def tune_families(families: dict, spec: TuneSpecLike = TuneSpec(), *,

@@ -246,8 +246,9 @@ def test_unported_families_name_item_16(family):
     arch = tbase.Arch("x", family, None, {"s": dict(kind="train")}, {})
     with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
         tsteps.build_cell(arch, "s")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        tsteps.build_cell(get_arch("dlrm-rm2"), "train_batch")
+    # the recsys family's train cell is built, and the dry run plans it
+    cell = tsteps.build_cell(get_arch("dlrm-rm2"), "train_batch")
+    assert cell.fn is tsteps.train_step and cell.donate == (0, 1)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -378,10 +379,26 @@ def test_dryrun_cli_plans_every_cell(tmp_path, capsys):
     out = tmp_path / "dryrun.csv"
     assert dryrun.main(["--all", "--mesh", "both", "--csv", str(out)]) == 0
     text = capsys.readouterr().out
-    assert "DRY-RUN SUMMARY: 14 ok, 2 not ported, 0 failed" in text
-    assert "NOT PORTED: dlrm-rm2 train_batch single" in text
+    assert "DRY-RUN SUMMARY: 16 ok, 0 not ported, 0 failed" in text
+    assert "NOT PORTED" not in text
     rows = out.read_text().splitlines()
-    assert len(rows) == 15 and rows[0].startswith("arch,shape,mesh")
+    assert len(rows) == 17 and rows[0].startswith("arch,shape,mesh")
+
+
+def test_dryrun_plans_the_dlrm_train_cell_by_hand():
+    """One rank holds the parameters, AdamW's two moments (each the
+    parameters' size), its int32 step and the batch: ~20 GB of 80."""
+    cfg = get_arch("dlrm-rm2").model
+    rows = -(-(cfg.vocab_sizes[0] + 1) // 512) * 512
+    params = 26 * rows * 64
+    for widths in ((13, 512, 256, 64), (351 + 64, 512, 512, 256, 1)):
+        params += sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
+    B = 65536
+    want = 3 * 4 * params + 4 + B * (13 + 26 + 1) * 4
+    rec = dryrun.run_cell("dlrm-rm2", "train_batch", "single", verbose=False)
+    assert (rec["status"], rec["devices"]) == ("ok", 1)
+    assert rec["arg_bytes"] == want and rec["fits"]
+    assert 19e9 < want < 21e9
 
 
 def test_production_meshes_are_shapes_only():

@@ -24,7 +24,8 @@ from repro.legacy.models import dlrm as jdlrm
 from repro_torch.configs import all_archs, get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
-from repro_torch.launch.steps import build_cell, retrieve, serve_step
+from repro_torch.launch.steps import build_cell, retrieve, serve_step, \
+    train_step
 from repro_torch.legacy.data import RecsysStream
 from repro_torch.legacy.models import dlrm as tdlrm
 
@@ -90,7 +91,7 @@ def test_dlrm_matches_jax(name):
     logits = model(td, ts)
     want = np.asarray(_j_forward(params, jd, js, jcfg))
     assert logits.shape == (B,) and logits.dtype == torch.float32
-    np.testing.assert_allclose(logits.numpy(), want, **TOL)
+    np.testing.assert_allclose(logits.detach().numpy(), want, **TOL)
     np.testing.assert_allclose(serve_step(model, td, ts).numpy(),
                                np.asarray(jax.nn.sigmoid(want)), **TOL)
     np.testing.assert_allclose(
@@ -118,9 +119,9 @@ def test_init_dlrm_pads_tables_with_zero_rows():
     for t, v in zip(models[0].tables, cfg.vocab_sizes):
         assert t.shape == (tdlrm.table_rows(v), cfg.embed_dim)
         assert not t[v:].any() and t[:v].abs().min() > 0
-    # the same seed gives the same weights, and none of them takes a gradient
+    # the same seed gives the same weights, and every one takes a gradient
     for a, b in zip(models[0].parameters(), models[1].parameters()):
-        assert torch.equal(a, b) and not a.requires_grad
+        assert torch.equal(a, b) and a.requires_grad
     with pytest.raises(ValueError, match="table of shape"):
         tdlrm.DLRM(cfg, [t[:-1] for t in models[0].tables], models[0].bot,
                    models[0].top)
@@ -155,8 +156,22 @@ def test_cell_shapes_and_flops_match_jax(shape):
 
 
 def test_train_cell_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        build_cell(ARCH, "train_batch")
+    """The train cell is built: the reference's ``_dlrm_cell`` meta and
+    input shapes for ``train_batch``, the model and optimizer state donated
+    (updated in place); an unknown shape still raises."""
+    spec = J_RECSYS_SHAPES["train_batch"]
+    B = spec["batch"]
+    serve = build_cell(ARCH, "serve_bulk")
+    cell = build_cell(ARCH, "train_batch")
+    assert (cell.arch, cell.shape, cell.fn) == ("dlrm-rm2", "train_batch",
+                                                train_step)
+    assert cell.donate == (0, 1)
+    assert cell.meta == dict(model_flops=serve.meta["model_flops"] * B
+                             // serve.meta["batch"], batch=B)
+    assert [tuple(a.shape) for a in cell.args] == [(B, 13), (B, 26, 1), (B,)]
+    assert [a.dtype for a in cell.args] == [torch.float32, torch.int32,
+                                            torch.int32]
+    assert all(a.device.type == "meta" for a in cell.args)
     with pytest.raises(KeyError, match="no shape"):
         build_cell(ARCH, "decode_32k")
 

@@ -613,7 +613,9 @@ def test_cpu_tensors_take_the_plain_path():
     embedding_bag(torch.ones(8, 4), s.reshape(5, 10), mode="mean")
     assert ops.launch_counts() == before
     assert set(before) == {"hook_compress", "pointer_jump", "scatter_min",
-                           "edge_relabel", "edge_rewrite", "embedding_bag"}
+                           "edge_relabel", "edge_rewrite", "embedding_bag",
+                           "embedding_bag_backward", "threefry_bits",
+                           "threefry_randint"}
 
 
 def test_reset_launch_counts_zeroes_every_counter():
@@ -634,7 +636,9 @@ def test_unsupported_device_raises():
 # is testable here; the sources and the build are checked statically.
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", sorted(set(ops.KERNELS) - {"embedding_bag"}))
+@pytest.mark.parametrize("name", sorted(set(ops.KERNELS) - {
+    "embedding_bag", "embedding_bag_backward", "threefry_bits",
+    "threefry_randint"}))
 def test_kernel_wrappers_reject_what_they_cannot_take(name):
     fn = ops.KERNELS[name]
     before = fn.launches
