@@ -9,6 +9,9 @@
     python3 chip_smoke.py --ranks 4               # only the placements and
                                                   # the sharded cells, on 4
                                                   # cards, a rank each
+    python3 chip_smoke.py --parent build/parent/src/repro_torch
+                                                  # also time a parent's bag
+                                                  # backward, in turns
 
 Phases, in order; any failure exits non-zero:
 
@@ -81,19 +84,25 @@ Phases, in order; any failure exits non-zero:
               on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
               one (B=65536, L=8, ~10% on the dump row, and with wrapped and
               clamped ids), sum / mean / max, float32 / bfloat16;
-              embedding_bag_backward (float32, no TPU counterpart) on the
-              same table for each mode: RM2's train shape (B=65536, L=1,
-              zipfian), a hub (half the bags on row 0), the multi-hot and
-              the wrapped ids, each against the plain version (index_add_
-              of each position's share) within the worst case of two float32
-              sums of the same terms in other orders, the same bits on a
-              second run, beside index_add_ (sum, L=1) and the zeroing of
-              the gradient alone; then the 26 calls recorded from one
-              full-width train_batch step (RECORDED's run kind "train");
-              threefry_randint (the main path's k-out column: randint
-              over the graph's degrees under PRNGKey(0)'s column key) and
-              threefry_bits (2^22 words) against their plain versions, bit
-              for bit;
+              embedding_bag_backward (float32, no TPU counterpart; one
+              call for T tables, embedding_bags_backward) on the same table
+              for each mode: RM2's train shape (B=65536, L=1, zipfian), a
+              hub (half the bags on row 0), the multi-hot and the wrapped
+              ids, each against the plain version (index_add_ of each
+              position's share) within the worst case of two float32 sums
+              of the same terms in other orders, the same bits on a second
+              run, beside index_add_ (sum, L=1) and the zeroing of the
+              gradient alone; then the grouped call of 26 tables recorded
+              from one full-width train_batch step (RECORDED's run kind
+              "train"); with --parent PKG (a parent commit's
+              src/repro_torch, git archive'd into build/) each of these
+              also times the parent's backward, in turns: parent, change,
+              change, parent; threefry_randint (the main path's k-out
+              column: randint over the graph's degrees under PRNGKey(0)'s
+              column key) and threefry_bits (2^22 words) against their
+              plain versions, bit for bit, their operations bound from
+              cuobjdump -sass of the built library (each pipe at its rate:
+              SASS_ALU, SASS_IMAD, SASS_XU);
   5. small    every variant of enumerate_variants() (148) on a small graph,
               compacted and fused, on the card, against the CPU path and
               scipy; the spanning forest of its 28 forest-capable variants,
@@ -260,8 +269,9 @@ Phases, in order; any failure exits non-zero:
               freed: the train_batch cell (B=65536, 26 x 1,000,448 x 64
               float32 tables, AdamW with the reference's OptimizerConfig)
               from init_dlrm(key=PRNGKey(seed)) on RecsysStream batches:
-              one warm step, one counted step (26 embedding_bag and 26
-              embedding_bag_backward launches, nothing else), TRAIN_STEPS
+              one warm step, one counted step (26 embedding_bag launches
+              and 1 of embedding_bag_backward, all 26 tables in one call,
+              and nothing else), TRAIN_STEPS
               timed steps (step wall p50, samples/s, the peak above the
               model and optimizer state, first and last loss, finite), one
               traced step; one step twice from the same state (saved to the
@@ -420,7 +430,7 @@ TUNE_EVENT_ITERS = 20
 DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-SCALAR_OPS_PER_S = 67e12  # 32-bit, outside the tensor cores
+SCALAR_OPS_PER_S = 67e12  # float32 FLOP/s outside the tensor cores (FMA)
 INT32_MAX = 2**31 - 1
 # DLRM-RM2 (src/repro_torch/configs/legacy/dlrm_rm2.py) at full width
 RM2_VOCAB = 1_000_000
@@ -432,7 +442,7 @@ BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
 # the train phase: timed steps at full width; the vocab of its kernels-vs-
 # plain step; that step's tolerance per leaf, relative to the leaf's largest
 # magnitude (the table gradients are float32 sums of up to ~4,000 terms in
-# another order: the kernel's chunks against index_add_'s atomics), moments
+# another order: the kernel's runs against index_add_'s atomics), moments
 # and parameters; and the CLI run's steps, checkpoint interval and failure
 TRAIN_STEPS = 10
 TRAIN_CHECK_VOCAB = 1 << 16
@@ -1043,9 +1053,11 @@ def kernel_inputs(torch, g, gen, log_m: int, seed: int = 0) -> tuple:
     return P, sets
 
 
-def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
+def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0,
+                  parent=None) -> dict:
     """Each kernel against its plain version at the main paths' shapes,
-    and on the calls the paths really make (kernel_inputs)."""
+    and on the calls the paths really make (kernel_inputs); with
+    ``parent``, the bag backward's cases also time the parent's."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.edge_relabel.ref import (
         edge_relabel_ref,
@@ -1274,7 +1286,7 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0) -> dict:
           f"phase labels add")
     results["embedding_bag"] = _embedding_bag_cases(torch, cap)
     results["embedding_bag_backward"] = _embedding_bag_backward_cases(
-        torch, cap, seed)
+        torch, cap, seed, parent)
     results.update(_threefry_cases(torch, g))
     return results
 
@@ -1384,13 +1396,58 @@ def _embedding_bag_cases(torch, cap: int) -> dict:
     return main
 
 
-# integer operations of one threefry2x32 block as csrc/threefry.cu runs it:
-# 2 key adds, 20 x (add, rotate, xor), 5 key injections of 3 adds, the
-# counter's high word, the parity word and the output xor
-THREEFRY_OPS = 81
-# randint's span arithmetic besides its two blocks: subtract, compare,
-# select, 4 remainders, 2 multiplies, 2 adds, 1 remainder
-RANDINT_OPS = 12
+# SASS opcodes by the SM pipe that runs them, and each pipe's results a
+# clock on an SM of compute capability 9.0 (the CUDA C++ Programming
+# Guide's table of arithmetic instruction throughput): 64 for 32-bit
+# integer add, compare, shift and logic (the ALU pipe) and 64 for 32-bit
+# integer multiply-add (IMAD, on the FMA pipe beside it), 16 for
+# conversions and special functions; 4 schedulers issue 128 lanes' worth of
+# instructions. The per-second rates scale SCALAR_OPS_PER_S, 128 float32
+# FMA lanes x 2 FLOPs a clock on 132 SMs at 1.98 GHz.
+SASS_ALU = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "IABS", "IMNMX",
+            "VIMNMX", "VIADD", "PRMT", "POPC", "FLO", "BREV", "SGXT")
+SASS_IMAD = ("IMAD", "IMUL")
+SASS_XU = ("MUFU", "I2F", "F2I", "F2F", "FRND", "I2FP", "F2IP")
+INT32_OPS_PER_S = SCALAR_OPS_PER_S / 4
+XU_OPS_PER_S = SCALAR_OPS_PER_S / 16
+ISSUE_PER_S = SCALAR_OPS_PER_S / 2
+
+
+def sass_counts(lib: Path, fragment: str) -> dict:
+    """Instructions of the kernel in ``lib`` whose name holds
+    ``fragment`` (cuobjdump -sass, NOPs left out): ``{"alu", "imad", "xu",
+    "all", "ops"}``, ``ops`` the opcodes and their counts."""
+    import re
+    import shutil
+    from collections import Counter
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops, inside = Counter(), False
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            inside = fragment in head.group(1)
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9]*)",
+                      line)
+        if inside and op and op.group(1) != "NOP":
+            ops[op.group(1)] += 1
+    require(sum(ops.values()) > 0, f"cuobjdump: no kernel {fragment} in {lib}")
+    return {"alu": sum(v for k, v in ops.items() if k in SASS_ALU),
+            "imad": sum(v for k, v in ops.items() if k in SASS_IMAD),
+            "xu": sum(v for k, v in ops.items() if k in SASS_XU),
+            "all": sum(ops.values()), "ops": dict(ops.most_common())}
+
+
+def sass_bound_ms(n: int, counts: dict) -> tuple:
+    """The least time of n threads that each run ``counts`` once: the
+    slowest of the pipes (each at its own rate) and the issue rate."""
+    return max((n * counts["alu"] / INT32_OPS_PER_S * 1e3, "int32 ALU pipe"),
+               (n * counts["imad"] / INT32_OPS_PER_S * 1e3, "IMAD pipe"),
+               (n * counts["xu"] / XU_OPS_PER_S * 1e3, "conversion pipe"),
+               (n * counts["all"] / ISSUE_PER_S * 1e3, "issue"))
 
 
 def _threefry_cases(torch, g) -> dict:
@@ -1399,13 +1456,14 @@ def _threefry_cases(torch, g) -> dict:
     column of PRNGKey(0), as the main path draws it) and 2^22 bits (an
     LDD shift draw over n vertices, a DLRM table's slice)."""
     from repro_torch import random as trandom
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import _build, ops
     from repro_torch.kernels.threefry.ref import (
         threefry_bits_ref,
         threefry_randint_ref,
     )
 
     n = g.n
+    lib = _build.build_all(names=("threefry",))["threefry"].path
     span = (g.indptr[1: n + 1] - g.indptr[:n]).clamp_min(1).contiguous()
     column = trandom.split(trandom.PRNGKey(0, device="cuda"), 1)[0]
     keys = [tuple(k) for k in trandom.split(column, 2).tolist()]
@@ -1414,7 +1472,7 @@ def _threefry_cases(torch, g) -> dict:
         "threefry_randint": dict(
             kernel=lambda: ops.KERNELS["threefry_randint"](span, 0, *keys),
             plain=lambda: threefry_randint_ref(span, 0, *keys),
-            nbytes=8 * n, nops=n * (2 * THREEFRY_OPS + RANDINT_OPS),
+            nbytes=8 * n, n=n, fn="randint_kernel",
             shape=f"maxval ({n},) int32, the graph's degrees"),
         "threefry_bits": dict(
             kernel=lambda: ops.KERNELS["threefry_bits"](
@@ -1423,7 +1481,7 @@ def _threefry_cases(torch, g) -> dict:
             plain=lambda: threefry_bits_ref(
                 torch.empty(1 << 22, dtype=torch.int64, device="cuda"),
                 *words, 0),
-            nbytes=8 << 22, nops=(1 << 22) * THREEFRY_OPS,
+            nbytes=8 << 22, n=1 << 22, fn="bits_kernel",
             shape="2^22 int64 words"),
     }
     out = {}
@@ -1434,11 +1492,23 @@ def _threefry_cases(torch, g) -> dict:
                 f"plain version")
         ms = time_ms(torch, c["kernel"], iters=20)
         plain_ms = time_ms(torch, c["plain"], iters=5)
-        b_ms, b_by = bound_ms(c["nbytes"], c["nops"])
+        # operations: one thread an element (the grid covers n), each
+        # running its kernel's SASS once
+        sass = sass_counts(lib, c["fn"])
+        o_ms, o_by = sass_bound_ms(c["n"], sass)
+        b_ms, b_by = bound_ms(c["nbytes"], 0)
+        if o_ms > b_ms:
+            b_ms, b_by = o_ms, "operations"
         print(f"[kernels] {name} {c['shape']}: exact match; kernel_ms="
               f"{ms:.4f} plain_ms={plain_ms:.4f} library_ms=null (torch's "
-              f"generators draw other numbers) bound_ms={b_ms:.4f} ({b_by}) "
-              f"kernel/bound={ms / b_ms:.2f}")
+              f"generators draw other numbers) bound_ms={b_ms:.4f} ({b_by}; "
+              f"operations {o_ms:.4f} at the {o_by} rate) kernel/bound="
+              f"{ms / b_ms:.2f}; SASS a thread: {sass['all']} instructions "
+              f"(issue at {ISSUE_PER_S / 1e12:.2f} T/s), {sass['alu']} on "
+              f"the int32 ALU pipe and {sass['imad']} IMAD, each at "
+              f"{INT32_OPS_PER_S / 1e12:.2f} TOP/s, {sass['xu']} "
+              f"conversions and special functions at "
+              f"{XU_OPS_PER_S / 1e12:.2f} TOP/s; opcodes {sass['ops']}")
         out[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/threefry.cu",
@@ -1453,7 +1523,7 @@ def _bag_backward_tol(torch, table, idx, grad_out, mode: str):
     """Per element, the worst case of two float32 sums of the same k terms
     in different orders: 2 (k - 1) 2^-24 sum|term|, k the positions that
     read the row (the plain version's atomics add in any order, the
-    kernel's in its chunks' order)."""
+    kernel's in its runs' order)."""
     from repro_torch.kernels.legacy.embedding_bag.ref import (
         embedding_bag_backward_ref,
         wrap_and_clamp,
@@ -1464,9 +1534,45 @@ def _bag_backward_tol(torch, table, idx, grad_out, mode: str):
     return 2 * (k[:, None] - 1).clamp(min=0) * 2.0 ** -24 * mag
 
 
+def _plain_bags(tables, idx, mode: str = "sum") -> list:
+    """DLRM's grouped bags through the plain version, table by table."""
+    from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
+    return [embedding_bag_ref(t, i, mode) for t, i in zip(tables, idx)]
+
+
+def load_package(name: str, path: Path):
+    """Import the package directory ``path`` as the module ``name`` (a
+    parent commit's repro_torch beside this checkout's)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, path / "__init__.py", submodule_search_locations=[str(path)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def bag_backward_of(pkg):
+    """A repro_torch copy's bag backward as ``f(tables, idx, grad_outs,
+    mode)`` → the T gradients: its grouped wrapper where it has one, else
+    its per-table wrapper once a table. The second branch serves only a
+    copy from before ``embedding_bags`` (the port at 9cf3286, against which
+    the grouped backward was first timed) and can go with such copies."""
+    import importlib
+    k = importlib.import_module(
+        f"{pkg.__name__}.kernels.legacy.embedding_bag.kernel")
+    if hasattr(k, "embedding_bags_backward"):
+        return lambda tables, idx, gs, mode: k.embedding_bags_backward(
+            tables, idx, gs, mode=mode)
+    return lambda tables, idx, gs, mode: [
+        k.embedding_bag_backward(t, i, g, mode=mode)
+        for t, i, g in zip(tables, idx, gs)]
+
+
 class _TrainRecorder:
-    """The (table, idx, grad_out, mode) of every embedding_bag_backward
-    call made while it is entered, the calls still launched as they were."""
+    """The (tables, idx, grad_outs, mode) of every grouped bag backward
+    (embedding_bags_backward) called while it is entered, the calls still
+    launched as they were."""
 
     def __init__(self):
         self.calls = []
@@ -1480,13 +1586,16 @@ class _TrainRecorder:
         # package's name for its module: that name is patched, so the
         # wrapper itself, and its launch count, stay as they are
         self._legacy, self._module = legacy, legacy._embedding_bag_kernel
-        launch = self._module.embedding_bag_backward
+        launch = self._module.embedding_bags_backward
 
-        def record(table, idx, grad_out, *, mode="sum"):
-            self.calls.append((table, idx.clone(), grad_out.clone(), mode))
-            return launch(table, idx, grad_out, mode=mode)
+        def record(tables, idx, grad_outs, *, mode="sum"):
+            # grad_outs are the rows of the interaction's input, a stride
+            # apart: the clones are contiguous
+            self.calls.append((list(tables), idx.clone(),
+                               [g.clone() for g in grad_outs], mode))
+            return launch(tables, idx, grad_outs, mode=mode)
         legacy._embedding_bag_kernel = SimpleNamespace(
-            **{**vars(self._module), "embedding_bag_backward": record})
+            **{**vars(self._module), "embedding_bags_backward": record})
         return self
 
     def __exit__(self, *exc):
@@ -1508,7 +1617,7 @@ def _rm2_config(cap: int, vocab: int = RM2_VOCAB):
 def _record_train(torch, cap: int, seed: int) -> list:
     """RECORDED's "train" run: one full-width train_batch step from
     init_dlrm(key=PRNGKey(seed)) on RecsysStream's batch 0, recording its
-    embedding_bag_backward calls (the tables stay referenced; the moments,
+    grouped bag backward call (the tables stay referenced; the moments,
     gradients and batch are freed)."""
     from repro_torch import random as trandom
     from repro_torch.launch.steps import train_step
@@ -1532,13 +1641,17 @@ def _record_train(torch, cap: int, seed: int) -> list:
     return rec.calls
 
 
-def _embedding_bag_backward_cases(torch, cap: int, seed: int) -> dict:
-    """embedding_bag_backward against its plain version: synthetic ids on
-    one RM2-width table for each mode, then the recorded train calls (the
-    JSON's row). The plain version on the card is index_add_ of each
-    position's share; the library call, where one computes the function
-    (sum, L = 1), index_add_ into a zeroed gradient."""
-    from repro_torch.kernels import ops
+def _embedding_bag_backward_cases(torch, cap: int, seed: int,
+                                  parent=None) -> dict:
+    """The bag backward against its plain version: synthetic ids on one
+    RM2-width table for each mode (one-table calls), then the grouped call
+    recorded from one full-width train step, 26 tables (the JSON's row).
+    The plain version on the card is index_add_ of each position's share, a
+    table at a time; the library call, where one computes the function
+    (sum, L = 1), index_add_ into a zeroed gradient a table. With
+    ``parent`` (a repro_torch copy: --parent) each case also times the
+    parent's backward in turns, parent, change, change, parent."""
+    import repro_torch
     from repro_torch.kernels.legacy.embedding_bag.ref import (
         embedding_bag_backward_ref,
         wrap_and_clamp,
@@ -1546,7 +1659,10 @@ def _embedding_bag_backward_cases(torch, cap: int, seed: int) -> dict:
     from repro_torch.legacy.data import RecsysStream
     from repro_torch.legacy.models.dlrm import table_rows
 
-    launch = ops.KERNELS["embedding_bag_backward"]
+    copies = {"change": bag_backward_of(repro_torch)}
+    if parent is not None:
+        copies = {"parent": bag_backward_of(parent), **copies}
+    launch = copies["change"]
     vocab = min(RM2_VOCAB, cap)
     rows, D = table_rows(vocab), 64
     gen = torch.Generator(device="cuda")
@@ -1578,14 +1694,17 @@ def _embedding_bag_backward_cases(torch, cap: int, seed: int) -> dict:
           f"float32 gradient alone {zero_ms:.4f} ms (bound "
           f"{rows * D * 4 / HBM_BYTES_PER_S * 1e3:.4f} ms at 3.35 TB/s)")
 
-    def measure(tag: str, calls: list) -> dict:
-        """calls: (table, idx, grad_out, mode); timed back to back."""
-        got = [launch(*c[:3], mode=c[3]) for c in calls]
-        again = [launch(*c[:3], mode=c[3]) for c in calls]
-        want = [embedding_bag_backward_ref(*c) for c in calls]
+    def measure(tag: str, call: tuple) -> dict:
+        """call: (tables, idx (T, B, L), grad_outs, mode), one grouped
+        backward; timed back to back."""
+        tables, idx, gs, mode = call
+        per_table = list(zip(tables, idx, gs))
+        got, again = launch(*call), launch(*call)
+        want = [embedding_bag_backward_ref(t, i, g, mode)
+                for t, i, g in per_table]
         torch.cuda.synchronize()
         err = 0.0
-        for (t, i, g, mode), a, b, w in zip(calls, got, again, want):
+        for (t, i, g), a, b, w in zip(per_table, got, again, want):
             require(torch.equal(a, b), f"embedding_bag_backward {tag}: two "
                     f"runs of one call differ")
             over = (a - w).abs() - _bag_backward_tol(torch, t, i, g, mode)
@@ -1594,80 +1713,103 @@ def _embedding_bag_backward_cases(torch, cap: int, seed: int) -> dict:
                     f"its plain version beyond the reordering bound "
                     f"(by {float(over.max())})")
             err = max(err, float((a - w).abs().max()))
-        del got, again, want
-        ms = time_ms(torch, lambda: [launch(*c[:3], mode=c[3])
-                                     for c in calls], iters=10)
-        plain_ms = time_ms(torch, lambda: [embedding_bag_backward_ref(*c)
-                                           for c in calls], iters=5)
+        del got, again
+        if parent is not None:
+            for (t, i, g), a, w in zip(per_table, copies["parent"](*call),
+                                       want):
+                over = (a - w).abs() - _bag_backward_tol(torch, t, i, g, mode)
+                require(bool((over <= 0).all()), f"the parent's backward "
+                        f"{tag} disagrees with the plain version")
+        del want
+        names = list(copies)
+        turns = {n: [] for n in names}
+        for n in names + names[::-1]:
+            turns[n].append(time_ms(torch, lambda: copies[n](*call),
+                                    iters=10))
+        ms = sum(turns["change"]) / 2
+        parent_ms = sum(turns["parent"]) / 2 if parent is not None else None
+        plain_ms = time_ms(torch, lambda: [
+            embedding_bag_backward_ref(t, i, g, mode)
+            for t, i, g in per_table], iters=5)
         lib_ms = None
         # index_add_ computes the function where every bag is one id inside
-        # the table, summed
-        if all(c[3] == "sum" and c[1].shape[1] == 1
-               and bool(((c[1] >= 0) & (c[1] < c[0].shape[0])).all())
-               for c in calls):
-            src = [(c[0], c[1].long().flatten(), c[2]) for c in calls]
+        # its table, summed
+        if mode == "sum" and idx.shape[2] == 1 and all(
+                bool(((i >= 0) & (i < t.shape[0])).all())
+                for t, i, _ in per_table):
+            src = [(t, i.long().flatten(), g) for t, i, g in per_table]
 
             def lib():
                 return [torch.zeros_like(t).index_add_(0, i, g)
                         for t, i, g in src]
-            for a, c in zip(lib(), calls):
-                over = (a - embedding_bag_backward_ref(*c)).abs() - \
-                    _bag_backward_tol(torch, *c)
+            for a, (t, i, g) in zip(lib(), per_table):
+                over = (a - embedding_bag_backward_ref(t, i, g, mode)).abs() \
+                    - _bag_backward_tol(torch, t, i, g, mode)
                 require(bool((over <= 0).all()),
                         f"index_add_ {tag} differs from the plain version")
             lib_ms = time_ms(torch, lib, iters=10)
-        # bytes: each call's ids and grad_out read once, its whole
-        # gradient written once (the zeroing, ~all of it), and for max the
+        # bytes: each table's ids and grad_out read once, its whole
+        # gradient written once (the zeros, ~all of it), and for max the
         # distinct table rows read; the touched rows alone beside it
         total = touched = 0
-        for t, i, g, mode in calls:
+        for t, i, g in per_table:
             u = int(torch.unique(wrap_and_clamp(i, t.shape[0])).numel())
             own = i.numel() * 4 + g.numel() * 4 + (
                 u * t.shape[1] * 4 if mode == "max" else 0)
             total += own + t.numel() * 4
             touched += own + u * t.shape[1] * 4
-        b_ms, b_by = bound_ms(total, sum(c[1].numel() * c[0].shape[1]
-                                         for c in calls))
-        t0, i0 = calls[0][0], calls[0][1]
-        print(f"[kernels] embedding_bag_backward {tag}: {len(calls)} x "
-              f"table {tuple(t0.shape)} ids {tuple(i0.shape)}: within the "
-              f"reordering bound (max_abs_err={err:.3e}), the same bits "
-              f"twice; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-              f"bound_ms={b_ms:.4f} ({b_by}, {total} bytes at 3.35 TB/s) "
-              f"touched_rows_bound_ms="
+        b_ms, b_by = bound_ms(total, idx.numel() * D)
+        vs = "" if parent_ms is None else (
+            f" (parent {parent_ms:.4f} -> change {ms:.4f} in turns: "
+            f"{parent_ms / ms:.2f}x)")
+        print(f"[kernels] embedding_bag_backward {tag}: {len(tables)} x "
+              f"table {tuple(tables[0].shape)} ids {tuple(idx.shape)}: "
+              f"within the reordering bound (max_abs_err={err:.3e}), the "
+              f"same bits twice; kernel_ms={ms:.4f}{vs} plain_ms="
+              f"{plain_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} bound_ms="
+              f"{b_ms:.4f} ({b_by}, {total} bytes at 3.35 TB/s) "
+              f"kernel/bound={ms / b_ms:.2f} touched_rows_bound_ms="
               f"{touched / HBM_BYTES_PER_S * 1e3:.4f} zeroing_ms="
-              f"{zero_ms * len(calls):.4f}")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                "zeroing_ms": zero_ms * len(calls)}
+              f"{zero_ms * len(tables):.4f}")
+        out = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "zeroing_ms": zero_ms * len(tables)}
+        if parent_ms is not None:
+            out["parent_ms"] = parent_ms
+        return out
 
     inputs = {}
     for ids_name, ids in synthetic.items():
         g = torch.randn(ids.shape[0], D, generator=gen, device="cuda") / B
         for mode in BAG_MODES:
             inputs[f"{ids_name} {mode}"] = measure(
-                f"{ids_name} {mode}", [(table, ids, g, mode)])
+                f"{ids_name} {mode}", ([table], ids[None], [g], mode))
     del table, synthetic
     torch.cuda.empty_cache()
     runs = [r for name, _, r in RECORDED if name == "embedding_bag_backward"]
     main = None
     for run in (x for r in runs for x in r):
         calls = _record_train(torch, cap, seed)
-        require(len(calls) == 26, f"train: {len(calls)} backward calls")
-        inputs[run] = main = measure(f"recorded {run}", calls)
+        require(len(calls) == 1 and len(calls[0][0]) == 26,
+                f"train: {len(calls)} grouped backward calls of "
+                f"{[len(c[0]) for c in calls]} tables, want 1 of 26")
+        inputs[run] = main = measure(f"recorded {run}", calls[0])
         del calls
         torch.cuda.empty_cache()
-    return {"name": "embedding_bag_backward", "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
-            "replaces": "none: no Pallas kernel (the reference's gradient "
-                        "is XLA's transpose of the gather at "
-                        "src/repro/kernels/legacy/embedding_bag/ref.py:20)",
-            "launches": 0, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "inputs": inputs,
-            "main": "train"}
+    row = {"name": "embedding_bag_backward", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+           "replaces": "none: no Pallas kernel (the reference's gradient "
+                       "is XLA's transpose of the gather at "
+                       "src/repro/kernels/legacy/embedding_bag/ref.py:20)",
+           "launches": 0, "max_abs_err": main["max_abs_err"],
+           "ms": main["ms"], "plain_ms": main["plain_ms"],
+           "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+           "library_ms": main["library_ms"], "inputs": inputs,
+           "main": "train"}
+    if parent is not None:
+        row["parent_ms"] = main["parent_ms"]
+    return row
 
 
 def phase_small(torch) -> None:
@@ -4225,7 +4367,6 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
 
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
-    from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
     from repro_torch.launch.steps import build_cell
     from repro_torch.legacy.data import RecsysStream
     from repro_torch.legacy.models import dlrm as dlrm_mod
@@ -4253,7 +4394,7 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
           f"{precision!r}, TF32 off")
 
     def plain(fn, *args):
-        with mock.patch.object(dlrm_mod, "embedding_bag", embedding_bag_ref):
+        with mock.patch.object(dlrm_mod, "embedding_bags", _plain_bags):
             return fn(model, *args)
 
     def wall_ms(fn, steps: int) -> list:
@@ -4424,8 +4565,9 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want = {k: 0 for k in counts}
-    want.update(embedding_bag=cfg.n_sparse,
-                embedding_bag_backward=cfg.n_sparse, threefry_bits=3)
+    # one backward call for all the tables (embedding_bags)
+    want.update(embedding_bag=cfg.n_sparse, embedding_bag_backward=1,
+                threefry_bits=3)
     require(counts == want, f"train: launches {counts}, want {want}")
     for name in ("embedding_bag_backward", "threefry_bits"):
         results[name]["launches"] = counts[name]
@@ -4508,9 +4650,10 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
     kernel = [x.detach().clone() for x in leaves(model, state)]
     load(model, state, start)
     before = ops.launch_counts()
-    with mock.patch.object(dlrm_mod, "embedding_bag",
-                           lambda t, i, mode="sum": PlainBag.apply(t, i,
-                                                                   mode)):
+    with mock.patch.object(dlrm_mod, "embedding_bags",
+                           lambda tables, idx, mode="sum": [
+                               PlainBag.apply(t, i, mode)
+                               for t, i in zip(tables, idx)]):
         pinfo = step(model, state, batch)
     torch.cuda.synchronize()
     require(ops.launch_counts() == before,
@@ -4763,6 +4906,10 @@ def main() -> int:
     ap.add_argument("--log-n", type=int, default=22)
     ap.add_argument("--log-m", type=int, default=25)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="a parent commit's src/repro_torch (git archive it "
+                         "into build/): the bag backward's cases time its "
+                         "backward too, in turns")
     ap.add_argument("--ranks", type=int, default=1,
                     help="N > 1: only the placements over N processes, one "
                          "rank a card over NCCL (needs N cards)")
@@ -4782,6 +4929,10 @@ def main() -> int:
               f"from a checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    parent = None
+    if args.parent is not None:
+        parent = load_package("repro_torch_parent", args.parent.resolve())
+        parent.kernels._build.build_all(names=("embedding_bag",))
     if args.mesh_rank is not None:  # the parent's isolated cache, inherited
         try:
             return mesh_rank(args.mesh_rank, args.mesh_dir)
@@ -4831,7 +4982,7 @@ def main() -> int:
         # batches and candidates to 2^log_n
         cap = 1 << args.log_n
         results = timed("kernels", phase_kernels, torch, g, cap, args.log_m,
-                        args.seed)
+                        args.seed, parent)
         timed("small", phase_small, torch)
         expect, keys = timed("oracle", phase_oracle, g)
         timed("paths", phase_paths, torch, g, expect, results, exact)

@@ -20,23 +20,12 @@ labels and finish rounds. Needs one CUDA card; exits 1 without one.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import statistics
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-
-
-def load_package(name: str, path: Path):
-    """Import the package directory ``path`` as the module ``name``."""
-    spec = importlib.util.spec_from_file_location(
-        name, path / "__init__.py", submodule_search_locations=[str(path)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    spec.loader.exec_module(module)
-    return module
 
 
 def main() -> int:
@@ -63,7 +52,7 @@ def main() -> int:
     for i, arg in enumerate(args.packages):
         name, _, path = arg.rpartition("=")
         name = name or f"pkg{i}"
-        pkg = load_package(f"repro_torch_{name}", Path(path).resolve())
+        pkg = cs.load_package(f"repro_torch_{name}", Path(path).resolve())
         t0 = time.perf_counter()
         pkg.kernels._build.build_all()
         print(f"[build] {name} ({path}): {time.perf_counter() - t0:.1f} s")

@@ -46,10 +46,13 @@ SIGNATURES = {
     "embedding_bag": {
         "embedding_bag_f32": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
         "embedding_bag_bf16": (_P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
+        # the first four: host arrays of T int64 (csrc's bag_tables)
         "embedding_bag_backward_keys_f32": (
-            _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P),
+            _P, _P, _P, _P, _I64, _P, _P, _I32, _P, _P, _I64, _I64, _I64, _I32,
+            _P),
         "embedding_bag_backward_f32": (
-            _P, _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _P)},
+            _P, _P, _P, _P, _I64, _P, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64,
+            _I64, _I64, _I32, _P)},
     "threefry": {
         "threefry_bits_i64": (_P, _I64, _I64, _I64, _I64, _P),
         "threefry_randint_i32": (

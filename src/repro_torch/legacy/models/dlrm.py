@@ -2,15 +2,15 @@
 ``repro.legacy.models.dlrm``).
 
 13 dense features → bottom MLP; 26 sparse multi-hot fields → one embedding
-bag per table, through the dispatching ``embedding_bag`` (the hand-written
+bag per table, through the dispatching ``embedding_bags`` (the hand-written
 CUDA kernel on the card, its plain version on the CPU); dot-product feature
 interaction (strict lower triangle); top MLP → CTR logit.
 
 ``retrieval_score`` is the retrieval_cand cell: one user vector against
 10⁶ candidate embeddings as one GEMV and a top-k.
 
-Trainable: the bag is a ``torch.autograd.Function`` whose backward is the
-hand-written CUDA ``embedding_bag_backward`` on the card. ``params()`` is
+Trainable: the bags are one ``torch.autograd.Function`` whose backward is
+one call of the hand-written CUDA backward for all 26 tables on the card. ``params()`` is
 the reference's parameter pytree (``{"tables": [...], "bot": {...}, "top":
 {...}}``) of the module's own tensors, which ``legacy.optim`` updates in
 place and ``legacy.checkpoint`` saves in the reference's leaf order.
@@ -28,7 +28,7 @@ import torch
 from torch import nn
 
 from ... import random as trandom
-from ...kernels.legacy import embedding_bag
+from ...kernels.legacy import embedding_bags
 from .layers import MLP, mlp_init, normal
 
 ROW_PAD = 512  # tables are padded to a multiple of this many rows
@@ -88,10 +88,9 @@ class DLRM(nn.Module):
 
     def bags(self, sparse_idx: torch.Tensor) -> list:
         """The ``n_sparse`` sum-bags ``(B, D)`` of ``sparse_idx`` (B, n_sparse,
-        L): one ``embedding_bag`` call per table."""
+        L): one ``embedding_bags`` call for all the tables."""
         per_field = sparse_idx.to(torch.int32).transpose(0, 1).contiguous()
-        return [embedding_bag(t, per_field[i])
-                for i, t in enumerate(self.tables)]
+        return embedding_bags(list(self.tables), per_field)
 
     def forward(self, dense: torch.Tensor,
                 sparse_idx: torch.Tensor) -> torch.Tensor:
