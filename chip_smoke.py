@@ -286,6 +286,34 @@ Phases, in order; any failure exits non-zero:
               final checkpoint equal leaf for leaf to an uninterrupted
               run's.
 
+ 20. lm       the LM family (LM_ARCHS) on the card, each run listing its
+              cuts: (e) the five smoke configs in float32, TF32 off,
+              against the same calls on the CPU from the same weights
+              (logits, aux, lm_loss, one train step's moments and
+              parameters, prefill and decode; LM_SMOKE_TOL); (f) python -m
+              repro_torch.launch.train --arch stablelm-3b stopped by
+              --simulate-failure and resumed bit-exact, beside python -m
+              repro_torch.launch.legacy.serve (its ids equal serve()'s);
+              then at full width and depth, bf16 activations over float32
+              weights, each model drawn from PRNGKey(seed) on the card
+              (its threefry_bits launches asserted from the shapes, a
+              TokenStream batch's two threefry_randint): (c) h2o-danube-3-4b
+              x long_500k uncut, a prefill of LM_LONG_PREFILL tokens and
+              LM_LONG_DECODE decode steps through the cell, each against
+              the full forward (LM_BF16_TOL); (b) granite-moe-3b-a800m
+              prefill at LM_MOE_SEQ x LM_MOE_BATCH and decode, layer 0's
+              capacity and dropped share; (a) qwen3-4b prefill_32k at
+              LM_PREFILL_BATCH, traced (attention, GEMMs, weight casts),
+              decode steps from its cache (one traced), decode_32k at
+              LM_DECODE_BATCH over a full cache, prefill and decode from
+              an empty cache against the forward on LM_CHECK_TOKENS tokens,
+              F.scaled_dot_product_attention beside chunked_attention on
+              layer 0's q/k/v; (d) stablelm-3b train_4k with remat at
+              LM_TRAIN_BATCH: a counted step, LM_TRAIN_STEPS timed, one
+              traced, AdamW alone against its bytes bound, one step twice
+              from one state equal bit for bit (the state page-locked on
+              the host).
+
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
 on N processes of this script, one rank a card over NCCL, each rank's
@@ -470,7 +498,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2,
     """Mean ms of one call over ``iters`` back-to-back calls (CUDA events).
     A call whose last warm-up took longer than ``budget_ms / iters`` (the
     plain versions and library calls on whole edge lists, 0.1-0.5 s each)
-    is timed over fewer calls, at least 3."""
+    is timed over fewer calls, at least 3, and a call of half a second or
+    more (the plain versions on the cells' 2^29-2^31 edges) over one."""
     for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
@@ -478,7 +507,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2,
     fn()
     torch.cuda.synchronize()
     last = (time.perf_counter() - t0) * 1e3
-    iters = max(3, min(iters, int(budget_ms / max(last, 1e-3))))
+    iters = max(1 if last >= 500 else 3,
+                min(iters, int(budget_ms / max(last, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -4686,10 +4716,11 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
     _train_cli(seed)
 
 
-def _train_cli(seed: int) -> None:
-    """launch.train on the card: a run stopped by --simulate-failure, rerun
-    to its end, against an uninterrupted run (the two first runs side by
-    side); the final checkpoints equal leaf for leaf."""
+def _train_cli(seed: int, arch: str = "dlrm-rm2", tag: str = "train") -> None:
+    """launch.train --arch ``arch`` on the card: a run stopped by
+    --simulate-failure, rerun to its end, against an uninterrupted run (the
+    two first runs side by side); the final checkpoints equal leaf for
+    leaf."""
     import shutil
     import tempfile
 
@@ -4698,7 +4729,7 @@ def _train_cli(seed: int) -> None:
     c = TRAIN_CLI
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-           "dlrm-rm2", "--device", "cuda", "--steps", str(c["steps"]),
+           arch, "--device", "cuda", "--steps", str(c["steps"]),
            "--ckpt-every", str(c["every"]), "--seed", str(seed)]
     t0 = time.perf_counter()
     try:
@@ -4735,7 +4766,7 @@ def _train_cli(seed: int) -> None:
                 f"differs from the uninterrupted run's in {bad}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print(f"[train] python -m repro_torch.launch.train --arch dlrm-rm2 "
+    print(f"[{tag}] python -m repro_torch.launch.train --arch {arch} "
           f"--device cuda --steps {c['steps']} --ckpt-every {c['every']}: "
           f"--simulate-failure {c['fail']} exited 42, the rerun resumed from "
           f"step {resumed}, its final checkpoint equal to an uninterrupted "
@@ -4901,6 +4932,910 @@ def _trace_stream_steps(torch, g, seed: int) -> None:
     print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
 
 
+# ---------------------------------------------------------------------------
+# The LM family (phase "lm"): the five transformer configs on one card.
+# ---------------------------------------------------------------------------
+
+LM_ARCHS = ("h2o-danube-3-4b", "qwen3-4b", "stablelm-3b", "deepseek-moe-16b",
+            "granite-moe-3b-a800m")
+# (a) qwen3-4b: prefill_32k's batch cut from 32, decode steps from its
+# cache; decode_32k's batch cut from 128, over a full 32,768-slot cache
+LM_PREFILL_BATCH = 2
+LM_DECODE_BATCH = 8
+LM_DECODE_STEPS = 8
+# the full-width checks: a prompt of this many tokens through prefill and
+# through decode from an empty cache, each against the full forward
+LM_CHECK_TOKENS = 64
+# (b) granite-moe-3b-a800m: prefill at this sequence and batch, then decode
+LM_MOE_SEQ = 4096
+LM_MOE_BATCH = 8
+# (c) h2o-danube-3-4b x long_500k (B = 1): a prefill of two windows, then
+# decode steps past it, each slot of the ring overwritten in turn
+LM_LONG_PREFILL = 8192
+LM_LONG_DECODE = 16
+# (d) stablelm-3b x train_4k: batch cut from 256
+LM_TRAIN_BATCH = 1
+LM_TRAIN_STEPS = 10
+# two bfloat16 paths at full depth (decode against forward): the largest
+# logit difference as a share of the largest |logit|. A bfloat16 rounding
+# is 2^-8 of a value; through 24-36 residual layers the two paths' logits
+# differ by a few of them
+LM_BF16_TOL = 0.05
+# (e) the smoke configs in float32 on the card against the CPU: GEMMs of
+# another order (cuBLAS without TF32, against the CPU's) through two layers
+LM_SMOKE_TOL = dict(rtol=1e-4, atol=1e-4)
+# (e)'s train step, at launch.train's schedule (lr 1e-3, 10 warmup steps:
+# 1e-4 at step 1): each gradient leaf within LM_GRAD_TOL of the CPU leaf's
+# largest magnitude (tests/test_torch_lm.py's bound); the moments within
+# 3 LM_GRAD_TOL of their leaf's largest (mu moves by the gradient's
+# difference, nu by twice it, both scaled by the leaf's largest); every
+# parameter within LM_STEP_TOL (one float32 rounding of it, far below the
+# step's 1e-4) plus how far the two gradients move its AdamW step apart
+# through AdamW's formula in float64 (tests/test_torch_lm_cells.py)
+LM_TRAIN_OPT = dict(lr=1e-3, warmup_steps=10, total_steps=1000)
+LM_GRAD_TOL = 1e-5
+LM_STEP_TOL = dict(rtol=1e-6, atol=1e-7)
+# (e) in bfloat16 activations: the card's logits and every lm_loss gradient
+# leaf against the CPU's, as a share of the CPU's largest magnitude. Two
+# bfloat16 implementations (the port and the reference on the CPU, my CPU
+# run, PR 26) differ by at most 0.012 of the logits and 0.032 of a
+# gradient leaf; a transposed operand or a lost cast differs by O(1)
+LM_BF16_SMOKE_TOL = dict(logits=0.05, grads=0.1)
+# bfloat16 dense peak, H100 SXM (NVIDIA data sheet, 700 W)
+BF16_FLOPS_PER_S = 989e12
+
+
+def _lm_init(torch, cfg, seed: int):
+    """The model from PRNGKey(seed) on the card: (model, seconds), the
+    threefry launches asserted: one threefry_bits a 2^22 slice of each
+    drawn leaf, a layer at a time, and no randint."""
+    import numpy as np
+
+    from repro_torch import random as trandom
+    from repro_torch.kernels import ops
+    from repro_torch.legacy.models import transformer as tfm
+
+    def drawn(tree, name=""):
+        if isinstance(tree, dict):
+            return [n for k, v in tree.items() for n in drawn(v, k)]
+        norm = name.startswith("ln_") or name.endswith("_norm")
+        return [] if norm else [tree]
+
+    per = trandom._SLICE
+    want = cfg.n_layers * sum(-(-int(np.prod(s)) // per)
+                              for s in drawn(tfm.layer_shapes(cfg)))
+    want += 2 * (-(-cfg.vocab * cfg.d_model // per))
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = tfm.init_transformer(cfg, key=trandom.PRNGKey(seed,
+                                                          device="cuda"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(counts["threefry_bits"] == want and
+            sum(counts.values()) == want,
+            f"lm init {cfg.name}: launches {counts}, want threefry_bits="
+            f"{want} and nothing else")
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[lm] {cfg.name}: {n} float32 parameters ({4 * n} bytes) drawn "
+          f"on the card from PRNGKey({seed}) in {init_s:.2f} s: "
+          f"{counts['threefry_bits']} threefry_bits launches (one a 2^22 "
+          f"slice of each drawn leaf), as counted from the shapes")
+    return model, init_s
+
+
+def _lm_tokens(torch, cfg, batch: int, seq: int, seed: int) -> dict:
+    """TokenStream's batch 0 on the card, its two threefry_randint launches
+    (and nothing else) asserted."""
+    from repro_torch.kernels import ops
+    from repro_torch.legacy.data import TokenStream
+    before = ops.launch_counts()
+    b = TokenStream(cfg.vocab, batch, seq, seed).batch_at(0, device="cuda")
+    after = ops.launch_counts()
+    diff = {k: after[k] - before.get(k, 0) for k in after}
+    require(diff["threefry_randint"] == 2 and sum(diff.values()) == 2,
+            f"lm batch: launches {diff}, want threefry_randint=2")
+    return b
+
+
+def _lm_rel(torch, got, want) -> float:
+    """max |got - want| over max |want|, in float64 (0 where they agree)."""
+    got, want = got.detach().double(), want.detach().double()
+    d = float((got - want).abs().max())
+    return d / float(want.abs().max()) if d else 0.0
+
+
+def _lm_breakdown(torch, tag: str, fn):
+    """One run of ``fn`` under torch.profiler → ``(its result, {part: ms,
+    "busy", "wall"})``: the kernels' device time split into the per-use
+    float32 → bfloat16 weight casts (ops under an ``lm.weight_cast``
+    range), the GEMMs (aten::mm / bmm / addmm) and the rest outside the
+    ``lm.attention`` ranges, and the attention (what is left)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    # the ranges' own device spans are annotations, not kernels
+    kernels = sum(e.device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA
+                  and not e.name.startswith("lm.")) / 1e3
+
+    def inside(e, name):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name == name:
+                return True
+            p = p.cpu_parent
+        return False
+
+    # the kernels outside the attention, each on the op that launched it;
+    # the attention is the rest of the kernels' own sum (on a prefill's
+    # ~10^5 events the ops' attributed times add up to more than the
+    # kernels' sum)
+    part = dict(attention=0.0, weight_casts=0.0, gemm=0.0, rest=0.0)
+    for e in events:
+        if e.device_type != DeviceType.CPU or e.name.startswith("lm."):
+            continue
+        t = e.self_device_time_total / 1e3
+        if not t or inside(e, "lm.attention"):
+            continue
+        if inside(e, "lm.weight_cast"):
+            part["weight_casts"] += t
+        elif e.name in ("aten::mm", "aten::bmm", "aten::addmm"):
+            part["gemm"] += t
+        else:
+            part["rest"] += t
+    part["attention"] = kernels - sum(part.values())
+    busy = kernels
+    share = "; ".join(f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+                      for k, v in part.items())
+    print(f"[lm] profile {tag}: traced wall {wall:.4f} s, device busy "
+          f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / wall:.1f}%), idle "
+          f"{100 * (1 - busy / 1e3 / wall):.1f}%; {share}")
+    rows = sorted(((e.device_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and not e.key.startswith("lm.")), reverse=True)
+    for dev_us, key, count in rows[:8]:
+        print(f"[lm]   {dev_us / 1e3:9.3f} ms  x{count:<6d} {key[:90]}")
+    return out, dict(part, busy=busy, wall=wall)
+
+
+def _adam_moves(grads, ocfg, lr: float) -> list:
+    """Each leaf's AdamW step at step 1, ``lr g / (|g| + eps)`` of the
+    globally clipped gradient, in float64 (weight decay left out)."""
+    import numpy as np
+    c = min(1.0, ocfg.grad_clip / float(np.sqrt(sum(
+        float((g * g).sum()) for g in grads))))
+    return [lr * c * g / ((c * g).abs() + ocfg.eps) for g in grads]
+
+
+def _lm_grads(torch, model, batch, cfg) -> list:
+    """lm_loss's gradient of every leaf, float64 on the host."""
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.models import transformer as tfm
+    params = model.params()
+    with torch.enable_grad():
+        loss, _ = tfm.lm_loss(params, batch["tokens"], batch["labels"], cfg)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    return [g.detach().cpu().double() for g in grads]
+
+
+def _card_scores(torch) -> dict:
+    """``layers.scores`` of bfloat16 operands on the card (bmm with a
+    float32 output and its hand-written backward) against float32 ``bmm``
+    autograd of the same values, at one qwen3-4b query chunk's shape
+    (8 KV heads x 4 query heads x 1,024 rows against a 1,024-key chunk,
+    d_head 128): the forward within 1e-5 of its largest magnitude, each
+    gradient element within one bfloat16 rounding (2^-8) of the float32
+    gradient's plus 1e-5 of its largest."""
+    from repro_torch.legacy.models import layers
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    q = torch.randn(8, 4096, 128, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(8, 1024, 128, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(8, 4096, 1024, generator=gen, device="cuda")
+    qb, kb = (t.clone().requires_grad_(True) for t in (q, k))
+    got = layers.scores(qb, kb)
+    dq, dk = torch.autograd.grad((got * w).sum(), (qb, kb))
+    qf, kf = (t.float().requires_grad_(True) for t in (q, k))
+    want = torch.bmm(qf, kf.transpose(-1, -2))
+    wq, wk = torch.autograd.grad((want * w).sum(), (qf, kf))
+    out = {"forward": _lm_rel(torch, got, want)}
+    require(got.dtype == torch.float32 and out["forward"] <= 1e-5,
+            f"scores on the card: forward {got.dtype}, {out['forward']}")
+    for tag, g, f in (("dq", dq, wq), ("dk", dk, wk)):
+        bound = 2.0 ** -8 * f.abs() + 1e-5 * f.abs().max()
+        out[tag] = _lm_rel(torch, g.float(), f)
+        require(g.dtype == torch.bfloat16 and
+                bool(((g.float() - f).abs() <= bound).all()),
+                f"scores on the card: {tag} beyond one bfloat16 rounding "
+                f"of the float32 gradient ({out[tag]} of its largest)")
+    return out
+
+
+def _lm_smoke(torch, seed: int) -> None:
+    """(e) The five smoke configs on the card against the same calls on the
+    CPU from the same weights. In float32: forward logits, lm_loss, one
+    train step (gradients, moments, parameters), prefill then decode. In
+    bfloat16 activations: logits and every lm_loss gradient leaf. Then
+    ``scores``' bfloat16 product on the card against float32 autograd."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import lm_train_step
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import TokenStream
+    from repro_torch import random as trandom
+    from repro_torch.legacy.models import transformer as tfm
+
+    precision = torch.get_float32_matmul_precision()
+    require(precision == "highest" and
+            not torch.backends.cuda.matmul.allow_tf32,
+            f"float32 matmuls must run in full float32, got {precision!r}")
+    ocfg = optim.OptimizerConfig(**LM_TRAIN_OPT)
+    worst, n_wide, n_all = {}, 0, 0
+    for name in LM_ARCHS:
+        arch = get_arch(name)
+        cfg = dataclasses.replace(arch.model, **arch.smoke)
+        cpu = tfm.init_transformer(cfg, key=trandom.PRNGKey(
+            seed, device="cpu"))
+        card = tfm.Transformer(cfg, optim.tree_unflatten(
+            cpu.params(), [x.detach().cuda() for x in optim.tree_leaves(
+                cpu.params())]))
+        stream = TokenStream(cfg.vocab, 2, 32, seed)
+        bc, bg = stream.batch_at(0, device="cpu"), stream.batch_at(
+            0, device="cuda")
+        require(all(torch.equal(bc[k], bg[k].cpu()) for k in bc),
+                f"lm smoke {name}: TokenStream on the card differs")
+        rel = {}
+        with torch.no_grad():
+            lc, ac = cpu(bc["tokens"])
+            lg, ag = card(bg["tokens"])
+            rel["logits"] = _lm_rel(torch, lg.cpu(), lc)
+            torch.testing.assert_close(lg.cpu(), lc, **LM_SMOKE_TOL)
+            torch.testing.assert_close(ag.cpu(), ac, **LM_SMOKE_TOL)
+            # prefill 28 tokens, then decode the last 4
+            pc, cc = cpu.prefill(bc["tokens"][:, :28], 32)
+            pg, cg = card.prefill(bg["tokens"][:, :28], 32)
+            torch.testing.assert_close(pg.cpu(), pc, **LM_SMOKE_TOL)
+            for i in range(28, 32):
+                pc, cc = cpu.decode_step(cc, bc["tokens"][:, i])
+                pg, cg = card.decode_step(cg, bg["tokens"][:, i])
+                torch.testing.assert_close(pg.cpu(), pc, **LM_SMOKE_TOL)
+            rel["decode"] = _lm_rel(torch, pg.cpu(), pc)
+        # bfloat16 activations from the same float32 weights
+        bf = dataclasses.replace(cfg, dtype="bfloat16")
+        with torch.no_grad():
+            lc16, _ = tfm.Transformer(bf, cpu.params())(bc["tokens"])
+            lg16, _ = tfm.Transformer(bf, card.params())(bg["tokens"])
+        require(lg16.dtype == torch.bfloat16, f"{name}: bf16 logits")
+        rel["bf16_logits"] = _lm_rel(torch, lg16.cpu(), lc16)
+        g16 = [_lm_rel(torch, a, b) for a, b in zip(
+            _lm_grads(torch, tfm.Transformer(bf, card.params()), bg, bf),
+            _lm_grads(torch, tfm.Transformer(bf, cpu.params()), bc, bf))]
+        rel["bf16_grads"] = max(g16)
+        require(rel["bf16_logits"] <= LM_BF16_SMOKE_TOL["logits"] and
+                rel["bf16_grads"] <= LM_BF16_SMOKE_TOL["grads"],
+                f"lm smoke {name} in bfloat16: logits {rel['bf16_logits']}, "
+                f"gradient leaves {g16} of their largest magnitudes, past "
+                f"{LM_BF16_SMOKE_TOL}")
+        # one train step: the gradients, then the step itself
+        gc, gg = _lm_grads(torch, cpu, bc, cfg), _lm_grads(torch, card, bg,
+                                                            cfg)
+        rel["grads"] = max(_lm_rel(torch, a, b) for a, b in zip(gg, gc))
+        require(rel["grads"] <= LM_GRAD_TOL,
+                f"lm smoke {name}: a gradient leaf {rel['grads']} of its "
+                f"largest magnitude from the CPU's, past {LM_GRAD_TOL}")
+        before = [x.detach().clone() for x in optim.tree_leaves(cpu.params())]
+        sc, sg = (optim.init_adam(m.params()) for m in (cpu, card))
+        _, sc, ic = lm_train_step(cpu, sc, bc["tokens"], bc["labels"], cfg,
+                                  ocfg)
+        _, sg, ig = lm_train_step(card, sg, bg["tokens"], bg["labels"], cfg,
+                                  ocfg)
+        torch.testing.assert_close(ig["loss"].cpu(), ic["loss"],
+                                   **LM_SMOKE_TOL)
+        rel["loss"] = abs(float(ig["loss"]) - float(ic["loss"]))
+        rel["moments"] = max(_lm_rel(torch, a.cpu(), b) for a, b in zip(
+            optim.tree_leaves((sg.mu, sg.nu)),
+            optim.tree_leaves((sc.mu, sc.nu))))
+        require(rel["moments"] <= 3 * LM_GRAD_TOL,
+                f"lm smoke {name}: a moment leaf {rel['moments']} of its "
+                f"largest magnitude from the CPU's")
+        lr = float(ic["lr"])
+        require(abs(lr / (LM_TRAIN_OPT["lr"] / LM_TRAIN_OPT["warmup_steps"])
+                    - 1) < 1e-6,
+                f"lm smoke {name}: step 1's learning rate {lr}")
+        apart = [(a - b).abs() for a, b in zip(_adam_moves(gg, ocfg, lr),
+                                               _adam_moves(gc, ocfg, lr))]
+        moved = 0.0
+        for a, b, p0, d in zip(optim.tree_leaves(card.params()),
+                               optim.tree_leaves(cpu.params()), before,
+                               apart):
+            a, b = a.detach().cpu().double(), b.detach().double()
+            tol = LM_STEP_TOL["atol"] + LM_STEP_TOL["rtol"] * b.abs() + d
+            require(bool(((a - b).abs() <= tol).all()),
+                    f"lm smoke {name}: a parameter after the step differs "
+                    f"from the CPU's by {float((a - b).abs().max())}")
+            moved = max(moved, float((b - p0.double()).abs().max()))
+            n_wide += int((d > LM_STEP_TOL["atol"]).sum())
+            n_all += d.numel()
+        require(moved >= 0.5 * lr,
+                f"lm smoke {name}: the step moved no parameter by half of "
+                f"lr ({moved})")
+        worst[name] = rel
+        del cpu, card, sc, sg
+    cs = _card_scores(torch)
+    print(f"[lm] (e) the five smoke configs on the card against the CPU "
+          f"from the same weights. float32 (TF32 off): logits, aux, "
+          f"lm_loss, prefill and 4 decode steps within {LM_SMOKE_TOL}; one "
+          f"train step at lr {LM_TRAIN_OPT['lr']} / "
+          f"{LM_TRAIN_OPT['warmup_steps']} warmup steps: gradient leaves "
+          f"within {LM_GRAD_TOL} of their largest, moments within "
+          f"{3 * LM_GRAD_TOL}, parameters within {LM_STEP_TOL} plus the "
+          f"gradients' AdamW divergence (above the atol for {n_wide} of "
+          f"{n_all} elements). bfloat16 activations: logits and every "
+          f"gradient leaf within {LM_BF16_SMOKE_TOL} of their largest. "
+          f"Largest shares (logits, decode, bf16_logits, bf16_grads, grads, "
+          f"moments) and the absolute loss difference: "
+          + json.dumps({k: {a: float(f"{b:.3g}") for a, b in v.items()}
+                        for k, v in worst.items()}))
+    print(f"[lm] (e) scores (bfloat16 bmm, float32 out, hand-written "
+          f"backward) on the card against float32 bmm autograd at (8, 4096, "
+          f"128) x (8, 1024, 128): largest differences as a share of the "
+          f"largest magnitude {json.dumps({k: float(f'{v:.3g}') for k, v in cs.items()})}")
+
+
+def _lm_clis(torch, seed: int) -> None:
+    """(f) launch.train on a dense and a MoE arch (each stopped and resumed
+    bit-exact) and launch.legacy.serve on the card, the three side by
+    side."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.legacy import serve as lserve
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.legacy.serve", "--arch",
+         "qwen3-4b", "--device", "cuda", "--seed", str(seed)],
+        cwd=ROOT, env=_src_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        with ThreadPoolExecutor(1) as pool:
+            moe = pool.submit(_train_cli, seed, "deepseek-moe-16b", "lm")
+            _train_cli(seed, arch="stablelm-3b", tag="lm")
+            moe.result()
+        stdout, stderr = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    out = subprocess.CompletedProcess(proc.args, proc.returncode, stdout,
+                                      stderr)
+    require(out.returncode == 0,
+            f"launch.legacy.serve exited {out.returncode}:\n"
+            f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    ids = lserve.serve("qwen3-4b", seed=seed, device="cuda", verbose=False)
+    again = lserve.serve("qwen3-4b", seed=seed, device="cuda",
+                         verbose=False)
+    require(torch.equal(ids, again) and tuple(ids.shape) == (4, 32),
+            "serve: two runs on the card generate other ids")
+    first = next(x for x in out.stdout.splitlines()
+                 if x.startswith("[serve] first sequence:"))
+    require(first.endswith(str(ids[0].tolist())),
+            f"serve CLI's first sequence differs from serve()'s: {first}")
+    print(f"[lm] python -m repro_torch.launch.legacy.serve --arch qwen3-4b "
+          f"--device cuda: exit 0, "
+          f"{[x for x in out.stdout.splitlines() if 'tok/s' in x][0]}; "
+          f"its ids equal serve()'s in this process, twice (with the "
+          f"train CLI beside it: {time.perf_counter() - t0:.1f} s)")
+
+
+def _lm_long(torch, seed: int, card: str) -> None:
+    """(c) h2o-danube-3-4b x long_500k uncut (B = 1, a 4,096-slot ring):
+    prefill LM_LONG_PREFILL tokens, decode LM_LONG_DECODE steps through the
+    cell, each step's logits against the full forward's at its position."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy.models import transformer as tfm
+
+    arch = get_arch("h2o-danube-3-4b")
+    cfg = arch.model
+    model, _ = _lm_init(torch, cfg, seed)
+    cell = build_cell(arch, "long_500k")
+    S = arch.shapes["long_500k"]["seq"]
+    toks = _lm_tokens(torch, cfg, 1, LM_LONG_PREFILL + LM_LONG_DECODE,
+                      seed)["tokens"]
+    params = model.params()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, cache = tfm.prefill(params, toks[:, :LM_LONG_PREFILL], cfg,
+                                    S)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    require(cache.size == cfg.swa_window == tuple(cell.args[0].k.shape)[2],
+            f"long_500k: a ring of {cache.size} slots")
+    steps, walls = [], []
+    for i in range(LM_LONG_DECODE):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = cell.fn(model, cache, toks[:, LM_LONG_PREFILL + i])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        steps.append(logits)
+    peak = torch.cuda.max_memory_allocated() - base
+    with torch.no_grad():
+        full, _ = tfm.forward(params, toks, cfg)
+    rel = max(_lm_rel(torch, steps[i][0], full[0, LM_LONG_PREFILL + i])
+              for i in range(LM_LONG_DECODE))
+    require(all(bool(torch.isfinite(x).all()) for x in steps),
+            "long_500k: decode logits not finite")
+    require(rel <= LM_BF16_TOL, f"long_500k: decoded logits differ from the "
+            f"full forward's by {rel:.4f} of the largest |logit|")
+    print(f"[lm] (c) h2o-danube-3-4b x long_500k uncut: B=1, prefill "
+          f"{LM_LONG_PREFILL} tokens {pre_s:.3f} s into a {cache.size}-slot "
+          f"ring (bf16 activations, float32 weights), then {LM_LONG_DECODE} "
+          f"decode steps through the cell past the ring's end: p50 "
+          f"{1e3 * float(np.median(walls)):.3f} ms a step; each step's "
+          f"logits against the full forward over "
+          f"{LM_LONG_PREFILL + LM_LONG_DECODE} tokens: largest difference "
+          f"{rel:.4f} of the largest |logit| (gate {LM_BF16_TOL}); peak "
+          f"above the model {peak} bytes; card {card}")
+    del model, params, cache, full, steps
+    torch.cuda.empty_cache()
+
+
+def _lm_moe(torch, seed: int, card: str) -> None:
+    """(b) granite-moe-3b-a800m at full width and depth: prefill at
+    LM_MOE_SEQ x LM_MOE_BATCH through the prefill cell, decode steps from
+    its cache, layer 0's capacity and dropped share, and layer 0's MoE
+    gradients on one sequence twice, bit for bit."""
+    import numpy as np
+
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.models import moe as tmoe
+    from repro_torch.legacy.models import transformer as tfm
+
+    full = get_arch("granite-moe-3b-a800m")
+    cfg = full.model
+    arch = dataclasses.replace(full, shapes={
+        k: dict(full.shapes[k], seq=LM_MOE_SEQ, batch=LM_MOE_BATCH)
+        for k in ("prefill_32k", "decode_32k")})
+    model, _ = _lm_init(torch, cfg, seed)
+    pre = build_cell(arch, "prefill_32k")
+    dec = build_cell(arch, "decode_32k")
+    toks = _lm_tokens(torch, cfg, LM_MOE_BATCH, LM_MOE_SEQ, seed)["tokens"]
+    params = model.params()
+    with torch.no_grad():  # layer 0's routing of the prompt
+        lp = tfm.layer_views(params, cfg)[0]
+        x = tfm.embed(params, toks, cfg)
+        pos = tfm._positions(*toks.shape, toks.device)
+        q, k, v = tfm._qkv(lp, x, pos, cfg, tfm.no_shard)
+        x = tfm._attn_out(lp, x, q, k, v, cfg, tfm.no_shard)
+        h = tfm.rms_norm(x, lp["ln_ffn"]).reshape(-1, cfg.d_model)
+        C, share = tmoe.dropped_share(cfg.moe_cfg, h, lp["moe"]["router"])
+        h = h[:LM_MOE_SEQ].clone()
+        del x, q, k, v
+    # layer 0's MoE backward twice on the first sequence's tokens: the same
+    # bits (a token's K dispatch copies add up in a fixed order)
+    w = torch.randn(h.shape, generator=torch.Generator(
+        device="cuda").manual_seed(seed), device="cuda")
+    runs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in optim.tree_leaves(lp["moe"])]
+        hx = h.clone().requires_grad_(True)
+        with torch.enable_grad():
+            y, aux = tmoe.moe_apply(optim.tree_unflatten(lp["moe"], leaves),
+                                    hx, cfg.moe_cfg)
+            runs.append(torch.autograd.grad((y.float() * w).sum() + aux,
+                                            leaves + [hx]))
+    require(all(torch.equal(a, b) for a, b in zip(*runs)),
+            "granite layer 0: moe_apply's gradients differ between two runs")
+    del h, w, runs, leaves, hx, y
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = pre.fn(model, toks)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    require(bool(torch.isfinite(logits).all()) and
+            tuple(logits.shape) == (LM_MOE_BATCH, cfg.vocab),
+            "granite prefill: logits")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    walls = []
+    for _ in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = dec.fn(model, cache, tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    require(bool(torch.isfinite(logits).all()), "granite decode: logits")
+    peak = torch.cuda.max_memory_allocated() - base
+    n_tok = LM_MOE_BATCH * LM_MOE_SEQ
+    print(f"[lm] (b) granite-moe-3b-a800m at full width and depth (E = "
+          f"{cfg.n_experts}, {cfg.moe_cfg.n_experts_padded} padded, K = "
+          f"{cfg.top_k}, D = {cfg.d_model}): prefill B={LM_MOE_BATCH} x "
+          f"S={LM_MOE_SEQ} {pre_s:.3f} s ({n_tok / pre_s:.1f} tokens/s); "
+          f"layer 0 on the prompt: capacity C = {C} a group of {n_tok} "
+          f"tokens, dropped share {share:.4f} of the {n_tok * cfg.top_k} "
+          f"choices; its MoE gradients on one sequence twice: the same "
+          f"bits; {LM_DECODE_STEPS} decode steps from the cache: p50 "
+          f"{1e3 * float(np.median(walls)):.3f} ms ({LM_MOE_BATCH / float(np.median(walls)):.1f} "
+          f"tokens/s); peak above the model {peak} bytes; card {card}")
+    del model, params, cache
+    torch.cuda.empty_cache()
+
+
+def _lm_serve(torch, seed: int, card: str) -> None:
+    """(a) qwen3-4b at full width and depth: the prefill_32k cell at
+    LM_PREFILL_BATCH, decode steps from its cache, the decode_32k cell at
+    LM_DECODE_BATCH over a full cache; prefill and decode against the
+    forward on a short prompt; the profile of one prefill and one decode
+    step; SDPA on one layer's prefill q/k/v beside chunked_attention."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy.models import transformer as tfm
+    from repro_torch.legacy.models.layers import chunked_attention
+
+    arch = get_arch("qwen3-4b")
+    cfg = arch.model
+    model, _ = _lm_init(torch, cfg, seed)
+    params = model.params()
+    pre = build_cell(arch, "prefill_32k")
+    dec = build_cell(arch, "decode_32k")
+    S = pre.args[0].shape[1]
+    # the main path: counts from 0, the batch's draws and the cells
+    ops.reset_launch_counts()
+    toks = _lm_tokens(torch, cfg, LM_PREFILL_BATCH, S, seed)["tokens"]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    # the prefill runs once, traced (the profiler's cost on an H100 80GB
+    # HBM3 at 700 W: 26.82 s traced at B = 1 beside 25.97 s a sequence
+    # untraced)
+    (logits, cache), prof = _lm_breakdown(
+        torch, f"qwen3-4b prefill_32k B={LM_PREFILL_BATCH} S={S}",
+        lambda: pre.fn(model, toks))
+    pre_s = prof["wall"]
+    pre_peak = torch.cuda.max_memory_allocated() - base
+    require(bool(torch.isfinite(logits).all()) and
+            tuple(logits.shape) == (LM_PREFILL_BATCH, cfg.vocab),
+            "qwen3 prefill: logits")
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    walls = []
+    for _ in range(LM_DECODE_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = dec.fn(model, cache, tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+    require(bool(torch.isfinite(logits).all()), "qwen3 decode: logits")
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(threefry_randint=2)
+    require(counts == want, f"qwen3 serve: launches {counts}, want {want}")
+    kv = cache.k.numel() * cache.k.element_size() * 2
+    tflops = pre.meta["model_flops"] / pre.meta["tokens"] * \
+        LM_PREFILL_BATCH * S / pre_s / 1e12
+    print(f"[lm] (a) qwen3-4b prefill_32k at full width and depth, batch cut "
+          f"32 -> {LM_PREFILL_BATCH}: {pre_s:.3f} s traced "
+          f"({LM_PREFILL_BATCH * S / pre_s:.1f} tokens/s, {tflops:.1f} "
+          f"model TFLOP/s without attention); KV cache {kv} bytes; peak "
+          f"above the model {pre_peak} bytes; then {LM_DECODE_STEPS} decode "
+          f"steps from that cache: p50 {1e3 * float(np.median(walls)):.3f} "
+          f"ms; launches on this path {json.dumps(counts)}; card {card}")
+    _lm_breakdown(torch, f"qwen3-4b decode step B={LM_PREFILL_BATCH}, "
+                  f"{cache.size}-slot cache",
+                  lambda: dec.fn(model, cache, tok))
+    del cache, logits
+    torch.cuda.empty_cache()
+
+    # decode_32k: a full 32,768-slot cache (random bfloat16 values)
+    spec = dec.args[0]
+    shape = (spec.k.shape[0], LM_DECODE_BATCH) + tuple(spec.k.shape[2:])
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = tfm.KVCache(
+        torch.randn(shape, generator=gen, device="cuda",
+                    dtype=cfg.act_dtype),
+        torch.randn(shape, generator=gen, device="cuda",
+                    dtype=cfg.act_dtype),
+        torch.tensor(shape[2] - 1, dtype=torch.int32, device="cuda"))
+    tok = toks[0, :LM_DECODE_BATCH].contiguous()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    walls = []
+    for i in range(LM_DECODE_STEPS):
+        full = full._replace(pos=torch.tensor(shape[2] - 1, dtype=torch.int32,
+                                              device="cuda"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = dec.fn(model, full, tok)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    require(bool(torch.isfinite(logits).all()), "decode_32k: logits")
+    p50 = float(np.median(walls))
+    kv = full.k.numel() * full.k.element_size() * 2
+    wbytes = sum(p.numel() for p in model.parameters()) * 4
+    print(f"[lm] (a) qwen3-4b decode_32k, batch cut 128 -> "
+          f"{LM_DECODE_BATCH}, every one of the {shape[2]} slots attended "
+          f"(pos {shape[2] - 1}): step p50 {1e3 * p50:.3f} ms "
+          f"({LM_DECODE_BATCH / p50:.1f} tokens/s); KV cache {kv} bytes, "
+          f"float32 weights {wbytes} bytes: reading both once is "
+          f"{(kv + wbytes) / HBM_BYTES_PER_S * 1e3:.3f} ms at 3.35 TB/s; "
+          f"peak above the model and cache "
+          f"{torch.cuda.max_memory_allocated() - base} bytes; card {card}")
+    del full, logits
+    torch.cuda.empty_cache()
+
+    # full-width checks on a short prompt: prefill and decode from an empty
+    # cache, each against the forward's last position
+    t = toks[:1, :LM_CHECK_TOKENS].contiguous()
+    with torch.no_grad():
+        fwd, _ = tfm.forward(params, t, cfg)
+        last = fwd[0, -1]
+        pl, _ = tfm.prefill(params, t, cfg, LM_CHECK_TOKENS)
+        c = tfm.init_cache(cfg, 1, LM_CHECK_TOKENS, device="cuda")
+        for i in range(LM_CHECK_TOKENS):
+            dl, c = tfm.decode_step(params, c, t[:, i], cfg)
+    rp, rd = _lm_rel(torch, pl[0], last), _lm_rel(torch, dl[0], last)
+    require(rp <= LM_BF16_TOL and rd <= LM_BF16_TOL,
+            f"qwen3: prefill / decode against the forward differ by "
+            f"{rp:.4f} / {rd:.4f} of the largest |logit|")
+    print(f"[lm] (a) qwen3-4b on a {LM_CHECK_TOKENS}-token prompt: the "
+          f"prefill's logits and those of {LM_CHECK_TOKENS} decode steps "
+          f"from an empty cache against the full forward's last position: "
+          f"largest differences {rp:.4f} and {rd:.4f} of the largest "
+          f"|logit| (gate {LM_BF16_TOL})")
+    del fwd, c
+
+    # SDPA beside the port's chunked attention on layer 0's q/k/v of the
+    # first prompt
+    one = toks[:1].contiguous()
+    with torch.no_grad():
+        lp = tfm.layer_views(params, cfg)[0]
+        x = tfm.embed(params, one, cfg)
+        q, k, v = tfm._qkv(lp, x, tfm._positions(1, S, one.device), cfg,
+                           tfm.no_shard)
+        del x
+        kw = dict(causal=True, window=cfg.swa_window, q_chunk=cfg.q_chunk,
+                  k_chunk=cfg.k_chunk)
+        ours = chunked_attention(q, k, v, **kw)
+        qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+        lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=True).transpose(1, 2)
+        rel = _lm_rel(torch, lib, ours)
+        ours_ms = time_ms(torch, lambda: chunked_attention(q, k, v, **kw),
+                          iters=3, warmup=1)
+        lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    H, dh = cfg.n_heads, cfg.head_dim
+    causal_flops = 2 * 2 * H * S * S * dh // 2
+    full_flops = 2 * causal_flops
+    nbytes = (q.numel() + 2 * k.numel() + q.numel()) * 2
+    b_ms = max(causal_flops / BF16_FLOPS_PER_S,
+               nbytes / HBM_BYTES_PER_S) * 1e3
+    print(f"[lm] (h) one layer's prefill attention, qwen3-4b B=1 S={S} "
+          f"(32 query heads, 8 kv heads, d_head 128, bf16): the port's "
+          f"chunked_attention {ours_ms:.3f} ms (every key chunk, "
+          f"{full_flops} FLOP of products with the masked ones), "
+          f"F.scaled_dot_product_attention(is_causal, enable_gqa) "
+          f"{lib_ms:.3f} ms; their outputs differ by {rel:.4f} of the "
+          f"largest |output|; the causal work's bound {b_ms:.3f} ms "
+          f"({causal_flops} FLOP at 989 TFLOP/s bf16); card {card}")
+    del q, k, v, ours, lib, qt, kt, vt, model, params
+    torch.cuda.empty_cache()
+
+
+def _lm_train(torch, seed: int, card: str) -> None:
+    """(d) stablelm-3b x train_4k at full width and depth with remat, the
+    batch cut to LM_TRAIN_BATCH: a counted step, LM_TRAIN_STEPS timed
+    steps, AdamW alone against its bytes bound, one traced step, and one
+    step twice from one state, the same bits."""
+    import numpy as np
+
+    import warnings
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import OPT, build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import TokenStream
+    from repro_torch.legacy.models import transformer as tfm
+
+    arch = get_arch("stablelm-3b")
+    cfg = arch.model
+    cell = build_cell(arch, "train_4k")
+    S = cell.args[0].shape[1]
+    model, _ = _lm_init(torch, cfg, seed)
+    state = [optim.init_adam(model.params())]
+    leaves = lambda: optim.tree_leaves((model.params(), state[0]))  # noqa
+    state_bytes = sum(x.numel() * x.element_size() for x in leaves())
+    stream = TokenStream(cfg.vocab, LM_TRAIN_BATCH, S, seed)
+
+    def step(b):
+        _, state[0], info = cell.fn(model, state[0], b["tokens"],
+                                    b["labels"])
+        return info
+
+    losses = [float(step(stream.batch_at(0, device="cuda"))["loss"])]
+    ops.reset_launch_counts()
+    info = step(stream.batch_at(1, device="cuda"))
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(threefry_randint=2)
+    require(counts == want, f"lm train: launches {counts}, want {want}")
+    losses.append(float(info["loss"]))
+    batches = [stream.batch_at(i, device="cuda")
+               for i in range(2, LM_TRAIN_STEPS + 2)]
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = step(b)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(float(info["loss"]))
+    peak = torch.cuda.max_memory_allocated() - base
+    require(all(np.isfinite(losses)), f"lm train: losses {losses}")
+    p50 = float(np.median(walls))
+    n_tok = LM_TRAIN_BATCH * S
+    print(f"[lm] (d) stablelm-3b train_4k at full width and depth with "
+          f"remat, batch cut 256 -> {LM_TRAIN_BATCH} x {S}: parameters and "
+          f"AdamW moments {state_bytes} bytes; {LM_TRAIN_STEPS} timed "
+          f"steps: p50 {p50:.4f} s (min {min(walls):.4f}, max "
+          f"{max(walls):.4f}), {n_tok / p50:.1f} tokens/s, "
+          f"{cell.meta['model_flops'] / cell.meta['tokens'] * n_tok * cell.meta['flops_multiplier'] / p50 / 1e12:.1f} "
+          f"TFLOP/s with the recompute; peak above the state {peak} bytes; "
+          f"losses first {losses[0]:.6f} last {losses[-1]:.6f} (all "
+          f"finite); launches a step {json.dumps(counts)}; card {card}")
+    _lm_breakdown(torch, f"stablelm-3b train step B={LM_TRAIN_BATCH}",
+                  lambda: step(batches[0]))
+    params = model.params()
+    b = batches[0]
+    loss, _ = tfm.lm_loss(params, b["tokens"], b["labels"], cfg)
+    grads = optim.tree_unflatten(params, torch.autograd.grad(
+        loss, optim.tree_leaves(params)))
+    del loss
+    adam_ms = time_ms(torch, lambda: optim.update(OPT, params, grads,
+                                                  state[0]),
+                      iters=3, warmup=1)
+    adam_bound = 7 * state_bytes / 3 / HBM_BYTES_PER_S * 1e3
+    print(f"[lm] (d) AdamW alone (optim.update, plain per-leaf ops) on one "
+          f"step's gradients: {adam_ms:.3f} ms, {adam_ms / adam_bound:.2f}x "
+          f"its bytes bound {adam_bound:.3f} ms (7 x {state_bytes // 3} "
+          f"bytes at 3.35 TB/s)")
+    del grads, params
+
+    # one step twice from one state: the state goes to the host, the first
+    # result is swapped with it leaf by leaf (the host holds one state)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(batches[1])
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).split("\n")[0] for w in caught
+                    if "deterministic" in str(w.message)})
+    print(f"[lm] (d) diagnostic step under "
+          f"torch.use_deterministic_algorithms(warn_only=True): "
+          f"{len(named)} ops named without a deterministic kernel"
+          + "".join(f"\n[lm]   {x[:200]}" for x in named))
+    # the float32 state to one host buffer, page-locked in place (a
+    # caching pinned allocation would round each leaf up to a power of
+    # two); after the first step each leaf goes through a card buffer:
+    # the saved state back in, the result out to the host; after the
+    # second step each leaf against it on the card
+    t0 = time.perf_counter()
+    flat = [x for x in leaves() if x.dtype == torch.float32]
+    ints = [x.detach().clone() for x in leaves()
+            if x.dtype != torch.float32]
+    host = torch.empty(sum(x.numel() for x in flat), dtype=torch.float32)
+    cudart = torch.cuda.cudart()
+    rc = cudart.cudaHostRegister(host.data_ptr(), host.numel() * 4, 0)
+    require(int(rc) == 0, f"cudaHostRegister of {host.numel() * 4} bytes: "
+            f"{rc}")
+    try:
+        saved, at = [], 0
+        for x in flat:
+            saved.append(host[at: at + x.numel()].view(x.shape))
+            at += x.numel()
+        for h, x in zip(saved, flat):
+            h.copy_(x.detach())
+        t_save = time.perf_counter() - t0
+        step(batches[1])
+        flat = [x for x in leaves() if x.dtype == torch.float32]
+        first_ints = [x.detach().clone() for x in leaves()
+                      if x.dtype != torch.float32]
+        tmp = torch.empty(max(x.numel() for x in flat), dtype=torch.float32,
+                          device="cuda")
+        with torch.no_grad():
+            for h, x in zip(saved, flat):
+                t = tmp[: x.numel()].view(x.shape)
+                t.copy_(x)
+                x.copy_(h)
+                h.copy_(t)
+            for x, v in zip([x for x in leaves()
+                             if x.dtype != torch.float32], ints):
+                x.copy_(v)
+        step(batches[1])
+        torch.cuda.synchronize()
+        flat = [x for x in leaves() if x.dtype == torch.float32]
+        same = [torch.equal(x, v) for x, v in zip(
+            [x for x in leaves() if x.dtype != torch.float32], first_ints)]
+        with torch.no_grad():
+            for h, x in zip(saved, flat):
+                t = tmp[: x.numel()].view(x.shape)
+                t.copy_(h)
+                same.append(torch.equal(t, x))
+        del tmp, first_ints
+    finally:
+        cudart.cudaHostUnregister(host.data_ptr())
+        del host
+    require(all(same), f"lm train: one step twice from the same state gives "
+            f"other bits in {same.count(False)} of {len(same)} leaves")
+    print(f"[lm] (d) one step twice from the same state: all {len(same)} "
+          f"parameter and moment leaves equal bit for bit (the token "
+          f"embedding's gradient through F.embedding's sort-based backward) "
+          f"({time.perf_counter() - t0:.1f} s with the pinned host copies, "
+          f"{t_save:.1f} s of it the first)")
+    del model, state, saved, batches
+    torch.cuda.empty_cache()
+
+
+def phase_lm(torch, seed: int, card: str) -> None:
+    """The LM family on one card: (e) the five smoke configs against the
+    CPU, (f) the train and serve CLIs, (c) h2o-danube long_500k, (b)
+    granite-moe, (a) qwen3-4b serving with (h) its profile and SDPA, (d)
+    stablelm-3b training."""
+    parts = (("e smoke", _lm_smoke, (torch, seed)),
+             ("f clis", _lm_clis, (torch, seed)),
+             ("c long_500k", _lm_long, (torch, seed, card)),
+             ("b granite", _lm_moe, (torch, seed, card)),
+             ("a qwen3 serve", _lm_serve, (torch, seed, card)),
+             ("d stablelm train", _lm_train, (torch, seed, card)))
+    for tag, fn, args in parts:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fn(*args)
+        print(f"[time] lm ({tag}): {time.perf_counter() - t0:.1f} s; peak "
+              f"{torch.cuda.max_memory_allocated()} bytes")
+        torch.cuda.reset_peak_memory_stats()
+    print(f"[lm] cuts, each beside its run: (a) qwen3-4b prefill_32k batch "
+          f"32 -> {LM_PREFILL_BATCH}, decode_32k batch 128 -> "
+          f"{LM_DECODE_BATCH}; (b) granite-moe-3b-a800m prefill seq 32768 "
+          f"-> {LM_MOE_SEQ}, batch 32 -> {LM_MOE_BATCH}; (c) h2o-danube-3-4b "
+          f"long_500k uncut (B = 1), a prefill of {LM_LONG_PREFILL} tokens "
+          f"and {LM_LONG_DECODE} decode steps; (d) stablelm-3b train_4k "
+          f"batch 256 -> {LM_TRAIN_BATCH}; widths and depths as published")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=22)
@@ -5010,6 +5945,7 @@ def main() -> int:
         del model, serve_inputs  # the train phase holds ~27 GB of its own
         torch.cuda.empty_cache()
         timed("train", phase_train, torch, cap, args.seed, results, card)
+        timed("lm", phase_lm, torch, args.seed, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -8,7 +8,7 @@ import importlib
 from typing import Any, Dict
 
 # the reference's arch ids, in its order; the port registers the ones it
-# has ported (the LM and GNN models are ROADMAP Queue 1 item 16)
+# has ported (the GNN models are ROADMAP Queue 1 item 16, third part)
 ARCH_IDS = [
     # LM-family (5)
     "h2o-danube-3-4b", "qwen3-4b", "stablelm-3b",
@@ -20,6 +20,14 @@ ARCH_IDS = [
     # the paper's own workload
     "connectit",
 ]
+
+LM_SHAPES: Dict[str, dict] = {
+    "train_4k": dict(kind="train", seq=4096, batch=256),
+    "prefill_32k": dict(kind="prefill", seq=32768, batch=32),
+    "decode_32k": dict(kind="decode", seq=32768, batch=128),
+    "long_500k": dict(kind="decode", seq=524288, batch=1,
+                      requires_subquadratic=True),
+}
 
 RECSYS_SHAPES: Dict[str, dict] = {
     "train_batch": dict(kind="train", batch=65536),
@@ -45,7 +53,7 @@ CONNECTIT_SHAPES: Dict[str, dict] = {
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str            # recsys | connectit (lm | gnn: not ported yet)
+    family: str            # lm | recsys | connectit (gnn: not ported yet)
     model: Any
     shapes: Dict[str, dict]
     smoke: Dict[str, Any]  # reduced-config overrides for CPU tests
@@ -54,10 +62,12 @@ class Arch:
         return list(self.shapes)
 
     def supports(self, shape_name: str) -> bool:
-        """Whether the arch runs the shape. The reference's one refusal,
-        a long-context LM shape without sub-quadratic attention, is of a
-        family the port has not yet (ROADMAP Queue 1 item 16)."""
-        return shape_name in self.shapes
+        """Whether the arch runs the shape: a long-context shape
+        (``requires_subquadratic``) only with sliding-window attention."""
+        spec = self.shapes[shape_name]
+        if spec.get("requires_subquadratic"):
+            return bool(getattr(self.model, "swa_window", None))
+        return True
 
 
 _REGISTRY: Dict[str, Arch] = {}
@@ -86,5 +96,6 @@ def all_archs() -> list[str]:
 def load_all() -> None:
     for mod in ["connectit_cfg"]:
         importlib.import_module(f"repro_torch.configs.{mod}")
-    for mod in ["dlrm_rm2"]:
+    for mod in ["dlrm_rm2", "h2o_danube_3_4b", "qwen3_4b", "stablelm_3b",
+                "deepseek_moe_16b", "granite_moe_3b_a800m"]:
         importlib.import_module(f"repro_torch.configs.legacy.{mod}")

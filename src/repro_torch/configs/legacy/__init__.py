@@ -1,1 +1,2 @@
-"""Seed-era model configs, ported as their paths are (DLRM-RM2 so far)."""
+"""Seed-era model configs, ported as their paths are: DLRM-RM2 and the
+five LM archs so far."""

@@ -16,11 +16,12 @@ needed for 256 or 512 ranks. Per cell it reports:
 
 The reference's ``memory_analysis``, ``cost_analysis`` and HLO collective
 columns come from XLA's compiled program and have no counterpart here; they
-are left out. The port's DLRM cells run on one card (no mesh): they are
-planned at one rank, with the model's parameters among the inputs, and for
-``train_batch`` AdamW's two moments and its step too (the state the step
-updates in place). A cell the port has not built yet (of a family still to
-port) is reported as not ported, not as a failure.
+are left out. The port's DLRM and LM cells run on one card (no mesh):
+they are planned at one rank, with the model's float32 parameters among
+the inputs, and for a train cell AdamW's two moments and its step too (the
+state the step updates in place); a decode cell's inputs hold its KV
+cache. A cell the port has not built yet (of a family still to port) is
+reported as not ported, not as a failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -35,6 +36,7 @@ import time
 import traceback
 
 from ..configs import all_archs, get_arch
+from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRMConfig, table_rows
 from .mesh import (
     HBM_BW,
@@ -56,31 +58,39 @@ def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
     return 4 * (tables + mlp)
 
 
+def _param_bytes(arch) -> int:
+    if arch.family == "lm":
+        return tfm.param_bytes(arch.model)
+    return _dlrm_param_bytes(arch.model)
+
+
+# a one-card cell's plan: one rank
+ONE_RANK = ShapeMesh((1,), ("data",))
+
+
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
              verbose: bool = True) -> dict:
     arch = get_arch(arch_name)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
+    plan = mesh if arch.family == "connectit" else ONE_RANK
     t0 = time.time()
     try:
-        cell = build_cell(arch, shape_name, mesh, device="meta")
+        cell = build_cell(arch, shape_name, plan, device="meta")
     except NotImplementedError as e:
         if verbose:
             print(f"== {arch_name} × {shape_name} × {mesh_kind}: not ported "
                   f"({e}) ==")
         return dict(arch=arch_name, shape=shape_name, mesh=mesh_kind,
-                    status="not ported (item 16)")
+                    status="not ported (item 16, third part)")
     shape = arch.shapes[shape_name]
     build_s = time.time() - t0
     if arch.family == "connectit":
-        plan = mesh
         arg_bytes = local_bytes(cell, mesh)
     else:  # one card: the model's parameters are inputs too
-        plan = ShapeMesh((1,), ("data",))
         # training also holds AdamW's mu and nu (one each per parameter)
         # and its int32 step
         states = 3 if shape["kind"] == "train" else 1
-        arg_bytes = (local_bytes(cell, plan)
-                     + states * _dlrm_param_bytes(arch.model)
+        arg_bytes = (local_bytes(cell, plan) + states * _param_bytes(arch)
                      + (4 if shape["kind"] == "train" else 0))
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev

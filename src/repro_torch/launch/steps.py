@@ -1,5 +1,6 @@
 """Cell builders: (architecture × input shape × mesh) → a runnable step
-(mirrors ``repro.launch.steps``: the ``recsys`` and ``connectit`` parts).
+(mirrors ``repro.launch.steps``: the ``lm``, ``recsys`` and ``connectit``
+parts).
 
 A cell is a step function, the global shapes of its inputs as ``meta``
 tensors (allocated nowhere, like the reference's ``ShapeDtypeStruct``s),
@@ -22,8 +23,13 @@ a ``shard_map`` body takes its blocks.
   * ``recsys``: DLRM training, serving and retrieval on one device;
     ``fn(model, *inputs)``, and for training ``fn(model, opt_state,
     *inputs)``, which updates the model and the optimizer state in place
-    (the reference donates both). The LM and GNN families are queued
-    (ROADMAP Queue 1 item 16).
+    (the reference donates both).
+  * ``lm``: the transformer's ``train`` / ``prefill`` / ``decode`` cells on
+    one rank, the same calling convention: ``fn(model, opt_state, tokens,
+    labels)``, ``fn(model, tokens)`` and ``fn(model, cache, tok)`` (the
+    cache is updated in place; the reference donates it). A mesh of more
+    than one rank (Megatron TP, EP, FSDP) is ROADMAP Queue 1 item 16,
+    second part (b); the GNN family is its third part.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ from ..core.execution import ExecutionSpec, make_backend
 from ..core.finish import make_finish
 from ..graphs.containers import round_up
 from ..legacy import optim
+from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRM, DLRMConfig
+from ..legacy.tree import leaves as tree_leaves
 from .mesh import all_axes, data_axes, make_smoke_mesh
 
 
@@ -63,6 +71,8 @@ def local_shape(arg: torch.Tensor, sharding: tuple, mesh) -> tuple:
     """A rank's block shape of an input split over ``sharding``'s axes of
     ``mesh`` (a real or a shape-only mesh)."""
     k = coll.mesh_size(mesh, sharding)
+    if arg.dim() == 0:  # a scalar is whole on every rank
+        return ()
     if arg.shape[0] % k:
         raise ValueError(f"an input of {arg.shape[0]} rows does not split "
                          f"over {sharding} ({k} ranks)")
@@ -70,9 +80,11 @@ def local_shape(arg: torch.Tensor, sharding: tuple, mesh) -> tuple:
 
 
 def local_bytes(cell: Cell, mesh) -> int:
-    """The bytes of one rank's blocks of every input."""
-    return sum(prod(local_shape(a, sh, mesh)) * a.element_size()
-               for a, sh in zip(cell.args, cell.in_shardings))
+    """The bytes of one rank's blocks of every input (an input may be a
+    pytree, as a ``KVCache``)."""
+    return sum(prod(local_shape(x, sh, mesh)) * x.element_size()
+               for a, sh in zip(cell.args, cell.in_shardings)
+               for x in tree_leaves(a))
 
 
 def local_block(x: torch.Tensor, sharding: tuple, mesh) -> torch.Tensor:
@@ -151,6 +163,87 @@ def _dlrm_cell(arch: Arch, shape_name: str, cfg: DLRMConfig) -> Cell:
 
 
 # ---------------------------------------------------------------------------
+# LM cells (one rank).
+# ---------------------------------------------------------------------------
+
+def lm_active_params(cfg: tfm.TransformerConfig) -> int:
+    """Active parameters per token (MoE counts top_k + shared experts)."""
+    D, dh = cfg.d_model, cfg.head_dim
+    att = D * dh * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+    if cfg.is_moe:
+        F = cfg.d_expert or cfg.d_ff
+        ffn = (cfg.top_k + cfg.n_shared_experts) * 3 * D * F + D * cfg.n_experts
+    else:
+        ffn = 3 * D * cfg.d_ff
+    return cfg.n_layers * (att + ffn) + 2 * cfg.vocab * D
+
+
+def lm_train_step(model: tfm.Transformer, opt_state: optim.AdamState,
+                  tokens: torch.Tensor, labels: torch.Tensor,
+                  cfg: tfm.TransformerConfig,
+                  ocfg: optim.OptimizerConfig = OPT):
+    """One step of the reference's LM ``train_step``: ``lm_loss``, its
+    gradient with respect to every parameter, and ``optim.update``, in
+    place on ``model``'s parameters and ``opt_state``'s moments →
+    ``(model, opt_state, {"loss", "lr", "grad_norm"})``."""
+    params = model.params()
+    with torch.enable_grad():
+        loss, _ = tfm.lm_loss(params, tokens, labels, cfg)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    _, opt_state, info = optim.update(
+        ocfg, params, optim.tree_unflatten(params, grads), opt_state)
+    return model, opt_state, {"loss": loss.detach(), **info}
+
+
+def _lm_cell(arch: Arch, shape_name: str, mesh) -> Cell:
+    if mesh is not None and mesh.size() > 1:
+        raise NotImplementedError(
+            f"{arch.name}: LM cells on a mesh of {mesh.size()} ranks are "
+            f"not ported yet (ROADMAP Queue 1 item 16, second part (b)); "
+            f"they run on one rank")
+    spec = arch.shapes[shape_name]
+    kind = spec["kind"]
+    B, S = spec["batch"], spec["seq"]
+    # one rank: one dispatch group
+    cfg: tfm.TransformerConfig = dataclasses.replace(
+        arch.model, moe_groups=1,
+        moe_fsdp=spec.get("moe_fsdp", kind == "train"),
+        moe_a2a_int8=spec.get("moe_a2a_int8", False))
+    tokens = _meta((B, S), torch.int32)
+    if kind == "train":
+        def train_step(model, opt_state, tokens, labels):
+            return lm_train_step(model, opt_state, tokens, labels, cfg)
+
+        n_tok = B * S
+        return Cell(arch.name, shape_name, train_step, (tokens, tokens),
+                    ((), ()), donate=(0, 1),
+                    meta=dict(model_flops=6 * lm_active_params(cfg) * n_tok,
+                              tokens=n_tok, loop_trips=cfg.n_layers,
+                              flops_multiplier=8 / 6 if cfg.remat else 1.0))
+    if kind == "prefill":
+        def prefill_step(model, tokens):
+            with torch.no_grad():
+                return tfm.prefill(model.params(), tokens, cfg, S)
+
+        return Cell(arch.name, shape_name, prefill_step, (tokens,), ((),),
+                    meta=dict(model_flops=2 * lm_active_params(cfg) * B * S,
+                              tokens=B * S, loop_trips=cfg.n_layers))
+    if kind == "decode":
+        cache = tfm.cache_spec(cfg, B, S)
+
+        def decode(model, cache, tok):
+            with torch.no_grad():
+                return tfm.decode_step(model.params(), cache, tok, cfg)
+
+        return Cell(arch.name, shape_name, decode,
+                    (cache, _meta((B,), torch.int32)), ((), ()), donate=(1,),
+                    meta=dict(model_flops=2 * lm_active_params(cfg) * B,
+                              tokens=B, loop_trips=cfg.n_layers,
+                              kv_bytes=cache.k.numel() * 2 * 2))
+    raise ValueError(f"{arch.name}: unknown shape kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
 # ConnectIt production cells (the paper's own workload on a mesh).
 # ---------------------------------------------------------------------------
 
@@ -214,12 +307,16 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     """The cell of ``arch`` at ``shape_name``. A ``connectit`` cell runs on
     ``mesh`` (default: the ``(data, model)`` mesh over every rank of the
     world, ``launch.mesh.make_smoke_mesh``) and ``device``; on a
-    ``ShapeMesh``, pass ``device="meta"``."""
+    ``ShapeMesh``, pass ``device="meta"``. The ``recsys`` and ``lm`` cells
+    run on one rank and take their inputs' devices; an ``lm`` cell refuses
+    a mesh of more than one rank."""
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch.name} has no shape {shape_name!r}; have "
                        f"{sorted(arch.shapes)}")
     if arch.family == "recsys":
         return _dlrm_cell(arch, shape_name, arch.model)
+    if arch.family == "lm":
+        return _lm_cell(arch, shape_name, mesh)
     if arch.family == "connectit":
         device = torch.device(device)
         if mesh is None:
@@ -227,4 +324,4 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
         return _connectit_cell(arch, shape_name, mesh, device)
     raise NotImplementedError(
         f"{arch.name}: the {arch.family} family is not ported yet (ROADMAP "
-        f"Queue 1 item 16)")
+        f"Queue 1 item 16, third part)")

@@ -5,17 +5,21 @@ Fault-tolerance loop: deterministic data (batch = f(seed, step)), a
 checkpoint every N steps (atomic, k-retention, ``legacy.checkpoint``),
 auto-resume from the latest one, and ``--simulate-failure K``, which kills
 the process at step K: rerun the same command and the run goes on bit-exact
-(the weights, the data and the gradient kernels are all deterministic).
+(the weights, the data and the gradients are all deterministic: the
+embedding gradients and the MoE dispatch's backward add in a fixed
+order).
 
-The weights start from the reference's ``init_dlrm(PRNGKey(seed))`` and the
-batches are the reference's ``RecsysStream`` (``repro_torch.random`` draws
+The weights start from the reference's ``init_dlrm(PRNGKey(seed))`` or
+``init_params(PRNGKey(seed))`` and the batches are the reference's
+``RecsysStream`` or ``TokenStream`` (``repro_torch.random`` draws
 ``jax.random``'s numbers), so a run follows the reference's within float32
-rounding. The ``recsys`` family (DLRM) is ported; ``lm`` and ``gnn`` are
-ROADMAP Queue 1 item 16.
+rounding. The ``recsys`` (DLRM) and ``lm`` families are ported; ``gnn`` is
+ROADMAP Queue 1 item 16, third part.
 
 Usage:
   python -m repro_torch.launch.train --arch dlrm-rm2 --steps 50 \\
       --ckpt-dir /tmp/run1 [--full] [--device cpu]
+  python -m repro_torch.launch.train --arch qwen3-4b --steps 20 --device cpu
 """
 
 from __future__ import annotations
@@ -33,9 +37,10 @@ from ..configs import get_arch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..legacy import checkpoint as ckpt
 from ..legacy import optim
-from ..legacy.data import RecsysStream
+from ..legacy.data import RecsysStream, TokenStream
 from ..legacy.models import dlrm as dlrm_mod
-from .steps import train_step
+from ..legacy.models import transformer as tfm
+from .steps import lm_train_step, train_step
 
 
 def smoke_model(arch):
@@ -72,10 +77,26 @@ def build_trainable(arch_name: str, *, smoke: bool = True, seed: int = 0,
 
         return model, optim.init_adam(model.params()), step_fn, data_fn
 
-    if arch.family in ("lm", "gnn"):
+    if arch.family == "lm":
+        model = tfm.init_transformer(mcfg, key=key)
+        stream = TokenStream(vocab=mcfg.vocab, batch=8, seq_len=64,
+                             seed=seed)
+
+        def step_fn(model, opt_state, batch):
+            model, opt_state, info = lm_train_step(
+                model, opt_state, batch["tokens"], batch["labels"], mcfg,
+                ocfg)
+            return model, opt_state, info["loss"]
+
+        def data_fn(step):
+            return stream.batch_at(step, device=dev)
+
+        return model, optim.init_adam(model.params()), step_fn, data_fn
+
+    if arch.family == "gnn":
         raise NotImplementedError(
             f"{arch_name}: the {arch.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item 16)")
+            f"(ROADMAP Queue 1 item 16, third part)")
     raise ValueError(arch.family)
 
 

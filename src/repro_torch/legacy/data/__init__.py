@@ -1,10 +1,11 @@
 """Deterministic synthetic data streams (mirrors ``repro.legacy.data``).
 
-Every batch is a function of ``(seed, step)`` alone: the DLRM stream's is
-the reference's, drawn on the target device from ``fold_in(PRNGKey(seed),
-step)`` with ``repro_torch.random`` (``jax.random``'s numbers: the ids and
-labels are the reference's, the dense features within ``normal``'s ulps),
-and the edge stream's is a slice of its host edge list.
+Every batch is a function of ``(seed, step)`` alone: the LM and DLRM
+streams' are the reference's, drawn on the target device from
+``fold_in(PRNGKey(seed), step)`` with ``repro_torch.random``
+(``jax.random``'s numbers: the tokens, ids and labels are the reference's
+bit for bit, DLRM's dense features within ``normal``'s ulps), and the edge
+stream's is a slice of its host edge list.
 """
 
 from __future__ import annotations
@@ -17,6 +18,32 @@ import torch
 
 from ... import random as trandom
 from ...device import DEFAULT_DEVICE, resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class TokenStream:
+    """LM batches: markov-ish synthetic token sequences."""
+
+    vocab: int
+    batch: int
+    seq_len: int
+    seed: int = 0
+
+    def batch_at(self, step: int, *, device=DEFAULT_DEVICE) -> dict:
+        """``{"tokens": (B, S) int32, "labels": (B, S) int32}``, the labels
+        the tokens shifted by one: a third of the positions (where the drawn
+        token is a multiple of 3) continue ``first + delta * position``."""
+        key = trandom.fold_in(trandom.PRNGKey(self.seed, device=device),
+                              step)
+        k1, k2 = trandom.split(key)
+        n = self.seq_len + 1
+        base = trandom.randint(k1, (self.batch, n), 0, self.vocab)
+        # inject local structure: next token ≈ prev + delta mod vocab
+        delta = trandom.randint(k2, (self.batch, 1), 1, 17)
+        steps = torch.arange(n, dtype=torch.int32, device=base.device)
+        drift = (base[:, :1] + delta * steps) % self.vocab
+        toks = torch.where(base % 3 == 0, drift, base).to(torch.int32)
+        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
 
 
 @dataclasses.dataclass(frozen=True)

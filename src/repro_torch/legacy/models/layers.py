@@ -97,3 +97,224 @@ def mlp_init(sizes: Sequence[int], *, key=None, generator=None, device=None,
                          dtype=dtype) for a, b in pairs]
     bs = [torch.zeros(b, device=device, dtype=dtype) for b in sizes[1:]]
     return MLP(ws, bs, final_relu=final_relu)
+
+
+# ---------------------------------------------------------------------------
+# The transformer's layers (the reference's ``no_shard``, ``rms_norm``,
+# RoPE and chunked attention).
+# ---------------------------------------------------------------------------
+
+def no_shard(x: torch.Tensor, logical_axes: tuple) -> torch.Tensor:
+    """The reference's identity sharding hint (one rank places nothing)."""
+    return x
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """``x / c`` as a float32 divide on every device: CUDA multiplies by
+    the reciprocal of a host scalar, so the divisor goes as a tensor."""
+    return x / torch.tensor(c, dtype=x.dtype, device=x.device)
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    """Normalise in float32, cast to ``x``'s dtype, then multiply by
+    ``gamma`` in that dtype: the reference's cast order, on which the
+    bfloat16 bits depend."""
+    dtype = x.dtype
+    x = x.float()
+    scale = torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * scale).to(dtype) * gamma.to(dtype)
+
+
+def rope_frequencies(d_head: int, theta: float = 1e4,
+                     device=None) -> torch.Tensor:
+    """``1 / theta ** (2i / d_head)``, float32, ``(d_head // 2,)``."""
+    exps = torch.arange(0, d_head, 2, dtype=torch.float32,
+                        device=device) / d_head
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                        device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 1e4) -> torch.Tensor:
+    """x: (..., S, H, d_head); positions: (..., S). Rotates the two halves
+    of each head in float32 and casts back to ``x``'s dtype."""
+    freqs = rope_frequencies(x.shape[-1], theta, device=x.device)
+    angles = positions[..., None].float() * freqs          # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+class _CardScores(torch.autograd.Function):
+    """``q @ k^T`` of two bfloat16 operands on the card, with a float32
+    output (``bmm``'s ``out_dtype``, for which autograd has no formula);
+    the backward runs in float32 and casts each gradient to its operand's
+    dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k):
+        ctx.save_for_backward(q, k)
+        return torch.bmm(q, k.transpose(-1, -2), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k = ctx.saved_tensors
+        return (torch.bmm(g, k.float()).to(q.dtype),
+                torch.bmm(g.transpose(-1, -2), q.float()).to(k.dtype))
+
+
+def scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``q @ k^T`` of (N, M, d) and (N, K, d), accumulated and returned in
+    float32 (the reference's ``preferred_element_type=float32``). A product
+    of two bfloat16 values is exact in float32: the card takes bfloat16
+    inputs with a float32 output, the CPU float32 copies."""
+    if q.dtype == torch.float32:
+        return torch.bmm(q, k.transpose(-1, -2))
+    if q.is_cuda:
+        return _CardScores.apply(q, k)
+    return torch.bmm(q.float(), k.float().transpose(-1, -2))
+
+
+NEG = -1e30  # the masked score
+
+
+def _pad_to(x: torch.Tensor, s: int, dim: int) -> torch.Tensor:
+    p = s - x.shape[dim]
+    if p == 0:
+        return x
+    shape = list(x.shape)
+    shape[dim] = p
+    return torch.cat([x, x.new_zeros(shape)], dim=dim)
+
+
+# score elements one pass of ``chunked_attention`` holds at most: the
+# query chunks of a pass are as many as keep B x H x rows x k_chunk float32
+# scores within it (at least one chunk): 4 GiB a block, the whole of a
+# 32k prompt's queries against a key chunk at B = 1
+SCORE_BUDGET = 1 << 30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset=0, q_chunk: int = 1024,
+                      k_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention with GQA head grouping (the reference's
+    ``chunked_attention``): q (B, Sq, Hq, dh), k and v (B, Sk, Hkv, dh).
+
+    Queries and keys are padded to chunk multiples and each query chunk
+    runs over the key chunks in order, carrying float32 ``(acc, row_max,
+    row_sum)``, with the causal and sliding-window masks, ``q_offset`` (the
+    absolute position of ``q[0]``, an int or a 0-d tensor) and the
+    ``-1e30`` fill. The reference maps over the query chunks one at a time;
+    here a pass takes as many query chunks at once as ``SCORE_BUDGET``
+    allows. Each query row's arithmetic is the same either way. A key chunk
+    whose every pair is valid skips the mask (``where`` of all true is the
+    identity); a fully masked chunk is computed, as the reference's is.
+    Traced as the profiler range ``lm.attention``."""
+    with torch.profiler.record_function("lm.attention"):
+        return _chunked_attention(q, k, v, causal, window, q_offset,
+                                  q_chunk, k_chunk)
+
+
+def _chunked_attention(q, k, v, causal, window, q_offset, q_chunk,
+                       k_chunk):
+    B, Sq, Hq, dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    scale = float(np.float32(1.0 / np.sqrt(dh)))
+    q_chunk = min(q_chunk, Sq)
+    k_chunk = min(k_chunk, Sk)
+    nq = -(-Sq // q_chunk)
+    nk = -(-Sk // k_chunk)
+    # (B * Hkv, g, nq * qc, dh); keys and values (B * Hkv, nk * kc, dh)
+    qp = _pad_to(q, nq * q_chunk, 1).reshape(B, nq * q_chunk, Hkv, g, dh) \
+        .permute(0, 2, 3, 1, 4).reshape(B * Hkv, g, nq * q_chunk, dh)
+    kp = _pad_to(k, nk * k_chunk, 1).permute(0, 2, 1, 3) \
+        .reshape(B * Hkv, nk * k_chunk, dh)
+    vp = _pad_to(v, nk * k_chunk, 1).permute(0, 2, 1, 3) \
+        .reshape(B * Hkv, nk * k_chunk, dh)
+    host_offset = not isinstance(q_offset, torch.Tensor)
+    dev = q.device
+    per = max(1, SCORE_BUDGET // (B * Hq * q_chunk * k_chunk))
+    outs = []
+    for c0 in range(0, nq, per):
+        c1 = min(nq, c0 + per)
+        rows = (c1 - c0) * q_chunk
+        # a pass's rows: g heads of each kv head, one after the other
+        q_blk = qp[:, :, c0 * q_chunk: c1 * q_chunk].reshape(
+            B * Hkv, g * rows, dh)
+        q_pos = q_offset + c0 * q_chunk + torch.arange(rows, device=dev)
+        acc = torch.zeros((B * Hkv, g * rows, dh), dtype=torch.float32,
+                          device=dev)
+        mx = torch.full((B * Hkv, g * rows), NEG, dtype=torch.float32,
+                        device=dev)
+        sm = torch.zeros((B * Hkv, g * rows), dtype=torch.float32,
+                         device=dev)
+        for ki in range(nk):
+            lo = ki * k_chunk
+            s = scores(q_blk, kp[:, lo: lo + k_chunk]) * scale
+            if not (host_offset and _all_valid(
+                    q_offset + c0 * q_chunk, rows, lo, k_chunk, Sk, causal,
+                    window)):
+                k_pos = lo + torch.arange(k_chunk, device=dev)
+                mask = (k_pos[None, :] <= Sk - 1).expand(rows, k_chunk)
+                if causal:
+                    mask = mask & (k_pos[None, :] <= q_pos[:, None])
+                if window is not None:
+                    mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+                s = torch.where(mask, s.view(B * Hkv, g, rows, k_chunk),
+                                NEG).view(B * Hkv, g * rows, k_chunk)
+            new_mx = torch.maximum(mx, s.amax(-1))
+            corr = torch.exp(mx - new_mx)
+            p = torch.exp(s - new_mx[..., None])
+            sm = sm * corr + p.sum(-1)
+            acc = acc * corr[..., None] + torch.bmm(
+                p, vp[:, lo: lo + k_chunk].float())
+            mx = new_mx
+        out = acc / torch.clamp(sm[..., None], min=1e-30)
+        outs.append(out.view(B * Hkv, g, rows, dh))
+    out = torch.cat(outs, dim=2) if len(outs) > 1 else outs[0]
+    # (B, Hkv, g, rows, dh) -> (B, rows, Hkv, g, dh) -> (B, Sq, Hq, dh)
+    out = out.view(B, Hkv, g, nq * q_chunk, dh).permute(0, 3, 1, 2, 4) \
+        .reshape(B, nq * q_chunk, Hq, dh)
+    return out[:, :Sq].to(q.dtype)
+
+
+def _all_valid(q0: int, rows: int, k0: int, kc: int, sk: int, causal: bool,
+               window: Optional[int]) -> bool:
+    """Whether every (query, key) pair of a block passes the masks: query
+    positions ``[q0, q0 + rows)``, key positions ``[k0, k0 + kc)``."""
+    if k0 + kc - 1 > sk - 1:
+        return False
+    if causal and k0 + kc - 1 > q0:
+        return False
+    if window is not None and k0 <= q0 + rows - 1 - window:
+        return False
+    return True
+
+
+def dot_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      q_offset: int = 0) -> torch.Tensor:
+    """O(S²) attention in float32 (the reference's oracle for
+    ``chunked_attention``)."""
+    B, Sq, Hq, dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    qf = q.float().reshape(B, Sq, Hkv, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float())
+    s = div(s, float(np.sqrt(dh)))
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(Sk, device=q.device)
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (k_pos[None] <= q_pos[:, None])
+    if window is not None:
+        mask = mask & (k_pos[None] > q_pos[:, None] - window)
+    s = torch.where(mask, s, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return out.reshape(B, Sq, Hq, dh).to(q.dtype)

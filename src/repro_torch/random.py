@@ -42,12 +42,12 @@ def _shape(shape: Shape) -> tuple:
 
 
 def PRNGKey(seed: int, *, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` with 64-bit types off: the seed is an
-    int32, and the key is ``(0, seed mod 2**32)``."""
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off: a seed in
+    ``[-2**63, 2**63)`` gives the key ``(0, seed mod 2**32)``; one outside
+    it raises ``OverflowError``, as there."""
     seed = int(seed)
-    if not -(1 << 31) <= seed < (1 << 31):
-        raise OverflowError(f"a seed is an int32 (64-bit types are off in "
-                            f"the reference); got {seed}")
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError(f"a seed is an int64; got {seed}")
     return torch.tensor([0, seed & MASK], dtype=torch.int64,
                         device=resolve_device(device))
 
@@ -111,8 +111,12 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
-    """``jax.random.fold_in(key, data)``; ``data`` is taken as a uint32."""
-    b = threefry2x32(*_words(key), 0, int(data) & MASK)
+    """``jax.random.fold_in(key, data)``: ``data`` is a uint32; one outside
+    ``[0, 2**32)`` raises ``OverflowError``, as there."""
+    data = int(data)
+    if not 0 <= data <= MASK:
+        raise OverflowError(f"fold_in data is a uint32; got {data}")
+    b = threefry2x32(*_words(key), 0, data)
     return torch.tensor(b, dtype=torch.int64, device=key.device)
 
 

@@ -243,9 +243,34 @@ def test_connectit_shapes_match_repro():
 
 @pytest.mark.parametrize("family", ["lm", "gnn"])
 def test_unported_families_name_item_16(family):
-    arch = tbase.Arch("x", family, None, {"s": dict(kind="train")}, {})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        tsteps.build_cell(arch, "s")
+    """The LM family is ported: its train cell builds at one rank and runs
+    a step at the smoke config; on a mesh of more ranks it names item 16's
+    second part (b). The GNN family still names item 16."""
+    if family == "lm":
+        from repro_torch import random as trandom
+        from repro_torch.legacy import optim as toptim
+        from repro_torch.legacy.data import TokenStream
+        from repro_torch.legacy.models import transformer as ttfm
+        lm = get_arch("qwen3-4b")
+        with pytest.raises(NotImplementedError,
+                           match=r"Queue 1 item 16, second part \(b\)"):
+            tsteps.build_cell(lm, "train_4k", tmesh.make_production_mesh(),
+                              device="meta")
+        cfg = dataclasses.replace(lm.model, **lm.smoke)
+        arch = dataclasses.replace(lm, model=cfg, shapes={
+            "s": dict(kind="train", seq=16, batch=2)})
+        cell = tsteps.build_cell(arch, "s")
+        assert cell.donate == (0, 1) and cell.meta["tokens"] == 32
+        model = ttfm.init_transformer(cfg, key=trandom.PRNGKey(0,
+                                                               device="cpu"))
+        b = TokenStream(cfg.vocab, 2, 16).batch_at(0, device="cpu")
+        _, state, info = cell.fn(model, toptim.init_adam(model.params()),
+                                 b["tokens"], b["labels"])
+        assert int(state.step) == 1 and bool(torch.isfinite(info["loss"]))
+    else:
+        arch = tbase.Arch("x", family, None, {"s": dict(kind="train")}, {})
+        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
+            tsteps.build_cell(arch, "s")
     # the recsys family's train cell is built, and the dry run plans it
     cell = tsteps.build_cell(get_arch("dlrm-rm2"), "train_batch")
     assert cell.fn is tsteps.train_step and cell.donate == (0, 1)
@@ -379,10 +404,13 @@ def test_dryrun_cli_plans_every_cell(tmp_path, capsys):
     out = tmp_path / "dryrun.csv"
     assert dryrun.main(["--all", "--mesh", "both", "--csv", str(out)]) == 0
     text = capsys.readouterr().out
-    assert "DRY-RUN SUMMARY: 16 ok, 0 not ported, 0 failed" in text
+    # the connectit and dlrm-rm2 cells (4 each) and the 17 LM cells the
+    # archs support (long_500k only on h2o-danube's sliding window), on
+    # both meshes
+    assert "DRY-RUN SUMMARY: 50 ok, 0 not ported, 0 failed" in text
     assert "NOT PORTED" not in text
     rows = out.read_text().splitlines()
-    assert len(rows) == 17 and rows[0].startswith("arch,shape,mesh")
+    assert len(rows) == 51 and rows[0].startswith("arch,shape,mesh")
 
 
 def test_dryrun_plans_the_dlrm_train_cell_by_hand():

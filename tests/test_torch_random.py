@@ -94,8 +94,13 @@ def test_keys_match_jax(seed):
 
 
 def test_seed_range_and_key_checks():
-    with pytest.raises(OverflowError, match="int32"):
-        trandom.PRNGKey(2**31, device="cpu")
+    # a seed past int32 is jax.random's key (0, seed mod 2**32); one past
+    # int64 raises as there
+    np.testing.assert_array_equal(
+        _u32(trandom.PRNGKey(2**31, device="cpu")),
+        np.asarray(jax.random.PRNGKey(2**31)))
+    with pytest.raises(OverflowError, match="int64"):
+        trandom.PRNGKey(2**63, device="cpu")
     with pytest.raises(TypeError, match="key"):
         trandom.bits(torch.zeros(3, dtype=torch.int64), (2,))
     with pytest.raises(ValueError, match="uint32"):
@@ -105,6 +110,69 @@ def test_seed_range_and_key_checks():
     assert trandom.choose(None, None) is None
     assert torch.equal(trandom.resolve(None, "cpu"),
                        trandom.PRNGKey(0, device="cpu"))
+
+
+# both ends of each range jax.random takes: seeds in [-2**63, 2**63) (the
+# key is (0, seed mod 2**32)), fold_in data in [0, 2**32)
+KEY_SEEDS = (2**31, 3_000_000_000, -2**31 - 1, 2**63 - 1, -2**63)
+BAD_SEEDS = (2**63, -2**63 - 1)
+FOLD_DATA = (0, 2**31, 2**32 - 1)
+BAD_FOLD_DATA = (2**32, -1)
+
+
+@pytest.mark.parametrize("seed", KEY_SEEDS)
+def test_prngkey_takes_jax_seed_range(seed):
+    np.testing.assert_array_equal(_u32(trandom.PRNGKey(seed, device="cpu")),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+
+
+@pytest.mark.parametrize("seed", BAD_SEEDS)
+def test_prngkey_raises_outside_jax_seed_range(seed):
+    with pytest.raises(OverflowError):
+        jax.random.PRNGKey(seed)
+    with pytest.raises(OverflowError):
+        trandom.PRNGKey(seed, device="cpu")
+
+
+@pytest.mark.parametrize("data", FOLD_DATA)
+def test_fold_in_takes_uint32_data(data):
+    jk, tk = _key(0)
+    np.testing.assert_array_equal(_u32(trandom.fold_in(tk, data)),
+                                  np.asarray(jax.random.fold_in(jk, data)))
+
+
+@pytest.mark.parametrize("data", BAD_FOLD_DATA)
+def test_fold_in_raises_outside_uint32(data):
+    jk, tk = _key(0)
+    with pytest.raises(OverflowError):
+        jax.random.fold_in(jk, data)
+    with pytest.raises(OverflowError):
+        trandom.fold_in(tk, data)
+
+
+def test_recsys_stream_negative_step_raises_as_jax():
+    from repro.legacy.data import RecsysStream as JStream
+    from repro_torch.legacy.data import RecsysStream as TStream
+    with pytest.raises(OverflowError):
+        JStream(4, 13, 26, 1000).batch_at(-1)
+    with pytest.raises(OverflowError):
+        TStream(4, 13, 26, 1000).batch_at(-1, device="cpu")
+
+
+def test_train_seed_past_int32_is_the_references():
+    from repro.launch import train as jtrain
+    from repro_torch.launch import train as ttrain
+    seed = 2**31
+    _, _, _, jdata = jtrain.build_trainable("dlrm-rm2", seed=seed)
+    model, state, step_fn, data_fn = ttrain.build_trainable(
+        "dlrm-rm2", seed=seed, device="cpu")
+    want, got = jdata(0), data_fn(0)
+    for k in ("sparse", "labels"):
+        np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]))
+    np.testing.assert_allclose(got["dense"].numpy(), np.asarray(want["dense"]),
+                               rtol=4e-7, atol=0)
+    _, state, loss = step_fn(model, state, got)
+    assert int(state.step) == 1 and bool(torch.isfinite(loss))
 
 
 @pytest.mark.parametrize("seed", SEEDS)
