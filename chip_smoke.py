@@ -244,10 +244,11 @@ Phases, in order; any failure exits non-zero:
               run_connectivity, make_replicated_connectivity at one rank)
               against scipy; every wall so far timed with nothing else
               running; then python -m repro_torch.launch.dryrun --all
-              --mesh both beside python -m repro_torch.launch.ingest on the
-              graph's rmat (n = 2^22, 2^25 edges, batches of 2^20): plain,
-              stopped after CLI_STOP_STEPS batches with --ckpt-dir and
-              resumed, each against scipy, and --chunked (chunks of 2^22)
+              --mesh both beside python -m repro_torch.launch.ingest on an
+              rmat of a quarter of the graph's size each way (CLI_LOG_CUT:
+              n = 2^20, 2^23 edges, batches of 2^18): plain, stopped after
+              CLI_STOP_STEPS batches with --ckpt-dir and resumed, each
+              against scipy on its edges, and --chunked (chunks of 2^20)
               against scipy on its stream;
  17. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
@@ -313,6 +314,30 @@ Phases, in order; any failure exits non-zero:
               traced, AdamW alone against its bytes bound, one step twice
               from one state equal bit for bit (the state page-locked on
               the host).
+ 21. lm mesh  the LM cells on a mesh: LM_MESH_WORLD processes of this script
+              (--mesh-rank) on a 2 x 2 (data, model) DeviceMesh sharing the
+              card over gloo (its all_to_all on CUDA tensors checked first,
+              the transport printed), each run listing its cuts and printing
+              its wall, tokens/s, per-rank peak and the collectives' share
+              of an instrumented run: (a) qwen3-4b at full width, depth
+              LM_MESH_QWEN_LAYERS, a prefill of LM_MESH_PREFILL, decode
+              steps from its sequence-sharded cache and decode_32k at
+              LM_MESH_DECODE_BATCH over a full random cache, logits and the
+              cache against the one-rank path in this process (LM_BF16_TOL
+              of the largest magnitude); (b) deepseek-moe-16b train_4k and
+              train_4k_int8a2a at depth LM_MESH_MOE_LAYERS and
+              LM_MESH_TRAIN: the exact step's loss against a one-rank step
+              with moe_groups = 2 (LM_MESH_BF16_LOSS_TOL), every layer's
+              routing against the one-rank path's, every gradient leaf in
+              float32 activations at depth LM_MESH_GRAD_LAYERS against the
+              one-rank path's with every token routed alike
+              (LM_MESH_F32_GRAD_TOL; the parent's gradients stay on the
+              card, mapped by the ranks through CUDA IPC), layer 0's MoE
+              output through the int8
+              all_to_all within LM_MESH_INT8_TOL of the exact one, a timed
+              step of each; (c) the deepseek and qwen3 smoke cells in
+              float32 on the card's mesh against the same cells on a CPU
+              mesh of the same ranks (LM_SMOKE_TOL).
 
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
@@ -328,7 +353,9 @@ elects rank 0's winner, only rank 0's file is written, and every rank's
 labels equal scipy's. Then the two sharded cells at their published sizes
 on a (data, model) mesh of N processes, one rank a card: each rank
 generates only its edge block and label window, and the gathered labels
-pass the planted check on every rank.
+pass the planted check on every rank. Last the lm mesh phase on a 2 x 2
+mesh of the N = 4 processes, one rank a card over NCCL, at the same cut
+depths.
 
 The whole script reads a tuning cache of its own, an empty file under a
 temporary directory (REPRO_TORCH_TUNE_CACHE, printed first), so every
@@ -429,6 +456,10 @@ CELL_BLOCKS = 1 << 20
 CELL_CHUNK = 1 << 26
 CELL_TIMING_REPEATS = 3
 CLI_STOP_STEPS = 20
+# the ingest CLIs run at n = 2^(log_n - CLI_LOG_CUT) and 2^(log_m -
+# CLI_LOG_CUT) edges: their host generation took 120 s at the graph
+# phase's 2^22 / 2^25 (the script's time limit, since the lm mesh phase)
+CLI_LOG_CUT = 2
 SHIM_MESH_ROUNDS = 64
 # each cell's launches of PATH_KERNELS in one run and its outer rounds, at
 # the published sizes (the sharded cells at one rank)
@@ -3481,6 +3512,8 @@ def mesh_rank(rank: int, tmp: str) -> int:
     job = json.loads((d / "job.json").read_text())
     if job.get("cells"):
         return _rank_cells(rank, d, job)
+    if job.get("lm_mesh"):
+        return _rank_lm_mesh(rank, d, job)
     world, tag = job["world"], f"{job['backend']} {job['world']} ranks "
     arrays = [np.fromfile(d / f"{k}.i32", dtype=np.int32)
               for k in ("senders", "receivers", "indptr", "indices")]
@@ -4115,9 +4148,10 @@ def phase_cells(torch, g, expect, seed: int, log_n: int, log_m: int,
         _shims_on_card(torch, g, expect)
         # every wall above is timed alone; the ingest CLIs generate their
         # graphs on the host from here on, beside the dry run (no card)
-        clis = _start_ingest_clis(log_n, log_m, seed)
+        cli_n, cli_m = log_n - CLI_LOG_CUT, log_m - CLI_LOG_CUT
+        clis = _start_ingest_clis(cli_n, cli_m, seed)
         _dryrun_cli()
-        _finish_ingest_clis(g, expect, clis, log_n, log_m, seed)
+        _finish_ingest_clis(clis, cli_n, cli_m, seed)
     finally:
         multihost.shutdown()
         for p in (clis or {}).get("procs", {}).values():
@@ -4133,6 +4167,7 @@ def sharded_cells(torch, arch, mesh, seed: int, exact: bool,
     checks the gathered labels (its own block's edges, the count reduced
     over the mesh)."""
     from repro_torch.core import collectives as coll
+    from repro_torch.launch.shardings import spec_axes
     from repro_torch.launch.steps import build_cell
 
     shapes = ("static_8b_edges_sharded", "static_8b_sharded_fused")
@@ -4141,7 +4176,7 @@ def sharded_cells(torch, arch, mesh, seed: int, exact: bool,
     t0 = time.perf_counter()
     perm, starts = planted_structure(torch, n, k, seed)
     cell = build_cell(arch, shapes[0], mesh, device="cuda")
-    eaxes = cell.in_shardings[1]
+    eaxes = spec_axes(cell.in_shardings[1][0])
     s, r = planted_edges(torch, perm, starts, cell.args[1].shape[0], seed,
                          shard=coll.shard_index(mesh, eaxes),
                          shards=coll.mesh_size(mesh, eaxes))
@@ -4231,16 +4266,15 @@ def _wait_cli(clis: dict, key: str) -> str:
     return out.strip().splitlines()[-1]
 
 
-def _finish_ingest_clis(g, expect, clis: dict, log_n: int, log_m: int,
+def _finish_ingest_clis(clis: dict, log_n: int, log_m: int,
                         seed: int) -> None:
     """Every ingest CLI's labels against scipy: the plain and the resumed
-    run's on the graph of the graph phase (the same rmat), the chunked
-    run's on its own stream's edges."""
+    run's on their rmat's edges, the chunked run's on its own stream's."""
     import shutil
 
     import numpy as np
 
-    from repro_torch.graphs.generators import rmat_chunks
+    from repro_torch.graphs.generators import rmat_chunks, rmat_edges
     from repro_torch.legacy import checkpoint as ckpt
 
     tmp = clis["tmp"]
@@ -4262,6 +4296,9 @@ def _finish_ingest_clis(g, expect, clis: dict, log_n: int, log_m: int,
         edges = np.concatenate(list(src.chunks()))
         _, lab = _scipy_labels(1 << log_n, edges)
         chunk_expect = canonical(lab)
+        _, lab = _scipy_labels(1 << log_n, rmat_edges(1 << log_n, 1 << log_m,
+                                                      seed=seed))
+        expect = canonical(lab)
         del edges, lab
         for key in ("plain", "chunked"):
             print(f"[cells] ingest CLI {key}: {_wait_cli(clis, key)}")
@@ -4272,7 +4309,6 @@ def _finish_ingest_clis(g, expect, clis: dict, log_n: int, log_m: int,
         require(np.array_equal(resumed, plain),
                 "ingest CLI: the resumed run's labels differ from the "
                 "uninterrupted run's")
-        # the CLI's rmat is the graph phase's (one n, m and seed)
         require(np.array_equal(canonical(plain), expect),
                 "ingest CLI: labels differ from scipy's")
         require(np.array_equal(canonical(np.load(tmp / "chunked.npy")),
@@ -4938,9 +4974,10 @@ def _trace_stream_steps(torch, g, seed: int) -> None:
 
 LM_ARCHS = ("h2o-danube-3-4b", "qwen3-4b", "stablelm-3b", "deepseek-moe-16b",
             "granite-moe-3b-a800m")
-# (a) qwen3-4b: prefill_32k's batch cut from 32, decode steps from its
-# cache; decode_32k's batch cut from 128, over a full 32,768-slot cache
-LM_PREFILL_BATCH = 2
+# (a) qwen3-4b: prefill_32k's batch cut from 32 (to 1 since the lm mesh
+# phase: the script's time limit), decode steps from its cache;
+# decode_32k's batch cut from 128, over a full 32,768-slot cache
+LM_PREFILL_BATCH = 1
 LM_DECODE_BATCH = 8
 LM_DECODE_STEPS = 8
 # the full-width checks: a prompt of this many tokens through prefill and
@@ -4953,9 +4990,10 @@ LM_MOE_BATCH = 8
 # decode steps past it, each slot of the ring overwritten in turn
 LM_LONG_PREFILL = 8192
 LM_LONG_DECODE = 16
-# (d) stablelm-3b x train_4k: batch cut from 256
+# (d) stablelm-3b x train_4k: batch cut from 256; timed steps cut 10 -> 5
+# since the lm mesh phase (the script's time limit)
 LM_TRAIN_BATCH = 1
-LM_TRAIN_STEPS = 10
+LM_TRAIN_STEPS = 5
 # two bfloat16 paths at full depth (decode against forward): the largest
 # logit difference as a share of the largest |logit|. A bfloat16 rounding
 # is 2^-8 of a value; through 24-36 residual layers the two paths' logits
@@ -5836,6 +5874,669 @@ def phase_lm(torch, seed: int, card: str) -> None:
           f"batch 256 -> {LM_TRAIN_BATCH}; widths and depths as published")
 
 
+# ---------------------------------------------------------------------------
+# The LM cells on a mesh (phase "lm mesh"): LM_MESH_WORLD processes of this
+# script (--mesh-rank) on a 2 x 2 (data, model) mesh, sharing the card over
+# gloo (--ranks 4: one rank a card over NCCL), each run against the
+# one-rank path in this process.
+# ---------------------------------------------------------------------------
+
+LM_MESH_WORLD = 4
+LM_MESH_SHAPE = (2, 2)
+# (a) qwen3-4b at full width, depth cut 36 -> LM_MESH_QWEN_LAYERS: a
+# prefill of LM_MESH_PREFILL (batch, seq), LM_MESH_DECODE_STEPS decode
+# steps from its cache, decode_32k at LM_MESH_DECODE_BATCH over a full
+# 32,768-slot cache of random values
+LM_MESH_QWEN_LAYERS = 4
+LM_MESH_PREFILL = (2, 4096)
+LM_MESH_DECODE_STEPS = 8
+LM_MESH_DECODE_BATCH = 8
+# (b) deepseek-moe-16b x train_4k and train_4k_int8a2a at full width, depth
+# cut 28 -> LM_MESH_MOE_LAYERS, batch 256 -> LM_MESH_TRAIN[0]
+LM_MESH_MOE_LAYERS = 2
+LM_MESH_TRAIN = (2, 4096)
+# the int8 exchange against the exact one on layer 0's MoE (the
+# reference's own bound, tests/test_distributed.py)
+LM_MESH_INT8_TOL = 0.02
+# (b)'s exact bf16 step's loss against the one-rank step's, as a share of
+# itself. The gradients are held in float32 activations at depth
+# LM_MESH_GRAD_LAYERS, each leaf within LM_MESH_F32_GRAD_TOL of its largest
+# magnitude, where every token routes alike on the two paths (checked: a
+# routing that differs voids the comparison and fails it). A token whose
+# top-k set differs moves the routed leaves' gradients far past rounding:
+# on an NVIDIA H100 80GB HBM3 at 700 W, in bf16 9 of 1,024 tokens at
+# layer 0 moved them by 0.18-0.22 of their largest; in float32 at depth 2
+# one token of 8,192 at layer 1 moved them by 0.03-0.07, against 1e-5 at
+# depth 1 with none (PERF.md)
+LM_MESH_BF16_LOSS_TOL = 0.05
+LM_MESH_F32_GRAD_TOL = 1e-4
+LM_MESH_GRAD_LAYERS = 1
+
+
+def _lm_mesh_arch(name: str, kind: str, layers: int = None):
+    """The cut arch of (a) or (b) with its cells' shapes (``layers``: (b)
+    at another depth)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    arch = get_arch(name)
+    if kind == "a":
+        B, S = LM_MESH_PREFILL
+        cfg = dataclasses.replace(arch.model, n_layers=LM_MESH_QWEN_LAYERS)
+        shapes = {"prefill": dict(kind="prefill", seq=S, batch=B),
+                  "decode": dict(kind="decode", seq=S, batch=B),
+                  "decode_32k": dict(arch.shapes["decode_32k"],
+                                     batch=LM_MESH_DECODE_BATCH)}
+    else:
+        B, S = LM_MESH_TRAIN
+        cfg = dataclasses.replace(arch.model,
+                                  n_layers=layers or LM_MESH_MOE_LAYERS)
+        shapes = {k: dict(arch.shapes[k], batch=B, seq=S)
+                  for k in ("train_4k", "train_4k_int8a2a")}
+    return dataclasses.replace(arch, model=cfg, shapes=shapes)
+
+
+def _lm_mesh_cache(torch, cfg, mesh_shape, seed: int, block=None):
+    """decode_32k's full cache of random bfloat16 values, drawn block by
+    block (a data shard's sequences × a model rank's slots, each from a
+    seed of its own) so that a rank draws its block alone: the whole cache,
+    or the block at ``block = (data index, model index)``."""
+    from repro_torch.legacy.models import transformer as tfm
+    G, M = mesh_shape
+    L, B = LM_MESH_QWEN_LAYERS, LM_MESH_DECODE_BATCH
+    S = 32768
+    shape = (L, B // G, S // M, cfg.n_kv_heads, cfg.head_dim)
+
+    def draw(i, j, which):
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 1000 + 2 * (i * M + j) + which)
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+    pos = torch.tensor(S - 1, dtype=torch.int32, device="cuda")
+    if block is not None:
+        return tfm.KVCache(draw(*block, 0), draw(*block, 1), pos)
+    full = [torch.empty((L, B, S) + shape[3:], dtype=torch.bfloat16,
+                        device="cuda") for _ in range(2)]
+    for i in range(G):
+        for j in range(M):
+            for w, c in enumerate(full):
+                c[:, i * shape[1]: (i + 1) * shape[1],
+                  j * shape[2]: (j + 1) * shape[2]] = draw(i, j, w)
+    return tfm.KVCache(full[0], full[1], pos)
+
+
+def _lm_mesh_batch(torch, cfg, batch: int, seq: int, seed: int) -> dict:
+    from repro_torch.legacy.data import TokenStream
+    return TokenStream(cfg.vocab, batch, seq, seed).batch_at(0,
+                                                             device="cuda")
+
+
+def _lm_mesh_refs(torch, tmp: Path, seed: int, card: str) -> dict:
+    """The one-rank runs the ranks are held against, written to ``tmp``:
+    (a) qwen3's prefill logits and cache, its decode logits, decode_32k's
+    logits; (b) deepseek with moe_groups = 2: the bf16 loss, and the
+    gradients in float32 activations (kept on the card and handed to the
+    ranks as CUDA IPC handles) with each leaf's largest magnitude, and
+    layer 0's routing in both dtypes → ``(what the ranks read, the
+    gradients to keep alive until they exit)``."""
+    import dataclasses
+    import pickle
+
+    from torch.multiprocessing.reductions import reduce_tensor
+
+    from repro_torch.legacy.models import transformer as tfm
+
+    from repro_torch.launch.steps import build_cell, lm_cell_config, lm_grads
+
+    out = {}
+    arch = _lm_mesh_arch("qwen3-4b", "a")
+    cfg = arch.model
+    model, _ = _lm_init(torch, cfg, seed)
+    B, S = LM_MESH_PREFILL
+    toks = _lm_mesh_batch(torch, cfg, B, S + LM_MESH_DECODE_STEPS,
+                          seed)["tokens"]
+    cp, cd, c32 = (build_cell(arch, k) for k in
+                   ("prefill", "decode", "decode_32k"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = cp.fn(model, toks[:, :S].contiguous())
+    torch.cuda.synchronize()
+    out["a_prefill_s"] = time.perf_counter() - t0
+    ref = {"prefill": logits.cpu(), "k": cache.k.cpu(), "v": cache.v.cpu()}
+    for i in range(LM_MESH_DECODE_STEPS):
+        logits, cache = cd.fn(model, cache, toks[:, S + i].contiguous())
+        ref[f"decode{i}"] = logits.cpu()
+    del cache
+    full = _lm_mesh_cache(torch, cfg, LM_MESH_SHAPE, seed)
+    tok32 = toks[:, S - 1].repeat(LM_MESH_DECODE_BATCH // B)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = c32.fn(model, full, tok32)
+    torch.cuda.synchronize()
+    out["a_decode32_s"] = time.perf_counter() - t0
+    ref["decode_32k"] = logits.cpu()
+    torch.save(ref, tmp / "ref_a.pt")
+    del model, full, logits, ref
+    torch.cuda.empty_cache()
+
+    arch = _lm_mesh_arch("deepseek-moe-16b", "b")
+    # the mesh cell's config: one dispatch group a data shard
+    cfg = dataclasses.replace(lm_cell_config(arch, "train_4k"),
+                              moe_groups=LM_MESH_SHAPE[0])
+    model, _ = _lm_init(torch, cfg, seed)
+    b = _lm_mesh_batch(torch, cfg, *LM_MESH_TRAIN, seed)
+    with torch.no_grad():
+        out["b_loss"] = float(tfm.lm_loss(model.params(), b["tokens"],
+                                          b["labels"], cfg)[0])
+    out["b_routes_bf16"] = _lm_mesh_routes(torch, model, b["tokens"], cfg)
+    del model
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, n_layers=LM_MESH_GRAD_LAYERS,
+                                dtype="float32")
+    model, _ = _lm_init(torch, cfg32, seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, grads = lm_grads(model, b["tokens"], b["labels"], cfg32)
+    torch.cuda.synchronize()
+    out["b_grads_s"] = time.perf_counter() - t0
+    out["b_peak"] = torch.cuda.max_memory_allocated()
+    out["b_gmax"] = [float(g.abs().max()) for g in grads]
+    out["b_routes_f32"] = _lm_mesh_routes(torch, model, b["tokens"], cfg32)
+    # the float32 gradients stay on the card; the ranks map them (CUDA IPC)
+    (tmp / "ref_b.pkl").write_bytes(pickle.dumps(
+        [reduce_tensor(g) for g in grads]))
+    del model, b
+    torch.cuda.empty_cache()
+    print(f"[lm mesh] one-rank references in this process: (a) qwen3-4b "
+          f"prefill {out['a_prefill_s']:.3f} s, decode_32k step "
+          f"{1e3 * out['a_decode32_s']:.3f} ms (B = {LM_MESH_DECODE_BATCH}, "
+          f"first call); (b) deepseek-moe-16b with moe_groups = "
+          f"{LM_MESH_SHAPE[0]}: the bf16 loss {out['b_loss']:.6f}; the "
+          f"gradients in float32 activations {out['b_grads_s']:.3f} s, peak "
+          f"{out['b_peak']} bytes; card {card}", flush=True)
+    return out, grads
+
+
+def _lm_mesh_routes(torch, model, tokens, cfg, shard=None) -> list:
+    """Every layer's top-k expert choices, sorted, a row a token: on one
+    rank from ``model``'s own path, on a mesh from the mesh path's."""
+    from repro_torch.legacy.models import moe
+    from repro_torch.legacy.models import transformer as tfm
+    from repro_torch.legacy.models.layers import no_shard, rms_norm
+    out = []
+    with torch.no_grad():
+        params = model.params()
+        pos = tfm._positions(*tokens.shape, tokens.device)
+        if shard is None:
+            x = tfm.embed(params, tokens, cfg)
+            layers = [(lp, None) for lp in tfm.layer_views(params, cfg)]
+        else:
+            x = tfm._embed_mesh(params, tokens, cfg, shard)
+            layers = tfm._mesh_layers(params, cfg, shard)
+        for lp, sp in layers:
+            if shard is None:
+                q, k, v = tfm._qkv(lp, x, pos, cfg, no_shard)
+                x = tfm._attn_out(lp, x, q, k, v, cfg, no_shard)
+                gain, router = lp["ln_ffn"], lp["moe"]["router"]
+            else:
+                x = tfm._attn_mesh(lp, sp, x, pos, cfg, shard)[0]
+                gain = shard.whole(lp["ln_ffn"], sp["ln_ffn"])
+                router = shard.whole(lp["moe"]["router"], sp["moe"]["router"])
+            h = rms_norm(x, gain).reshape(-1, cfg.d_model)
+            probs = torch.softmax((h @ router.to(h.dtype)).float(), dim=-1)
+            out.append(moe.top_k(probs, cfg.top_k)[1].sort(-1).values
+                       .tolist())
+            x = (tfm._ffn(lp, x, cfg, no_shard) if shard is None else
+                 tfm._ffn_mesh(lp, sp, x, cfg, shard))[0]
+    return out
+
+
+def phase_lm_mesh(torch, seed: int, card: str, world: int = LM_MESH_WORLD,
+                  backend: str = "gloo") -> None:
+    """(a) qwen3-4b prefill, decode and decode_32k, (b) deepseek-moe-16b
+    train_4k and train_4k_int8a2a, (c) the deepseek and qwen3 smoke cells
+    on the card against the same cells on the CPU ranks; on ``world``
+    ranks of a (data, model) mesh over ``backend``, held against the
+    one-rank path in this process."""
+    import shutil
+    import tempfile
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_lm_mesh_"))
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        refs, keep = _lm_mesh_refs(torch, tmp, seed, card)
+        sizes = {k: v for k, v in globals().items()
+                 if k.startswith("LM_MESH_")}
+        (tmp / "job.json").write_text(json.dumps(
+            {"lm_mesh": True, "world": world, "backend": backend,
+             "seed": seed, "card": card, "refs": refs, "sizes": sizes}))
+        t0 = time.perf_counter()
+        logs = _run_rank_procs(tmp, world, f"lm mesh {backend}")
+        print(f"[lm mesh] {world} ranks over {backend}: "
+              f"{time.perf_counter() - t0:.1f} s from start to exit")
+        del keep
+        torch.cuda.ipc_collect()  # the ranks' mappings are gone
+        torch.cuda.empty_cache()
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                if line.startswith("[lm mesh]"):
+                    print(f"[lm mesh] rank {r} of {world}:{line[9:]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(world)]
+        worst = {k: max(x[k] for x in res) for k in res[0]
+                 if k.startswith("rel ")}
+        for k, v in sorted(worst.items()):
+            print(f"[lm mesh] {k}: {v:.6f} (the largest over the ranks)")
+        from repro_torch.launch.shardings import tree_paths
+        from repro_torch.legacy.models import transformer as tfm
+        names = [p for p, _ in tree_paths(tfm.param_shapes(
+            _lm_mesh_arch("deepseek-moe-16b", "b", LM_MESH_GRAD_LAYERS)
+            .model))]
+        by_leaf = [max(x["b grads by leaf"][i] for x in res)
+                   for i in range(len(names))]
+        print(f"[lm mesh] (b) depth {LM_MESH_GRAD_LAYERS}, float32 "
+              f"activations: each gradient leaf's largest difference from "
+              f"the one-rank path's, as a share of its largest magnitude: "
+              + ", ".join(f"{n} {v:.2e}" for n, v in zip(names, by_leaf)))
+        flips = {}
+        for tag in ("bf16", "f32"):
+            per = [x[f"b route flips {tag}"] for x in res[::LM_MESH_SHAPE[1]]]
+            flips[tag] = [sum(layer) for layer in zip(*per)]
+            print(f"[lm mesh] (b) routing in {tag} activations: tokens of "
+                  f"{LM_MESH_TRAIN[0] * LM_MESH_TRAIN[1]} whose top-k set "
+                  f"of experts differs on the mesh from one rank, by layer: "
+                  f"{flips[tag]}")
+        require(sum(flips["f32"]) == 0, f"lm mesh (b): {flips['f32']} "
+                f"tokens route otherwise in float32; the gradient "
+                f"comparison needs the same routing")
+        for k in ("rel a prefill logits", "rel a prefill cache",
+                  "rel a decode logits", "rel a decode_32k logits"):
+            require(worst[k] <= LM_BF16_TOL, f"lm mesh {k}: {worst[k]} > "
+                    f"{LM_BF16_TOL}")
+        require(worst["rel b loss"] <= LM_MESH_BF16_LOSS_TOL,
+                f"lm mesh (b) loss: {worst['rel b loss']}")
+        require(worst["rel b grads"] <= LM_MESH_F32_GRAD_TOL,
+                f"lm mesh (b) float32 gradients: {worst['rel b grads']}")
+        require(worst["rel b int8 moe"] <= LM_MESH_INT8_TOL,
+                f"lm mesh (b) int8 MoE output: {worst['rel b int8 moe']}")
+        print(f"[lm mesh] cuts: (a) qwen3-4b depth 36 -> "
+              f"{LM_MESH_QWEN_LAYERS}, prefill_32k batch 32 -> "
+              f"{LM_MESH_PREFILL[0]} and seq 32768 -> {LM_MESH_PREFILL[1]}, "
+              f"decode_32k batch 128 -> {LM_MESH_DECODE_BATCH}; (b) "
+              f"deepseek-moe-16b depth 28 -> {LM_MESH_MOE_LAYERS}, batch 256 "
+              f"-> {LM_MESH_TRAIN[0]}; (c) the smoke configs; widths as "
+              f"published; a {LM_MESH_SHAPE[0]} x {LM_MESH_SHAPE[1]} "
+              f"(data, model) mesh of {world} ranks over {backend}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_lm_mesh(rank: int, d: Path, job: dict) -> int:
+    """One rank of phase_lm_mesh: (a), (b), (c) on the mesh; what it
+    measured to rank{rank}.json."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.launch import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # the parent's sizes (a short check may cut them)
+    globals().update({k: tuple(v) if isinstance(v, list) else v
+                      for k, v in job["sizes"].items()})
+    topo = multihost.initialize(init_method=f"file://{d}/rendezvous",
+                                num_processes=job["world"], process_id=rank,
+                                backend=job["backend"], timeout=600)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", LM_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        _lm_mesh_transport(torch, mesh, rank, job, topo)
+        for tag, fn in (("a", _rank_lm_mesh_a), ("b", _rank_lm_mesh_b),
+                        ("c", _rank_lm_mesh_c)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fn(torch, mesh, rank, d, job, out)
+            print(f"[lm mesh] ({tag}) {time.perf_counter() - t0:.1f} s on "
+                  f"this rank; its peak {torch.cuda.max_memory_allocated()} "
+                  f"bytes", flush=True)
+    finally:
+        multihost.shutdown()
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def _lm_mesh_transport(torch, mesh, rank: int, job: dict, topo) -> None:
+    """The all_to_all over ``model`` on CUDA tensors, checked first: int8
+    and float32 rows through core.collectives.all_to_all."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives as coll
+    M = coll.axis_size(mesh, "model")
+    m = coll.axis_index(mesh, "model")
+    for dt in (torch.int8, torch.float32):
+        x = (torch.arange(M * 3, device="cuda") + 10 * m).to(dt).view(M, 3)
+        got = coll.all_to_all(x, mesh, "model")
+        want = torch.stack([(torch.arange(3, device="cuda") + 3 * m + 10 * j)
+                            .to(dt) for j in range(M)])
+        require(torch.equal(got, want), f"rank {rank}: all_to_all of "
+                f"{dt} CUDA rows over model: {got.tolist()}")
+    if rank == 0:
+        be = dist.get_backend(mesh.get_group("model"))
+        how = ("gloo copies each CUDA tensor to host memory, exchanges it "
+               "there and copies it back" if be == "gloo" else
+               "NCCL on the cards")
+        print(f"[lm mesh] transport: all_to_all over model is "
+              f"torch.distributed.all_to_all_single on CUDA tensors over "
+              f"{be} ({how}); checked on int8 and float32 rows; "
+              f"{topo.num_processes} ranks, rank 0 on "
+              f"cuda:{torch.cuda.current_device()}", flush=True)
+
+
+def _sync_time(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _comm_share(torch, fn) -> tuple:
+    """``fn`` once more with every collective timed (the card synchronized
+    around each) → (its wall, the collectives' seconds, their count)."""
+    from repro_torch.legacy.models.spmd import comm_timer
+    with comm_timer() as rec:
+        _, wall = _sync_time(torch, fn)
+    return wall, rec["s"], rec["calls"]
+
+
+def _lm_mesh_rel(torch, got, want, scale: float) -> float:
+    d = float((got.detach().float() - want.to(got.device).float())
+              .abs().max())
+    return d / scale if scale else d
+
+
+def _rank_lm_mesh_a(torch, mesh, rank, d, job, out) -> None:
+    """(a): qwen3-4b prefill, decode from its cache, decode_32k."""
+    import numpy as np
+
+    from repro_torch import random as trandom
+    from repro_torch.kernels import ops
+    from repro_torch.launch.shardings import local_block
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy.models import transformer as tfm
+
+    seed = job["seed"]
+    arch = _lm_mesh_arch("qwen3-4b", "a")
+    cfg = arch.model
+    cp, cd, c32 = (build_cell(arch, k, mesh, device="cuda") for k in
+                   ("prefill", "decode", "decode_32k"))
+    ops.reset_launch_counts()
+    (model, init_s) = _sync_time(torch, lambda: tfm.init_transformer(
+        cfg, key=trandom.PRNGKey(seed, device="cuda"), mesh=mesh,
+        specs=cp.state_shardings[0]))
+    counts = ops.launch_counts()
+    require(sum(counts.values()) == counts["threefry_bits"] > 0,
+            f"rank {rank}: lm mesh init launches {counts}")
+    out["a init threefry_bits"] = counts["threefry_bits"]
+    B, S = LM_MESH_PREFILL
+    toks = _lm_mesh_batch(torch, cfg, B, S + LM_MESH_DECODE_STEPS,
+                          seed)["tokens"]
+    ref = torch.load(d / "ref_a.pt")
+    bspec = cp.in_shardings[0]
+    cspec = cd.in_shardings[0].k
+    prompt = local_block(toks[:, :S].contiguous(), bspec, mesh)
+    cp.fn(model, prompt)  # a first call, untimed (the library's set-up)
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (logits, cache), wall = _sync_time(torch, lambda: cp.fn(model, prompt))
+    peak = torch.cuda.max_memory_allocated() - base
+    lscale = float(ref["prefill"].abs().max())
+    out["rel a prefill logits"] = _lm_mesh_rel(
+        torch, logits, local_block(ref["prefill"], bspec[:1], mesh), lscale)
+    out["rel a prefill cache"] = max(_lm_mesh_rel(
+        torch, c, local_block(ref[k], cspec, mesh),
+        float(ref[k].abs().max())) for c, k in ((cache.k, "k"),
+                                                (cache.v, "v")))
+    iwall, cs, calls = _comm_share(torch, lambda: cp.fn(model, prompt))
+    n_tok = B * S
+    print(f"[lm mesh] (a) qwen3-4b prefill {B} x {S} on a "
+          f"{LM_MESH_SHAPE[0]} x {LM_MESH_SHAPE[1]} mesh: wall {wall:.3f} s "
+          f"({n_tok / wall:.1f} tokens/s over the mesh), peak above the "
+          f"model {peak} bytes on this rank; instrumented run {iwall:.3f} s, "
+          f"{calls} collectives {cs:.3f} s = {cs / iwall:.3f} of it; model "
+          f"drawn in {init_s:.2f} s ({out['a init threefry_bits']} "
+          f"threefry_bits launches on this rank); launches in the prefill "
+          f"{json.dumps(ops.launch_counts())}", flush=True)
+    out.update({"a prefill s": wall, "a prefill comm share": cs / iwall})
+    walls, rel = [], 0.0
+    for i in range(LM_MESH_DECODE_STEPS):
+        tok = local_block(toks[:, S + i].contiguous(), cd.in_shardings[1],
+                          mesh)
+        (logits, cache), w = _sync_time(torch,
+                                        lambda: cd.fn(model, cache, tok))
+        walls.append(w)
+        rel = max(rel, _lm_mesh_rel(
+            torch, logits, local_block(ref[f"decode{i}"], bspec[:1], mesh),
+            float(ref[f"decode{i}"].abs().max())))
+    out["rel a decode logits"] = rel
+    out["a decode p50 s"] = float(np.median(walls))
+    del cache
+    # decode_32k: this rank's block of the full random cache
+    coords = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+    full = _lm_mesh_cache(torch, cfg, LM_MESH_SHAPE, seed, block=coords)
+    tok32 = local_block(toks[:, S - 1].repeat(LM_MESH_DECODE_BATCH // B),
+                        c32.in_shardings[1], mesh)
+    (logits, full), w32 = _sync_time(torch, lambda: c32.fn(model, full,
+                                                           tok32))
+    out["rel a decode_32k logits"] = _lm_mesh_rel(
+        torch, logits, local_block(ref["decode_32k"], c32.in_shardings[1],
+                                   mesh), float(ref["decode_32k"].abs().max()))
+    walls32 = []
+    for _ in range(3):
+        (logits, full), w = _sync_time(torch, lambda: c32.fn(model, full,
+                                                            tok32))
+        walls32.append(w)
+    iwall, cs, calls = _comm_share(torch, lambda: c32.fn(model, full, tok32))
+    kv = full.k.numel() * full.k.element_size() * 2
+    print(f"[lm mesh] (a) qwen3-4b decode from the prefill's cache: p50 "
+          f"{1e3 * out['a decode p50 s']:.3f} ms a step "
+          f"({LM_MESH_DECODE_STEPS} steps); decode_32k at B = "
+          f"{LM_MESH_DECODE_BATCH} over a full cache ({kv} bytes of it on "
+          f"this rank): first step {1e3 * w32:.3f} ms, p50 of 3 after it "
+          f"{1e3 * float(np.median(walls32)):.3f} ms "
+          f"({LM_MESH_DECODE_BATCH / float(np.median(walls32)):.1f} "
+          f"tokens/s); instrumented step {1e3 * iwall:.3f} ms, {calls} "
+          f"collectives {1e3 * cs:.3f} ms = {cs / iwall:.3f} of it",
+          flush=True)
+    out.update({"a decode_32k p50 s": float(np.median(walls32)),
+                "a decode_32k comm share": cs / iwall})
+    del model, full
+
+
+def _rank_lm_mesh_b(torch, mesh, rank, d, job, out) -> None:
+    """(b): deepseek-moe-16b train_4k and train_4k_int8a2a."""
+    import dataclasses
+    import pickle
+
+    from repro_torch import random as trandom
+    from repro_torch.launch.shardings import local_block, make_shard_fn
+    from repro_torch.launch.steps import build_cell, lm_cell_config, lm_grads
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.models import moe
+    from repro_torch.legacy.models import transformer as tfm
+    from repro_torch.legacy.models.layers import rms_norm
+    from repro_torch.legacy.models.spmd import reduce_sum, spec_leaves
+
+    seed, refs = job["seed"], job["refs"]
+    arch = _lm_mesh_arch("deepseek-moe-16b", "b")
+    ct = build_cell(arch, "train_4k", mesh, device="cuda")
+    c8 = build_cell(arch, "train_4k_int8a2a", mesh, device="cuda")
+    specs = ct.state_shardings[0]
+    require(c8.state_shardings[0] == specs, "lm mesh (b): the two cells "
+            "lay the model out differently")
+    cfg = lm_cell_config(arch, "train_4k", mesh)
+    model = tfm.init_transformer(cfg, key=trandom.PRNGKey(seed,
+                                                          device="cuda"),
+                                 mesh=mesh, specs=specs)
+    B, S = LM_MESH_TRAIN
+    b = _lm_mesh_batch(torch, cfg, B, S, seed)
+    tb, lb = (local_block(b[k], ct.in_shardings[0], mesh)
+              for k in ("tokens", "labels"))
+    shard = make_shard_fn(mesh, specs, batch=B)
+    # each layer's routing against the one-rank path's: tokens whose top-k
+    # set differs (bf16 near-ties)
+    lo = mesh.get_local_rank("data") * tb.numel()
+
+    def flips(routes, ref):
+        return [sum(a != b for a, b in zip(mine, theirs[lo: lo + tb.numel()]))
+                for mine, theirs in zip(routes, ref)]
+    out["b route flips bf16"] = flips(
+        _lm_mesh_routes(torch, model, tb, cfg, shard), refs["b_routes_bf16"])
+    # the gradients in float32 activations, at LM_MESH_GRAD_LAYERS, against
+    # the one-rank path's, every token routed alike
+    a32 = _lm_mesh_arch("deepseek-moe-16b", "b", LM_MESH_GRAD_LAYERS)
+    c32 = build_cell(a32, "train_4k", mesh, device="cuda")
+    cfg32 = dataclasses.replace(lm_cell_config(a32, "train_4k", mesh),
+                                dtype="float32")
+    specs32 = c32.state_shardings[0]
+    m32 = tfm.init_transformer(cfg32, key=trandom.PRNGKey(seed,
+                                                          device="cuda"),
+                               mesh=mesh, specs=specs32)
+    s32 = make_shard_fn(mesh, specs32, batch=B)
+    out["b route flips f32"] = flips(
+        _lm_mesh_routes(torch, m32, tb, cfg32, s32), refs["b_routes_f32"])
+    (_, grads), gwall = _sync_time(
+        torch, lambda: lm_grads(m32, tb, lb, cfg32, s32))
+    ref = [fn(*args) for fn, args in pickle.loads(
+        (d / "ref_b.pkl").read_bytes())]
+    rels = [_lm_mesh_rel(torch, g, local_block(r, sp, mesh), gmax)
+            for g, r, sp, gmax in zip(grads, ref, spec_leaves(specs32),
+                                      refs["b_gmax"])]
+    out["rel b grads"] = max(rels)
+    out["b grads by leaf"] = rels
+    del grads, ref, m32
+    torch.cuda.empty_cache()
+    # layer 0's MoE on the same input, int8 against exact
+    with torch.no_grad():
+        params = model.params()
+        x = tfm._embed_mesh(params, tb, cfg, shard)
+        lp, sp = tfm._mesh_layers(params, cfg, shard)[0]
+        x = tfm._attn_mesh(lp, sp, x, tfm._positions(*tb.shape, tb.device),
+                           cfg, shard)[0]
+        h = rms_norm(x, shard.whole(lp["ln_ffn"], sp["ln_ffn"]))
+        h = h.reshape(-1, cfg.d_model)
+        ys = [moe.moe_apply_spmd(lp["moe"], sp["moe"], h, dataclasses.replace(
+            cfg.moe_cfg, a2a_int8=q), shard)[0].float() for q in (False, True)]
+        num = reduce_sum(torch.sum(torch.square(ys[1] - ys[0])), mesh,
+                         shard.dax)
+        den = reduce_sum(torch.sum(torch.square(ys[0])), mesh, shard.dax)
+        out["rel b int8 moe"] = float(torch.sqrt(num / den))
+    del x, h, ys, params
+    state = optim.init_adam(model.params())
+    # one step of each, its collectives timed: gloo waits for the card at
+    # each collective anyway (an untimed step's wall was within the two
+    # runs' spread of it)
+    for tag, cell in (("exact", ct), ("int8", c8)):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        holder = {}
+
+        def step():
+            holder["res"] = cell.fn(model, state, tb, lb)
+        wall, cs, calls = _comm_share(torch, step)
+        _, state, info = holder["res"]
+        peak = torch.cuda.max_memory_allocated() - base
+        out[f"b {tag} step s"] = wall
+        out[f"b {tag} comm share"] = cs / wall
+        if tag == "exact":
+            out["rel b loss"] = abs(float(info["loss"]) - refs["b_loss"]) \
+                / abs(refs["b_loss"])
+        print(f"[lm mesh] (b) deepseek-moe-16b train_4k"
+              f"{'_int8a2a' if tag == 'int8' else ''} step, {B} x {S} "
+              f"tokens, its collectives timed: wall {wall:.3f} s "
+              f"({B * S / wall:.1f} tokens/s over the mesh), {calls} "
+              f"collectives {cs:.3f} s = {cs / wall:.3f} of it; peak above "
+              f"the model and state {peak} bytes on this rank; loss "
+              f"{float(info['loss']):.6f}, grad_norm "
+              f"{float(info['grad_norm']):.4f}", flush=True)
+    print(f"[lm mesh] (b) the gradients in float32 activations: "
+          f"{gwall:.3f} s; the exact bf16 step's loss against the one-rank "
+          f"{refs['b_loss']:.6f}", flush=True)
+    del model, state
+
+
+def _rank_lm_mesh_c(torch, mesh, rank, d, job, out) -> None:
+    """(c): the deepseek and qwen3 smoke cells in float32 (TF32 off) on
+    the card against the same cells on a CPU mesh of the same ranks."""
+    import dataclasses
+
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.shardings import local_block
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import TokenStream
+    from repro_torch.legacy.models import transformer as tfm
+    from repro_torch.legacy.tree import leaves
+
+    cpu_mesh = init_device_mesh("cpu", LM_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+    shapes = {"t": dict(kind="train", seq=16, batch=2),
+              "p": dict(kind="prefill", seq=16, batch=2),
+              "d": dict(kind="decode", seq=16, batch=2)}
+    for name in ("deepseek-moe-16b", "qwen3-4b"):
+        arch = get_arch(name)
+        arch = dataclasses.replace(arch, model=dataclasses.replace(
+            arch.model, **arch.smoke), shapes=shapes)
+        cfg = arch.model
+        params = tfm.init_params(trandom.PRNGKey(job["seed"], device="cpu"),
+                                 cfg)
+        b = TokenStream(cfg.vocab, 2, 20, job["seed"]).batch_at(
+            0, device="cpu")
+        runs = {}
+        for dev, m in (("cuda", mesh), ("cpu", cpu_mesh)):
+            cp, cd, ct = (build_cell(arch, k, m, device=dev) for k in "pdt")
+            model = tfm.Transformer.from_params(
+                _np_tree(params), cfg, device=dev, mesh=m,
+                specs=cp.state_shardings[0])
+            toks = b["tokens"].to(dev)
+            res = []
+            logits, cache = cp.fn(model, local_block(
+                toks[:, :16].contiguous(), cp.in_shardings[0], m))
+            res += [logits, cache.k, cache.v]
+            for i in range(3):
+                logits, cache = cd.fn(model, cache, local_block(
+                    toks[:, 16 + i].contiguous(), cd.in_shardings[1], m))
+                res.append(logits)
+            tm = tfm.Transformer.from_params(
+                _np_tree(params), cfg, device=dev, mesh=m,
+                specs=ct.state_shardings[0])
+            st = optim.init_adam(tm.params())
+            _, st, info = ct.fn(tm, st, *(local_block(
+                x[:, :16].contiguous().to(dev), ct.in_shardings[0], m)
+                for x in (b["tokens"], b["labels"])))
+            res += [info["loss"]] + leaves(tm.params()) + leaves(st.mu) \
+                + leaves(st.nu)
+            runs[dev] = [x.detach().cpu() for x in res]
+        for x, y in zip(runs["cuda"], runs["cpu"]):
+            torch.testing.assert_close(x, y, **LM_SMOKE_TOL)
+        out[f"c {name} tensors"] = len(runs["cpu"])
+        print(f"[lm mesh] (c) {name} smoke cells in float32 (TF32 off) on "
+              f"the card's 2 x 2 mesh against the CPU ranks' 2 x 2 mesh: "
+              f"prefill logits and cache, 3 decode steps, one train step's "
+              f"loss, parameters and moments ({len(runs['cpu'])} tensors "
+              f"on this rank) within {LM_SMOKE_TOL}", flush=True)
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.numpy()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--log-n", type=int, default=22)
@@ -5910,6 +6611,13 @@ def main() -> int:
                   args.ranks, card)
             timed("cells ranks", phase_cells_ranks, torch, args.seed,
                   args.ranks, card)
+            if args.ranks == LM_MESH_WORLD:
+                timed("lm mesh", phase_lm_mesh, torch, args.seed, card,
+                      args.ranks, "cpu:gloo,cuda:nccl")
+            else:
+                print(f"[lm mesh] not run: its {LM_MESH_SHAPE[0]} x "
+                      f"{LM_MESH_SHAPE[1]} mesh takes {LM_MESH_WORLD} "
+                      f"ranks, not {args.ranks}")
             print(json.dumps({"ok": True, "device": device}))
             return 0
         # the DLRM phases' size cap: at the default 2^22 it cuts nothing, so
@@ -5946,6 +6654,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("train", phase_train, torch, cap, args.seed, results, card)
         timed("lm", phase_lm, torch, args.seed, card)
+        torch.cuda.empty_cache()
+        timed("lm mesh", phase_lm_mesh, torch, args.seed, card)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -7,7 +7,7 @@ Here every rank runs the same program and the ranks meet in collectives on
 the process group of each axis, ``mesh.get_group(axis)`` of a
 ``torch.distributed.device_mesh.DeviceMesh``:
 
-    lax.pmin / lax.pmax        all_reduce(MIN / MAX), one axis after another
+    lax.psum / pmin / pmax     all_reduce(SUM / MIN / MAX), an axis at a time
     lax.all_gather(tiled=True) all_gather_single (all_gather_into_tensor)
     lax.all_to_all             all_to_all_single
     lax.axis_index             mesh.get_local_rank(axis)
@@ -31,7 +31,8 @@ import torch.distributed as dist
 _all_gather = getattr(dist, "all_gather_single", None) or \
     dist.all_gather_into_tensor
 
-__all__ = ["axis_size", "axis_index", "mesh_size", "shard_index", "pmin",
+__all__ = ["axis_size", "axis_index", "mesh_size", "shard_index", "psum",
+           "pmin",
            "pmax", "all_gather", "all_to_all", "origin_rank",
            "broadcast_object"]
 
@@ -66,6 +67,11 @@ def _reduce(x: torch.Tensor, mesh, axes: Sequence[str], op) -> torch.Tensor:
     return out
 
 
+def psum(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
+    """Elementwise sum over every rank of ``axes``."""
+    return _reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
 def pmin(x: torch.Tensor, mesh, axes: Sequence[str]) -> torch.Tensor:
     """Elementwise minimum over every rank of ``axes``."""
     return _reduce(x, mesh, axes, dist.ReduceOp.MIN)
@@ -96,9 +102,9 @@ def all_to_all(chunks: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if chunks.shape[0] != k:
         raise ValueError(f"all_to_all over {axis!r} takes {k} chunks, got "
                          f"{chunks.shape[0]}")
+    chunks = chunks.contiguous()  # the output takes its (dense) layout
     out = torch.empty_like(chunks)
-    dist.all_to_all_single(out, chunks.contiguous(),
-                           group=mesh.get_group(axis))
+    dist.all_to_all_single(out, chunks, group=mesh.get_group(axis))
     return out
 
 

@@ -16,12 +16,15 @@ needed for 256 or 512 ranks. Per cell it reports:
 
 The reference's ``memory_analysis``, ``cost_analysis`` and HLO collective
 columns come from XLA's compiled program and have no counterpart here; they
-are left out. The port's DLRM and LM cells run on one card (no mesh):
-they are planned at one rank, with the model's float32 parameters among
-the inputs, and for a train cell AdamW's two moments and its step too (the
-state the step updates in place); a decode cell's inputs hold its KV
-cache. A cell the port has not built yet (of a family still to port) is
-reported as not ported, not as a failure.
+are left out. An LM cell is planned per rank on the mesh: its
+``arg_bytes`` add the rank's blocks of the model's float32 parameters
+under the reference's specs, and for a train cell of AdamW's two moments
+under the same FSDP specs and its step (the cell's ``state``), to its
+blocks of the batch and of a decode cell's KV cache. The port's DLRM cells
+run on one card (a mesh is ROADMAP Queue 1 item 17): they are planned at
+one rank, with the parameters (and a train cell's moments and step) among
+the inputs. A cell the port has not built yet (of a family still to port)
+is reported as not ported, not as a failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -36,7 +39,6 @@ import time
 import traceback
 
 from ..configs import all_archs, get_arch
-from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRMConfig, table_rows
 from .mesh import (
     HBM_BW,
@@ -45,7 +47,7 @@ from .mesh import (
     ShapeMesh,
     make_production_mesh,
 )
-from .steps import build_cell, local_bytes
+from .steps import build_cell, local_bytes, state_bytes
 
 
 def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
@@ -58,12 +60,6 @@ def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
     return 4 * (tables + mlp)
 
 
-def _param_bytes(arch) -> int:
-    if arch.family == "lm":
-        return tfm.param_bytes(arch.model)
-    return _dlrm_param_bytes(arch.model)
-
-
 # a one-card cell's plan: one rank
 ONE_RANK = ShapeMesh((1,), ("data",))
 
@@ -72,7 +68,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
              verbose: bool = True) -> dict:
     arch = get_arch(arch_name)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    plan = mesh if arch.family == "connectit" else ONE_RANK
+    plan = ONE_RANK if arch.family == "recsys" else mesh
     t0 = time.time()
     try:
         cell = build_cell(arch, shape_name, plan, device="meta")
@@ -84,14 +80,15 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
                     status="not ported (item 16, third part)")
     shape = arch.shapes[shape_name]
     build_s = time.time() - t0
-    if arch.family == "connectit":
-        arg_bytes = local_bytes(cell, mesh)
-    else:  # one card: the model's parameters are inputs too
+    if arch.family == "recsys":  # one card: the parameters are inputs too
         # training also holds AdamW's mu and nu (one each per parameter)
         # and its int32 step
         states = 3 if shape["kind"] == "train" else 1
-        arg_bytes = (local_bytes(cell, plan) + states * _param_bytes(arch)
+        arg_bytes = (local_bytes(cell, plan)
+                     + states * _dlrm_param_bytes(arch.model)
                      + (4 if shape["kind"] == "train" else 0))
+    else:  # the connectit inputs; an LM cell's model and AdamW state too
+        arg_bytes = local_bytes(cell, plan) + state_bytes(cell, plan)
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev
     touched = cell.meta.get("bytes_touched", local_bytes(cell, plan) * n_dev)

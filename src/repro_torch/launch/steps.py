@@ -5,11 +5,13 @@ parts).
 A cell is a step function, the global shapes of its inputs as ``meta``
 tensors (allocated nowhere, like the reference's ``ShapeDtypeStruct``s),
 how each input is split over the mesh (``in_shardings``) and its ``meta``
-counts. A sharding is a tuple of mesh axis names: ``()`` for an input
-whole on every rank, ``("model",)`` for a label window, the placement's
-edge axes for edge-aligned inputs. Every rank calls ``fn`` on its own block
-of each input (``local_block``; ``local_shape`` plans it without data), as
-a ``shard_map`` body takes its blocks.
+counts. A sharding is a per-dimension spec (``launch/shardings.py``): ``()``
+for an input whole on every rank, ``("model",)`` for a label window,
+``(("data", "model"),)`` for edges split over both axes. Every rank calls
+``fn`` on its own block of each input (``local_block``; ``local_shape``
+plans it without data), as a ``shard_map`` body takes its blocks. A cell
+whose step updates a model (and an optimizer state) holds their global
+shapes in ``state`` and their specs in ``state_shardings``.
 
   * ``connectit``: the paper's production cells. The shape dict's
     ``labels``/``variant`` keys choose the placement, the finish comes from
@@ -24,12 +26,22 @@ a ``shard_map`` body takes its blocks.
     ``fn(model, *inputs)``, and for training ``fn(model, opt_state,
     *inputs)``, which updates the model and the optimizer state in place
     (the reference donates both).
-  * ``lm``: the transformer's ``train`` / ``prefill`` / ``decode`` cells on
-    one rank, the same calling convention: ``fn(model, opt_state, tokens,
-    labels)``, ``fn(model, tokens)`` and ``fn(model, cache, tok)`` (the
-    cache is updated in place; the reference donates it). A mesh of more
-    than one rank (Megatron TP, EP, FSDP) is ROADMAP Queue 1 item 16,
-    second part (b); the GNN family is its third part.
+    On a mesh of more than one rank they are ROADMAP Queue 1 item 17
+    (refused, not built for one rank).
+  * ``lm``: the transformer's ``train`` / ``prefill`` / ``decode`` cells,
+    the same calling convention: ``fn(model, opt_state, tokens, labels)``,
+    ``fn(model, tokens)`` and ``fn(model, cache, tok)`` (the cache is
+    updated in place; the reference donates it). On a mesh of several
+    ranks each rank passes its blocks: the model laid out by
+    ``state_shardings[0]`` (``Transformer.from_params`` /
+    ``init_transformer`` with ``mesh=`` and ``specs=``), the AdamW moments
+    by ``state_shardings[1]``, the batch over the data axes, the decode
+    cache over the data axes (batch) and ``model`` (sequence); prefill
+    returns the cache so split and the logits whole over the vocabulary.
+    The specs are the reference's (FSDP for train cells, the experts out
+    of it unless ``moe_fsdp``); the step is Megatron TP, EP with one
+    all_to_all each way, FSDP (``legacy/models/spmd.py``). The GNN family
+    is ROADMAP Queue 1 item 16, third part.
 """
 
 from __future__ import annotations
@@ -48,7 +60,9 @@ from ..graphs.containers import round_up
 from ..legacy import optim
 from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRM, DLRMConfig
+from ..legacy.models.spmd import spec_leaves
 from ..legacy.tree import leaves as tree_leaves
+from . import shardings as shd
 from .mesh import all_axes, data_axes, make_smoke_mesh
 
 
@@ -61,37 +75,47 @@ class Cell:
     shape: str
     fn: Callable        # fn(*blocks); recsys: fn(model, [opt_state,] *inputs)
     args: tuple         # the inputs' global shapes, as meta tensors
-    in_shardings: tuple = ()  # per input: the mesh axes it is split over
+    in_shardings: tuple = ()  # per input: its per-dimension spec
     donate: tuple = ()  # the arguments of fn the reference donates: the
     # connectivity programs write out of place, the train step in place
     meta: dict = dataclasses.field(default_factory=dict)
+    state: tuple = ()   # lm: the model's (and AdamW's) global shapes
+    state_shardings: tuple = ()  # their spec pytrees
 
 
 def local_shape(arg: torch.Tensor, sharding: tuple, mesh) -> tuple:
-    """A rank's block shape of an input split over ``sharding``'s axes of
-    ``mesh`` (a real or a shape-only mesh)."""
-    k = coll.mesh_size(mesh, sharding)
-    if arg.dim() == 0:  # a scalar is whole on every rank
-        return ()
-    if arg.shape[0] % k:
-        raise ValueError(f"an input of {arg.shape[0]} rows does not split "
-                         f"over {sharding} ({k} ranks)")
-    return (arg.shape[0] // k,) + tuple(arg.shape[1:])
+    """A rank's block shape of an input laid out by ``sharding`` (a
+    per-dimension spec) on ``mesh`` (a real or a shape-only mesh)."""
+    return shd.local_shape(tuple(arg.shape), sharding, mesh)
+
+
+def _tree_bytes(tree, specs, mesh) -> int:
+    return sum(prod(local_shape(x, sp, mesh)) * x.element_size()
+               for x, sp in zip(tree_leaves(tree), spec_leaves(specs)))
 
 
 def local_bytes(cell: Cell, mesh) -> int:
     """The bytes of one rank's blocks of every input (an input may be a
-    pytree, as a ``KVCache``)."""
-    return sum(prod(local_shape(x, sh, mesh)) * x.element_size()
-               for a, sh in zip(cell.args, cell.in_shardings)
-               for x in tree_leaves(a))
+    pytree, as a ``KVCache``, whose specs are a pytree alike)."""
+    total = 0
+    for a, sh in zip(cell.args, cell.in_shardings):
+        if isinstance(a, torch.Tensor):
+            total += prod(local_shape(a, sh, mesh)) * a.element_size()
+        else:
+            total += _tree_bytes(a, sh, mesh)
+    return total
+
+
+def state_bytes(cell: Cell, mesh) -> int:
+    """The bytes of one rank's blocks of the cell's model (and optimizer
+    state)."""
+    return sum(_tree_bytes(t, sp, mesh)
+               for t, sp in zip(cell.state, cell.state_shardings))
 
 
 def local_block(x: torch.Tensor, sharding: tuple, mesh) -> torch.Tensor:
     """This rank's block of a global input (a view)."""
-    per = local_shape(x, sharding, mesh)[0]
-    i = coll.shard_index(mesh, sharding)
-    return x[i * per: (i + 1) * per]
+    return shd.local_block(x, sharding, mesh)
 
 
 def _meta(shape: tuple, dtype: torch.dtype) -> torch.Tensor:
@@ -178,68 +202,165 @@ def lm_active_params(cfg: tfm.TransformerConfig) -> int:
     return cfg.n_layers * (att + ffn) + 2 * cfg.vocab * D
 
 
+def lm_grads(model: tfm.Transformer, tokens: torch.Tensor,
+             labels: torch.Tensor, cfg: tfm.TransformerConfig,
+             shard=None) -> tuple:
+    """``(loss, gradients)`` of ``lm_loss`` with respect to every parameter
+    leaf (``optim.tree_leaves`` order). On a mesh (``shard`` a
+    ``MeshShard``) each is this rank's block of the global gradient: the
+    leaves whole over the data axes are summed over them."""
+    params = model.params()
+    leaves = optim.tree_leaves(params)
+    with torch.enable_grad():
+        if shard is None:
+            loss, _ = tfm.lm_loss(params, tokens, labels, cfg)
+        else:
+            loss, _ = tfm.lm_loss(params, tokens, labels, cfg, shard)
+        grads = torch.autograd.grad(loss, leaves)
+    if shard is not None:
+        shard.sync_grads(grads, spec_leaves(shard.specs))
+    return loss.detach(), grads
+
+
 def lm_train_step(model: tfm.Transformer, opt_state: optim.AdamState,
                   tokens: torch.Tensor, labels: torch.Tensor,
                   cfg: tfm.TransformerConfig,
-                  ocfg: optim.OptimizerConfig = OPT):
+                  ocfg: optim.OptimizerConfig = OPT, shard=None):
     """One step of the reference's LM ``train_step``: ``lm_loss``, its
     gradient with respect to every parameter, and ``optim.update``, in
     place on ``model``'s parameters and ``opt_state``'s moments →
-    ``(model, opt_state, {"loss", "lr", "grad_norm"})``."""
+    ``(model, opt_state, {"loss", "lr", "grad_norm"})``. On a mesh
+    (``shard`` a ``MeshShard``) every rank steps its blocks, and the clip's
+    norm counts each element once."""
     params = model.params()
-    with torch.enable_grad():
-        loss, _ = tfm.lm_loss(params, tokens, labels, cfg)
-        grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    loss, grads = lm_grads(model, tokens, labels, cfg, shard)
+    norm_sq = None
+    if shard is not None:
+        specs = spec_leaves(shard.specs)
+        norm_sq = lambda sq: shard.norm_sq(sq, specs)  # noqa: E731
     _, opt_state, info = optim.update(
-        ocfg, params, optim.tree_unflatten(params, grads), opt_state)
-    return model, opt_state, {"loss": loss.detach(), **info}
+        ocfg, params, optim.tree_unflatten(params, grads), opt_state,
+        norm_sq=norm_sq)
+    return model, opt_state, {"loss": loss, **info}
+
+
+def _whole_specs(tree):
+    """A spec tree of ``()`` (every leaf whole) in ``tree``'s structure."""
+    if isinstance(tree, dict):
+        return {k: _whole_specs(v) for k, v in tree.items()}
+    return ()
+
+
+def _meta_tree(shapes, dtype=torch.float32):
+    if isinstance(shapes, dict):
+        return {k: _meta_tree(v, dtype) for k, v in shapes.items()}
+    return _meta(tuple(shapes), dtype)
+
+
+class _LazyShard:
+    """The cell's ``MeshShard``, made at the first call (a cell planned on
+    a ``ShapeMesh`` is never called)."""
+
+    def __init__(self, mesh, specs, batch: int):
+        self.args, self.shard = (mesh, specs, batch), None
+
+    def __call__(self, model):
+        if self.shard is None:
+            mesh, specs, batch = self.args
+            self.shard = shd.make_shard_fn(mesh, specs, batch=batch)
+        self.shard.check_layout(model.specs)
+        return self.shard
+
+
+def lm_cell_config(arch: Arch, shape_name: str,
+                   mesh=None) -> tfm.TransformerConfig:
+    """The model config an LM cell runs: the reference's ``_lm_cell``'s
+    MoE settings — one dispatch group a data shard (one where the batch is
+    a single sequence, or at one rank), ``moe_fsdp`` (train cells unless
+    the shape says otherwise) and the int8 exchange from the shape."""
+    spec = arch.shapes[shape_name]
+    kind, B = spec["kind"], spec["batch"]
+    n_groups = 1
+    if mesh is not None and mesh.size() > 1 and B > 1:
+        n_groups = shd.extent(mesh, data_axes(mesh))
+        if B % n_groups:
+            raise ValueError(f"{arch.name} × {shape_name}: a batch of {B} "
+                             f"does not split over {n_groups} data shards")
+    return dataclasses.replace(
+        arch.model, moe_groups=n_groups if arch.model.is_moe else 1,
+        moe_fsdp=spec.get("moe_fsdp", kind == "train"),
+        moe_a2a_int8=spec.get("moe_a2a_int8", False))
 
 
 def _lm_cell(arch: Arch, shape_name: str, mesh) -> Cell:
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(
-            f"{arch.name}: LM cells on a mesh of {mesh.size()} ranks are "
-            f"not ported yet (ROADMAP Queue 1 item 16, second part (b)); "
-            f"they run on one rank")
     spec = arch.shapes[shape_name]
     kind = spec["kind"]
     B, S = spec["batch"], spec["seq"]
-    # one rank: one dispatch group
-    cfg: tfm.TransformerConfig = dataclasses.replace(
-        arch.model, moe_groups=1,
-        moe_fsdp=spec.get("moe_fsdp", kind == "train"),
-        moe_a2a_int8=spec.get("moe_a2a_int8", False))
+    on_mesh = mesh is not None and mesh.size() > 1
+    cfg = lm_cell_config(arch, shape_name, mesh)
+    moe_fsdp = cfg.moe_fsdp
+    pshapes = _meta_tree(tfm.param_shapes(cfg))
+    if on_mesh:
+        no_moe_fsdp = r"moe/(w_gate|w_up|w_down)$" if not moe_fsdp else None
+        pspecs = shd.param_specs(pshapes, "lm", mesh, fsdp=(kind == "train"),
+                                 fsdp_exclude=no_moe_fsdp)
+        bspec = shd.batch_spec((B, S), mesh)
+        shard = _LazyShard(mesh, pspecs, B)
+    else:
+        pspecs, bspec, shard = _whole_specs(pshapes), (), None
     tokens = _meta((B, S), torch.int32)
+
+    def kw(model):
+        return {} if shard is None else {"shard": shard(model)}
+
     if kind == "train":
+        ostate = optim.AdamState(_meta((), torch.int32), pshapes, pshapes)
+        ospecs = optim.AdamState((), pspecs, pspecs)
+
         def train_step(model, opt_state, tokens, labels):
-            return lm_train_step(model, opt_state, tokens, labels, cfg)
+            return lm_train_step(model, opt_state, tokens, labels, cfg,
+                                 **kw(model))
 
         n_tok = B * S
         return Cell(arch.name, shape_name, train_step, (tokens, tokens),
-                    ((), ()), donate=(0, 1),
+                    (bspec, bspec), donate=(0, 1),
                     meta=dict(model_flops=6 * lm_active_params(cfg) * n_tok,
                               tokens=n_tok, loop_trips=cfg.n_layers,
-                              flops_multiplier=8 / 6 if cfg.remat else 1.0))
+                              flops_multiplier=8 / 6 if cfg.remat else 1.0),
+                    state=(pshapes, ostate), state_shardings=(pspecs, ospecs))
     if kind == "prefill":
         def prefill_step(model, tokens):
             with torch.no_grad():
-                return tfm.prefill(model.params(), tokens, cfg, S)
+                return tfm.prefill(model.params(), tokens, cfg, S,
+                                   **kw(model))
 
-        return Cell(arch.name, shape_name, prefill_step, (tokens,), ((),),
+        return Cell(arch.name, shape_name, prefill_step, (tokens,), (bspec,),
                     meta=dict(model_flops=2 * lm_active_params(cfg) * B * S,
-                              tokens=B * S, loop_trips=cfg.n_layers))
+                              tokens=B * S, loop_trips=cfg.n_layers),
+                    state=(pshapes,), state_shardings=(pspecs,))
     if kind == "decode":
         cache = tfm.cache_spec(cfg, B, S)
+        cspec, tspec = (), ()
+        if on_mesh:
+            # batch over the data axes, the sequence over "model": GQA's kv
+            # heads do not divide the model axis, the sequence does
+            dax = data_axes(mesh) if B > 1 else ()
+            cspec = (None, dax[0] if len(dax) == 1 else (dax or None),
+                     "model", None, None)
+            tspec = shd.batch_spec((B,), mesh)
 
         def decode(model, cache, tok):
             with torch.no_grad():
-                return tfm.decode_step(model.params(), cache, tok, cfg)
+                return tfm.decode_step(model.params(), cache, tok, cfg,
+                                       **kw(model))
 
         return Cell(arch.name, shape_name, decode,
-                    (cache, _meta((B,), torch.int32)), ((), ()), donate=(1,),
+                    (cache, _meta((B,), torch.int32)),
+                    (tfm.KVCache(cspec, cspec, ()), tspec), donate=(1,),
                     meta=dict(model_flops=2 * lm_active_params(cfg) * B,
                               tokens=B, loop_trips=cfg.n_layers,
-                              kv_bytes=cache.k.numel() * 2 * 2))
+                              kv_bytes=cache.k.numel() * 2 * 2),
+                    state=(pshapes,), state_shardings=(pspecs,))
     raise ValueError(f"{arch.name}: unknown shape kind {kind!r}")
 
 
@@ -277,7 +398,8 @@ def _connectit_cell(arch: Arch, shape_name: str, mesh, device) -> Cell:
         n1 = n + 1
         lshard = ()
     labels = _meta((n1,), torch.int32)
-    eshard = tuple(exec_spec.axes)
+    axes = tuple(exec_spec.axes)
+    eshard = (axes[0] if len(axes) == 1 else axes,)
 
     if kind == "static":
         m = round_up(spec["m"], backend.edge_shards)
@@ -307,13 +429,20 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     """The cell of ``arch`` at ``shape_name``. A ``connectit`` cell runs on
     ``mesh`` (default: the ``(data, model)`` mesh over every rank of the
     world, ``launch.mesh.make_smoke_mesh``) and ``device``; on a
-    ``ShapeMesh``, pass ``device="meta"``. The ``recsys`` and ``lm`` cells
-    run on one rank and take their inputs' devices; an ``lm`` cell refuses
-    a mesh of more than one rank."""
+    ``ShapeMesh``, pass ``device="meta"``. An ``lm`` cell runs on one rank
+    (``mesh`` None or of one rank) or on ``mesh`` (a ``DeviceMesh``; a
+    ``ShapeMesh`` plans it), and takes its inputs' devices. A ``recsys``
+    cell runs on one rank and refuses a mesh of more."""
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch.name} has no shape {shape_name!r}; have "
                        f"{sorted(arch.shapes)}")
     if arch.family == "recsys":
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(
+                f"{arch.name}: DLRM cells on a mesh of {mesh.size()} ranks "
+                f"(row-sharded tables, data-parallel MLPs, candidates over "
+                f"model) are not ported yet (ROADMAP Queue 1 item 17); "
+                f"they run on one rank")
         return _dlrm_cell(arch, shape_name, arch.model)
     if arch.family == "lm":
         return _lm_cell(arch, shape_name, mesh)

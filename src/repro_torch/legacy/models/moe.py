@@ -7,8 +7,10 @@ choices are sorted by expert (stable), each expert takes at most ``C``
 tokens in that order and the rest are dropped into the dump slot ``E*C``;
 the ``(G, E, C, D)`` buffer feeds batched per-expert SwiGLU products, and
 each token sums its experts' outputs times their gates. Deterministic and
-capacity-bounded as the reference's. The mesh layer (``moe_apply_spmd``
-and its int8 all_to_all) is ROADMAP Queue 1 item 16, second part (b).
+capacity-bounded as the reference's. On a mesh, ``moe_apply_spmd``
+(the reference's explicit-SPMD layer) dispatches on each data shard and
+moves the buffer to the experts' ranks in one all_to_all over ``model``
+each way, exact or int8 (``spmd.a2a_int8``).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ... import random as trandom
 from .layers import dense_init, div, no_shard, normal
+from .spmd import a2a_int8, all_to_all, extent, reduce_sum, scale_grad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,3 +231,106 @@ def moe_ref(params: dict, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
         sp = params["shared"]
         out = out + swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
     return out
+
+
+# ---------------------------------------------------------------------------
+# The mesh layer (the reference's ``moe_apply_spmd``).
+# ---------------------------------------------------------------------------
+
+def swiglu_mesh(x: torch.Tensor, p: dict, sp: dict, shard) -> torch.Tensor:
+    """``swiglu`` on a mesh, ``x`` whole on every model rank: Megatron TP
+    (this rank's columns of ``w_gate`` and ``w_up``, its rows of
+    ``w_down``, one sum over ``model``) where the specs split them so,
+    else with the gathered weights."""
+    dt = x.dtype
+    if (sp["w_gate"][-1], sp["w_up"][-1], sp["w_down"][-2]) == \
+            ("model",) * 3:
+        wg, wu, wd = (shard.unfsdp(p[k], sp[k])[0]
+                      for k in ("w_gate", "w_up", "w_down"))
+        xe = shard.enter(x)
+        h = F.silu(xe @ wg.to(dt)) * (xe @ wu.to(dt))
+        return shard.reduce_model(h @ wd.to(dt))
+    return swiglu(x, *(shard.whole(p[k], sp[k])
+                       for k in ("w_gate", "w_up", "w_down")))
+
+
+def _experts(w: torch.Tensor, spec: tuple, dtype: torch.dtype, shard):
+    """This rank's experts ``(E / M, ...)`` whole over the other
+    dimensions, in the activation dtype: an FSDP leaf gathered over the
+    data axes after the cast, so its gradient is reduce-scattered in that
+    dtype, as the reference's. The gradient is scaled by ``1 / M``: every
+    model rank of a data shard sends its expert rows the same tokens, so
+    the backward adds ``M`` equal copies (the reference divides the
+    output's cotangent by the model axis' size instead)."""
+    if spec[0] != "model" and shard.M > 1:
+        raise ValueError(f"expert weights laid out {spec}: the experts "
+                         f"must be split over model")
+    w, rest = shard.unfsdp(w, spec, dtype)
+    if any(e is not None for e in rest[1:]):
+        raise ValueError(f"expert weights laid out {spec}")
+    return scale_grad(w, 1.0 / shard.M)
+
+
+def moe_apply_spmd(params: dict, specs: dict, x: torch.Tensor,
+                   cfg: MoEConfig, shard):
+    """The reference's ``moe_apply_spmd`` on this rank: ``x`` (T_loc, D)
+    is this data shard's tokens, whole on every model rank; ``params``
+    this rank's blocks (the experts split over ``model``: EP) and
+    ``specs`` their layout. Returns ``(out (T_loc, D), aux)``.
+
+    Dispatch is local to the data shard: the top-k, the stable sort and the
+    capacity ``C`` from ``T_loc`` tokens (so a mesh of ``G_d`` data shards
+    computes ``moe_apply`` with ``n_groups = G_d``; where the batch is whole
+    on every rank, one group). The ``(E, C, D)`` buffer goes as ``M``
+    chunks of ``E / M`` experts to their ranks in one all_to_all over
+    ``model`` and comes back the same way, exact or int8 on the wire
+    (``cfg.a2a_int8``). ``me`` and ``ce`` of the auxiliary loss are summed
+    over the data axes. The experts are gathered over the data axes in the
+    activation dtype where their spec splits them (FSDP: train cells
+    unless ``moe_fsdp`` is off; the reference's ``fsdp_weights`` flag is
+    the spec here)."""
+    T_loc, D = x.shape
+    E, K = cfg.n_experts_padded, cfg.top_k
+    mesh, M = shard.mesh, shard.M
+    if E % M:
+        raise ValueError(f"{E} experts do not split over {M} model ranks")
+    E_loc = E // M
+    T = T_loc * extent(mesh, shard.bax)
+    C = capacity(cfg, T_loc)
+    cdt = x.dtype
+
+    router = shard.whole(params["router"], specs["router"])
+    logits = (x @ router.to(cdt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gval, gidx = top_k(probs, K)
+    gval = gval / torch.clamp(gval.sum(-1, keepdim=True), min=1e-9)
+    # this shard's load-balance statistics → the global aux by sums
+    me = div(reduce_sum(probs.sum(0), mesh, shard.bax), float(T))
+    counts = torch.bincount(gidx.reshape(-1),
+                            minlength=cfg.n_experts).float()
+    ce = div(reduce_sum(counts, mesh, shard.bax), float(T * K))
+    aux = cfg.n_experts * torch.sum(me * ce)
+
+    buf, slot, tok, dropped, gates = _dispatch(
+        x[None], gidx[None], gval[None], E, C)
+    # int8 on the wire only where the reference's explicit layer runs (more
+    # than one dispatch group); with one, the reference's ``moe_apply``
+    # moves the buffer exactly
+    exchange = a2a_int8 if cfg.a2a_int8 and cfg.n_groups > 1 else all_to_all
+    # (E, C, D) = (M, E_loc, C, D) → this rank's experts' rows from every
+    # model rank: (E_loc, M C, D)
+    buf = exchange(buf[0].reshape(M, E_loc, C, D), mesh, "model")
+    buf = buf.transpose(0, 1).reshape(E_loc, M * C, D)
+    wg, wu, wd = (_experts(params[k], specs[k], cdt, shard)
+                  for k in ("w_gate", "w_up", "w_down"))
+    he = torch.einsum("ecd,edf->ecf", buf, wg)
+    ue = torch.einsum("ecd,edf->ecf", buf, wu)
+    ye = torch.einsum("ecf,efd->ecd", F.silu(he) * ue, wd)
+    # back to the shard that sent them: (M, E_loc, C, D) = (E, C, D)
+    ye = exchange(ye.reshape(E_loc, M, C, D).transpose(0, 1).contiguous(),
+                  mesh, "model")
+    out = _combine(ye.reshape(1, E, C, D), slot, tok, dropped, gates, T_loc,
+                   K).reshape(T_loc, D)
+    if cfg.n_shared:
+        out = out + swiglu_mesh(x, params["shared"], specs["shared"], shard)
+    return out, aux

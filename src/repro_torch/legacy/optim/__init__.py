@@ -72,17 +72,19 @@ def schedule_lr(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of every leaf's sum of squares, float32."""
-    leaves = tree_leaves(grads)
-    total = sum(torch.sum(torch.square(g.float())) for g in leaves)
+def global_norm(grads, norm_sq=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's sum of squares, float32. On a mesh,
+    ``norm_sq`` takes the leaves' local sums (of a rank's blocks) to the
+    global one, counting every element once (``MeshShard.norm_sq``)."""
+    sq = [torch.sum(torch.square(g.float())) for g in tree_leaves(grads)]
+    total = sum(sq) if norm_sq is None else norm_sq(sq)
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, norm_sq=None):
     """``(grads scaled to a global norm of at most max_norm, the norm
     before)``; the leaves are scaled in place."""
-    gn = global_norm(grads)
+    gn = global_norm(grads, norm_sq)
     scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -98,11 +100,12 @@ def init_adam(params) -> AdamState:
 
 
 @torch.no_grad()
-def adamw_update(cfg: OptimizerConfig, params, grads, state: AdamState):
+def adamw_update(cfg: OptimizerConfig, params, grads, state: AdamState,
+                 norm_sq=None):
     """One AdamW step, in place on ``params`` and the moments, which are
     returned: ``(params, AdamState, {"lr", "grad_norm"})``. ``grads`` are
-    clipped in place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    clipped in place (``norm_sq``: ``global_norm``'s, on a mesh)."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_sq)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -122,9 +125,10 @@ def adamw_update(cfg: OptimizerConfig, params, grads, state: AdamState):
 
 
 @torch.no_grad()
-def sgd_update(cfg: OptimizerConfig, params, grads, state: AdamState):
+def sgd_update(cfg: OptimizerConfig, params, grads, state: AdamState,
+               norm_sq=None):
     """SGD with momentum 0.9 in ``mu`` (``nu`` untouched), in place."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, norm_sq)
     step = state.step + 1
     lr = schedule_lr(cfg, step)
     for p, g, m in zip(tree_leaves(params), tree_leaves(grads),
@@ -135,11 +139,12 @@ def sgd_update(cfg: OptimizerConfig, params, grads, state: AdamState):
         {"lr": lr, "grad_norm": gnorm}
 
 
-def update(cfg: OptimizerConfig, params, grads, state: AdamState):
+def update(cfg: OptimizerConfig, params, grads, state: AdamState,
+           norm_sq=None):
     if cfg.name == "adamw":
-        return adamw_update(cfg, params, grads, state)
+        return adamw_update(cfg, params, grads, state, norm_sq)
     if cfg.name == "sgd":
-        return sgd_update(cfg, params, grads, state)
+        return sgd_update(cfg, params, grads, state, norm_sq)
     raise ValueError(cfg.name)
 
 

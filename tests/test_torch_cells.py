@@ -244,18 +244,19 @@ def test_connectit_shapes_match_repro():
 @pytest.mark.parametrize("family", ["lm", "gnn"])
 def test_unported_families_name_item_16(family):
     """The LM family is ported: its train cell builds at one rank and runs
-    a step at the smoke config; on a mesh of more ranks it names item 16's
-    second part (b). The GNN family still names item 16."""
+    a step at the smoke config, and builds on a shape-only mesh (item 16's
+    second part (b), done). The GNN family still names item 16."""
     if family == "lm":
         from repro_torch import random as trandom
         from repro_torch.legacy import optim as toptim
         from repro_torch.legacy.data import TokenStream
         from repro_torch.legacy.models import transformer as ttfm
         lm = get_arch("qwen3-4b")
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item 16, second part \(b\)"):
-            tsteps.build_cell(lm, "train_4k", tmesh.make_production_mesh(),
-                              device="meta")
+        mesh = tmesh.make_production_mesh()
+        cell = tsteps.build_cell(lm, "train_4k", mesh, device="meta")
+        assert cell.in_shardings == (("data", None),) * 2
+        assert cell.state_shardings[0]["layers"]["wk"] == \
+            (None, "data", "model")
         cfg = dataclasses.replace(lm.model, **lm.smoke)
         arch = dataclasses.replace(lm, model=cfg, shapes={
             "s": dict(kind="train", seq=16, batch=2)})

@@ -9,7 +9,8 @@ JAX package:
   * ``build_cell`` for every LM arch × supported shape on the ``meta``
     device: ``meta`` equal to the reference's 1 x 1 cell's; the smoke
     cells' ``fn`` (train, prefill, decode) against the reference's;
-  * the dry run's plan of an LM cell at one rank, by hand;
+  * every LM cell built on the production meshes, and the dry run's
+    per-rank plan of two cells, by hand;
   * ``launch.train.build_trainable`` for an LM arch: two steps, each
     step's gradients within GRAD_TOL, every moment within STEP_TOL and
     every parameter within STEP_TOL plus its AdamW magnification of the
@@ -176,28 +177,49 @@ def test_smoke_cells_run_as_repro(name):
 
 
 def test_lm_cell_on_a_mesh_names_item_16_part_b():
-    with pytest.raises(NotImplementedError, match=r"second part \(b\)"):
-        tsteps.build_cell(get_arch("stablelm-3b"), "prefill_32k",
-                          dryrun.make_production_mesh(multi_pod=True),
-                          device="meta")
+    """Item 16's second part (b) is done: every LM cell builds on the
+    production meshes, planned per rank on the meta device, its model and
+    AdamW state laid out by the reference's specs."""
+    for multi in (False, True):
+        mesh = dryrun.make_production_mesh(multi_pod=multi)
+        for name, shape in _cells():
+            cell = tsteps.build_cell(get_arch(name), shape, mesh,
+                                     device="meta")
+            assert all(x.device.type == "meta" for a in cell.args
+                       for x in leaves(a))
+            assert len(cell.state) == (2 if shape.startswith("train")
+                                       else 1)
+            assert 0 < tsteps.state_bytes(cell, mesh) < \
+                tsteps.state_bytes(tsteps.build_cell(
+                    get_arch(name), shape, device="meta"), mesh)
 
 
 def test_dryrun_plans_an_lm_cell_by_hand():
-    """qwen3-4b × decode_32k at one rank: the float32 parameters, the bf16
-    KV cache of 128 x 32768 tokens (~618 GB: planned, does not fit), its
-    int32 position and the batch's tokens."""
-    cfg = get_arch("qwen3-4b").model
-    params = 4 * sum(np.prod(s) for s in ttfm.shape_leaves(
-        ttfm.param_shapes(cfg)))
-    kv = 2 * 2 * 36 * 128 * 32768 * 8 * 128
+    """Per rank, on the production meshes. qwen3-4b × decode_32k on 16 x
+    16 (no FSDP): embed's rows and lm_head's columns over the 16 model
+    ranks (151,936 / 16 = 9,496), wq's columns (4,096 / 16 = 256), wk's and
+    wv's (1,024 / 16 = 64: half a head), wo's rows, the FFN's 9,728 / 16 =
+    608 columns and rows; the norms whole; the bf16 KV cache of 128 x
+    32,768 tokens split 8 sequences a data rank and 2,048 slots a model
+    rank; its position; 8 tokens a rank."""
+    L, D, V, dh = 36, 2560, 151936, 128
+    params = 4 * (2 * 9496 * D + D + 2 * L * D + 2 * L * dh
+                  + L * D * (256 + 2 * 64) + L * 256 * D + 3 * L * D * 608)
+    kv = 2 * 2 * L * 8 * 2048 * 8 * dh
     rec = dryrun.run_cell("qwen3-4b", "decode_32k", "single", verbose=False)
-    assert (rec["status"], rec["devices"]) == ("ok", 1)
-    assert rec["arg_bytes"] == params + kv + 4 + 128 * 4
-    assert not rec["fits"] and kv == 618475290624
+    assert (rec["status"], rec["devices"]) == ("ok", 256)
+    assert rec["arg_bytes"] == params + kv + 4 + 8 * 4
+    assert rec["fits"] and kv == 2415919104
+    # stablelm-3b × train_4k on 2 x 16 x 16: FSDP over the 32 data ranks
+    # on d_model (the largest free dimension) for every leaf over 2^16
+    # elements (final_norm's 2,560 stay whole); 8 sequences a data rank
+    L, D, F, M = 32, 2560, 6912, 16
+    per = (2 * (50304 // M) * (D // 32) + D + 2 * L * (D // 32)
+           + 4 * L * (D // 32) * (D // M) + 3 * L * (D // 32) * (F // M))
     rec = dryrun.run_cell("stablelm-3b", "train_4k", "multi", verbose=False)
-    cfg = get_arch("stablelm-3b").model
-    want = 3 * ttfm.param_bytes(cfg) + 4 + 2 * 256 * 4096 * 4
-    assert rec["arg_bytes"] == want and rec["fits"]
+    assert rec["devices"] == 512
+    assert rec["arg_bytes"] == 3 * 4 * per + 4 + 2 * 8 * 4096 * 4
+    assert rec["fits"]
 
 
 # each step's gradient leaf within GRAD_TOL of the reference's largest

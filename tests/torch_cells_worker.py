@@ -32,6 +32,7 @@ def main(case_path: str, out_path: str, rank: int) -> int:
     from repro_torch.core import collectives as coll
     from repro_torch.launch import multihost
     from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.launch.shardings import spec_axes
     from repro_torch.launch.steps import build_cell, local_block
 
     with open(case_path) as f:
@@ -57,7 +58,7 @@ def main(case_path: str, out_path: str, rank: int) -> int:
             out[shape] = {"labels": labels.tolist(), "rounds": int(res[-1]),
                           "mesh": list(mesh.shape)}
             if len(res) == 3:  # the ingest cell's answers to its block
-                sh = cell.in_shardings[3]
+                sh = spec_axes(cell.in_shardings[3][0])
                 out[shape]["answers"] = res[1].tolist()
                 out[shape]["query_lo"] = (coll.shard_index(mesh, sh)
                                           * blocks[3].shape[0])
@@ -85,7 +86,7 @@ def _legacy(legacy: dict, mesh) -> dict:
             warnings.simplefilter("ignore", DeprecationWarning)
             fn = getattr(tdist, name)(mesh, *args, **kw)
         eaxes = tuple(args[0])
-        es, er = (local_block(x, eaxes, mesh) for x in (s, r))
+        es, er = (local_block(x, (eaxes,), mesh) for x in (s, r))
         if name.startswith("make_sharded"):
             lax = (args[1],)
             pad = torch.arange(-(-lab.shape[0] // coll.mesh_size(mesh, lax))
@@ -95,7 +96,7 @@ def _legacy(legacy: dict, mesh) -> dict:
                                   mesh, lax)
             out[key] = {"labels": got[: lab.shape[0]].tolist()}
         elif name == "make_streaming_ingest":
-            qa_b, qb_b = (local_block(x, eaxes, mesh) for x in (qa, qb))
+            qa_b, qb_b = (local_block(x, (eaxes,), mesh) for x in (qa, qb))
             got, ans = fn(lab, es, er, qa_b, qb_b)
             out[key] = {"labels": got.tolist(), "answers": ans.tolist(),
                         "query_lo": (coll.shard_index(mesh, eaxes)
