@@ -295,7 +295,8 @@ Phases, in order; any failure exits non-zero:
               repro_torch.launch.train --arch stablelm-3b stopped by
               --simulate-failure and resumed bit-exact, beside python -m
               repro_torch.launch.legacy.serve (its ids equal serve()'s);
-              then at full width and depth, bf16 activations over float32
+              then at full width and depth (but (a) at LM_SERVE_LAYERS and
+              (d) at LM_TRAIN_LAYERS layers), bf16 activations over float32
               weights, each model drawn from PRNGKey(seed) on the card
               (its threefry_bits launches asserted from the shapes, a
               TokenStream batch's two threefry_randint): (c) h2o-danube-3-4b
@@ -338,6 +339,33 @@ Phases, in order; any failure exits non-zero:
               step of each; (c) the deepseek and qwen3 smoke cells in
               float32 on the card's mesh against the same cells on a CPU
               mesh of the same ranks (LM_SMOKE_TOL).
+ 22. gnn      the GNN family (GIN, PNA, EGNN) and NequIP on one rank
+              (GNN_ARCHS), every aggregation and gather backward through
+              the segment_sum kernel: (a) each arch's full_graph_sm cell
+              config at the published widths and depths, and the smoke
+              configs in float32 and bfloat16, on the card against the CPU
+              from the same weights (the output, the loss, every gradient
+              leaf, one AdamW step; GNN_TOL, GNN_PNA_GRAD_TOL,
+              LM_BF16_SMOKE_TOL); (b) the molecule batch (128 graphs of 30
+              nodes: a spanning tree and 35 more edges each, ids permuted)
+              whose graph ids come from ConnectIt(GNN_CC_VARIANT) on the
+              card, its kernels' launches asserted and its components
+              equal to the generator's, then each arch's molecule cell
+              step on them (graph readout, NequIP's per-graph energy), the
+              same bits twice; (c) minibatch_lg: the CSR of 114,615,892
+              RMAT edges drawn and sorted on the card, GraphNodeStream's
+              seeds and sample_subgraph on the card equal to the CPU's bit
+              for bit, GIN's cell step at 602 features, the same bits
+              twice; (d) ogb_products: each arch's train step at the cell's
+              config (bf16; NequIP with remat), GIN uncut through its cell,
+              the others with the node and edge counts cut by GNN_OGB_CUT:
+              GNN_TIMED_STEPS timed, edges x layers / s, the peak, a traced
+              step split into gathers, segment_sum, GEMMs and the rest, the
+              same bits twice; (e) segment_sum on every call recorded from
+              (a)-(d) (RECORDED's run kinds "gnn ...", GNN_OGB_CALLS of the
+              uncut GIN step) against its plain version in float64 within
+              the float32 reordering bound, the same bits twice, with its
+              time, the plain version's, index_add_'s and the bound.
 
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
@@ -722,6 +750,8 @@ def _main_path_inputs(torch, g) -> dict:
 # the sliding window; "placement amsf": amsf): an evenly spaced sample of
 # their calls, the merged forest round's third scatter_min pass (into the
 # stacked endpoint buffer of 2 (n + 1) + 1 slots) sampled apart.
+GNN_RUNS = ("gnn full_graph_sm", "gnn molecule", "gnn minibatch_lg",
+            "gnn ogb_products")
 RECORDED = (
     ("scatter_min", "kout_hybrid_k2+liu_tarjan_CRFA", ("compacted", "fused")),
     ("scatter_min", "kout_hybrid_k2+label_prop", ("compacted", "fused")),
@@ -751,6 +781,10 @@ RECORDED = (
     ("scatter_min", CELL_VARIANT, ("cell sharded",)),
     # DLRM-RM2: one full-width train_batch step's 26 backward calls
     ("embedding_bag_backward", "dlrm-rm2", ("train",)),
+    # the GNN family (phase gnn): GIN's train steps on full_graph_sm, the
+    # molecule batch (every arch), minibatch_lg and ogb_products
+    # (GNN_OGB_CALLS of its calls)
+    ("segment_sum", "gnn", GNN_RUNS),
 )
 # the placement a recorded run's session takes
 RECORDED_EXEC = {"placement sharded": "sharded(x)",
@@ -4994,6 +5028,13 @@ LM_LONG_DECODE = 16
 # since the lm mesh phase (the script's time limit)
 LM_TRAIN_BATCH = 1
 LM_TRAIN_STEPS = 5
+# to leave the gnn phase room in the script's time limit, (a) and (d) run
+# their published widths at a cut depth: qwen3-4b 36 -> LM_SERVE_LAYERS
+# (at full depth its prefill_32k took 28.8 s of the phase's 196.4 on an
+# H100 80GB HBM3 at 700 W), stablelm-3b 32 -> LM_TRAIN_LAYERS (74.3 s
+# there at full depth)
+LM_SERVE_LAYERS = 12
+LM_TRAIN_LAYERS = 8
 # two bfloat16 paths at full depth (decode against forward): the largest
 # logit difference as a share of the largest |logit|. A bfloat16 rounding
 # is 2^-8 of a value; through 24-36 residual layers the two paths' logits
@@ -5522,11 +5563,14 @@ def _lm_moe(torch, seed: int, card: str) -> None:
 
 
 def _lm_serve(torch, seed: int, card: str) -> None:
-    """(a) qwen3-4b at full width and depth: the prefill_32k cell at
-    LM_PREFILL_BATCH, decode steps from its cache, the decode_32k cell at
-    LM_DECODE_BATCH over a full cache; prefill and decode against the
-    forward on a short prompt; the profile of one prefill and one decode
-    step; SDPA on one layer's prefill q/k/v beside chunked_attention."""
+    """(a) qwen3-4b at full width, depth LM_SERVE_LAYERS: the prefill_32k
+    cell at LM_PREFILL_BATCH, decode steps from its cache, the decode_32k
+    cell at LM_DECODE_BATCH over a full cache; prefill and decode against
+    the forward on a short prompt; the profile of one prefill and one
+    decode step; SDPA on one layer's prefill q/k/v beside
+    chunked_attention."""
+    import dataclasses
+
     import numpy as np
 
     import torch.nn.functional as F
@@ -5538,6 +5582,8 @@ def _lm_serve(torch, seed: int, card: str) -> None:
     from repro_torch.legacy.models.layers import chunked_attention
 
     arch = get_arch("qwen3-4b")
+    arch = dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, n_layers=LM_SERVE_LAYERS))
     cfg = arch.model
     model, _ = _lm_init(torch, cfg, seed)
     params = model.params()
@@ -5577,8 +5623,9 @@ def _lm_serve(torch, seed: int, card: str) -> None:
     kv = cache.k.numel() * cache.k.element_size() * 2
     tflops = pre.meta["model_flops"] / pre.meta["tokens"] * \
         LM_PREFILL_BATCH * S / pre_s / 1e12
-    print(f"[lm] (a) qwen3-4b prefill_32k at full width and depth, batch cut "
-          f"32 -> {LM_PREFILL_BATCH}: {pre_s:.3f} s traced "
+    print(f"[lm] (a) qwen3-4b prefill_32k at full width, depth cut 36 -> "
+          f"{LM_SERVE_LAYERS}, batch cut 32 -> {LM_PREFILL_BATCH}: "
+          f"{pre_s:.3f} s traced "
           f"({LM_PREFILL_BATCH * S / pre_s:.1f} tokens/s, {tflops:.1f} "
           f"model TFLOP/s without attention); KV cache {kv} bytes; peak "
           f"above the model {pre_peak} bytes; then {LM_DECODE_STEPS} decode "
@@ -5687,10 +5734,12 @@ def _lm_serve(torch, seed: int, card: str) -> None:
 
 
 def _lm_train(torch, seed: int, card: str) -> None:
-    """(d) stablelm-3b x train_4k at full width and depth with remat, the
-    batch cut to LM_TRAIN_BATCH: a counted step, LM_TRAIN_STEPS timed
-    steps, AdamW alone against its bytes bound, one traced step, and one
-    step twice from one state, the same bits."""
+    """(d) stablelm-3b x train_4k at full width, depth LM_TRAIN_LAYERS,
+    with remat, the batch cut to LM_TRAIN_BATCH: a counted step,
+    LM_TRAIN_STEPS timed steps, AdamW alone against its bytes bound, one
+    traced step, and one step twice from one state, the same bits."""
+    import dataclasses
+
     import numpy as np
 
     import warnings
@@ -5703,6 +5752,8 @@ def _lm_train(torch, seed: int, card: str) -> None:
     from repro_torch.legacy.models import transformer as tfm
 
     arch = get_arch("stablelm-3b")
+    arch = dataclasses.replace(arch, model=dataclasses.replace(
+        arch.model, n_layers=LM_TRAIN_LAYERS))
     cfg = arch.model
     cell = build_cell(arch, "train_4k")
     S = cell.args[0].shape[1]
@@ -5742,8 +5793,9 @@ def _lm_train(torch, seed: int, card: str) -> None:
     require(all(np.isfinite(losses)), f"lm train: losses {losses}")
     p50 = float(np.median(walls))
     n_tok = LM_TRAIN_BATCH * S
-    print(f"[lm] (d) stablelm-3b train_4k at full width and depth with "
-          f"remat, batch cut 256 -> {LM_TRAIN_BATCH} x {S}: parameters and "
+    print(f"[lm] (d) stablelm-3b train_4k at full width with remat, depth "
+          f"cut 32 -> {LM_TRAIN_LAYERS}, batch cut 256 -> {LM_TRAIN_BATCH} x "
+          f"{S}: parameters and "
           f"AdamW moments {state_bytes} bytes; {LM_TRAIN_STEPS} timed "
           f"steps: p50 {p50:.4f} s (min {min(walls):.4f}, max "
           f"{max(walls):.4f}), {n_tok / p50:.1f} tokens/s, "
@@ -5871,7 +5923,9 @@ def phase_lm(torch, seed: int, card: str) -> None:
           f"-> {LM_MOE_SEQ}, batch 32 -> {LM_MOE_BATCH}; (c) h2o-danube-3-4b "
           f"long_500k uncut (B = 1), a prefill of {LM_LONG_PREFILL} tokens "
           f"and {LM_LONG_DECODE} decode steps; (d) stablelm-3b train_4k "
-          f"batch 256 -> {LM_TRAIN_BATCH}; widths and depths as published")
+          f"batch 256 -> {LM_TRAIN_BATCH}; widths as published, the depths "
+          f"too but (a) qwen3-4b 36 -> {LM_SERVE_LAYERS} and (d) "
+          f"stablelm-3b 32 -> {LM_TRAIN_LAYERS} layers")
 
 
 # ---------------------------------------------------------------------------
@@ -6531,6 +6585,826 @@ def _rank_lm_mesh_c(torch, mesh, rank, d, job, out) -> None:
               f"on this rank) within {LM_SMOKE_TOL}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase gnn: the GNN family and NequIP on one rank.
+# ---------------------------------------------------------------------------
+
+GNN_ARCHS = ("gin-tu", "pna", "egnn", "nequip")
+# (a) card against CPU from the same weights and inputs, float32 (TF32
+# off): logits or energies, the loss, and every gradient and moment leaf
+# within GNN_TOL of the largest magnitude (the LM smoke's 1e-4: two float32
+# sums of each segment and GEMMs in other orders; an elementwise 1e-4
+# failed on an H100 on 40 of GIN full_graph_sm's 21,504 logits, at most
+# 0.0047 apart, where its unnormalized sums cancel); parameters after
+# one AdamW step
+# within LM_STEP_TOL plus how far the two gradients move the step apart
+# (_adam_moves). In bfloat16 activations (the three classifiers; NequIP
+# has no dtype): the LM's LM_BF16_SMOKE_TOL shares of the largest logit
+# and gradient
+GNN_TOL = 1e-4
+# PNA's gradient and moment leaves: a measurement forces a wider bound.
+# Its std, sqrt(max(E[x^2] - E[x]^2, 0) + 1e-5), meets zero variance at
+# every receiver whose messages are equal, and 1 / (2 sqrt(1e-5)) = 158
+# scales the float32 residue of the subtraction into the gradient: at
+# full_graph_sm's widths the reference and the port on the CPU differ by
+# 5.9e-4 of a leaf's largest, an H100 and the CPU by 7.2e-4
+GNN_PNA_GRAD_TOL = 1e-3
+# the smoke configs' graph, build_trainable's: rmat(512, 2048)
+GNN_SMOKE_GRAPH = (512, 2048)
+# (d) ogb_products: timed steps a run, after an untimed first one; the
+# runs that do not fit one card at the published size divide their node
+# and edge counts by this (never a width; GNN_OGB_CUT[arch] = 1 is uncut)
+GNN_TIMED_STEPS = 3
+# (on an H100 80GB: GIN uncut peaks 25.9 GB above its inputs for a train
+# step; at the published size PNA needs 17.3 GB more than is free, at a
+# cut of 4 it peaks at 75.5 GB; EGNN fits at 8 (65.7 GB), NequIP at 16
+# (48.5 GB))
+GNN_OGB_CUT = {"gin-tu": 1, "pna": 8, "egnn": 8, "nequip": 16}
+# (e) the segment_sum calls kept from the full-size ogb_products GIN step
+# (of its 10: the degree, the first two layers' aggregations, the last
+# gather's backward, layer 1's; layer 0 gathers the features, which take
+# no gradient), each against the plain version; every call of the other
+# runs
+GNN_OGB_CALLS = (0, 1, 2, 9)
+# the molecule batch's variant: examples/legacy/train_gnn.py's
+GNN_CC_VARIANT = "none+uf_sync_naive"
+
+
+class _SegmentRecorder:
+    """The (vals, order, offsets) of every segment_sum call made while it
+    is entered (the calls still launched as they were), the values cloned;
+    ``keep(i)`` says which calls, by their index in the run, are kept."""
+
+    def __init__(self, keep=lambda i: True):
+        self.calls, self.made, self.keep = [], 0, keep
+
+    def __enter__(self):
+        from types import SimpleNamespace
+
+        import repro_torch.kernels.segments as segments
+
+        # Segments.sum reaches the dispatch through the module's name for
+        # ops: that name is patched, so the wrapper and its count stay
+        self._mod, self._ops = segments, segments.ops
+        launch = self._ops.segment_sum
+
+        def record(vals, order, offsets):
+            if self.keep(self.made):
+                self.calls.append((vals.clone(), order, offsets))
+            self.made += 1
+            return launch(vals, order, offsets)
+        segments.ops = SimpleNamespace(segment_sum=record)
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.ops = self._ops
+
+
+def gnn_rmat(torch, n_real: int, m: int, seed: int,
+             chunk: int = 1 << 24) -> tuple:
+    """``m`` directed RMAT edges over ``[0, n_real)``, int32 on the card:
+    graphs/generators.rmat's quadrant recursion with (a, b, c) = (0.5, 0.1,
+    0.1), one torch.rand a level from a CUDA Generator seeded with
+    ``seed``, each id modulo ``n_real``; duplicates and self loops kept
+    (the GNN shapes count directed edge slots)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    scale = max(1, (n_real - 1).bit_length())
+    s = torch.empty(m, dtype=torch.int32, device="cuda")
+    r = torch.empty(m, dtype=torch.int32, device="cuda")
+    for lo in range(0, m, chunk):
+        k = min(chunk, m - lo)
+        a = torch.zeros(k, dtype=torch.int64, device="cuda")
+        b = torch.zeros(k, dtype=torch.int64, device="cuda")
+        for level in range(scale):
+            u = torch.rand(k, generator=gen, device="cuda")
+            bit = 1 << (scale - 1 - level)
+            a += (u >= 0.6).long() * bit                          # c, d
+            b += ((u >= 0.7) | ((u >= 0.5) & (u < 0.6))).long() * bit  # b, d
+        s[lo: lo + k] = (a % n_real).to(torch.int32)
+        r[lo: lo + k] = (b % n_real).to(torch.int32)
+    return s, r
+
+
+def _gnn_padded(torch, x, m_pad: int, fill: int):
+    out = torch.full((m_pad,), fill, dtype=torch.int32, device=x.device)
+    out[: x.shape[0]] = x
+    return out
+
+
+def _gnn_dims(spec: dict, cut: int = 1) -> tuple:
+    """A full-graph shape's ``(spec, cell dims)`` with its node and edge
+    counts divided by ``cut``."""
+    from repro_torch.launch.steps import gnn_cell_dims
+    if cut > 1:
+        spec = dict(spec, n=spec["n"] // cut, m=spec["m"] // cut)
+    return spec, gnn_cell_dims(spec)
+
+
+def _gnn_data(torch, name: str, cfg, dims: dict, d_feat: int,
+              n_classes: int, seed: int, node_targets: bool,
+              device="cuda") -> dict:
+    """Seeded node inputs of a cell: NequIP's species, coordinates and
+    float targets a graph; the classifiers' features (with EGNN's
+    coordinates) and int targets a node (or a graph)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    n1 = dims["n"] + 1
+    kw = dict(generator=gen, device=device)
+    coords = torch.randn(n1, 3, **kw)
+    if name == "nequip":
+        return {"species": torch.randint(0, cfg.n_species, (n1,), **kw,
+                                         dtype=torch.int32),
+                "coords": coords,
+                "targets": torch.randn(dims["n_graphs"], **kw)}
+    out = {"feats": torch.randn(n1, d_feat, **kw),
+           "targets": torch.randint(
+               0, n_classes, (n1 - 1 if node_targets else dims["n_graphs"],),
+               **kw, dtype=torch.int32)}
+    if cfg.kind == "egnn":
+        out["coords"] = coords
+    return out
+
+
+def _gnn_loss_fn(torch, name: str, cfg, x: dict, s, r, *, n_real=None,
+                 graph_ids=None, n_graphs: int = 1):
+    """``params -> loss`` of the cell's step: NequIP's squared energy
+    error; the classifiers' masked NLL over the n_real real nodes (or the
+    graphs)."""
+    from repro_torch.legacy.models import gnn, nequip
+    if name == "nequip":
+        return lambda p: nequip.nequip_loss(
+            p, cfg, x["species"], x["coords"], s, r, x["targets"],
+            graph_ids=graph_ids, n_graphs=n_graphs)
+    mask = None
+    if cfg.readout == "node":
+        n = x["feats"].shape[0] - 1
+        mask = (torch.arange(n, device=s.device) < n_real).float()
+    return lambda p: gnn.gnn_loss(
+        p, cfg, x["feats"], s, r, x["targets"], coords=x.get("coords"),
+        graph_ids=graph_ids, n_graphs=n_graphs, label_mask=mask)
+
+
+def _gnn_forward(name: str, model, x: dict, s, r, **kw):
+    if name == "nequip":
+        return model(x["species"], x["coords"], s, r, **kw)
+    return model(x["feats"], s, r, coords=x.get("coords"), **kw)[0]
+
+
+def _gnn_model(torch, name: str, cfg, seed: int, device="cuda"):
+    from repro_torch import random as trandom
+    from repro_torch.legacy.models import gnn, nequip
+    key = trandom.PRNGKey(seed, device=device)
+    if name == "nequip":
+        return nequip.init_nequip(cfg, key=key)
+    return gnn.init_gnn(cfg, key=key)
+
+
+def _gnn_copy(torch, model, device):
+    """The model with its parameters copied to ``device``."""
+    from repro_torch.legacy import optim
+    params = model.params()
+    return type(model)(model.cfg, optim.tree_unflatten(
+        params, [x.detach().to(device, copy=True)
+                 for x in optim.tree_leaves(params)]))
+
+
+def _gnn_grads(torch, model, loss_fn) -> tuple:
+    from repro_torch.legacy import optim
+    params = model.params()
+    with torch.enable_grad():
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params),
+                                    allow_unused=True,
+                                    materialize_grads=True)
+    return loss.detach(), [g.detach().double().cpu() for g in grads]
+
+
+def _gnn_card_vs_cpu(torch, tag: str, name: str, cfg, x: dict, s, r,
+                     seed: int, ocfg, *, step: bool = True, **kw) -> dict:
+    """The model from PRNGKey(seed) on the card and a CPU copy, on the same
+    inputs: the forward, the loss and its gradients, and (``step``) one
+    AdamW step of each; the largest shares against the CPU's."""
+    from repro_torch.launch.steps import gnn_train_step
+    from repro_torch.legacy import optim
+    card = _gnn_model(torch, name, cfg, seed)
+    cpu = _gnn_copy(torch, card, "cpu")
+    xc = {k: v.cpu() for k, v in x.items()}
+    kc = {k: (v.cpu() if isinstance(v, torch.Tensor) else v)
+          for k, v in kw.items()}
+    fkw = {k: v for k, v in kw.items() if k in ("graph_ids", "n_graphs")}
+    fkc = {k: v for k, v in kc.items() if k in ("graph_ids", "n_graphs")}
+    rel = {}
+    with torch.no_grad():
+        og = _gnn_forward(name, card, x, s, r, **fkw)
+        oc = _gnn_forward(name, cpu, xc, s.cpu(), r.cpu(), **fkc)
+    rel["out"] = _lm_rel(torch, og.float().cpu(), oc.float())
+    lg_fn = _gnn_loss_fn(torch, name, cfg, x, s, r, **kw)
+    lc_fn = _gnn_loss_fn(torch, name, cfg, xc, s.cpu(), r.cpu(), **kc)
+    lg, gg = _gnn_grads(torch, card, lg_fn)
+    lc, gc = _gnn_grads(torch, cpu, lc_fn)
+    rel["loss"] = abs(float(lg) - float(lc)) / max(abs(float(lc)), 1e-30)
+    rel["grads"] = max(_lm_rel(torch, a, b) for a, b in zip(gg, gc))
+    bf16 = getattr(cfg, "dtype", "float32") == "bfloat16"
+    if bf16:
+        require(rel["out"] <= LM_BF16_SMOKE_TOL["logits"]
+                and rel["grads"] <= LM_BF16_SMOKE_TOL["grads"],
+                f"gnn {tag} {name} bf16: card against CPU {rel}, past "
+                f"{LM_BF16_SMOKE_TOL}")
+        return rel
+    grad_tol = GNN_PNA_GRAD_TOL if name == "pna" else GNN_TOL
+    require(rel["out"] <= GNN_TOL and rel["loss"] <= GNN_TOL
+            and rel["grads"] <= grad_tol,
+            f"gnn {tag} {name}: card against CPU {rel} of the largest "
+            f"magnitudes, past {GNN_TOL} (gradients {grad_tol})")
+    if not step:
+        return rel
+    before = [p.detach().clone() for p in optim.tree_leaves(cpu.params())]
+    sg, sc = optim.init_adam(card.params()), optim.init_adam(cpu.params())
+    _, sg, ig = gnn_train_step(card, sg, lg_fn, ocfg)
+    _, sc, ic = gnn_train_step(cpu, sc, lc_fn, ocfg)
+    rel["moments"] = max(_lm_rel(torch, a.cpu(), b) for a, b in zip(
+        optim.tree_leaves(sg.mu), optim.tree_leaves(sc.mu)))
+    require(rel["moments"] <= grad_tol,
+            f"gnn {tag} {name}: a moment leaf {rel['moments']} of its "
+            f"largest from the CPU's")
+    lr = float(ic["lr"])
+    apart = [(a - b).abs() for a, b in zip(_adam_moves(gg, ocfg, lr),
+                                           _adam_moves(gc, ocfg, lr))]
+    moved = 0.0
+    for a, b, p0, d in zip(optim.tree_leaves(card.params()),
+                           optim.tree_leaves(cpu.params()), before, apart):
+        a, b = a.detach().cpu().double(), b.detach().double()
+        tol = LM_STEP_TOL["atol"] + LM_STEP_TOL["rtol"] * b.abs() + d
+        require(bool(((a - b).abs() <= tol).all()),
+                f"gnn {tag} {name}: a parameter after the step differs "
+                f"from the CPU's by {float((a - b).abs().max())}")
+        moved = max(moved, float((b - p0.double()).abs().max()))
+    require(moved >= 0.5 * lr, f"gnn {tag} {name}: the step moved no "
+            f"parameter by half of lr ({moved})")
+    return rel
+
+
+def _gnn_state(model, state) -> list:
+    from repro_torch.legacy import optim
+    return optim.tree_leaves((model.params(), state))
+
+
+def _gnn_repeat(torch, tag: str, model, state, step) -> None:
+    """One train step twice from one state: every parameter and moment
+    leaf and the loss equal bit for bit."""
+    saved = [x.detach().clone() for x in _gnn_state(model, state)]
+    runs = []
+    for _ in range(2):
+        with torch.no_grad():
+            for dst, src in zip(_gnn_state(model, state), saved):
+                dst.copy_(src)
+        _, state, info = step(model, state)
+        torch.cuda.synchronize()
+        runs.append([info["loss"].clone()]
+                    + [x.detach().clone() for x in _gnn_state(model, state)])
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    require(same, f"gnn {tag}: one train step twice from one state differs")
+    print(f"[gnn] {tag}: one train step twice from one state: the loss and "
+          f"all {len(saved)} parameter and moment leaves equal bit for bit")
+
+
+def _gnn_profile(torch, tag: str, fn) -> dict:
+    """One run of ``fn`` under torch.profiler: the device time of its
+    kernels split by name into the gathers (index_select), segment_sum,
+    the GEMMs, PNA's scatter_reduce and the rest, with the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    part = dict(gathers=0.0, segment_sum=0.0, gemm=0.0, scatter_reduce=0.0,
+                rest=0.0)
+    rows = sorted(((ev.device_time_total, ev.key, ev.count)
+                   for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA), reverse=True)
+    for dev_us, key, _ in rows:
+        k, t = key.lower(), dev_us / 1e3
+        if "segment_pieces" in k or "segment_rows" in k:
+            part["segment_sum"] += t
+        elif "indexselect" in k or "index_select" in k or "gather" in k:
+            part["gathers"] += t
+        elif any(w in k for w in ("gemm", "xmma", "cutlass", "wgmma")):
+            part["gemm"] += t
+        elif "scatter" in k:
+            part["scatter_reduce"] += t
+        else:
+            part["rest"] += t
+    busy = sum(part.values())
+    share = "; ".join(f"{k} {v:.3f} ms ({100 * v / max(busy, 1e-9):.1f}%)"
+                      for k, v in part.items())
+    print(f"[gnn] profile {tag}: traced wall {wall:.4f} s, device busy "
+          f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / wall:.1f}%), idle "
+          f"{100 * (1 - busy / 1e3 / wall):.1f}%; {share}")
+    for dev_us, key, count in rows[:8]:
+        print(f"[gnn]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
+    return dict(part, busy=busy, wall=wall)
+
+
+def molecule_batch(torch, nodes: int, edges: int, batch: int,
+                   seed: int) -> tuple:
+    """``batch`` graphs of ``nodes`` nodes and ``edges`` undirected edges
+    each, on the card: a random spanning tree (node i to a uniform earlier
+    node) and ``edges - nodes + 1`` more edges inside the graph (no self
+    loops), node ids permuted over the batch. Returns the (batch * edges,
+    2) int32 undirected edges and each node's graph (int64)."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    kw = dict(generator=gen, device="cuda")
+    i = torch.arange(1, nodes, device="cuda")
+    parent = (torch.rand(batch, nodes - 1, **kw) * i).long()
+    extra = edges - (nodes - 1)
+    u = torch.randint(0, nodes, (batch, extra), **kw)
+    v = (u + 1 + torch.randint(0, nodes - 1, (batch, extra), **kw)) % nodes
+    a = torch.cat([i.expand(batch, -1), u], 1)
+    b = torch.cat([parent, v], 1)
+    base = (torch.arange(batch, device="cuda") * nodes)[:, None]
+    perm = torch.randperm(batch * nodes, **kw)
+    e = torch.stack([perm[(a + base).reshape(-1)],
+                     perm[(b + base).reshape(-1)]], 1).to(torch.int32)
+    graph = torch.empty(batch * nodes, dtype=torch.int64, device="cuda")
+    graph[perm] = torch.arange(batch * nodes, device="cuda") // nodes
+    return e, graph
+
+
+def _gnn_smoke(torch, seed: int, records: list) -> dict:
+    """(a) full_graph_sm at the published widths and depths, then the
+    four smoke configs in float32 and bfloat16, card against CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import gnn_cell_config
+    from repro_torch.legacy import optim
+
+    ocfg = optim.OptimizerConfig(**LM_TRAIN_OPT)
+    out = {}
+    spec, dims = _gnn_dims(get_arch("gin-tu").shapes["full_graph_sm"])
+    sizes = (f"full_graph_sm at the published widths and depths ({spec['n']} "
+             f"nodes in {dims['n'] + 1} rows, {spec['m']} edges in "
+             f"{dims['m_pad']} slots, {spec['d_feat']} features, "
+             f"{spec['n_classes']} classes)")
+    s0, r0 = gnn_rmat(torch, spec["n"], spec["m"], seed)
+    s = _gnn_padded(torch, s0, dims["m_pad"], dims["n"])
+    r = _gnn_padded(torch, r0, dims["m_pad"], dims["n"])
+    for name in GNN_ARCHS:
+        cfg = gnn_cell_config(get_arch(name), "full_graph_sm")
+        x = _gnn_data(torch, name, cfg, dims, spec["d_feat"],
+                      spec["n_classes"], seed, True)
+        with _SegmentRecorder() as rec:
+            out[f"full_graph_sm {name}"] = _gnn_card_vs_cpu(
+                torch, "full_graph_sm", name, cfg, x, s, r, seed, ocfg,
+                n_real=dims["n_real"])
+        if name == "gin-tu":
+            records += [("gnn full_graph_sm", c) for c in rec.calls
+                        if c[0].is_cuda]
+    sn, sm = GNN_SMOKE_GRAPH
+    s0, r0 = gnn_rmat(torch, sn, sm, seed + 1)
+    dims = dict(n_real=sn, n=sn, m_pad=sm, n_graphs=1)
+    for name in GNN_ARCHS:
+        arch = get_arch(name)
+        cfg = dataclasses.replace(arch.model, **arch.smoke)
+        if name != "nequip":
+            cfg = dataclasses.replace(cfg, d_in=16, n_classes=4)
+        x = _gnn_data(torch, name, cfg, dims, 16, 4, seed, True)
+        out[f"smoke {name}"] = _gnn_card_vs_cpu(
+            torch, "smoke", name, cfg, x, s0, r0, seed, ocfg, n_real=sn)
+        if name != "nequip":
+            bf = dataclasses.replace(cfg, dtype="bfloat16")
+            out[f"smoke bf16 {name}"] = _gnn_card_vs_cpu(
+                torch, "smoke bf16", name, bf, x, s0, r0, seed, ocfg,
+                n_real=sn)
+    print(f"[gnn] (a) card against CPU from the same weights and inputs "
+          f"(float32, TF32 off): {sizes} and the smoke configs on the card's "
+          f"RMAT of {GNN_SMOKE_GRAPH}: outputs, losses, gradient and moment "
+          f"leaves within {GNN_TOL} of their largest magnitudes (PNA's "
+          f"gradients and moments {GNN_PNA_GRAD_TOL}), "
+          f"parameters after one AdamW step within "
+          f"{LM_STEP_TOL} plus the gradients' AdamW divergence; bfloat16 "
+          f"within {LM_BF16_SMOKE_TOL}. Largest shares: "
+          + json.dumps({k: {a: float(f"{b:.3g}") for a, b in v.items()}
+                        for k, v in out.items()}))
+    return out
+
+
+def _gnn_molecule(torch, seed: int, records: list, card: str) -> None:
+    """(b) the molecule batch: graph ids from ConnectIt on the card (its
+    kernels' launches asserted), each arch's cell step on them."""
+    import numpy as np
+
+    from repro_torch import ConnectIt
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs.containers import build_graph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (
+        build_cell,
+        gnn_cell_config,
+        gnn_cell_dims,
+    )
+    from repro_torch.legacy import optim
+
+    spec = get_arch("gin-tu").shapes["molecule"]
+    nodes, batch = spec["nodes"], spec["batch"]
+    edges, graph = molecule_batch(torch, nodes, spec["edges"], batch, seed)
+    n_real = nodes * batch
+    g = build_graph(edges, n_real, device="cuda")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    labels = ConnectIt(GNN_CC_VARIANT, device="cuda").connected_components(g)
+    cc_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    # the naive finish: hook rounds, the final compression's hop, the
+    # canonicalization's scatter
+    for name in ("hook_compress", "pointer_jump", "scatter_min"):
+        require(counts[name] > 0, f"gnn molecule: ConnectIt launched no "
+                f"{name} ({counts})")
+    uniq, gid = np.unique(labels, return_inverse=True)
+    truth = graph.cpu().numpy()
+    # the components are the generator's graphs: one label a graph, one
+    # graph a label
+    pairs = np.unique(np.stack([gid, truth], 1), axis=0)
+    require(len(uniq) == batch and len(pairs) == batch,
+            f"gnn molecule: ConnectIt found {len(uniq)} graphs, {len(pairs)} "
+            f"label-graph pairs; want {batch}")
+    print(f"[gnn] (b) molecule: {batch} graphs x {nodes} nodes, "
+          f"{spec['edges']} undirected edges each ({g.m} directed after "
+          f"dedup); ConnectIt({GNN_CC_VARIANT!r}).connected_components on "
+          f"the card found exactly the {batch} generated graphs in "
+          f"{cc_s:.4f} s; launches {json.dumps(counts)}")
+    dims = gnn_cell_dims(spec)
+    n, m_pad = dims["n"], dims["m_pad"]
+    for name in GNN_ARCHS:
+        arch = get_arch(name)
+        cell = build_cell(arch, "molecule")
+        cfg = gnn_cell_config(arch, "molecule")
+        s = _gnn_padded(torch, g.senders[: g.m], m_pad, n)
+        r = _gnn_padded(torch, g.receivers[: g.m], m_pad, n)
+        gids = torch.full((n + 1,), batch, dtype=torch.int32, device="cuda")
+        gids[:n_real] = torch.from_numpy(gid.astype(np.int32)).cuda()
+        x = _gnn_data(torch, name, cfg, dims, spec["d_feat"],
+                      spec["n_classes"], seed, False)
+        feats = {k: v for k, v in x.items() if k != "targets"}
+        model = _gnn_model(torch, name, cfg, seed)
+        state = optim.init_adam(model.params())
+        ops.reset_launch_counts()
+        with _SegmentRecorder() as rec:
+            _, state, info = cell.fn(model, state, feats, s, r, x["targets"],
+                                     gids)
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        require(counts["segment_sum"] > 0 and bool(
+            torch.isfinite(info["loss"])), f"gnn molecule {name}: launches "
+            f"{counts}, loss {info['loss']}")
+        records += [("gnn molecule", c) for c in rec.calls]
+        _gnn_repeat(torch, f"(b) molecule {name}", model, state,
+                    lambda m, st: cell.fn(m, st, feats, s, r, x["targets"],
+                                          gids))
+        what = "per-graph energy" if name == "nequip" else "graph readout"
+        print(f"[gnn] (b) molecule {name}: {what} over ConnectIt's "
+              f"{batch} graph ids, a train step: loss "
+              f"{float(info['loss']):.6f}, grad_norm "
+              f"{float(info['grad_norm']):.6f}; segment_sum launches a step "
+              f"{counts['segment_sum']}; card {card}")
+
+
+def minibatch_csr(torch, n_real: int, n: int, m: int, m_rows: int,
+                  seed: int) -> tuple:
+    """The minibatch shape's CSR on the card: ``m`` RMAT edges (gnn_rmat)
+    sorted by source, ``indptr`` (n + 2,) over the padded rows (rows
+    ``[n_real, n]`` empty), ``indices`` (m_rows,) padded with the dump id
+    n."""
+    s, r = gnn_rmat(torch, n_real, m, seed)
+    order = torch.argsort(s, stable=True)
+    indices = _gnn_padded(torch, r[order], m_rows, n)
+    del r
+    indptr = torch.searchsorted(
+        s[order], torch.arange(n + 2, dtype=torch.int32, device="cuda"),
+        out_int32=True)
+    return indptr, indices
+
+
+def _gnn_minibatch(torch, seed: int, records: list, card: str,
+                   cut: int) -> None:
+    """(c) minibatch_lg: the Reddit-scale CSR on the card, GraphNodeStream's
+    seeds and sample_subgraph on the card against the CPU bit for bit, and
+    GIN's train step at the published width."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.graphs.containers import round_up
+    from repro_torch.graphs.sampler import sample_subgraph
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (
+        build_cell,
+        gnn_cell_config,
+        gnn_cell_dims,
+    )
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import GraphNodeStream
+
+    arch = get_arch("gin-tu")
+    spec = arch.shapes["minibatch_lg"]
+    if cut > 1:
+        spec = dict(spec, n=spec["n"] // cut, m=spec["m"] // cut)
+        arch = dataclasses.replace(arch, shapes={"minibatch_lg": spec})
+    dims = gnn_cell_dims(spec)
+    n_real, n = dims["n_real"], dims["n"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    indptr, indices = minibatch_csr(torch, n_real, n, spec["m"],
+                                    round_up(spec["m"], 8192), seed)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    b = GraphNodeStream(n_nodes=n_real, batch=spec["batch"],
+                        seed=seed).batch_at(0, device="cuda")
+    bc = GraphNodeStream(n_nodes=n_real, batch=spec["batch"],
+                         seed=seed).batch_at(0, device="cpu")
+    require(torch.equal(b["seeds"].cpu(), bc["seeds"]),
+            "gnn minibatch: GraphNodeStream's seeds differ on the card")
+    ops.reset_launch_counts()
+    s, r = sample_subgraph(indptr, indices, b["seeds"], b["key"],
+                           spec["fanout"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    sc, rc = sample_subgraph(indptr.cpu(), indices.cpu(), bc["seeds"],
+                             bc["key"], spec["fanout"])
+    require(torch.equal(s.cpu(), sc) and torch.equal(r.cpu(), rc),
+            "gnn minibatch: sample_subgraph on the card differs from the "
+            "CPU's on the same CSR and key")
+    require(counts["threefry_randint"] == len(spec["fanout"]),
+            f"gnn minibatch: sampling launches {counts}")
+    print(f"[gnn] (c) minibatch_lg: CSR of {spec['m']} RMAT edges over "
+          f"{n_real} nodes generated and sorted on the card in {gen_s:.2f} "
+          f"s (indices {indices.numel() * 4} bytes); GraphNodeStream seeds "
+          f"and sample_subgraph ({s.shape[0]} edges, fanout "
+          f"{spec['fanout']}) equal the CPU's bit for bit; "
+          f"threefry_randint launches {counts['threefry_randint']}")
+    cell = build_cell(arch, "minibatch_lg")
+    cfg = gnn_cell_config(arch, "minibatch_lg")
+    x = _gnn_data(torch, "gin-tu", cfg, dims, spec["d_feat"],
+                  spec["n_classes"], seed, True)
+    feats = {"feats": x["feats"]}
+    model = _gnn_model(torch, "gin-tu", cfg, seed)
+    state = optim.init_adam(model.params())
+
+    def step(model, state):
+        return cell.fn(model, state, feats, indptr, indices, b["seeds"],
+                       x["targets"], b["key"])
+
+    step(model, state)  # warm
+    ops.reset_launch_counts()
+    with _SegmentRecorder() as rec:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, state, info = step(model, state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    require(counts["segment_sum"] > 0 and bool(torch.isfinite(info["loss"])),
+            f"gnn minibatch: launches {counts}, loss {info['loss']}")
+    records += [("gnn minibatch_lg", c) for c in rec.calls]
+    _gnn_repeat(torch, "(c) minibatch_lg gin-tu", model, state, step)
+    print(f"[gnn] (c) minibatch_lg gin-tu at {spec['d_feat']} features, "
+          f"{spec['n_classes']} classes (features {x['feats'].numel() * 4} "
+          f"bytes): a train step with its sampling {wall:.4f} s, loss "
+          f"{float(info['loss']):.6f}; launches {json.dumps(counts)}; card "
+          f"{card}")
+
+
+def _gnn_ogb(torch, seed: int, records: list, card: str,
+             small: bool) -> dict:
+    """(d) ogb_products: each arch's train step at the published size (GIN
+    through its cell), or cut by GNN_OGB_CUT; step p50, edges/s, peak,
+    a profiled step's split, the same bits twice. Returns GIN's launches
+    a step."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segments import Segments
+    from repro_torch.launch.steps import (
+        build_cell,
+        gnn_cell_config,
+        gnn_train_step,
+        OPT,
+    )
+    from repro_torch.legacy import optim
+
+    full = get_arch("gin-tu").shapes["ogb_products"]
+    launches = {}
+    # GIN last: its recorded calls (~33 GB) are held until (e)
+    for name in sorted(GNN_ARCHS, key=lambda a: a == "gin-tu"):
+        arch = get_arch(name)
+        cut = GNN_OGB_CUT[name] * (64 if small else 1)
+        spec, dims = _gnn_dims(full, cut)
+        cfg = gnn_cell_config(arch, "ogb_products")
+        torch.cuda.empty_cache()
+        Segments.clear_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s0, r0 = gnn_rmat(torch, spec["n"], spec["m"], seed)
+        s = _gnn_padded(torch, s0, dims["m_pad"], dims["n"])
+        r = _gnn_padded(torch, r0, dims["m_pad"], dims["n"])
+        del s0, r0
+        x = _gnn_data(torch, name, cfg, dims, spec["d_feat"],
+                      spec["n_classes"], seed, True)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        model = _gnn_model(torch, name, cfg, seed)
+        state = optim.init_adam(model.params())
+        if cut == 1 and name == "gin-tu":
+            cell = build_cell(arch, "ogb_products")
+            feats = {k: v for k, v in x.items() if k != "targets"}
+
+            def step(model, state):
+                return cell.fn(model, state, feats, s, r, x["targets"])
+        else:
+            loss_fn = _gnn_loss_fn(torch, name, cfg, x, s, r,
+                                   n_real=dims["n_real"])
+
+            def step(model, state):
+                return gnn_train_step(model, state, loss_fn, OPT)
+        t0 = time.perf_counter()
+        step(model, state)  # the first: sorts the edges, warms
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        keep = name == "gin-tu" and cut == 1 and not small
+        with _SegmentRecorder(lambda i: keep and i in GNN_OGB_CALLS) as rec:
+            _, state, info = step(model, state)
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() - base
+        require(counts["segment_sum"] > 0 and bool(
+            torch.isfinite(info["loss"])), f"gnn ogb_products {name}: "
+            f"launches {counts}, loss {info['loss']}")
+        launches[name] = counts["segment_sum"]
+        walls = []
+        for _ in range(GNN_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(model, state)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        p50 = float(np.median(walls))
+        n_layers = cfg.n_layers
+        prof = _gnn_profile(torch, f"(d) ogb_products {name}",
+                            lambda: step(model, state))
+        _gnn_repeat(torch, f"(d) ogb_products {name}", model, state, step)
+        cut_note = ("uncut" if cut == 1 else
+                    f"nodes and edges / {cut}: n {spec['n']}, m {spec['m']}")
+        print(f"[gnn] (d) ogb_products {name} ({cut_note}; "
+              f"{dims['m_pad']} edge slots, n + 1 = {dims['n'] + 1}; dtype "
+              f"{getattr(cfg, 'dtype', 'float32')}, remat {cfg.remat}): "
+              f"graph and inputs on the card in {gen_s:.2f} s; first step "
+              f"(sorts the edges) {first:.4f} s; {GNN_TIMED_STEPS} timed "
+              f"steps p50 {p50:.4f} s (min {min(walls):.4f}, max "
+              f"{max(walls):.4f}), {dims['m_pad'] * n_layers / p50:.4e} "
+              f"edges x layers / s; peak above the graph, inputs and state "
+              f"{peak} bytes; loss {float(info['loss']):.6f}; launches a "
+              f"step {json.dumps(counts)}; card {card}")
+        records += [("gnn ogb_products", c) for c in rec.calls]
+        del model, state, x, s, r, step, prof
+        Segments.clear_cache()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _gnn_segment_cases(torch, records: list) -> dict:
+    """(e) segment_sum on every recorded call against its plain version
+    in float64 (in 8-column slices), within the float32 reordering bound
+    (count x 2^-24 x the row's sum of |x|, and one rounding to bfloat16),
+    the same bits on a second launch; its time, the plain version's in the
+    call's dtype, index_add_'s into a zero buffer (one call computing the
+    same function) and the bytes bound."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment.ref import segment_sum_ref
+
+    kernel = ops.KERNELS["segment_sum"]
+    inputs, main = {}, None
+    runs = {}
+    for run, call in records:
+        runs.setdefault(run, []).append(call)
+    for run in GNN_RUNS:
+        calls = runs.pop(run, [])
+        if not calls:
+            continue
+        worst, nbytes = 0.0, 0
+        for vals, order, offsets in calls:
+            got = kernel(vals, order, offsets)
+            require(torch.equal(got, kernel(vals, order, offsets)),
+                    f"segment_sum {run}: two launches differ")
+            rows, d = got.shape
+            counts = (offsets[1:] - offsets[:-1]).double()[:, None]
+            for c0 in range(0, d, 8):
+                v = vals[:, c0: c0 + 8].double()
+                want = segment_sum_ref(v, order, offsets)
+                absum = segment_sum_ref(v.abs(), order, offsets)
+                bound = counts * 2.0 ** -24 * absum
+                if vals.dtype == torch.bfloat16:
+                    bound = bound + 2.0 ** -8 * want.abs()
+                err = (got[:, c0: c0 + 8].double() - want).abs()
+                require(bool((err <= bound + 1e-30).all()),
+                        f"segment_sum {run}: past the reordering bound "
+                        f"by {float((err - bound).max())}")
+                worst = max(worst, float(err.max()))
+                del v, want, absum, bound, err
+            nbytes += (vals.numel() * vals.element_size() + 4 * order.numel()
+                       + 4 * offsets.numel() + got.numel()
+                       * got.element_size())
+            del got
+        ids = []
+        for vals, order, offsets in calls:
+            # the call's ids: a dropped entry (past offsets[-1]) on an
+            # extra row, which the sum's result leaves out
+            rows = offsets.shape[0] - 1
+            seg = torch.full((order.shape[0],), rows, dtype=torch.int64,
+                             device=order.device)
+            counts = (offsets[1:] - offsets[:-1]).long()
+            seg[order[: int(offsets[-1])].long()] = torch.repeat_interleave(
+                torch.arange(rows, device=order.device), counts)
+            ids.append((torch.zeros((rows + 1, vals.shape[1]),
+                                    dtype=vals.dtype, device=vals.device),
+                        seg))
+        pairs = list(zip(ids, calls))
+        ms = time_ms(torch, lambda: [kernel(*c) for c in calls], iters=20)
+        plain_ms = time_ms(torch, lambda: [segment_sum_ref(*c)
+                                           for c in calls], iters=5)
+        lib_ms = time_ms(torch, lambda: [z.index_add_(0, i, c[0])
+                                         for (z, i), c in pairs], iters=5)
+        b_ms, b_by = bound_ms(nbytes, sum(c[0].numel() for c in calls))
+        shapes = sorted({(tuple(c[0].shape), str(c[0].dtype).split(".")[-1],
+                          c[2].shape[0] - 1) for c in calls})
+        print(f"[kernels] segment_sum {run}: {len(calls)} calls, (m, d) "
+              f"dtype rows {shapes}: within the reordering bound (largest "
+              f"|kernel - plain in float64| {worst:.3e}), the same bits "
+              f"twice; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} (index_add_ into a zero buffer) "
+              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at 3.35 TB/s) "
+              f"kernel/bound={ms / b_ms:.2f}")
+        inputs[run] = main = {"ms": ms, "plain_ms": plain_ms,
+                              "library_ms": lib_ms, "bound_ms": b_ms,
+                              "bound_by": b_by, "max_abs_err": worst}
+        del calls, ids, pairs
+        torch.cuda.empty_cache()
+    require(main is not None, "segment_sum: no call was recorded")
+    return {"name": "segment_sum", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/segment.cu",
+            "replaces": "none: not a TPU kernel (jax.ops.segment_sum, XLA, "
+                        "at src/repro/legacy/models/gnn.py:130)",
+            "launches": 0, "max_abs_err": main["max_abs_err"],
+            "ms": main["ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"], "inputs": inputs,
+            "main": max(inputs, key=GNN_RUNS.index)}
+
+
+def phase_gnn(torch, seed: int, card: str, results: dict,
+              small: bool = False) -> None:
+    """The GNN family and NequIP on one rank: (a) card against CPU, (b)
+    the molecule batch on ConnectIt's graph ids, (c) minibatch_lg, (d)
+    ogb_products, (e) segment_sum on the recorded calls."""
+    from repro_torch.kernels.segments import Segments
+
+    precision = torch.get_float32_matmul_precision()
+    require(precision == "highest" and
+            not torch.backends.cuda.matmul.allow_tf32,
+            f"float32 matmuls must run in full float32, got {precision!r}")
+    records = []
+    for tag, fn, args in (
+            ("a smoke", _gnn_smoke, (torch, seed, records)),
+            ("b molecule", _gnn_molecule, (torch, seed, records, card)),
+            ("c minibatch_lg", _gnn_minibatch,
+             (torch, seed, records, card, 64 if small else 1))):
+        t0 = time.perf_counter()
+        fn(*args)
+        Segments.clear_cache()
+        torch.cuda.empty_cache()
+        print(f"[time] gnn ({tag}): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches = _gnn_ogb(torch, seed, records, card, small)
+    print(f"[time] gnn (d ogb_products): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    row = _gnn_segment_cases(torch, records)
+    records.clear()
+    torch.cuda.empty_cache()
+    print(f"[time] gnn (e segment_sum): {time.perf_counter() - t0:.1f} s")
+    # the main path of the phase: one ogb_products GIN train step
+    row["launches"] = launches["gin-tu"]
+    row["launches_per_step"] = launches
+    results["segment_sum"] = row
+
+
 def _np_tree(tree):
     if isinstance(tree, dict):
         return {k: _np_tree(v) for k, v in tree.items()}
@@ -6656,6 +7530,9 @@ def main() -> int:
         timed("lm", phase_lm, torch, args.seed, card)
         torch.cuda.empty_cache()
         timed("lm mesh", phase_lm_mesh, torch, args.seed, card)
+        torch.cuda.empty_cache()
+        timed("gnn", phase_gnn, torch, args.seed, card, results,
+              args.log_n < DEFAULT_GRAPH[0])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -826,6 +826,10 @@ class ConnectIt:
             return labels, stats
         return labels
 
+    def connected_components(self, g, **kw) -> np.ndarray:
+        """Convenience: ``connectivity``'s labels as a host numpy array."""
+        return self.connectivity(g, **kw).cpu().numpy()
+
     @property
     def stats(self) -> Optional[driver.ConnectivityStats]:
         """ConnectivityStats of the last run."""

@@ -7,8 +7,7 @@ import dataclasses
 import importlib
 from typing import Any, Dict
 
-# the reference's arch ids, in its order; the port registers the ones it
-# has ported (the GNN models are ROADMAP Queue 1 item 16, third part)
+# the reference's arch ids, in its order; the port registers all of them
 ARCH_IDS = [
     # LM-family (5)
     "h2o-danube-3-4b", "qwen3-4b", "stablelm-3b",
@@ -27,6 +26,22 @@ LM_SHAPES: Dict[str, dict] = {
     "decode_32k": dict(kind="decode", seq=32768, batch=128),
     "long_500k": dict(kind="decode", seq=524288, batch=1,
                       requires_subquadratic=True),
+}
+
+GNN_SHAPES: Dict[str, dict] = {
+    "full_graph_sm": dict(kind="full", n=2708, m=10556, d_feat=1433,
+                          n_classes=7),
+    "minibatch_lg": dict(kind="minibatch", n=232965, m=114615892, d_feat=602,
+                         n_classes=41, batch=1024, fanout=(15, 10)),
+    "ogb_products": dict(kind="full", n=2449029, m=61859140, d_feat=100,
+                         n_classes=47),
+    "molecule": dict(kind="molecule", nodes=30, edges=64, batch=128,
+                     d_feat=16, n_classes=2),
+    # the reference's explicit-SPMD variant of ogb_products
+    # (legacy/models/gnn_spmd.py there); on one rank its cell computes the
+    # dense loss, on a mesh it is ROADMAP Queue 1 item 16, third part (b)
+    "ogb_products_spmd": dict(kind="full", n=2449029, m=61859140, d_feat=100,
+                              n_classes=47, spmd=True),
 }
 
 RECSYS_SHAPES: Dict[str, dict] = {
@@ -53,7 +68,7 @@ CONNECTIT_SHAPES: Dict[str, dict] = {
 @dataclasses.dataclass(frozen=True)
 class Arch:
     name: str
-    family: str            # lm | recsys | connectit (gnn: not ported yet)
+    family: str            # lm | gnn | recsys | connectit
     model: Any
     shapes: Dict[str, dict]
     smoke: Dict[str, Any]  # reduced-config overrides for CPU tests
@@ -96,6 +111,7 @@ def all_archs() -> list[str]:
 def load_all() -> None:
     for mod in ["connectit_cfg"]:
         importlib.import_module(f"repro_torch.configs.{mod}")
-    for mod in ["dlrm_rm2", "h2o_danube_3_4b", "qwen3_4b", "stablelm_3b",
+    for mod in ["pna", "egnn", "gin_tu", "nequip_cfg", "dlrm_rm2",
+                "h2o_danube_3_4b", "qwen3_4b", "stablelm_3b",
                 "deepseek_moe_16b", "granite_moe_3b_a800m"]:
         importlib.import_module(f"repro_torch.configs.legacy.{mod}")

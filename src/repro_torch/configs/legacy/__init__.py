@@ -1,2 +1,2 @@
-"""Seed-era model configs, ported as their paths are: DLRM-RM2 and the
-five LM archs so far."""
+"""Seed-era model configs: DLRM-RM2, the five LM archs and the four GNN
+archs (GIN, PNA, EGNN, NequIP)."""

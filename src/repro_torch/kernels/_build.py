@@ -53,6 +53,10 @@ SIGNATURES = {
         "embedding_bag_backward_f32": (
             _P, _P, _P, _P, _I64, _P, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64,
             _I64, _I64, _I32, _P)},
+    "segment": {
+        "segment_sum_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
+        "segment_sum_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
+                             _P)},
     "threefry": {
         "threefry_bits_i64": (_P, _I64, _I64, _I64, _I64, _P),
         "threefry_randint_i32": (

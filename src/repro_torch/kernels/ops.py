@@ -32,7 +32,9 @@ does. ``tuned_block_m`` is what the tuning cache resolves to.
 ``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper and its
 backward, dispatched in ``kernels/legacy``, and the threefry draws of
 ``repro_torch.random`` (``threefry_bits``, ``threefry_randint``, dispatched
-here), so that ``launch_counts()`` covers every kernel.
+here), and the GNN's ``segment_sum`` (dispatched here; ``kernels/segments.py``
+builds its sorted layout and its autograd), so that ``launch_counts()``
+covers every kernel.
 """
 
 from __future__ import annotations
@@ -52,12 +54,14 @@ from .pointer_jump import kernel as _pointer_jump_kernel
 from .pointer_jump.ref import pointer_jump_ref
 from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
+from .segment import kernel as _segment_kernel
+from .segment.ref import segment_sum_ref
 from .threefry import kernel as _threefry_kernel
 from .threefry.ref import threefry_bits_ref, threefry_randint_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
            "edge_rewrite", "compact_mask", "embedding_bag", "threefry_bits",
-           "threefry_randint", "launch_counts",
+           "threefry_randint", "segment_sum", "launch_counts",
            "reset_launch_counts", "tuned_block_m", "clear_tuned_blocks",
            "KERNELS", "KERNEL_CONTRACT_VERSION", "DEFAULT_BLOCK_M"]
 
@@ -80,6 +84,7 @@ KERNELS = {
     "embedding_bag_backward": _embedding_bag_kernel.embedding_bag_backward,
     "threefry_bits": _threefry_kernel.threefry_bits,
     "threefry_randint": _threefry_kernel.threefry_randint,
+    "segment_sum": _segment_kernel.segment_sum,
 }
 
 
@@ -215,6 +220,19 @@ def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
         return _threefry_kernel.threefry_randint(maxval, minval, higher_key,
                                                  lower_key)
     return threefry_randint_ref(maxval, minval, higher_key, lower_key)
+
+
+def segment_sum(vals: torch.Tensor, order: torch.Tensor,
+                offsets: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum of vals[order[k]]`` for ``k`` in ``[offsets[r],
+    offsets[r + 1])``, (R, d) in ``vals``' dtype: ``vals`` (m, d) float32
+    or bfloat16, ``order`` (m,) and ``offsets`` (R + 1,) int32 (a stable
+    sort of the entries by segment, ``kernels/segments.py``). On the card
+    each row is added in float32 in a fixed order, the same bits every
+    run."""
+    if on_cuda(vals):
+        return _segment_kernel.segment_sum(vals, order, offsets)
+    return segment_sum_ref(vals, order, offsets)
 
 
 def compact_mask(mask: torch.Tensor, vals: torch.Tensor, cap: int) -> tuple:

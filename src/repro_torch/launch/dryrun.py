@@ -20,11 +20,12 @@ are left out. An LM cell is planned per rank on the mesh: its
 ``arg_bytes`` add the rank's blocks of the model's float32 parameters
 under the reference's specs, and for a train cell of AdamW's two moments
 under the same FSDP specs and its step (the cell's ``state``), to its
-blocks of the batch and of a decode cell's KV cache. The port's DLRM cells
-run on one card (a mesh is ROADMAP Queue 1 item 17): they are planned at
-one rank, with the parameters (and a train cell's moments and step) among
-the inputs. A cell the port has not built yet (of a family still to port)
-is reported as not ported, not as a failure.
+blocks of the batch and of a decode cell's KV cache. The port's DLRM and
+GNN cells run on one card (a mesh is ROADMAP Queue 1 item 17 for DLRM,
+item 16's third part (b) for the GNN family): they are planned at one
+rank, with the parameters (and a train cell's moments and step) among the
+inputs. A cell the port has not built yet would be reported as not
+ported, not as a failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -62,13 +63,17 @@ def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
 
 # a one-card cell's plan: one rank
 ONE_RANK = ShapeMesh((1,), ("data",))
+# the families whose cells run on one rank only, and the queue item of
+# their cells on a mesh
+ONE_RANK_FAMILIES = {"recsys": "ROADMAP Queue 1 item 17",
+                     "gnn": "ROADMAP Queue 1 item 16, third part (b)"}
 
 
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
              verbose: bool = True) -> dict:
     arch = get_arch(arch_name)
     mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    plan = ONE_RANK if arch.family == "recsys" else mesh
+    plan = ONE_RANK if arch.family in ONE_RANK_FAMILIES else mesh
     t0 = time.time()
     try:
         cell = build_cell(arch, shape_name, plan, device="meta")
@@ -77,7 +82,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
             print(f"== {arch_name} × {shape_name} × {mesh_kind}: not ported "
                   f"({e}) ==")
         return dict(arch=arch_name, shape=shape_name, mesh=mesh_kind,
-                    status="not ported (item 16, third part)")
+                    status=f"not ported ({e})")
     shape = arch.shapes[shape_name]
     build_s = time.time() - t0
     if arch.family == "recsys":  # one card: the parameters are inputs too
@@ -87,7 +92,8 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
         arg_bytes = (local_bytes(cell, plan)
                      + states * _dlrm_param_bytes(arch.model)
                      + (4 if shape["kind"] == "train" else 0))
-    else:  # the connectit inputs; an LM cell's model and AdamW state too
+    else:  # the connectit inputs; an LM or GNN cell's model and AdamW
+        # state too
         arg_bytes = local_bytes(cell, plan) + state_bytes(cell, plan)
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev
@@ -112,6 +118,9 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
               f"({'fits' if rec['fits'] else 'DOES NOT FIT'})")
         print(f"  roofline: compute={compute_t:.4e}s memory={memory_t:.4e}s "
               f"→ dominant={dom}")
+        if arch.family in ONE_RANK_FAMILIES:
+            print(f"  planned at one rank; the {mesh_kind} mesh's per-rank "
+                  f"plan is {ONE_RANK_FAMILIES[arch.family]}")
     return rec
 
 

@@ -40,8 +40,22 @@ shapes in ``state`` and their specs in ``state_shardings``.
     returns the cache so split and the logits whole over the vocabulary.
     The specs are the reference's (FSDP for train cells, the experts out
     of it unless ``moe_fsdp``); the step is Megatron TP, EP with one
-    all_to_all each way, FSDP (``legacy/models/spmd.py``). The GNN family
-    is ROADMAP Queue 1 item 16, third part.
+    all_to_all each way, FSDP (``legacy/models/spmd.py``).
+  * ``gnn``: GIN, PNA, EGNN and NequIP train cells on one rank,
+    ``fn(model, opt_state, *inputs)`` updating both in place: full-graph
+    and molecule shapes ``fn(model, opt_state, feats, senders, receivers,
+    targets[, graph_ids])`` (``feats`` a dict: ``{"feats"[, "coords"]}``,
+    NequIP's ``{"species", "coords"}``), ``minibatch_lg`` ``fn(model,
+    opt_state, feats, indptr, indices, seeds, labels, key)`` (the
+    reference's neighbour sampling inside the step), and
+    ``ogb_products_spmd`` the reference's calling convention ``fn(model,
+    opt_state, node_feats, coords, senders, receivers, targets)`` with
+    ``n + 1`` target rows, computing the dense loss over the ``n_real``
+    real rows (which the reference's SPMD loss equals). The segment sums of the step go through the
+    hand-written ``segment_sum`` over each edge array's sorted layout,
+    sorted at the first step on a graph (``kernels/segments.py``). On a
+    mesh of more than one rank they are ROADMAP Queue 1 item 16, third
+    part (b) (refused, not built for one rank).
 """
 
 from __future__ import annotations
@@ -58,6 +72,9 @@ from ..core.execution import ExecutionSpec, make_backend
 from ..core.finish import make_finish
 from ..graphs.containers import round_up
 from ..legacy import optim
+from ..graphs.sampler import sample_subgraph
+from ..legacy.models import gnn as gnn_mod
+from ..legacy.models import nequip as nequip_mod
 from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRM, DLRMConfig
 from ..legacy.models.spmd import spec_leaves
@@ -248,12 +265,16 @@ def _whole_specs(tree):
     """A spec tree of ``()`` (every leaf whole) in ``tree``'s structure."""
     if isinstance(tree, dict):
         return {k: _whole_specs(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_whole_specs(v) for v in tree]
     return ()
 
 
 def _meta_tree(shapes, dtype=torch.float32):
     if isinstance(shapes, dict):
         return {k: _meta_tree(v, dtype) for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [_meta_tree(v, dtype) for v in shapes]
     return _meta(tuple(shapes), dtype)
 
 
@@ -365,6 +386,180 @@ def _lm_cell(arch: Arch, shape_name: str, mesh) -> Cell:
 
 
 # ---------------------------------------------------------------------------
+# GNN cells (one rank).
+# ---------------------------------------------------------------------------
+
+def gnn_train_step(model, opt_state: optim.AdamState, loss_fn: Callable,
+                   ocfg: optim.OptimizerConfig = OPT):
+    """One step of the reference's GNN ``train_step``: ``loss_fn(params)``,
+    its gradient with respect to every parameter (zero for a leaf the loss
+    does not reach, as ``jax.grad`` gives: EGNN's last coordinate MLP), and
+    ``optim.update`` in place → ``(model, opt_state, {"loss", "lr",
+    "grad_norm"})``."""
+    params = model.params()
+    with torch.enable_grad():
+        loss = loss_fn(params)
+        grads = torch.autograd.grad(loss, optim.tree_leaves(params),
+                                    allow_unused=True, materialize_grads=True)
+    _, opt_state, info = optim.update(
+        ocfg, params, optim.tree_unflatten(params, grads), opt_state)
+    return model, opt_state, {"loss": loss.detach(), **info}
+
+
+def gnn_cell_dims(spec: dict) -> dict:
+    """The reference's sizes of a GNN shape: ``n_real`` nodes, ``n`` the
+    node rows but the dump (``round_up(n_real + 1, 512) - 1``: rows in
+    ``[n_real, n)`` are inert), ``m_pad`` edge slots (a multiple of 8,192)
+    and ``n_graphs``."""
+    kind = spec["kind"]
+    if kind == "molecule":
+        n_real = spec["nodes"] * spec["batch"]
+        m_pad = round_up(spec["edges"] * 2 * spec["batch"], 8192)
+        n_graphs = spec["batch"]
+    elif kind == "minibatch":
+        n_real = spec["n"]
+        f = spec["fanout"]
+        m_pad = round_up(spec["batch"] * (f[0] + f[0] * f[1]), 8192)
+        n_graphs = 1
+    else:
+        n_real = spec["n"]
+        m_pad = round_up(spec["m"], 8192)
+        n_graphs = 1
+    return dict(n_real=n_real, n=round_up(n_real + 1, 512) - 1,
+                m_pad=m_pad, n_graphs=n_graphs)
+
+
+def gnn_cell_config(arch: Arch, shape_name: str):
+    """The model config a GNN cell runs (the reference's ``_gnn_cell``):
+    NequIP with ``remat`` past 10^6 nodes; the others at the shape's
+    feature and class counts, in bfloat16 past 10^6 nodes, with a graph
+    readout on the molecule batch."""
+    spec = arch.shapes[shape_name]
+    big = gnn_cell_dims(spec)["n_real"] > 1_000_000
+    if arch.name == "nequip":
+        return dataclasses.replace(arch.model, remat=big)
+    return dataclasses.replace(
+        arch.model, d_in=spec["d_feat"], n_classes=spec["n_classes"],
+        dtype="bfloat16" if big else "float32",
+        readout="graph" if spec["kind"] == "molecule" else "node")
+
+
+def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
+    spec = arch.shapes[shape_name]
+    kind = spec["kind"]
+    is_nequip = arch.name == "nequip"
+    dims = gnn_cell_dims(spec)
+    n_real, n, m_pad, n_graphs = (dims[k] for k in
+                                  ("n_real", "n", "m_pad", "n_graphs"))
+    d_feat = spec["d_feat"]
+    mcfg = gnn_cell_config(arch, shape_name)
+    mod = nequip_mod if is_nequip else gnn_mod
+    pshapes = _meta_tree(mod.param_shapes(mcfg))
+    pspecs = _whole_specs(pshapes)
+    state = (pshapes, optim.AdamState(_meta((), torch.int32), pshapes,
+                                      pshapes))
+    state_specs = (pspecs, optim.AdamState((), pspecs, pspecs))
+    meta = dict(model_flops=2 * 3 * m_pad * getattr(mcfg, "d_hidden", 32)
+                * getattr(mcfg, "n_layers", 5), edges=m_pad)
+
+    if is_nequip:
+        feats = {"species": _meta((n + 1,), torch.int32),
+                 "coords": _meta((n + 1, 3), torch.float32)}
+        targets = _meta((n_graphs,), torch.float32)
+    else:
+        feats = {"feats": _meta((n + 1, d_feat), torch.float32)}
+        if mcfg.kind == "egnn":
+            feats["coords"] = _meta((n + 1, 3), torch.float32)
+        targets = _meta((n_graphs if kind == "molecule" else n,),
+                        torch.int32)
+    fspecs = {k: () for k in feats}
+
+    def node_mask(like):
+        return (torch.arange(n, device=like.device) < n_real).float()
+
+    def cell(fn, args):
+        return Cell(arch.name, shape_name, fn, args,
+                    (fspecs,) + ((),) * (len(args) - 1), donate=(0, 1),
+                    meta=meta, state=state, state_shardings=state_specs)
+
+    if kind == "minibatch":
+        indptr = _meta((n + 2,), torch.int32)
+        indices = _meta((round_up(spec["m"], 8192),), torch.int32)
+        seeds = _meta((spec["batch"],), torch.int32)
+        labels = _meta((n,), torch.int32)
+        key = _meta((2,), torch.int64)
+
+        def train_step(model, opt_state, feats, indptr, indices, seeds,
+                       labels, key):
+            s, r = sample_subgraph(indptr, indices, seeds, key,
+                                   spec["fanout"])
+            mask = torch.zeros((n,), dtype=torch.float32, device=s.device)
+            mask[seeds.long()] = 1.0
+
+            def loss_fn(p):
+                if is_nequip:
+                    return nequip_mod.nequip_loss(
+                        p, mcfg, feats["species"], feats["coords"], s, r,
+                        torch.zeros((1,), device=s.device))
+                return gnn_mod.gnn_loss(
+                    p, mcfg, feats["feats"], s, r, labels,
+                    coords=feats.get("coords"), label_mask=mask)
+
+            return gnn_train_step(model, opt_state, loss_fn)
+
+        return cell(train_step, (feats, indptr, indices, seeds, labels, key))
+
+    edges = _meta((m_pad,), torch.int32)
+    if spec.get("spmd"):
+        # the reference's convention: every node input whole (n + 1 rows),
+        # int targets of n + 1 rows for the classifiers
+        a2 = feats["species"] if is_nequip \
+            else _meta((n + 1, d_feat), torch.float32)
+        targets2 = targets if is_nequip else _meta((n + 1,), torch.int32)
+
+        def train_step(model, opt_state, a2, coords, s, r, targets):
+            def loss_fn(p):
+                if is_nequip:
+                    # the reference's SPMD loss sums the energy of the real
+                    # rows only: the padded rows take an id past the one
+                    # graph, which the segment sum drops
+                    real = (torch.arange(n + 1, device=s.device) >= n_real)
+                    return nequip_mod.nequip_loss(
+                        p, mcfg, a2, coords, s, r, targets,
+                        graph_ids=real.to(torch.int32), n_graphs=1)
+                return gnn_mod.gnn_loss(
+                    p, mcfg, a2, s, r, targets[:n],
+                    coords=coords if mcfg.kind == "egnn" else None,
+                    label_mask=node_mask(s))
+
+            return gnn_train_step(model, opt_state, loss_fn)
+
+        args = (a2, _meta((n + 1, 3), torch.float32), edges, edges, targets2)
+        return Cell(arch.name, shape_name, train_step, args,
+                    ((),) * len(args), donate=(0, 1), meta=meta,
+                    state=state, state_shardings=state_specs)
+
+    def train_step(model, opt_state, feats, s, r, targets, graph_ids=None):
+        def loss_fn(p):
+            if is_nequip:
+                return nequip_mod.nequip_loss(
+                    p, mcfg, feats["species"], feats["coords"], s, r,
+                    targets, graph_ids=graph_ids, n_graphs=n_graphs)
+            mask = node_mask(s) if mcfg.readout == "node" else None
+            return gnn_mod.gnn_loss(
+                p, mcfg, feats["feats"], s, r, targets,
+                coords=feats.get("coords"), graph_ids=graph_ids,
+                n_graphs=n_graphs, label_mask=mask)
+
+        return gnn_train_step(model, opt_state, loss_fn)
+
+    args = (feats, edges, edges, targets)
+    if kind == "molecule":
+        args += (_meta((n + 1,), torch.int32),)
+    return cell(train_step, args)
+
+
+# ---------------------------------------------------------------------------
 # ConnectIt production cells (the paper's own workload on a mesh).
 # ---------------------------------------------------------------------------
 
@@ -432,7 +627,8 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     ``ShapeMesh``, pass ``device="meta"``. An ``lm`` cell runs on one rank
     (``mesh`` None or of one rank) or on ``mesh`` (a ``DeviceMesh``; a
     ``ShapeMesh`` plans it), and takes its inputs' devices. A ``recsys``
-    cell runs on one rank and refuses a mesh of more."""
+    cell and a ``gnn`` train cell run on one rank and refuse a mesh of
+    more."""
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch.name} has no shape {shape_name!r}; have "
                        f"{sorted(arch.shapes)}")
@@ -446,11 +642,18 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
         return _dlrm_cell(arch, shape_name, arch.model)
     if arch.family == "lm":
         return _lm_cell(arch, shape_name, mesh)
+    if arch.family == "gnn":
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(
+                f"{arch.name}: GNN cells on a mesh of {mesh.size()} ranks "
+                f"(node state all-gathered for the edge gather, the "
+                f"aggregation reduce-scattered, gnn_spmd) are not ported yet "
+                f"(ROADMAP Queue 1 item 16, third part (b)); they run on one "
+                f"rank")
+        return _gnn_cell(arch, shape_name)
     if arch.family == "connectit":
         device = torch.device(device)
         if mesh is None:
             mesh = make_smoke_mesh(device.type)
         return _connectit_cell(arch, shape_name, mesh, device)
-    raise NotImplementedError(
-        f"{arch.name}: the {arch.family} family is not ported yet (ROADMAP "
-        f"Queue 1 item 16, third part)")
+    raise ValueError(f"{arch.name}: unknown family {arch.family!r}")

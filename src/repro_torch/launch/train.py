@@ -9,17 +9,20 @@ the process at step K: rerun the same command and the run goes on bit-exact
 embedding gradients and the MoE dispatch's backward add in a fixed
 order).
 
-The weights start from the reference's ``init_dlrm(PRNGKey(seed))`` or
-``init_params(PRNGKey(seed))`` and the batches are the reference's
-``RecsysStream`` or ``TokenStream`` (``repro_torch.random`` draws
-``jax.random``'s numbers), so a run follows the reference's within float32
-rounding. The ``recsys`` (DLRM) and ``lm`` families are ported; ``gnn`` is
-ROADMAP Queue 1 item 16, third part.
+The weights start from the reference's ``init_dlrm(PRNGKey(seed))``,
+``init_params``, ``init_gnn`` or ``init_nequip`` and the batches are the
+reference's ``RecsysStream`` or ``TokenStream``, or its GNN inputs on
+``rmat(512, 2048, seed)`` (``repro_torch.random`` draws ``jax.random``'s
+numbers), so a run follows the reference's within float32 rounding. Every
+family is ported: ``recsys`` (DLRM), ``lm`` and ``gnn`` (GIN, PNA, EGNN,
+NequIP; their gradients add in a fixed order through the ``segment_sum``
+kernel).
 
 Usage:
   python -m repro_torch.launch.train --arch dlrm-rm2 --steps 50 \\
       --ckpt-dir /tmp/run1 [--full] [--device cpu]
   python -m repro_torch.launch.train --arch qwen3-4b --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch gin-tu --steps 50 --device cpu
 """
 
 from __future__ import annotations
@@ -37,10 +40,13 @@ from ..configs import get_arch
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..legacy import checkpoint as ckpt
 from ..legacy import optim
+from ..graphs import generators as gen
 from ..legacy.data import RecsysStream, TokenStream
 from ..legacy.models import dlrm as dlrm_mod
+from ..legacy.models import gnn as gnn_mod
+from ..legacy.models import nequip as nequip_mod
 from ..legacy.models import transformer as tfm
-from .steps import lm_train_step, train_step
+from .steps import gnn_train_step, lm_train_step, train_step
 
 
 def smoke_model(arch):
@@ -94,9 +100,50 @@ def build_trainable(arch_name: str, *, smoke: bool = True, seed: int = 0,
         return model, optim.init_adam(model.params()), step_fn, data_fn
 
     if arch.family == "gnn":
-        raise NotImplementedError(
-            f"{arch_name}: the {arch.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item 16, third part)")
+        g = gen.rmat(512, 2048, seed=seed, device=dev)
+        n1 = g.n + 1
+        fkey = trandom.fold_in(key, 1)
+        ckey = trandom.fold_in(key, 2)
+        if arch.name == "nequip":
+            species = trandom.randint(fkey, (n1,), 0, mcfg.n_species)
+            coords = trandom.normal(ckey, (n1, 3))
+            model = nequip_mod.init_nequip(mcfg, key=key)
+
+            def data_fn(step):
+                tkey = trandom.fold_in(trandom.PRNGKey(seed + 7, device=dev),
+                                       step)
+                return {"targets": trandom.normal(tkey, (1,))}
+
+            def step_fn(model, opt_state, batch):
+                model, opt_state, info = gnn_train_step(
+                    model, opt_state,
+                    lambda p: nequip_mod.nequip_loss(
+                        p, mcfg, species, coords, g.senders, g.receivers,
+                        batch["targets"]), ocfg)
+                return model, opt_state, info["loss"]
+
+            return model, optim.init_adam(model.params()), step_fn, data_fn
+
+        d_in, n_classes = 16, 4
+        mcfg = dataclasses.replace(mcfg, d_in=d_in, n_classes=n_classes)
+        feats = trandom.normal(fkey, (n1, d_in))
+        coords = trandom.normal(ckey, (n1, 3))
+        labels = trandom.randint(trandom.fold_in(key, 3), (g.n,), 0,
+                                 n_classes)
+        model = gnn_mod.init_gnn(mcfg, key=key)
+
+        def data_fn(step):
+            return {}
+
+        def step_fn(model, opt_state, batch):
+            model, opt_state, info = gnn_train_step(
+                model, opt_state,
+                lambda p: gnn_mod.gnn_loss(
+                    p, mcfg, feats, g.senders, g.receivers, labels,
+                    coords=coords if mcfg.kind == "egnn" else None), ocfg)
+            return model, opt_state, info["loss"]
+
+        return model, optim.init_adam(model.params()), step_fn, data_fn
     raise ValueError(arch.family)
 
 

@@ -3,9 +3,9 @@
 Every batch is a function of ``(seed, step)`` alone: the LM and DLRM
 streams' are the reference's, drawn on the target device from
 ``fold_in(PRNGKey(seed), step)`` with ``repro_torch.random``
-(``jax.random``'s numbers: the tokens, ids and labels are the reference's
-bit for bit, DLRM's dense features within ``normal``'s ulps), and the edge
-stream's is a slice of its host edge list.
+(``jax.random``'s numbers: the tokens, ids, labels and GNN seed nodes are
+the reference's bit for bit, DLRM's dense features within ``normal``'s
+ulps), and the edge stream's is a slice of its host edge list.
 """
 
 from __future__ import annotations
@@ -80,6 +80,23 @@ class RecsysStream:
         labels = (trandom.uniform(kl, (self.batch,))
                   < torch.sigmoid(logit)).to(torch.int32)
         return {"dense": dense, "sparse": sparse, "labels": labels}
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphNodeStream:
+    """Seed-node batches for sampled GNN training."""
+
+    n_nodes: int
+    batch: int
+    seed: int = 0
+
+    def batch_at(self, step: int, *, device=DEFAULT_DEVICE) -> dict:
+        """``{"seeds": (batch,) int32 in [0, n_nodes), "key": the step's
+        sampling key}``."""
+        key = trandom.fold_in(trandom.PRNGKey(self.seed, device=device),
+                              step)
+        seeds = trandom.randint(key, (self.batch,), 0, self.n_nodes)
+        return {"seeds": seeds, "key": trandom.fold_in(key, 1)}
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,1 +1,2 @@
-"""Models of the ML stack: DLRM so far."""
+"""Models of the ML stack: DLRM, the transformer and its MoE, and the GNN
+family (GIN, PNA, EGNN) with NequIP."""

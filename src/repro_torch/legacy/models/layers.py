@@ -10,13 +10,14 @@ or from a ``torch.Generator`` (torch's numbers).
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Sequence
+from typing import Callable, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ... import random as trandom
+from ..tree import flatten
 
 
 def normal(shape: tuple, *, key=None, generator=None,
@@ -97,6 +98,76 @@ def mlp_init(sizes: Sequence[int], *, key=None, generator=None, device=None,
                          dtype=dtype) for a, b in pairs]
     bs = [torch.zeros(b, device=device, dtype=dtype) for b in sizes[1:]]
     return MLP(ws, bs, final_relu=final_relu)
+
+
+def mlp_params(sizes: Sequence[int], *, key, dtype=torch.float32) -> dict:
+    """The reference's ``mlp_init(key, sizes, dtype)`` pytree ``{"w0",
+    "b0", ...}`` as tensors on the key's device: layer ``i``'s weight from
+    ``split(key, len(sizes) - 1)[i]``, biases zero."""
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    keys = trandom.split(key, len(pairs))
+    out = {f"w{i}": dense_init(a, b, key=keys[i], dtype=dtype)
+           for i, (a, b) in enumerate(pairs)}
+    out.update({f"b{i}": torch.zeros(b, dtype=dtype, device=key.device)
+                for i, (_, b) in enumerate(pairs)})
+    return out
+
+
+def mlp_shapes(sizes: Sequence[int]) -> dict:
+    """The leaf shapes of ``mlp_params(sizes)``."""
+    out = {f"w{i}": (a, b) for i, (a, b) in enumerate(zip(sizes[:-1],
+                                                            sizes[1:]))}
+    out.update({f"b{i}": (b,) for i, b in enumerate(sizes[1:])})
+    return out
+
+
+def mlp_apply(params: Mapping, x: torch.Tensor, *,
+              act: Callable = torch.relu, final_act: Optional[Callable] = None,
+              n_layers: Optional[int] = None) -> torch.Tensor:
+    """The reference's ``mlp_apply``: ``x @ w_i + b_i`` with the weights
+    and biases cast to ``x``'s dtype, ``act`` between layers and
+    ``final_act`` (if any) after the last."""
+    n = n_layers if n_layers is not None else len(params) // 2
+    for i in range(n):
+        x = x @ params[f"w{i}"].to(x.dtype) + params[f"b{i}"].to(x.dtype)
+        if i < n - 1:
+            x = act(x)
+        elif final_act is not None:
+            x = final_act(x)
+    return x
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` in the two operands' promoted dtype, as ``jnp`` promotes a
+    bfloat16 activation against a float32 weight (to float32)."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return a.to(dt) @ b.to(dt)
+
+
+class ParamTree(nn.Module):
+    """A model whose parameters are the reference's pytree: the leaves are
+    ``nn.Parameter``s in the reference's leaf order, ``params()`` the
+    pytree of those tensors themselves (which ``legacy.optim`` updates in
+    place and ``legacy.checkpoint`` saves in that order)."""
+
+    def __init__(self, params: Mapping):
+        super().__init__()
+        leaves, rebuild = flatten(dict(params))
+        self._leaves = nn.ParameterList(
+            [x if isinstance(x, nn.Parameter) else nn.Parameter(x)
+             for x in leaves])
+        self._rebuild = rebuild
+
+    @staticmethod
+    def tensors(params: Mapping, *, device) -> dict:
+        """A pytree of arrays (the reference's, as numpy) as tensors on
+        ``device``."""
+        leaves, rebuild = flatten(dict(params))
+        return rebuild([torch.tensor(np.asarray(x), device=device)
+                        for x in leaves])
+
+    def params(self) -> dict:
+        return self._rebuild(list(self._leaves))
 
 
 # ---------------------------------------------------------------------------

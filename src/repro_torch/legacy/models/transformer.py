@@ -33,13 +33,12 @@ from typing import Mapping, NamedTuple, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ... import random as trandom
 from ..tree import flatten
 from .layers import apply_rope, chunked_attention, dense_init, div, no_shard
-from .layers import rms_norm
+from .layers import ParamTree, rms_norm
 from .moe import MoEConfig, moe_apply, moe_apply_spmd, moe_init
 from .moe import param_shapes as moe_shapes
 from .moe import swiglu_mesh
@@ -849,7 +848,7 @@ def _decode_step_mesh(params: dict, cache: KVCache, token: torch.Tensor,
 # The module.
 # ---------------------------------------------------------------------------
 
-class Transformer(nn.Module):
+class Transformer(ParamTree):
     """The model: its float32 parameters in the reference's pytree
     (``params()``, the tensors themselves, which ``legacy.optim`` updates in
     place and ``legacy.checkpoint`` saves in the reference's leaf order),
@@ -862,15 +861,10 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: TransformerConfig, params: Mapping, *,
                  mesh=None, specs=None):
-        super().__init__()
+        super().__init__(params)
         self.cfg = cfg
         self.mesh = mesh
         self.specs = specs
-        leaves, rebuild = flatten(dict(params))
-        self._leaves = nn.ParameterList(
-            [x if isinstance(x, nn.Parameter) else nn.Parameter(x)
-             for x in leaves])
-        self._rebuild = rebuild
         want = shape_leaves(param_shapes(cfg))
         if mesh is not None:
             want = [local_shape(w, sp, mesh)
@@ -885,18 +879,13 @@ class Transformer(nn.Module):
                     device, mesh=None, specs=None) -> "Transformer":
         """From the reference's ``init_params`` pytree, as arrays (global;
         on a ``mesh``, each rank keeps its block under ``specs``)."""
-        leaves, rebuild = flatten(dict(params))
         if mesh is None:
-            return cls(cfg, rebuild([torch.tensor(np.asarray(x),
-                                                  device=device)
-                                     for x in leaves]))
+            return cls(cfg, ParamTree.tensors(params, device=device))
+        leaves, rebuild = flatten(dict(params))
         blocks = [local_block(torch.from_numpy(np.asarray(x)), sp, mesh)
                   .to(device=device, copy=True)
                   for x, sp in zip(leaves, spec_leaves(specs))]
         return cls(cfg, rebuild(blocks), mesh=mesh, specs=specs)
-
-    def params(self) -> dict:
-        return self._rebuild(list(self._leaves))
 
     def forward(self, tokens: torch.Tensor) -> tuple:
         return forward(self.params(), tokens, self.cfg)

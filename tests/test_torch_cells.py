@@ -245,10 +245,12 @@ def test_connectit_shapes_match_repro():
 def test_unported_families_name_item_16(family):
     """The LM family is ported: its train cell builds at one rank and runs
     a step at the smoke config, and builds on a shape-only mesh (item 16's
-    second part (b), done). The GNN family still names item 16."""
+    second part (b), done). The GNN family is ported on one rank (item 16's
+    third part (a)): its train cell builds and takes a step at the smoke
+    config; on a production mesh it names item 16's third part (b)."""
+    from repro_torch import random as trandom
+    from repro_torch.legacy import optim as toptim
     if family == "lm":
-        from repro_torch import random as trandom
-        from repro_torch.legacy import optim as toptim
         from repro_torch.legacy.data import TokenStream
         from repro_torch.legacy.models import transformer as ttfm
         lm = get_arch("qwen3-4b")
@@ -269,9 +271,34 @@ def test_unported_families_name_item_16(family):
                                  b["tokens"], b["labels"])
         assert int(state.step) == 1 and bool(torch.isfinite(info["loss"]))
     else:
-        arch = tbase.Arch("x", family, None, {"s": dict(kind="train")}, {})
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            tsteps.build_cell(arch, "s")
+        from repro_torch.graphs import generators as tgen
+        from repro_torch.legacy.models import gnn as tgnn
+        gin = get_arch("gin-tu")
+        with pytest.raises(NotImplementedError,
+                           match=r"Queue 1 item 16, third part \(b\)"):
+            tsteps.build_cell(gin, "ogb_products",
+                              tmesh.make_production_mesh(), device="meta")
+        cfg = dataclasses.replace(gin.model, **gin.smoke)
+        g = tgen.rmat(64, 256, seed=0, device="cpu")
+        arch = dataclasses.replace(gin, model=cfg, shapes={
+            "s": dict(kind="full", n=g.n, m=g.m_pad, d_feat=8,
+                      n_classes=3)})
+        cell = tsteps.build_cell(arch, "s")
+        assert cell.donate == (0, 1) and cell.meta["edges"] == 8192
+        n = cell.args[0]["feats"].shape[0] - 1
+        model = tgnn.init_gnn(tsteps.gnn_cell_config(arch, "s"),
+                              key=trandom.PRNGKey(0, device="cpu"))
+        s = torch.full((8192,), n, dtype=torch.int32)
+        r = s.clone()
+        s[: g.m_pad], r[: g.m_pad] = g.senders, g.receivers
+        s = torch.where(s >= g.n, n, s)
+        r = torch.where(r >= g.n, n, r)
+        gen = torch.Generator().manual_seed(0)
+        feats = {"feats": torch.randn(n + 1, 8, generator=gen)}
+        labels = torch.randint(0, 3, (n,), generator=gen, dtype=torch.int32)
+        _, state, info = cell.fn(model, toptim.init_adam(model.params()),
+                                 feats, s, r, labels)
+        assert int(state.step) == 1 and bool(torch.isfinite(info["loss"]))
     # the recsys family's train cell is built, and the dry run plans it
     cell = tsteps.build_cell(get_arch("dlrm-rm2"), "train_batch")
     assert cell.fn is tsteps.train_step and cell.donate == (0, 1)
@@ -405,13 +432,13 @@ def test_dryrun_cli_plans_every_cell(tmp_path, capsys):
     out = tmp_path / "dryrun.csv"
     assert dryrun.main(["--all", "--mesh", "both", "--csv", str(out)]) == 0
     text = capsys.readouterr().out
-    # the connectit and dlrm-rm2 cells (4 each) and the 17 LM cells the
-    # archs support (long_500k only on h2o-danube's sliding window), on
-    # both meshes
-    assert "DRY-RUN SUMMARY: 50 ok, 0 not ported, 0 failed" in text
+    # the connectit and dlrm-rm2 cells (4 each), the 17 LM cells the archs
+    # support (long_500k only on h2o-danube's sliding window) and the 20
+    # GNN cells (4 archs x 5 shapes, at one rank), on both meshes
+    assert "DRY-RUN SUMMARY: 90 ok, 0 not ported, 0 failed" in text
     assert "NOT PORTED" not in text
     rows = out.read_text().splitlines()
-    assert len(rows) == 51 and rows[0].startswith("arch,shape,mesh")
+    assert len(rows) == 91 and rows[0].startswith("arch,shape,mesh")
 
 
 def test_dryrun_plans_the_dlrm_train_cell_by_hand():

@@ -53,10 +53,12 @@ _j_retrieval = jax.jit(jdlrm.retrieval_score, static_argnums=4,
 
 
 def test_registry_matches_jax():
-    # the LM archs are ported too (tests/test_torch_lm_cells.py holds their
-    # configs against the reference's); the GNN archs are not yet
+    # the LM and GNN archs are ported too (tests/test_torch_lm_cells.py and
+    # tests/test_torch_gnn_cells.py hold their configs against the
+    # reference's): every arch id of the reference, in its order
     assert all_archs() == ["h2o-danube-3-4b", "qwen3-4b", "stablelm-3b",
                            "deepseek-moe-16b", "granite-moe-3b-a800m",
+                           "pna", "egnn", "gin-tu", "nequip",
                            "dlrm-rm2", "connectit"]
     assert ARCH.family == "recsys"
     assert dataclasses.asdict(ARCH.model) == dataclasses.asdict(J_RM2)
@@ -64,8 +66,9 @@ def test_registry_matches_jax():
     assert ARCH.smoke == dict(vocab_sizes=(1000,) * 26, bot_mlp=(32, 16, 8),
                               embed_dim=8, top_mlp=(32, 16, 1))
     assert get_arch("qwen3-4b").family == "lm"
+    assert get_arch("gin-tu").family == "gnn"
     with pytest.raises(KeyError, match="unknown arch"):
-        get_arch("gin-tu")
+        get_arch("gin")
 
 
 def test_interaction_order_is_jnp_tril_indices():

@@ -611,11 +611,12 @@ def test_cpu_tensors_take_the_plain_path():
     ops.edge_relabel(P, s, s)
     ops.edge_rewrite(P, s, s)
     embedding_bag(torch.ones(8, 4), s.reshape(5, 10), mode="mean")
+    ops.segment_sum(torch.ones(50, 3), s, torch.arange(6, dtype=torch.int32))
     assert ops.launch_counts() == before
     assert set(before) == {"hook_compress", "pointer_jump", "scatter_min",
                            "edge_relabel", "edge_rewrite", "embedding_bag",
                            "embedding_bag_backward", "threefry_bits",
-                           "threefry_randint"}
+                           "threefry_randint", "segment_sum"}
 
 
 def test_reset_launch_counts_zeroes_every_counter():
@@ -638,7 +639,7 @@ def test_unsupported_device_raises():
 
 @pytest.mark.parametrize("name", sorted(set(ops.KERNELS) - {
     "embedding_bag", "embedding_bag_backward", "threefry_bits",
-    "threefry_randint"}))
+    "threefry_randint", "segment_sum"}))
 def test_kernel_wrappers_reject_what_they_cannot_take(name):
     fn = ops.KERNELS[name]
     before = fn.launches

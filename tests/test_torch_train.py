@@ -441,19 +441,21 @@ def test_unported_families_raise_in_build_trainable():
         "qwen3-4b", device="cpu")
     _, state, loss = step_fn(model, state, data_fn(0))
     assert int(state.step) == 1 and bool(torch.isfinite(loss))
-    # the GNN family is not
-    arch = jget_arch("gin-tu")
-    with pytest.raises(KeyError, match="unknown arch"):
-        ttrain.build_trainable("gin-tu", device="cpu")
-    assert arch.family == "gnn"
-    fake = dataclasses.replace(ARCH, name="x-gnn", family="gnn")
+    # the GNN family is ported too: gin-tu builds and takes a step
+    assert jget_arch("gin-tu").family == get_arch("gin-tu").family == "gnn"
+    model, state, step_fn, data_fn = ttrain.build_trainable(
+        "gin-tu", device="cpu")
+    _, state, loss = step_fn(model, state, data_fn(0))
+    assert int(state.step) == 1 and bool(torch.isfinite(loss))
+    # a family the port does not know is refused
+    fake = dataclasses.replace(ARCH, name="x-unknown", family="unknown")
     from repro_torch.configs import base
     base.register(fake)
     try:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-            ttrain.build_trainable("x-gnn", device="cpu")
+        with pytest.raises(ValueError, match="unknown"):
+            ttrain.build_trainable("x-unknown", device="cpu")
     finally:
-        base._REGISTRY.pop("x-gnn")
+        base._REGISTRY.pop("x-unknown")
 
 
 # ---------------------------------------------------------------------------
