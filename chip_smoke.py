@@ -11,7 +11,8 @@
                                                   # cards, a rank each
     python3 chip_smoke.py --parent build/parent/src/repro_torch
                                                   # also time a parent's bag
-                                                  # backward, in turns
+                                                  # backward, GIN step and
+                                                  # segment kernel, in turns
 
 Phases, in order; any failure exits non-zero:
 
@@ -341,7 +342,8 @@ Phases, in order; any failure exits non-zero:
               mesh of the same ranks (LM_SMOKE_TOL).
  22. gnn      the GNN family (GIN, PNA, EGNN) and NequIP on one rank
               (GNN_ARCHS), every aggregation and gather backward through
-              the segment_sum kernel: (a) each arch's full_graph_sm cell
+              the segment_sum kernel, GIN's aggregation and its gradient
+              through gather_sum: (a) each arch's full_graph_sm cell
               config at the published widths and depths, and the smoke
               configs in float32 and bfloat16, on the card against the CPU
               from the same weights (the output, the loss, every gradient
@@ -355,17 +357,29 @@ Phases, in order; any failure exits non-zero:
               same bits twice; (c) minibatch_lg: the CSR of 114,615,892
               RMAT edges drawn and sorted on the card, GraphNodeStream's
               seeds and sample_subgraph on the card equal to the CPU's bit
-              for bit, GIN's cell step at 602 features, the same bits
-              twice; (d) ogb_products: each arch's train step at the cell's
-              config (bf16; NequIP with remat), GIN uncut through its cell,
-              the others with the node and edge counts cut by GNN_OGB_CUT:
-              GNN_TIMED_STEPS timed, edges x layers / s, the peak, a traced
-              step split into gathers, segment_sum, GEMMs and the rest, the
-              same bits twice; (e) segment_sum on every call recorded from
-              (a)-(d) (RECORDED's run kinds "gnn ...", GNN_OGB_CALLS of the
-              uncut GIN step) against its plain version in float64 within
-              the float32 reordering bound, the same bits twice, with its
-              time, the plain version's, index_add_'s and the bound.
+              for bit, GIN's cell step at 602 features (sampling inside the
+              step), the same bits twice; with --parent the parent's step
+              from the same parameters (its first loss against this one's,
+              its p50 in turns); (d) ogb_products: each arch's train step at the cell's
+              config (bf16; NequIP with remat), GIN uncut through its cell
+              (its launches of both segment kernels asserted, no
+              index_select gather in its trace), the others with the node
+              and edge counts cut by GNN_OGB_CUT: GNN_TIMED_STEPS timed,
+              edges x layers / s, the peak, a traced step (after one that
+              warms the profiler; its traced segment kernels must equal the
+              wrappers' launch counts) split into gather_sum, segment_sum,
+              gathers, GEMMs and the rest, the same bits twice; with --parent the parent's GIN step from
+              the same parameters (its first loss and grad norm equal to
+              this one's bit for bit, its peak, trace and p50 in turns);
+              (e) segment_sum and gather_sum
+              on every call recorded from (a)-(d) (RECORDED's run kinds
+              "gnn ...", GNN_OGB_CALLS of the uncut GIN step) against the
+              plain version in float64 within the float32 reordering
+              bound, the same bits twice, gather_sum the same bits as
+              index_select, where and segment_sum, with the time (and with
+              --parent the parent's segment_sum, or its three-op path, in
+              turns), the plain version's, index_add_'s or
+              torch.sparse.mm's, and both bytes bounds.
 
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
@@ -783,8 +797,10 @@ RECORDED = (
     ("embedding_bag_backward", "dlrm-rm2", ("train",)),
     # the GNN family (phase gnn): GIN's train steps on full_graph_sm, the
     # molecule batch (every arch), minibatch_lg and ogb_products
-    # (GNN_OGB_CALLS of its calls)
+    # (GNN_OGB_CALLS of its calls); gather_sum: GIN's aggregations and
+    # their gradients in the same steps
     ("segment_sum", "gnn", GNN_RUNS),
+    ("gather_sum", "gnn", GNN_RUNS),
 )
 # the placement a recorded run's session takes
 RECORDED_EXEC = {"placement sharded": "sharded(x)",
@@ -6620,23 +6636,40 @@ GNN_TIMED_STEPS = 3
 # cut of 4 it peaks at 75.5 GB; EGNN fits at 8 (65.7 GB), NequIP at 16
 # (48.5 GB))
 GNN_OGB_CUT = {"gin-tu": 1, "pna": 8, "egnn": 8, "nequip": 16}
-# (e) the segment_sum calls kept from the full-size ogb_products GIN step
-# (of its 10: the degree, the first two layers' aggregations, the last
-# gather's backward, layer 1's; layer 0 gathers the features, which take
-# no gradient), each against the plain version; every call of the other
-# runs
-GNN_OGB_CALLS = (0, 1, 2, 9)
+# (e) the calls kept from the full-size ogb_products GIN step, each against
+# the plain version: of its one segment_sum, the degree; of its 9
+# gather_sums (the 5 layers' aggregations, then the gradients of layers 4
+# to 1; layer 0 gathers the features, which take no gradient), the first
+# two layers' aggregations, (n + 1, 100) and (n + 1, 64) bf16, and layer 1's
+# gradient; every call of the other runs
+GNN_OGB_CALLS = {"segment_sum": (0,), "gather_sum": (0, 1, 8)}
+# (d) traces of a step taken until one holds every segment kernel launch
+GNN_TRACE_TRIES = 3
+# (c) minibatch_lg's timed steps a run with --parent, in turns: its step
+# (sampling included) is host-bound and spreads by a quarter step to step
+GNN_MINIBATCH_STEPS = 10
 # the molecule batch's variant: examples/legacy/train_gnn.py's
 GNN_CC_VARIANT = "none+uf_sync_naive"
 
 
 class _SegmentRecorder:
-    """The (vals, order, offsets) of every segment_sum call made while it
-    is entered (the calls still launched as they were), the values cloned;
-    ``keep(i)`` says which calls, by their index in the run, are kept."""
+    """The segment_sum and gather_sum calls made while it is entered (the
+    calls still launched as they were) as ``(entry, (vals, ids, offsets,
+    kw, order))``: the values cloned, ``ids`` what the kernel reads
+    (segment_sum's order, gather_sum's gathered ids), ``kw`` the wrapper's
+    keywords (the layout's plan, gather_sum's bound on its ids), ``order``
+    the layout's sort; ``keep(entry, i)`` says which calls, by their index among
+    the entry's calls in the run, are kept."""
 
-    def __init__(self, keep=lambda i: True):
-        self.calls, self.made, self.keep = [], 0, keep
+    def __init__(self, keep=lambda entry, i: True):
+        self.calls, self.keep = [], keep
+        self.made = {"segment_sum": 0, "gather_sum": 0}
+
+    def _take(self, entry, vals, ids, offsets, kw, order) -> None:
+        if self.keep(entry, self.made[entry]):
+            self.calls.append((entry, (vals.clone(), ids, offsets, kw,
+                                       order)))
+        self.made[entry] += 1
 
     def __enter__(self):
         from types import SimpleNamespace
@@ -6644,20 +6677,32 @@ class _SegmentRecorder:
         import repro_torch.kernels.segments as segments
 
         # Segments.sum reaches the dispatch through the module's name for
-        # ops: that name is patched, so the wrapper and its count stay
+        # ops: that name is patched, so the wrapper and its count stay;
+        # gather_sum is recorded where its layout is at hand, in
+        # Gathered.sum, which then runs as it was
         self._mod, self._ops = segments, segments.ops
-        launch = self._ops.segment_sum
+        self._gathered = segments.Gathered.sum
+        launch, gathered = self._ops.segment_sum, self._gathered
 
-        def record(vals, order, offsets):
-            if self.keep(self.made):
-                self.calls.append((vals.clone(), order, offsets))
-            self.made += 1
-            return launch(vals, order, offsets)
-        segments.ops = SimpleNamespace(segment_sum=record)
+        def record(vals, order, offsets, *, plan=None):
+            self._take("segment_sum", vals, order, offsets, dict(plan=plan),
+                       order)
+            return launch(vals, order, offsets, plan=plan)
+
+        def record_gathered(g, x):
+            flat = x.reshape(x.shape[0], -1).contiguous()
+            self._take("gather_sum", flat, g.ids, g.segs.offsets,
+                       dict(plan=g.plan, id_max=g.id_limit - 1),
+                       g.segs.order)
+            return gathered(g, x)
+        segments.ops = SimpleNamespace(**{**vars(self._ops),
+                                          "segment_sum": record})
+        segments.Gathered.sum = record_gathered
         return self
 
     def __exit__(self, *exc):
         self._mod.ops = self._ops
+        self._mod.Gathered.sum = self._gathered
 
 
 def gnn_rmat(torch, n_real: int, m: int, seed: int,
@@ -6869,29 +6914,78 @@ def _gnn_repeat(torch, tag: str, model, state, step) -> None:
           f"all {len(saved)} parameter and moment leaves equal bit for bit")
 
 
-def _gnn_profile(torch, tag: str, fn) -> dict:
-    """One run of ``fn`` under torch.profiler: the device time of its
-    kernels split by name into the gathers (index_select), segment_sum,
-    the GEMMs, PNA's scatter_reduce and the rest, with the busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def _gnn_traced(torch, fn, ops) -> tuple:
+    """``(prof, wall, launch counts)`` of one run of ``fn`` under
+    torch.profiler, after one run of ``fn`` that warms it (a trace started
+    on the step itself can miss its first launches)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        ops.reset_launch_counts()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    part = dict(gathers=0.0, segment_sum=0.0, gemm=0.0, scatter_reduce=0.0,
-                rest=0.0)
-    rows = sorted(((ev.device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == DeviceType.CUDA), reverse=True)
-    for dev_us, key, _ in rows:
+        counts = ops.launch_counts()
+        prof.step()
+    return prof, wall, counts
+
+
+def _gnn_profile(torch, tag: str, fn, ops) -> dict:
+    """One traced run of ``fn`` (``_gnn_traced``): the device time of its
+    kernels split by name into gather_sum, segment_sum (this checkout's
+    kernel, or a parent's two), the gathers (index_select's and the
+    others), the GEMMs, PNA's scatter_reduce and the rest, with the busy
+    share and the launches of index_select's gather kernels. ``ops``: the
+    kernels.ops of the package ``fn`` runs (this checkout's or the
+    parent's); a trace is taken again, GNN_TRACE_TRIES times at most,
+    until its calls of each segment kernel equal the wrapper's count for
+    that run."""
+    from torch.autograd import DeviceType
+
+    # one launch a call of each entry's first (or only) kernel; the
+    # parent's segment_sum began with segment_pieces
+    first = {"segment_sum": ("segment_sum_kernel", "segment_pieces_kernel"),
+             "gather_sum": ("gather_sum_kernel",)}
+    for attempt in range(1, GNN_TRACE_TRIES + 1):
+        prof, wall, counts = _gnn_traced(torch, fn, ops)
+        # the kernels (a schedule's step annotation spans them on the
+        # device too, and is left out)
+        rows = sorted(((ev.device_time_total, ev.key, ev.count)
+                       for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA
+                       and not ev.key.startswith("ProfilerStep")),
+                      reverse=True)
+        traced = {e: sum(c for _, k, c in rows if any(n in k for n in names))
+                  for e, names in first.items()}
+        want = {e: counts.get(e, 0) for e in first}
+        if traced == want:
+            break
+        print(f"[gnn] profile {tag}: trace {attempt} holds segment kernel "
+              f"calls {traced}, the wrappers launched {want}")
+    require(traced == want, f"gnn profile {tag}: the trace holds segment "
+            f"kernel calls {traced}, the wrappers launched {want}, in "
+            f"{GNN_TRACE_TRIES} traces")
+    part = dict(gather_sum=0.0, segment_sum=0.0, gathers=0.0, gemm=0.0,
+                scatter_reduce=0.0, rest=0.0)
+    index_launches = 0
+    for dev_us, key, count in rows:
         k, t = key.lower(), dev_us / 1e3
-        if "segment_pieces" in k or "segment_rows" in k:
+        if "gather_sum_" in k:
+            part["gather_sum"] += t
+        elif any(w in k for w in ("segment_sum_", "segment_pieces",
+                                  "segment_rows")):
             part["segment_sum"] += t
-        elif "indexselect" in k or "index_select" in k or "gather" in k:
+        elif any(w in k for w in ("vectorized_gather", "indexselect",
+                                  "index_select")):
+            part["gathers"] += t
+            index_launches += count
+        elif "gather" in k:
             part["gathers"] += t
         elif any(w in k for w in ("gemm", "xmma", "cutlass", "wgmma")):
             part["gemm"] += t
@@ -6904,10 +6998,13 @@ def _gnn_profile(torch, tag: str, fn) -> dict:
                       for k, v in part.items())
     print(f"[gnn] profile {tag}: traced wall {wall:.4f} s, device busy "
           f"{busy / 1e3:.4f} s ({100 * busy / 1e3 / wall:.1f}%), idle "
-          f"{100 * (1 - busy / 1e3 / wall):.1f}%; {share}")
+          f"{100 * (1 - busy / 1e3 / wall):.1f}%; {share}; index_select "
+          f"gather launches {index_launches}; segment kernel calls traced "
+          f"{json.dumps(traced)}, equal to the wrappers' counts (trace "
+          f"{attempt})")
     for dev_us, key, count in rows[:8]:
         print(f"[gnn]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:100]}")
-    return dict(part, busy=busy, wall=wall)
+    return dict(part, busy=busy, wall=wall, index_launches=index_launches)
 
 
 def molecule_batch(torch, nodes: int, edges: int, batch: int,
@@ -6964,7 +7061,7 @@ def _gnn_smoke(torch, seed: int, records: list) -> dict:
                 torch, "full_graph_sm", name, cfg, x, s, r, seed, ocfg,
                 n_real=dims["n_real"])
         if name == "gin-tu":
-            records += [("gnn full_graph_sm", c) for c in rec.calls
+            records += [("gnn full_graph_sm", e, c) for e, c in rec.calls
                         if c[0].is_cuda]
     sn, sm = GNN_SMOKE_GRAPH
     s0, r0 = gnn_rmat(torch, sn, sm, seed + 1)
@@ -7061,9 +7158,10 @@ def _gnn_molecule(torch, seed: int, records: list, card: str) -> None:
             torch.cuda.synchronize()
         counts = ops.launch_counts()
         require(counts["segment_sum"] > 0 and bool(
-            torch.isfinite(info["loss"])), f"gnn molecule {name}: launches "
+            torch.isfinite(info["loss"])) and (counts["gather_sum"] > 0) == (
+                name == "gin-tu"), f"gnn molecule {name}: launches "
             f"{counts}, loss {info['loss']}")
-        records += [("gnn molecule", c) for c in rec.calls]
+        records += [("gnn molecule", e, c) for e, c in rec.calls]
         _gnn_repeat(torch, f"(b) molecule {name}", model, state,
                     lambda m, st: cell.fn(m, st, feats, s, r, x["targets"],
                                           gids))
@@ -7072,7 +7170,8 @@ def _gnn_molecule(torch, seed: int, records: list, card: str) -> None:
               f"{batch} graph ids, a train step: loss "
               f"{float(info['loss']):.6f}, grad_norm "
               f"{float(info['grad_norm']):.6f}; segment_sum launches a step "
-              f"{counts['segment_sum']}; card {card}")
+              f"{counts['segment_sum']}, gather_sum {counts['gather_sum']}; "
+              f"card {card}")
 
 
 def minibatch_csr(torch, n_real: int, n: int, m: int, m_rows: int,
@@ -7092,10 +7191,13 @@ def minibatch_csr(torch, n_real: int, n: int, m: int, m_rows: int,
 
 
 def _gnn_minibatch(torch, seed: int, records: list, card: str,
-                   cut: int) -> None:
+                   cut: int, parent=None) -> None:
     """(c) minibatch_lg: the Reddit-scale CSR on the card, GraphNodeStream's
     seeds and sample_subgraph on the card against the CPU bit for bit, and
-    GIN's train step at the published width."""
+    GIN's train step at the published width, which samples its subgraph
+    and so lays it out anew each step; with ``parent`` (--parent) the
+    parent's step from the same parameters, its first loss against this
+    one's and its p50 in turns with this one's."""
     import dataclasses
 
     from repro_torch.configs import get_arch
@@ -7159,7 +7261,31 @@ def _gnn_minibatch(torch, seed: int, records: list, card: str,
         return cell.fn(model, state, feats, indptr, indices, b["seeds"],
                        x["targets"], b["key"])
 
-    step(model, state)  # warm
+    vs = ""
+    if parent is not None:
+        pmodel, pstate, pcell, _ = _gnn_parent_cell(torch, parent, arch,
+                                                    "minibatch_lg", model)
+
+        def pstep(m, st):
+            return pcell.fn(m, st, feats, indptr, indices, b["seeds"],
+                            x["targets"], b["key"])
+        _, pstate, pinfo0 = pstep(pmodel, pstate)
+    _, _, info0 = step(model, state)  # warm
+    if parent is not None:
+        require(torch.equal(pinfo0["loss"], info0["loss"]), f"gnn "
+                f"minibatch: the first step's loss {float(info0['loss'])!r} "
+                f"is not the parent's {float(pinfo0['loss'])!r} bit for bit")
+        turns = _steps_p50(torch, {
+            "parent": lambda: pstep(pmodel, pstate),
+            "change": lambda: step(model, state)}, GNN_MINIBATCH_STEPS)
+        vs = (f"; parent -> change in turns (parent, change, change, parent, "
+              f"{GNN_MINIBATCH_STEPS} steps each, sampling included): p50 "
+              f"{turns['parent'][0]:.4f} -> {turns['change'][0]:.4f} s "
+              f"({turns['parent'][0] / turns['change'][0]:.2f}x; parent "
+              f"{json.dumps(turns['parent'][1])}, change "
+              f"{json.dumps(turns['change'][1])}"
+              f"); the first step's loss equal to the parent's bit for bit")
+        del pmodel, pstate, pstep, pcell
     ops.reset_launch_counts()
     with _SegmentRecorder() as rec:
         torch.cuda.synchronize()
@@ -7168,25 +7294,75 @@ def _gnn_minibatch(torch, seed: int, records: list, card: str,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    require(counts["segment_sum"] > 0 and bool(torch.isfinite(info["loss"])),
+    require(counts["segment_sum"] > 0 and counts["gather_sum"] > 0
+            and bool(torch.isfinite(info["loss"])),
             f"gnn minibatch: launches {counts}, loss {info['loss']}")
-    records += [("gnn minibatch_lg", c) for c in rec.calls]
+    records += [("gnn minibatch_lg", e, c) for e, c in rec.calls]
     _gnn_repeat(torch, "(c) minibatch_lg gin-tu", model, state, step)
     print(f"[gnn] (c) minibatch_lg gin-tu at {spec['d_feat']} features, "
           f"{spec['n_classes']} classes (features {x['feats'].numel() * 4} "
           f"bytes): a train step with its sampling {wall:.4f} s, loss "
-          f"{float(info['loss']):.6f}; launches {json.dumps(counts)}; card "
-          f"{card}")
+          f"{float(info['loss']):.6f}; launches {json.dumps(counts)}{vs}; "
+          f"card {card}")
+
+
+def _gnn_parent_cell(torch, parent, arch, shape: str, model) -> tuple:
+    """The parent checkout's (--parent) GIN cell of ``shape`` with a copy
+    of ``model``'s parameters and fresh AdamW moments: ``(model, state,
+    cell, the parent's kernels.ops)``. The parent's cell takes this
+    checkout's arch (the parent's registry loads this checkout's
+    configs)."""
+    import importlib
+
+    from repro_torch.legacy import optim
+    name = parent.__name__
+    psteps = importlib.import_module(f"{name}.launch.steps")
+    pgnn = importlib.import_module(f"{name}.legacy.models.gnn")
+    poptim = importlib.import_module(f"{name}.legacy.optim")
+    pops = importlib.import_module(f"{name}.kernels.ops")
+    params = model.params()
+    pmodel = pgnn.GNN(model.cfg, optim.tree_unflatten(
+        params, [x.detach().clone() for x in optim.tree_leaves(params)]))
+    return (pmodel, poptim.init_adam(pmodel.params()),
+            psteps.build_cell(arch, shape), pops)
+
+
+def _steps_p50(torch, steps: dict, n: int) -> dict:
+    """``{name: (p50, [wall of each step])}``: ``n`` steps of each of
+    ``steps`` (name -> a no-argument step); of several, in turns, forth and
+    back (2 n steps each)."""
+    import numpy as np
+    walls = {k: [] for k in steps}
+    turns = list(steps) + list(steps)[::-1] if len(steps) > 1 else steps
+    for k in turns:
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            steps[k]()
+            torch.cuda.synchronize()
+            walls[k].append(time.perf_counter() - t0)
+    return {k: (float(np.median(w)), w) for k, w in walls.items()}
+
+
+def _step_peak(torch, fn) -> tuple:
+    """``(peak bytes above what was allocated before, fn's result)``."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, out
 
 
 def _gnn_ogb(torch, seed: int, records: list, card: str,
-             small: bool) -> dict:
+             small: bool, parent=None) -> dict:
     """(d) ogb_products: each arch's train step at the published size (GIN
     through its cell), or cut by GNN_OGB_CUT; step p50, edges/s, peak,
-    a profiled step's split, the same bits twice. Returns GIN's launches
-    a step."""
-    import numpy as np
-
+    a profiled step's split, the same bits twice. GIN's launches of both
+    segment kernels asserted and no index_select gather in its trace; with
+    ``parent`` (--parent) the parent's GIN step from the same parameters,
+    its first loss against this one's, its peak, its p50 in turns and its
+    trace. Returns each arch's launches a step."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.kernels.segments import Segments
@@ -7200,7 +7376,7 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
 
     full = get_arch("gin-tu").shapes["ogb_products"]
     launches = {}
-    # GIN last: its recorded calls (~33 GB) are held until (e)
+    # GIN last: its recorded calls are held until (e)
     for name in sorted(GNN_ARCHS, key=lambda a: a == "gin-tu"):
         arch = get_arch(name)
         cut = GNN_OGB_CUT[name] * (64 if small else 1)
@@ -7220,9 +7396,10 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
         gen_s = time.perf_counter() - t0
         model = _gnn_model(torch, name, cfg, seed)
         state = optim.init_adam(model.params())
-        if cut == 1 and name == "gin-tu":
+        gin = cut == 1 and name == "gin-tu"
+        feats = {k: v for k, v in x.items() if k != "targets"}
+        if gin:
             cell = build_cell(arch, "ogb_products")
-            feats = {k: v for k, v in x.items() if k != "targets"}
 
             def step(model, state):
                 return cell.fn(model, state, feats, s, r, x["targets"])
@@ -7232,34 +7409,77 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
 
             def step(model, state):
                 return gnn_train_step(model, state, loss_fn, OPT)
+        pgin = None
+        if gin and parent is not None:
+            pmodel, pstate, pcell, pops = _gnn_parent_cell(
+                torch, parent, arch, "ogb_products", model)
+
+            def pstep(m, st):
+                return pcell.fn(m, st, feats, s, r, x["targets"])
+            pgin = pmodel, pstate, pstep, pops
         t0 = time.perf_counter()
-        step(model, state)  # the first: sorts the edges, warms
+        _, state, info0 = step(model, state)  # the first: sorts, warms
         torch.cuda.synchronize()
         first = time.perf_counter() - t0
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
-        keep = name == "gin-tu" and cut == 1 and not small
-        with _SegmentRecorder(lambda i: keep and i in GNN_OGB_CALLS) as rec:
-            _, state, info = step(model, state)
-            torch.cuda.synchronize()
+        peak, (_, state, info) = _step_peak(torch, lambda: step(model, state))
         counts = ops.launch_counts()
-        peak = torch.cuda.max_memory_allocated() - base
+        if gin and not small:  # the calls kept for (e), recorded apart
+            with _SegmentRecorder(lambda e, i: i in GNN_OGB_CALLS[e]) as rec:
+                step(model, state)
+            records += [("gnn ogb_products", e, c) for e, c in rec.calls]
         require(counts["segment_sum"] > 0 and bool(
             torch.isfinite(info["loss"])), f"gnn ogb_products {name}: "
             f"launches {counts}, loss {info['loss']}")
-        launches[name] = counts["segment_sum"]
-        walls = []
-        for _ in range(GNN_TIMED_STEPS):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step(model, state)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        p50 = float(np.median(walls))
+        if name == "gin-tu":
+            # the degree; each layer's aggregation, and each layer's
+            # gradient but the first's (the features take none)
+            require(counts["segment_sum"] == 1 and
+                    counts["gather_sum"] == 2 * cfg.n_layers - 1,
+                    f"gnn ogb_products gin-tu: launches a step {counts}")
+        else:
+            require(counts["gather_sum"] == 0, f"gnn ogb_products {name}: "
+                    f"gather_sum launched ({counts})")
+        launches[name] = {k: counts[k] for k in ("segment_sum",
+                                                  "gather_sum")}
+        vs = ""
+        if pgin is not None:
+            pmodel, pstate, pstep, pops = pgin
+            _, pstate, pinfo0 = pstep(pmodel, pstate)
+            ppeak, (_, pstate, _) = _step_peak(
+                torch, lambda: pstep(pmodel, pstate))
+            same = bool(torch.equal(pinfo0["loss"], info0["loss"])
+                        and torch.equal(pinfo0["grad_norm"],
+                                        info0["grad_norm"]))
+            require(same, f"gnn ogb_products gin-tu: the first step's loss "
+                    f"{float(info0['loss'])!r} and grad norm "
+                    f"{float(info0['grad_norm'])!r} are not the parent's "
+                    f"({float(pinfo0['loss'])!r}, "
+                    f"{float(pinfo0['grad_norm'])!r}) bit for bit")
+            turns = _steps_p50(torch, {
+                "parent": lambda: pstep(pmodel, pstate),
+                "change": lambda: step(model, state)}, GNN_TIMED_STEPS)
+            p50, walls = turns["change"]
+            pprof = _gnn_profile(torch, "(d) ogb_products gin-tu parent",
+                                 lambda: pstep(pmodel, pstate), pops)
+            vs = (f"; parent -> change in turns (parent, change, change, "
+                  f"parent, {GNN_TIMED_STEPS} steps each): p50 "
+                  f"{turns['parent'][0]:.4f} -> {p50:.4f} s "
+                  f"({turns['parent'][0] / p50:.2f}x), peak {ppeak} -> "
+                  f"{peak} bytes, traced busy {pprof['busy'] / 1e3:.4f} s, "
+                  f"index_select gather launches {pprof['index_launches']} "
+                  f"(the change's below); first step's loss and grad norm "
+                  f"equal to the parent's bit for bit")
+            del pmodel, pstate, pstep, pgin, pcell
+        else:
+            p50, walls = _steps_p50(torch, {"change": lambda: step(
+                model, state)}, GNN_TIMED_STEPS)["change"]
         n_layers = cfg.n_layers
         prof = _gnn_profile(torch, f"(d) ogb_products {name}",
-                            lambda: step(model, state))
+                            lambda: step(model, state), ops)
+        if name == "gin-tu":
+            require(prof["index_launches"] == 0, f"gnn ogb_products gin-tu: "
+                    f"{prof['index_launches']} index_select gathers traced")
         _gnn_repeat(torch, f"(d) ogb_products {name}", model, state, step)
         cut_note = ("uncut" if cut == 1 else
                     f"nodes and edges / {cut}: n {spec['n']}, m {spec['m']}")
@@ -7267,64 +7487,157 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
               f"{dims['m_pad']} edge slots, n + 1 = {dims['n'] + 1}; dtype "
               f"{getattr(cfg, 'dtype', 'float32')}, remat {cfg.remat}): "
               f"graph and inputs on the card in {gen_s:.2f} s; first step "
-              f"(sorts the edges) {first:.4f} s; {GNN_TIMED_STEPS} timed "
+              f"(sorts the edges) {first:.4f} s; {len(walls)} timed "
               f"steps p50 {p50:.4f} s (min {min(walls):.4f}, max "
               f"{max(walls):.4f}), {dims['m_pad'] * n_layers / p50:.4e} "
               f"edges x layers / s; peak above the graph, inputs and state "
               f"{peak} bytes; loss {float(info['loss']):.6f}; launches a "
-              f"step {json.dumps(counts)}; card {card}")
-        records += [("gnn ogb_products", c) for c in rec.calls]
-        del model, state, x, s, r, step, prof
+              f"step {json.dumps(counts)}{vs}; card {card}")
+        del model, state, x, s, r, step, prof, feats
         Segments.clear_cache()
     torch.cuda.empty_cache()
     return launches
 
 
-def _gnn_segment_cases(torch, records: list) -> dict:
-    """(e) segment_sum on every recorded call against its plain version
-    in float64 (in 8-column slices), within the float32 reordering bound
-    (count x 2^-24 x the row's sum of |x|, and one rounding to bfloat16),
-    the same bits on a second launch; its time, the plain version's in the
-    call's dtype, index_add_'s into a zero buffer (one call computing the
-    same function) and the bytes bound."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.segment.ref import segment_sum_ref
+def _segment_within_bound(torch, tag: str, got, vals, ids, offsets,
+                          counts, ref) -> float:
+    """``got`` against ``ref`` in float64, 8 columns at a time, within the
+    float32 reordering bound (``counts`` x 2^-24 x the row's sum of |x|,
+    and one rounding to bfloat16); the largest error."""
+    worst = 0.0
+    for c0 in range(0, got.shape[1], 8):
+        v = vals[:, c0: c0 + 8].double()
+        want = ref(v, ids, offsets)
+        bound = counts * 2.0 ** -24 * ref(v.abs(), ids, offsets)
+        if vals.dtype == torch.bfloat16:
+            bound = bound + 2.0 ** -8 * want.abs()
+        err = (got[:, c0: c0 + 8].double() - want).abs()
+        require(bool((err <= bound + 1e-30).all()), f"{tag}: past the "
+                f"reordering bound by {float((err - bound).max())}")
+        worst = max(worst, float(err.max()))
+        del v, want, bound, err
+    return worst
 
-    kernel = ops.KERNELS["segment_sum"]
-    inputs, main = {}, None
-    runs = {}
-    for run, call in records:
-        runs.setdefault(run, []).append(call)
-    for run in GNN_RUNS:
-        calls = runs.pop(run, [])
-        if not calls:
-            continue
-        worst, nbytes = 0.0, 0
-        for vals, order, offsets in calls:
-            got = kernel(vals, order, offsets)
-            require(torch.equal(got, kernel(vals, order, offsets)),
-                    f"segment_sum {run}: two launches differ")
-            rows, d = got.shape
-            counts = (offsets[1:] - offsets[:-1]).double()[:, None]
-            for c0 in range(0, d, 8):
-                v = vals[:, c0: c0 + 8].double()
-                want = segment_sum_ref(v, order, offsets)
-                absum = segment_sum_ref(v.abs(), order, offsets)
-                bound = counts * 2.0 ** -24 * absum
-                if vals.dtype == torch.bfloat16:
-                    bound = bound + 2.0 ** -8 * want.abs()
-                err = (got[:, c0: c0 + 8].double() - want).abs()
-                require(bool((err <= bound + 1e-30).all()),
-                        f"segment_sum {run}: past the reordering bound "
-                        f"by {float((err - bound).max())}")
-                worst = max(worst, float(err.max()))
-                del v, want, absum, bound, err
-            nbytes += (vals.numel() * vals.element_size() + 4 * order.numel()
-                       + 4 * offsets.numel() + got.numel()
-                       * got.element_size())
-            del got
-        ids = []
-        for vals, order, offsets in calls:
+
+def _live_csr(torch, ids, offsets, rows_x: int, dtype):
+    """gather_sum's function as a sparse (R, rows_x) CSR of its live
+    positions, ones of ``dtype`` (duplicates kept: torch.sparse.mm adds
+    them)."""
+    live = ids >= 0
+    cum = torch.zeros(ids.shape[0] + 1, dtype=torch.int64, device=ids.device)
+    cum[1:] = torch.cumsum(live, 0)
+    col = ids[live].long()
+    return torch.sparse_csr_tensor(
+        cum[offsets.long()], col,
+        torch.ones(col.shape[0], dtype=dtype, device=ids.device),
+        size=(offsets.shape[0] - 1, rows_x))
+
+
+def _segment_run(torch, entry: str, run: str, calls: list, pseg) -> dict:
+    """One recorded run of ``entry``: every call against the plain version
+    and twice (gather_sum's also against the three-op path: its messages,
+    index_select by the edges' ids and where, summed by segment_sum over
+    the layout, the same bits), the calls' time back to back (with the
+    parent's ``pseg`` in turns: its segment_sum, or for gather_sum its
+    three-op path), the plain version's, one library call's and both bytes
+    bounds."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segment.ref import (
+        gather_sum_ref,
+        segment_sum_ref,
+    )
+
+    gather = entry == "gather_sum"
+    kernel = ops.KERNELS[entry]
+    ref = gather_sum_ref if gather else segment_sum_ref
+    worst, nbytes, nbytes_once, live_adds = 0.0, 0, 0, 0
+    msgs, firsts = [], []
+    for vals, ids, offsets, kw, order in calls:
+        got = kernel(vals, ids, offsets, **kw)
+        require(torch.equal(got, kernel(vals, ids, offsets, **kw)),
+                f"{entry} {run}: two launches differ")
+        m = ids.shape[0]
+        live = ids >= 0
+        counts = segment_sum_ref(live.double()[:, None], torch.arange(
+            m, device=ids.device), offsets)
+        worst = max(worst, _segment_within_bound(
+            torch, f"{entry} {run}", got, vals, ids, offsets, counts, ref))
+        n_live = int(counts.sum())
+        live_adds += n_live * vals.shape[1]
+        fixed = (4 * m + 4 * offsets.numel()
+                 + got.numel() * got.element_size())
+        row = vals.shape[1] * vals.element_size()
+        nbytes += (n_live if gather else m) * row + fixed
+        nbytes_once += vals.numel() * vals.element_size() + fixed
+        if gather:
+            # the edges' gathered ids and mask, in the edges' own order
+            e = order.long()
+            eid = torch.zeros(m, dtype=torch.int32, device=ids.device)
+            eid[e] = ids.clamp(min=0)
+            mask = torch.zeros(m, dtype=torch.bool, device=ids.device)
+            mask[e] = live
+            mask = mask[:, None]
+            three = ops.segment_sum(torch.where(
+                mask, vals.index_select(0, eid), 0), order, offsets)
+            require(torch.equal(got, three), f"gather_sum {run}: not the "
+                    f"bits of index_select, where and segment_sum")
+            if pseg is not None:
+                require(torch.equal(got, pseg(torch.where(
+                    mask, vals.index_select(0, eid), 0), order, offsets)),
+                    f"gather_sum {run}: not the parent's bits")
+            msgs.append((eid, mask))
+            del three, e
+        firsts.append(got if not firsts else None)
+        del got, counts, live
+    got0 = firsts[0]
+
+    def change():
+        return [kernel(v, i, o, **kw) for v, i, o, kw, _ in calls]
+
+    def three_op(segment_sum):
+        return lambda: [segment_sum(torch.where(
+            mk, v.index_select(0, ei), 0), order, o) for (
+                v, _, o, _, order), (ei, mk) in zip(calls, msgs)]
+    turns = {"change": change}
+    if pseg is not None:
+        turns = {"parent": three_op(pseg) if gather else lambda: [
+            pseg(v, i, o) for v, i, o, _, _ in calls], **turns}
+    times = {k: [] for k in turns}
+    for k in list(turns) + list(turns)[::-1] if len(turns) > 1 else turns:
+        times[k].append(time_ms(torch, turns[k], iters=20))
+    ms = sum(times["change"]) / len(times["change"])
+    out = {"calls": len(calls), "ms": ms}
+    if pseg is not None:
+        out["parent_ms"] = sum(times["parent"]) / 2
+    if gather:
+        out["three_op_ms"] = time_ms(torch, three_op(ops.segment_sum),
+                                     iters=5)
+    out["plain_ms"] = time_ms(torch, lambda: [ref(v, i, o) for v, i, o, _,
+                                               _ in calls], iters=5)
+    if gather:
+        dtype = calls[0][0].dtype
+        lib = {}
+        for dt in dict.fromkeys((torch.float32, dtype)):
+            try:
+                mats = [(_live_csr(torch, i, o, v.shape[0], dt), v.to(dt))
+                        for v, i, o, _, _ in calls]
+                diff = max(float((torch.sparse.mm(a, v).float() - g.float())
+                                 .abs().max()) for (a, v), g in zip(
+                    mats[:1], [got0]))
+                lib[str(dt).split(".")[-1]] = (time_ms(
+                    torch, lambda: [torch.sparse.mm(a, v) for a, v in mats],
+                    iters=5), diff)
+                del mats
+            except RuntimeError as err:  # torch's refusal, said as it is
+                lib[str(dt).split(".")[-1]] = (None, str(err)[:160])
+        out["library"] = lib
+        lib_ms = lib[str(dtype).split(".")[-1]][0]
+        if lib_ms is None:
+            lib_ms = lib["float32"][0]
+        what = "torch.sparse.mm of a CSR of the live positions"
+    else:
+        pairs = []
+        for vals, order, offsets, _, _ in calls:
             # the call's ids: a dropped entry (past offsets[-1]) on an
             # extra row, which the sum's result leaves out
             rows = offsets.shape[0] - 1
@@ -7333,47 +7646,88 @@ def _gnn_segment_cases(torch, records: list) -> dict:
             counts = (offsets[1:] - offsets[:-1]).long()
             seg[order[: int(offsets[-1])].long()] = torch.repeat_interleave(
                 torch.arange(rows, device=order.device), counts)
-            ids.append((torch.zeros((rows + 1, vals.shape[1]),
-                                    dtype=vals.dtype, device=vals.device),
-                        seg))
-        pairs = list(zip(ids, calls))
-        ms = time_ms(torch, lambda: [kernel(*c) for c in calls], iters=20)
-        plain_ms = time_ms(torch, lambda: [segment_sum_ref(*c)
-                                           for c in calls], iters=5)
-        lib_ms = time_ms(torch, lambda: [z.index_add_(0, i, c[0])
-                                         for (z, i), c in pairs], iters=5)
-        b_ms, b_by = bound_ms(nbytes, sum(c[0].numel() for c in calls))
-        shapes = sorted({(tuple(c[0].shape), str(c[0].dtype).split(".")[-1],
-                          c[2].shape[0] - 1) for c in calls})
-        print(f"[kernels] segment_sum {run}: {len(calls)} calls, (m, d) "
-              f"dtype rows {shapes}: within the reordering bound (largest "
-              f"|kernel - plain in float64| {worst:.3e}), the same bits "
-              f"twice; kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} (index_add_ into a zero buffer) "
-              f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at 3.35 TB/s) "
-              f"kernel/bound={ms / b_ms:.2f}")
-        inputs[run] = main = {"ms": ms, "plain_ms": plain_ms,
-                              "library_ms": lib_ms, "bound_ms": b_ms,
-                              "bound_by": b_by, "max_abs_err": worst}
-        del calls, ids, pairs
-        torch.cuda.empty_cache()
-    require(main is not None, "segment_sum: no call was recorded")
-    return {"name": "segment_sum", "route": "cuda",
+            pairs.append((torch.zeros((rows + 1, vals.shape[1]),
+                                      dtype=vals.dtype, device=vals.device),
+                          seg, vals))
+        lib_ms = time_ms(torch, lambda: [z.index_add_(0, i, v)
+                                         for z, i, v in pairs], iters=5)
+        what = "index_add_ into a zero buffer"
+        del pairs
+    out["library_ms"] = lib_ms
+    out["bound_ms"], out["bound_by"] = bound_ms(nbytes_once, live_adds)
+    out["bound_ms_per_position"] = bound_ms(nbytes, live_adds)[0]
+    out["max_abs_err"] = worst
+    shapes = sorted({(tuple(c[0].shape), str(c[0].dtype).split(".")[-1],
+                      c[2].shape[0] - 1) for c in calls})
+    vs = "" if pseg is None else (
+        f" (parent {'three-op path' if gather else 'kernel'} "
+        f"{out['parent_ms']:.4f} -> change {ms:.4f} in turns: "
+        f"{out['parent_ms'] / ms:.2f}x)")
+    extra = ""
+    if gather:
+        extra = (f" three_op_ms={out['three_op_ms']:.4f} (index_select, "
+                 f"where, this segment_sum; the same bits); library "
+                 f"{json.dumps(out['library'])}")
+    print(f"[kernels] {entry} {run}: {len(calls)} calls, (rows of x or m, "
+          f"d) dtype rows {shapes}: within the reordering bound (largest "
+          f"|kernel - plain in float64| {worst:.3e}), the same bits "
+          f"twice; kernel_ms={ms:.4f}{vs} plain_ms={out['plain_ms']:.4f} "
+          f"library_ms={lib_ms} ({what}){extra} bound_ms="
+          f"{out['bound_ms']:.4f} ({out['bound_by']}, {nbytes_once} bytes: "
+          f"each input once) bound_ms_per_position="
+          f"{out['bound_ms_per_position']:.4f} ({nbytes} bytes: a row a "
+          f"position) kernel/bound={ms / out['bound_ms']:.2f}")
+    return out
+
+
+def _gnn_segment_cases(torch, records: list, parent=None) -> dict:
+    """(e) segment_sum and gather_sum on every recorded call
+    (_segment_run), a run at a time; with ``parent`` (--parent) the
+    parent's segment_sum beside them. Returns the two kernels' rows."""
+    import importlib
+    pseg = None
+    if parent is not None:
+        pseg = importlib.import_module(
+            f"{parent.__name__}.kernels.segment.kernel").segment_sum
+    runs = {}
+    for run, entry, call in records:
+        runs.setdefault((entry, run), []).append(call)
+    records.clear()
+    rows = {}
+    for entry in ("segment_sum", "gather_sum"):
+        inputs = {}
+        for run in GNN_RUNS:
+            calls = runs.pop((entry, run), [])
+            if calls:
+                inputs[run] = _segment_run(torch, entry, run, calls, pseg)
+            del calls
+            torch.cuda.empty_cache()
+        require(bool(inputs), f"{entry}: no call was recorded")
+        run = max(inputs, key=GNN_RUNS.index)
+        main = inputs[run]
+        rows[entry] = {
+            "name": entry, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/segment.cu",
-            "replaces": "none: not a TPU kernel (jax.ops.segment_sum, XLA, "
-                        "at src/repro/legacy/models/gnn.py:130)",
-            "launches": 0, "max_abs_err": main["max_abs_err"],
-            "ms": main["ms"], "plain_ms": main["plain_ms"],
-            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
-            "library_ms": main["library_ms"], "inputs": inputs,
-            "main": max(inputs, key=GNN_RUNS.index)}
+            "replaces": (
+                "none: not a TPU kernel (jax.ops.segment_sum, XLA, at "
+                "src/repro/legacy/models/gnn.py:130)" if entry ==
+                "segment_sum" else "none: not a TPU kernel (GIN's "
+                "jax.ops.segment_sum(jnp.where(valid, hg[senders], 0)), "
+                "XLA, at src/repro/legacy/models/gnn.py:140-141)"),
+            "launches": 0, **{k: main[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "inputs": inputs, "main": run}
+    return rows
 
 
 def phase_gnn(torch, seed: int, card: str, results: dict,
-              small: bool = False) -> None:
+              small: bool = False, parent=None) -> None:
     """The GNN family and NequIP on one rank: (a) card against CPU, (b)
     the molecule batch on ConnectIt's graph ids, (c) minibatch_lg, (d)
-    ogb_products, (e) segment_sum on the recorded calls."""
+    ogb_products, (e) segment_sum and gather_sum on the recorded calls;
+    with ``parent`` (--parent) the parent's GIN step and segment_sum in
+    turns."""
     from repro_torch.kernels.segments import Segments
 
     precision = torch.get_float32_matmul_precision()
@@ -7385,24 +7739,25 @@ def phase_gnn(torch, seed: int, card: str, results: dict,
             ("a smoke", _gnn_smoke, (torch, seed, records)),
             ("b molecule", _gnn_molecule, (torch, seed, records, card)),
             ("c minibatch_lg", _gnn_minibatch,
-             (torch, seed, records, card, 64 if small else 1))):
+             (torch, seed, records, card, 64 if small else 1, parent))):
         t0 = time.perf_counter()
         fn(*args)
         Segments.clear_cache()
         torch.cuda.empty_cache()
         print(f"[time] gnn ({tag}): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = _gnn_ogb(torch, seed, records, card, small)
+    launches = _gnn_ogb(torch, seed, records, card, small, parent)
     print(f"[time] gnn (d ogb_products): {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    row = _gnn_segment_cases(torch, records)
-    records.clear()
+    rows = _gnn_segment_cases(torch, records, parent)
     torch.cuda.empty_cache()
-    print(f"[time] gnn (e segment_sum): {time.perf_counter() - t0:.1f} s")
+    print(f"[time] gnn (e segment_sum, gather_sum): "
+          f"{time.perf_counter() - t0:.1f} s")
     # the main path of the phase: one ogb_products GIN train step
-    row["launches"] = launches["gin-tu"]
-    row["launches_per_step"] = launches
-    results["segment_sum"] = row
+    for entry, row in rows.items():
+        row["launches"] = launches["gin-tu"][entry]
+        row["launches_per_step"] = {k: v[entry] for k, v in launches.items()}
+        results[entry] = row
 
 
 def _np_tree(tree):
@@ -7419,7 +7774,8 @@ def main() -> int:
     ap.add_argument("--parent", type=Path, default=None,
                     help="a parent commit's src/repro_torch (git archive it "
                          "into build/): the bag backward's cases time its "
-                         "backward too, in turns")
+                         "backward too, and the gnn phase its GIN step and "
+                         "segment_sum, in turns")
     ap.add_argument("--ranks", type=int, default=1,
                     help="N > 1: only the placements over N processes, one "
                          "rank a card over NCCL (needs N cards)")
@@ -7442,7 +7798,7 @@ def main() -> int:
     parent = None
     if args.parent is not None:
         parent = load_package("repro_torch_parent", args.parent.resolve())
-        parent.kernels._build.build_all(names=("embedding_bag",))
+        parent.kernels._build.build_all(names=("embedding_bag", "segment"))
     if args.mesh_rank is not None:  # the parent's isolated cache, inherited
         try:
             return mesh_rank(args.mesh_rank, args.mesh_dir)
@@ -7532,7 +7888,7 @@ def main() -> int:
         timed("lm mesh", phase_lm_mesh, torch, args.seed, card)
         torch.cuda.empty_cache()
         timed("gnn", phase_gnn, torch, args.seed, card, results,
-              args.log_n < DEFAULT_GRAPH[0])
+              args.log_n < DEFAULT_GRAPH[0], parent)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

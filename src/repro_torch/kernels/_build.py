@@ -54,9 +54,11 @@ SIGNATURES = {
             _P, _P, _P, _P, _I64, _P, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64,
             _I64, _I64, _I32, _P)},
     "segment": {
-        "segment_sum_f32": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _P),
-        "segment_sum_bf16": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64,
-                             _P)},
+        # values, the sorted positions' ids, out, the address of the plan's
+        # Layout, d, stream
+        name: (_P, _P, _P, _P, _I64, _P)
+        for name in ("segment_sum_f32", "segment_sum_bf16", "gather_sum_f32",
+                     "gather_sum_bf16")},
     "threefry": {
         "threefry_bits_i64": (_P, _I64, _I64, _I64, _I64, _P),
         "threefry_randint_i32": (
@@ -198,8 +200,10 @@ def check_table_args(what: str, table, idx, *, dtypes: tuple) -> None:
 
 
 def stream_of(t) -> int:
-    """The handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of PyTorch's current stream on ``t``'s device (a
+    ``Stream`` object a call costs microseconds, which a small kernel call
+    notices)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(rc: int, what: str) -> None:

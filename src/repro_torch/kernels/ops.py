@@ -32,9 +32,9 @@ does. ``tuned_block_m`` is what the tuning cache resolves to.
 ``KERNELS`` also holds the ML-era ``embedding_bag`` wrapper and its
 backward, dispatched in ``kernels/legacy``, and the threefry draws of
 ``repro_torch.random`` (``threefry_bits``, ``threefry_randint``, dispatched
-here), and the GNN's ``segment_sum`` (dispatched here; ``kernels/segments.py``
-builds its sorted layout and its autograd), so that ``launch_counts()``
-covers every kernel.
+here), and the GNN's ``segment_sum`` and ``gather_sum`` (dispatched here;
+``kernels/segments.py`` builds their sorted layouts, plans and autograd), so
+that ``launch_counts()`` covers every kernel.
 """
 
 from __future__ import annotations
@@ -55,13 +55,13 @@ from .pointer_jump.ref import pointer_jump_ref
 from .scatter_min import kernel as _scatter_min_kernel
 from .scatter_min.ref import scatter_min_ref
 from .segment import kernel as _segment_kernel
-from .segment.ref import segment_sum_ref
+from .segment.ref import gather_sum_ref, segment_sum_ref
 from .threefry import kernel as _threefry_kernel
 from .threefry.ref import threefry_bits_ref, threefry_randint_ref
 
 __all__ = ["scatter_min", "pointer_jump", "hook_compress", "edge_relabel",
            "edge_rewrite", "compact_mask", "embedding_bag", "threefry_bits",
-           "threefry_randint", "segment_sum", "launch_counts",
+           "threefry_randint", "segment_sum", "gather_sum", "launch_counts",
            "reset_launch_counts", "tuned_block_m", "clear_tuned_blocks",
            "KERNELS", "KERNEL_CONTRACT_VERSION", "DEFAULT_BLOCK_M"]
 
@@ -85,6 +85,7 @@ KERNELS = {
     "threefry_bits": _threefry_kernel.threefry_bits,
     "threefry_randint": _threefry_kernel.threefry_randint,
     "segment_sum": _segment_kernel.segment_sum,
+    "gather_sum": _segment_kernel.gather_sum,
 }
 
 
@@ -223,16 +224,34 @@ def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
 
 
 def segment_sum(vals: torch.Tensor, order: torch.Tensor,
-                offsets: torch.Tensor) -> torch.Tensor:
+                offsets: torch.Tensor, *, plan=None) -> torch.Tensor:
     """``out[r] = sum of vals[order[k]]`` for ``k`` in ``[offsets[r],
     offsets[r + 1])``, (R, d) in ``vals``' dtype: ``vals`` (m, d) float32
     or bfloat16, ``order`` (m,) and ``offsets`` (R + 1,) int32 (a stable
     sort of the entries by segment, ``kernels/segments.py``). On the card
     each row is added in float32 in a fixed order, the same bits every
-    run."""
+    run; ``plan`` is the layout's ``SegmentPlan`` (``segment/kernel.py``),
+    which the CPU does not use."""
     if on_cuda(vals):
-        return _segment_kernel.segment_sum(vals, order, offsets)
+        return _segment_kernel.segment_sum(vals, order, offsets, plan=plan)
     return segment_sum_ref(vals, order, offsets)
+
+
+def gather_sum(x: torch.Tensor, ids: torch.Tensor, offsets: torch.Tensor,
+               *, plan=None, id_max=None) -> torch.Tensor:
+    """``out[r] = sum of x[ids[k]]`` over ``k`` in ``[offsets[r],
+    offsets[r + 1])`` with ``ids[k] >= 0``, (R, d) in ``x``' dtype: ``x``
+    (rows_x, d) float32 or bfloat16, ``ids`` (m,) int32, the gathered ids in
+    the layout's order with -1 where a position is masked, ``offsets`` (R +
+    1,) int32. The segment sum of gathered rows without the rows written
+    out (GIN's aggregation and its gradient, ``kernels/segments.py``); on
+    the card the same order and bits as ``segment_sum`` of the gathered
+    rows on the same layout; ``plan`` and ``id_max`` (a bound on the
+    gathered ids) are the kernel's (``segment/kernel.py``)."""
+    if on_cuda(x):
+        return _segment_kernel.gather_sum(x, ids, offsets, plan=plan,
+                                          id_max=id_max)
+    return gather_sum_ref(x, ids, offsets)
 
 
 def compact_mask(mask: torch.Tensor, vals: torch.Tensor, cap: int) -> tuple:

@@ -1,1 +1,2 @@
-"""segment_sum: the GNN's aggregation over a sorted segment layout."""
+"""segment_sum and gather_sum: the GNN's aggregations over a sorted segment
+layout."""

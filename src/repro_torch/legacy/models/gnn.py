@@ -12,8 +12,11 @@ segment sum for its gradient: both go through ``kernels/segments.py``
 (the hand-written CUDA ``segment_sum`` on the card, ``index_add_`` on the
 CPU) over the graph's sorted layout, built once per edge array
 (``Segments.of``), so a train step on the card adds in a fixed order and
-gives the same bits every run. PNA's max and min are ``scatter_reduce``
-("amax", order-free in value) over the reference's ``-1e30`` fill.
+gives the same bits every run. GIN's aggregation is one ``gather_sum``
+each way (the CUDA ``gather_sum``), which reads ``h``'s rows where they
+lie and never writes the (m, d) messages. PNA's max and min are
+``scatter_reduce`` ("amax", order-free in value) over the reference's
+``-1e30`` fill.
 
 The parameters are the reference's pytree (``GNN.params()``; ``init_gnn``
 draws the reference's weights from a threefry key, ``GNN.from_params``
@@ -35,7 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ... import random as trandom
-from ...kernels.segments import Segments, gather
+from ...kernels.segments import Segments, gather, gather_sum
 from ...kernels.segments import segment_sum as _segment_sum
 from .layers import (
     ParamTree,
@@ -199,8 +202,8 @@ def gnn_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
     def layer_fn(lp, h, x):
         hg = shard(h, (None, None))          # transient replicate for gather
         if cfg.kind == "gin":
-            zero = torch.zeros((), dtype=hg.dtype, device=hg.device)
-            agg = _segment_sum(torch.where(v, gather(hg, send), zero), recv)
+            # segment_sum(where(valid, hg[senders], 0), receivers)
+            agg = gather_sum(hg, senders, recv, n1 - 1)
             agg = shard(agg, ("data", None))
             h = mlp_apply(lp["mlp"], (1.0 + lp["eps"]).to(h.dtype) * h + agg,
                           act=torch.relu)

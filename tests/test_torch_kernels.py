@@ -616,7 +616,7 @@ def test_cpu_tensors_take_the_plain_path():
     assert set(before) == {"hook_compress", "pointer_jump", "scatter_min",
                            "edge_relabel", "edge_rewrite", "embedding_bag",
                            "embedding_bag_backward", "threefry_bits",
-                           "threefry_randint", "segment_sum"}
+                           "threefry_randint", "segment_sum", "gather_sum"}
 
 
 def test_reset_launch_counts_zeroes_every_counter():
@@ -639,7 +639,7 @@ def test_unsupported_device_raises():
 
 @pytest.mark.parametrize("name", sorted(set(ops.KERNELS) - {
     "embedding_bag", "embedding_bag_backward", "threefry_bits",
-    "threefry_randint", "segment_sum"}))
+    "threefry_randint", "segment_sum", "gather_sum"}))
 def test_kernel_wrappers_reject_what_they_cannot_take(name):
     fn = ops.KERNELS[name]
     before = fn.launches
