@@ -11,7 +11,8 @@
                                                   # cards, a rank each
     python3 chip_smoke.py --parent build/parent/src/repro_torch
                                                   # also time a parent's bag
-                                                  # backward, GIN step and
+                                                  # forward and backward, DLRM
+                                                  # steps, GIN step and
                                                   # segment kernel, in turns
 
 Phases, in order; any failure exits non-zero:
@@ -82,9 +83,22 @@ Phases, in order; any failure exits non-zero:
               2^31 edges.
               Bounds count the bytes this run's data needs (edge_rewrite:
               the label slots its non-negative ends read). embedding_bag
-              on a 1,000,448 x 64 table at RM2's serve_bulk shape (B=262144, L=1, zipfian ids) and a multi-hot
-              one (B=65536, L=8, ~10% on the dump row, and with wrapped and
-              clamped ids), sum / mean / max, float32 / bfloat16;
+              (one launch for T tables, embedding_bags) on a 1,000,448 x
+              64 table (T = 1) at RM2's serve_bulk shape (B=262144, L=1,
+              zipfian ids) and a multi-hot one (B=65536, L=8, ~10% on the
+              dump row, and with wrapped and clamped ids), sum / mean /
+              max, float32 / bfloat16; then on 26 RM2 tables: the grouped
+              call of one serve_p99, serve_bulk, retrieval_cand and
+              train_batch step, recorded from a full-width DLRM-RM2
+              (RECORDED's run kind "bags"; serve_bulk's also on bfloat16
+              copies of the tables), and 26-table multi-hot and wrapped
+              ids, each mode, float32 and bfloat16; each within BAG_TOL of
+              the plain version (a call a table; float32 L=1 exact), with
+              its CUDA-event ms and the host wall of a synchronized call,
+              both bounds (each distinct row once; every gathered row) and
+              one F.embedding_bag a table beside it; with --parent each
+              also the parent's (a launch a table), in turns, the same
+              bits;
               embedding_bag_backward (float32, no TPU counterpart; one
               call for T tables, embedding_bags_backward) on the same table
               for each mode: RM2's train shape (B=65536, L=1, zipfian), a
@@ -94,7 +108,7 @@ Phases, in order; any failure exits non-zero:
               of the same terms in other orders, the same bits on a second
               run, beside index_add_ (sum, L=1) and the zeroing of the
               gradient alone; then the grouped call of 26 tables recorded
-              from one full-width train_batch step (RECORDED's run kind
+              from the same train_batch step (RECORDED's run kind
               "train"); with --parent PKG (a parent commit's
               src/repro_torch, git archive'd into build/) each of these
               also times the parent's backward, in turns: parent, change,
@@ -254,9 +268,11 @@ Phases, in order; any failure exits non-zero:
  17. dlrm     DLRM-RM2 built on the card from the seed (26 x 1,000,448 x 64
               float32 tables, 6.66 GB); serve_p99 (B=512), serve_bulk
               (B=262144) and retrieval_cand (10^6 candidates), each through
-              the embedding_bag kernel and held against the same model
-              through the plain version, with step times, peak memory and
-              launches per step;
+              the embedding_bag kernel (one launch a step) and held
+              against the same model through the plain version, with step
+              times, peak memory and launches per step; with --parent the
+              same model through the parent's bags, the same bits, p50s in
+              turns;
  18. profile  where the compacted main path's time goes: wall time per
               driver step, device time per kernel and the device's busy
               share (torch.profiler); then the same trace of none+stergiou,
@@ -271,15 +287,17 @@ Phases, in order; any failure exits non-zero:
               freed: the train_batch cell (B=65536, 26 x 1,000,448 x 64
               float32 tables, AdamW with the reference's OptimizerConfig)
               from init_dlrm(key=PRNGKey(seed)) on RecsysStream batches:
-              one warm step, one counted step (26 embedding_bag launches
-              and 1 of embedding_bag_backward, all 26 tables in one call,
-              and nothing else), TRAIN_STEPS
+              one warm step, one counted step (1 embedding_bag launch
+              and 1 call of embedding_bag_backward, all 26 tables in each,
+              3 threefry_bits, nothing else), TRAIN_STEPS
               timed steps (step wall p50, samples/s, the peak above the
               model and optimizer state, first and last loss, finite), one
               traced step; one step twice from the same state (saved to the
               host), the parameters and moments equal bit for bit, after a
               diagnostic step under torch.use_deterministic_algorithms
               (warn_only) that names any op without a deterministic kernel;
+              with --parent the same step through the parent's bags equal
+              bit for bit (loss and leaves), then step p50s in turns;
               one step through the kernels against the same step through
               the plain versions at TRAIN_CHECK_VOCAB rows a table (the
               loss equal, each leaf within TRAIN_LEAF_TOL of its largest
@@ -533,8 +551,10 @@ DETERMINISTIC_SAMPLINGS = ("none", "kout_afforest_k2")
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12  # float32 FLOP/s outside the tensor cores (FMA)
 INT32_MAX = 2**31 - 1
-# DLRM-RM2 (src/repro_torch/configs/legacy/dlrm_rm2.py) at full width
+# DLRM-RM2 (src/repro_torch/configs/legacy/dlrm_rm2.py) at full width, and
+# its steps whose bags RECORDED's "bags" keeps
 RM2_VOCAB = 1_000_000
+DLRM_STEPS = ("serve_p99", "serve_bulk", "retrieval_cand", "train_batch")
 BAG_MODES = ("sum", "mean", "max")
 # embedding_bag against its plain version: a one-row float32 bag is a copy
 # (exact); longer bags sum in another order (the reference test's
@@ -793,7 +813,10 @@ RECORDED = (
     ("hook_compress", CELL_VARIANT, LATE_RUNS),
     ("pointer_jump", CELL_VARIANT, ("cell", "cell ingest")),
     ("scatter_min", CELL_VARIANT, ("cell sharded",)),
-    # DLRM-RM2: one full-width train_batch step's 26 backward calls
+    # DLRM-RM2 at full width: the grouped forward's call of one step of
+    # each DLRM_STEPS ("bags"), and the train_batch step's grouped backward
+    # call ("train")
+    ("embedding_bag", "dlrm-rm2", ("bags",)),
     ("embedding_bag_backward", "dlrm-rm2", ("train",)),
     # the GNN family (phase gnn): GIN's train steps on full_graph_sm, the
     # molecule batch (every arch), minibatch_lg and ogb_products
@@ -1395,26 +1418,146 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0,
           f"{c0:.4f} ms; (c) - (b) = {c0 - b:.4f} ms of label gathers and "
           f"uncontended proposals, (a) - (c) = {a - c0:.4f} ms of what the "
           f"phase labels add")
-    results["embedding_bag"] = _embedding_bag_cases(torch, cap)
+    bags, backward = _record_dlrm(torch, cap, seed)
+    results["embedding_bag"] = _embedding_bag_cases(torch, cap, bags, parent)
     results["embedding_bag_backward"] = _embedding_bag_backward_cases(
-        torch, cap, seed, parent)
+        torch, cap, backward, parent)
+    del bags, backward
+    torch.cuda.empty_cache()
     results.update(_threefry_cases(torch, g))
     return results
 
 
-def _embedding_bag_cases(torch, cap: int) -> dict:
-    """embedding_bag against its plain version on one RM2-width table."""
+def _wall_ms(torch, fn, n: int) -> float:
+    """Median host wall of ``n`` synchronized calls of ``fn`` (after one
+    warm call): what a caller that waits for its answer pays."""
+    fn()
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return sorted(out)[n // 2]
+
+
+def _embedding_bag_cases(torch, cap: int, recorded: dict,
+                         parent=None) -> dict:
+    """embedding_bag (one launch for T tables, the dispatcher's
+    embedding_bags) against its plain version, a call a table, on: one
+    RM2-width table (T = 1) with synthetic ids; RECORDED's "bags" calls
+    (``recorded``: the (T, B, L) ids of one serve_p99, serve_bulk,
+    retrieval_cand and train_batch step over 26 float32 RM2 tables;
+    serve_bulk's also on bfloat16 copies of the tables); and 26-table
+    multi-hot and wrapped ids, each mode, float32 and bfloat16. Each case:
+    CUDA-event ms and the host wall of a synchronized call, with ``parent``
+    (--parent) the parent's embedding_bags in turns (parent, change,
+    change, parent) and its output the same bits; the plain version's ms;
+    the library's (one F.embedding_bag a table: no one PyTorch call
+    computes the grouped function); the bound on each distinct row read
+    once and on every gathered row. The JSON row is the recorded
+    serve_bulk call."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.legacy import embedding_bag
-    from repro_torch.kernels.legacy.embedding_bag.ref import (
-        embedding_bag_ref,
-        wrap_and_clamp,
-    )
+    import repro_torch
+    from repro_torch.kernels.legacy.embedding_bag.ref import wrap_and_clamp
     from repro_torch.legacy.data import RecsysStream
     from repro_torch.legacy.models.dlrm import table_rows
 
+    copies = {"change": repro_torch.kernels.legacy.embedding_bags}
+    if parent is not None:
+        copies = {"parent": parent.kernels.legacy.embedding_bags, **copies}
+
+    def measure(tag: str, tables: list, idx, mode: str) -> dict:
+        T, B, L = idx.shape
+        D = tables[0].shape[1]
+        size = tables[0].element_size()
+        dtype = str(tables[0].dtype).removeprefix("torch.")
+        tol = BAG_TOL[dtype]
+        got = copies["change"](tables, idx, mode=mode)
+        want = _plain_bags(tables, idx, mode)
+        torch.cuda.synchronize()
+        err = 0.0
+        for t, (a, w) in enumerate(zip(got, want, strict=True)):
+            require(a.shape == w.shape and a.dtype == w.dtype,
+                    f"embedding_bag {tag}: table {t}'s bags' shape or dtype "
+                    f"differ from the plain version's")
+            err = max(err, float((a.float() - w.float()).abs().max()))
+            if dtype == "float32" and L == 1:
+                require(torch.equal(a, w), f"embedding_bag {tag}: table "
+                        f"{t}'s one-row bags are not copies ({err})")
+            else:
+                require(torch.allclose(a.float(), w.float(), rtol=tol,
+                                       atol=tol),
+                        f"embedding_bag {tag}: table {t} disagrees with the "
+                        f"plain version (max_abs_err={err}, rtol=atol={tol})")
+        if parent is not None:
+            for t, (a, p) in enumerate(zip(
+                    got, copies["parent"](tables, idx, mode=mode))):
+                require(torch.equal(a, p), f"embedding_bag {tag}: table {t} "
+                        f"differs from the parent's bits")
+        del got, want
+        turns = {n: [] for n in copies}
+        walls = {n: [] for n in copies}
+        for n in list(copies) + list(copies)[::-1]:
+            turns[n].append(time_ms(
+                torch, lambda: copies[n](tables, idx, mode=mode), iters=20))
+            walls[n].append(_wall_ms(
+                torch, lambda: copies[n](tables, idx, mode=mode), 20))
+        ms, wall = (sum(x["change"]) / 2 for x in (turns, walls))
+        plain_ms = time_ms(torch, lambda: _plain_bags(tables, idx, mode),
+                           iters=5)
+        # F.embedding_bag skips padding_idx rows, so it computes this
+        # function where every id lies in [0, rows) and the dump row is
+        # zero, in sum and mean (max differs on all-dump bags)
+        lib_ms = None
+        in_range = all(bool(((i >= 0) & (i < t.shape[0])).all())
+                       and not bool(t[-1].any())
+                       for t, i in zip(tables, idx))
+        if mode != "max" and in_range:
+            src = [(i.long(), t, t.shape[0] - 1) for t, i in zip(tables, idx)]
+
+            def lib():
+                return [F.embedding_bag(i, t, mode=mode, padding_idx=p)
+                        for i, t, p in src]
+            for a, w in zip(lib(), _plain_bags(tables, idx, mode)):
+                require(torch.allclose(a.float(), w.float(), rtol=tol,
+                                       atol=tol),
+                        f"F.embedding_bag {tag} differs from the plain "
+                        f"version")
+            lib_ms = time_ms(torch, lib, iters=20)
+        # bytes: each distinct row the bags read once (zipfian ids repeat),
+        # the ids and the outputs; beside it every gathered row
+        distinct = sum(int(torch.unique(wrap_and_clamp(i, t.shape[0])).numel())
+                       for t, i in zip(tables, idx))
+        io = T * B * L * 4 + T * B * D * size
+        nbytes = distinct * D * size + io
+        gathered_ms = (T * B * L * D * size + io) / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = bound_ms(nbytes, T * B * L * D)
+        out = {"max_abs_err": err, "ms": ms, "wall_ms": wall,
+               "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+               "bound_by": b_by, "gathered_rows_bound_ms": gathered_ms}
+        vs = ""
+        if parent is not None:
+            out["parent_ms"], out["parent_wall_ms"] = (
+                sum(x["parent"]) / 2 for x in (turns, walls))
+            vs = (f" (parent {out['parent_ms']:.4f} -> change {ms:.4f}, "
+                  f"host wall {out['parent_wall_ms']:.4f} -> {wall:.4f}, in "
+                  f"turns)")
+        print(f"[kernels] embedding_bag {tag}: {T} x table "
+              f"{tuple(tables[0].shape)} {dtype} ids {(T, B, L)} {mode}: "
+              f"max_abs_err={err} kernel_ms={ms:.4f} wall_ms={wall:.4f}{vs} "
+              f"plain_ms={plain_ms:.4f} library_ms="
+              f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} (one "
+              f"F.embedding_bag a table) bound_ms={b_ms:.4f} ({b_by}, "
+              f"{nbytes} bytes at 3.35 TB/s: {distinct} distinct rows) "
+              f"kernel/bound={ms / b_ms:.2f} gathered_rows_bound_ms="
+              f"{gathered_ms:.4f}")
+        return out
+
+    inputs = {}
+    # one table (T = 1), synthetic zipfian ids
     vocab = min(RM2_VOCAB, cap)
     rows, D = table_rows(vocab), 64
     gen = torch.Generator(device="cuda")
@@ -1422,89 +1565,61 @@ def _embedding_bag_cases(torch, cap: int) -> dict:
     table = torch.randn(rows, D, generator=gen, device="cuda") / 8.0
     table[vocab:] = 0.0  # RM2's zero pad rows; the last is the dump row
 
-    def zipf_ids(batch: int, bag: int):
-        s = RecsysStream(batch=batch, n_dense=13, n_sparse=1, vocab=vocab,
-                         multi_hot=bag, seed=2).batch_at(0, device="cuda")
-        return s["sparse"][:, 0].contiguous()
+    def zipf_ids(batch: int, bag: int, n_sparse: int = 1):
+        s = RecsysStream(batch=batch, n_dense=13, n_sparse=n_sparse,
+                         vocab=vocab, multi_hot=bag, seed=2).batch_at(
+                             0, device="cuda")
+        return s["sparse"].transpose(0, 1).contiguous()  # (T, B, L)
 
-    bulk = zipf_ids(min(262144, cap), 1)
-    multi = zipf_ids(min(65536, cap), 8)
-    multi[torch.rand(multi.shape, generator=gen, device="cuda") < 0.1] = (
-        rows - 1)
-    wrapped = multi.clone()
-    u = torch.rand(wrapped.shape, generator=gen, device="cuda")
-    wrapped[u < 0.01] = -1
-    wrapped[(u >= 0.01) & (u < 0.02)] = -rows - 2
-    wrapped[(u >= 0.02) & (u < 0.03)] = rows + 3
-    id_sets = {"serve_bulk": bulk, "multi_hot": multi, "wrapped": wrapped}
-    tables = {"float32": table, "bfloat16": table.to(torch.bfloat16)}
-    main = None
-    for ids_name, ids in id_sets.items():
-        B, L = ids.shape
-        ids_long = ids.long()
-        # the bound reads each distinct row the bags need once; zipfian ids
-        # repeat, so that is fewer rows than the B*L gathered
-        distinct = int(torch.unique(wrap_and_clamp(ids, rows)).numel())
-        for dtype, tab in tables.items():
-            size = tab.element_size()
-            nbytes = distinct * D * size + B * L * 4 + B * D * size
-            gathered_ms = (B * L * D * size + B * L * 4 + B * D * size
-                           ) / HBM_BYTES_PER_S * 1e3
-            for mode in BAG_MODES:
-                got = ops.KERNELS["embedding_bag"](tab, ids, mode=mode)
-                want = embedding_bag_ref(tab, ids, mode=mode)
-                torch.cuda.synchronize()
-                require(got.shape == want.shape and got.dtype == want.dtype,
-                        f"embedding_bag {ids_name} {dtype} {mode}: shape or "
-                        f"dtype differs from the plain version")
-                err = float((got.float() - want.float()).abs().max())
-                tol = BAG_TOL[dtype]
-                if dtype == "float32" and L == 1:
-                    require(torch.equal(got, want),
-                            f"embedding_bag {ids_name} {dtype} {mode}: a "
-                            f"one-row bag is not a copy (max_abs_err={err})")
-                else:
-                    require(torch.allclose(got.float(), want.float(),
-                                           rtol=tol, atol=tol),
-                            f"embedding_bag {ids_name} {dtype} {mode}: kernel "
-                            f"disagrees with its plain version "
-                            f"(max_abs_err={err}, rtol=atol={tol})")
-                ms = time_ms(torch, lambda: embedding_bag(tab, ids, mode=mode),
-                             iters=20)
-                plain_ms = time_ms(
-                    torch, lambda: embedding_bag_ref(tab, ids, mode=mode),
-                    iters=5)
-                # F.embedding_bag skips padding_idx rows, so it computes this
-                # function for in-range ids in sum and mean (max differs on
-                # all-dump bags)
-                lib_ms = None
-                if mode != "max" and ids_name != "wrapped":
-                    def lib():
-                        return F.embedding_bag(ids_long, tab, mode=mode,
-                                               padding_idx=rows - 1)
-                    require(torch.allclose(lib().float(), want.float(),
-                                           rtol=tol, atol=tol),
-                            f"F.embedding_bag {ids_name} {dtype} {mode} "
-                            f"differs from the plain version")
-                    lib_ms = time_ms(torch, lib, iters=20)
-                b_ms, b_by = bound_ms(nbytes, B * L * D)
-                print(f"[kernels] embedding_bag {ids_name} {dtype} {mode} "
-                      f"table ({rows}, {D}) ids ({B}, {L}): max_abs_err={err} "
-                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-                      f"bound_ms={b_ms:.4f} ({b_by}, {nbytes} bytes at "
-                      f"3.35 TB/s: {distinct} distinct rows) "
-                      f"gathered_rows_bound_ms={gathered_ms:.4f}")
-                if (ids_name, dtype, mode) == ("serve_bulk", "float32", "sum"):
-                    main = {
-                        "name": "embedding_bag", "route": "cuda",
-                        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
-                        "replaces":
-                            "src/repro/kernels/legacy/embedding_bag/kernel.py:47",
-                        "launches": 0, "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "bound_ms": b_ms,
-                        "bound_by": b_by, "library_ms": lib_ms}
-    return main
+    def dumped_and_wrapped(ids):
+        multi = ids.clone()
+        multi[torch.rand(multi.shape, generator=gen, device="cuda") < 0.1] = (
+            rows - 1)
+        wrapped = multi.clone()
+        u = torch.rand(wrapped.shape, generator=gen, device="cuda")
+        wrapped[u < 0.01] = -1
+        wrapped[(u >= 0.01) & (u < 0.02)] = -rows - 2
+        wrapped[(u >= 0.02) & (u < 0.03)] = rows + 3
+        return multi, wrapped
+
+    with torch.inference_mode():
+        multi, wrapped = dumped_and_wrapped(zipf_ids(min(65536, cap), 8))
+        one = {"serve_bulk": zipf_ids(min(262144, cap), 1),
+               "multi_hot": multi, "wrapped": wrapped}
+        for dtype, tab in (("float32", table),
+                           ("bfloat16", table.to(torch.bfloat16))):
+            for ids_name, ids in one.items():
+                for mode in BAG_MODES:
+                    key = f"one table {ids_name} {dtype} {mode}"
+                    inputs[key] = measure(key, [tab], ids, mode)
+        del table, tab, one, multi, wrapped
+        # 26 tables: the recorded calls, then multi-hot and wrapped ids
+        for run, call in recorded.items():
+            inputs[f"recorded {run}"] = measure(f"recorded {run}", *call)
+        tables, idx, mode = recorded["serve_bulk"]
+        halves = [t.to(torch.bfloat16) for t in tables]
+        inputs["recorded serve_bulk bfloat16"] = measure(
+            "recorded serve_bulk bfloat16", halves, idx, mode)
+        multi, wrapped = dumped_and_wrapped(
+            zipf_ids(min(65536, cap), 8, len(tables)))
+        for dtype, tabs in (("float32", tables), ("bfloat16", halves)):
+            for ids_name, ids in (("multi_hot", multi), ("wrapped", wrapped)):
+                for mode in BAG_MODES:
+                    key = f"{len(tabs)} tables {ids_name} {dtype} {mode}"
+                    inputs[key] = measure(key, tabs, ids, mode)
+        del halves, tables, tabs, multi, wrapped
+    torch.cuda.empty_cache()
+    main = inputs["recorded serve_bulk"]
+    row = {"name": "embedding_bag", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+           "replaces": "src/repro/kernels/legacy/embedding_bag/kernel.py:47",
+           "launches": 0, **{k: main[k] for k in (
+               "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")},
+           "inputs": inputs, "main": "recorded serve_bulk"}
+    if parent is not None:
+        row["parent_ms"] = main["parent_ms"]
+    return row
 
 
 # SASS opcodes by the SM pipe that runs them, and each pipe's results a
@@ -1664,49 +1779,53 @@ def load_package(name: str, path: Path):
 
 
 def bag_backward_of(pkg):
-    """A repro_torch copy's bag backward as ``f(tables, idx, grad_outs,
-    mode)`` → the T gradients: its grouped wrapper where it has one, else
-    its per-table wrapper once a table. The second branch serves only a
-    copy from before ``embedding_bags`` (the port at 9cf3286, against which
-    the grouped backward was first timed) and can go with such copies."""
+    """A repro_torch copy's grouped bag backward as ``f(tables, idx,
+    grad_outs, mode)`` → the T gradients."""
     import importlib
     k = importlib.import_module(
         f"{pkg.__name__}.kernels.legacy.embedding_bag.kernel")
-    if hasattr(k, "embedding_bags_backward"):
-        return lambda tables, idx, gs, mode: k.embedding_bags_backward(
-            tables, idx, gs, mode=mode)
-    return lambda tables, idx, gs, mode: [
-        k.embedding_bag_backward(t, i, g, mode=mode)
-        for t, i, g in zip(tables, idx, gs)]
+    return lambda tables, idx, gs, mode: k.embedding_bags_backward(
+        tables, idx, gs, mode=mode)
 
 
-class _TrainRecorder:
-    """The (tables, idx, grad_outs, mode) of every grouped bag backward
-    (embedding_bags_backward) called while it is entered, the calls still
-    launched as they were."""
+class _BagRecorder:
+    """The grouped bag kernels' calls made while it is entered, each still
+    launched as it was: ``forward[tag]`` the (tables, idx, mode) of every
+    grouped forward (embedding_bags) made under the ``tag`` set last,
+    ``backward`` the (tables, idx, grad_outs, mode) of every grouped
+    backward (embedding_bags_backward)."""
 
     def __init__(self):
-        self.calls = []
+        self.tag = None
+        self.forward = {}
+        self.backward = []
 
     def __enter__(self):
         from types import SimpleNamespace
 
         import repro_torch.kernels.legacy as legacy
 
-        # the autograd function reaches the wrapper through the legacy
-        # package's name for its module: that name is patched, so the
-        # wrapper itself, and its launch count, stay as they are
+        # the dispatcher reaches the wrappers through the legacy package's
+        # name for their module: that name is patched, so the wrappers
+        # themselves, and their launch counts, stay as they are
         self._legacy, self._module = legacy, legacy._embedding_bag_kernel
-        launch = self._module.embedding_bags_backward
+        fwd = self._module.embedding_bags
+        bwd = self._module.embedding_bags_backward
 
-        def record(tables, idx, grad_outs, *, mode="sum"):
+        def forward(tables, idx, *, mode="sum"):
+            self.forward.setdefault(self.tag, []).append(
+                (list(tables), idx.clone(), mode))
+            return fwd(tables, idx, mode=mode)
+
+        def backward(tables, idx, grad_outs, *, mode="sum"):
             # grad_outs are the rows of the interaction's input, a stride
             # apart: the clones are contiguous
-            self.calls.append((list(tables), idx.clone(),
-                               [g.clone() for g in grad_outs], mode))
-            return launch(tables, idx, grad_outs, mode=mode)
+            self.backward.append((list(tables), idx.clone(),
+                                  [g.clone() for g in grad_outs], mode))
+            return bwd(tables, idx, grad_outs, mode=mode)
         legacy._embedding_bag_kernel = SimpleNamespace(
-            **{**vars(self._module), "embedding_bags_backward": record})
+            **{**vars(self._module), "embedding_bags": forward,
+               "embedding_bags_backward": backward})
         return self
 
     def __exit__(self, *exc):
@@ -1725,38 +1844,73 @@ def _rm2_config(cap: int, vocab: int = RM2_VOCAB):
     return cfg
 
 
-def _record_train(torch, cap: int, seed: int) -> list:
-    """RECORDED's "train" run: one full-width train_batch step from
-    init_dlrm(key=PRNGKey(seed)) on RecsysStream's batch 0, recording its
-    grouped bag backward call (the tables stay referenced; the moments,
-    gradients and batch are freed)."""
+def _record_dlrm(torch, cap: int, seed: int) -> tuple:
+    """RECORDED's "bags" and "train" runs, on one full-width DLRM-RM2 from
+    init_dlrm(key=PRNGKey(seed)): the grouped forward's call of one
+    serve_p99, serve_bulk and retrieval_cand step (each on RecsysStream's
+    batch 0 at its cell's shape, as the dlrm phase's) and of one
+    train_batch step, whose grouped backward call is recorded too. Returns
+    ``({step: (tables, idx, mode)}, [backward calls])``; the calls keep the
+    tables referenced, the rest is freed."""
     from repro_torch import random as trandom
-    from repro_torch.launch.steps import train_step
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell, train_step
     from repro_torch.legacy import optim
     from repro_torch.legacy.data import RecsysStream
     from repro_torch.legacy.models import dlrm as dlrm_mod
 
+    arch = get_arch("dlrm-rm2")
     cfg = _rm2_config(cap)
     model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(seed, device="cuda"))
-    state = optim.init_adam(model.params())
-    batch = RecsysStream(batch=min(65536, cap), n_dense=cfg.n_dense,
-                         n_sparse=cfg.n_sparse, vocab=cfg.vocab_sizes[0],
-                         multi_hot=cfg.multi_hot, seed=seed).batch_at(
-                             0, device="cuda")
-    with _TrainRecorder() as rec:
-        train_step(model, state, batch["dense"], batch["sparse"],
-                   batch["labels"])
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with _BagRecorder() as rec:
+        # the train step last: it updates the tables in place
+        for shape in ("serve_p99", "serve_bulk", "retrieval_cand",
+                      "train_batch"):
+            cell = build_cell(arch, shape)
+            b = RecsysStream(batch=min(cell.args[0].shape[0], cap),
+                             n_dense=cfg.n_dense, n_sparse=cfg.n_sparse,
+                             vocab=cfg.vocab_sizes[0],
+                             multi_hot=cfg.multi_hot,
+                             seed=seed).batch_at(0, device="cuda")
+            rec.tag = shape
+            if shape == "train_batch":
+                train_step(model, optim.init_adam(model.params()),
+                           b["dense"], b["sparse"], b["labels"])
+            elif shape == "retrieval_cand":
+                cand = torch.randn(min(cell.args[2].shape[0], cap),
+                                   cfg.embed_dim, generator=gen,
+                                   device="cuda")
+                cell.fn(model, b["dense"], b["sparse"], cand)
+            else:
+                cell.fn(model, b["dense"], b["sparse"])
     torch.cuda.synchronize()
-    del model, state, batch
+    require(all(len(rec.forward.get(x, ())) == 1 for x in DLRM_STEPS),
+            f"bags: forward calls a step "
+            f"{ {k: len(v) for k, v in rec.forward.items()} }, want one of "
+            f"each of {DLRM_STEPS}")
+    require(len(rec.backward) == 1 and len(rec.backward[0][0]) == 26,
+            f"train: {len(rec.backward)} grouped backward calls of "
+            f"{[len(c[0]) for c in rec.backward]} tables, want 1 of 26")
+    forward = {x: rec.forward[x][0] for x in DLRM_STEPS}
+    for x, (tables, idx, mode) in forward.items():
+        print(f"[kernels] recorded bags {x}: one grouped forward call, "
+              f"{len(tables)} tables {tuple(tables[0].shape)} "
+              f"{str(tables[0].dtype).removeprefix('torch.')}, ids "
+              f"{tuple(idx.shape)}, {mode}")
+    backward = rec.backward
+    del model, rec, cand, b
     torch.cuda.empty_cache()
-    return rec.calls
+    return forward, backward
 
 
-def _embedding_bag_backward_cases(torch, cap: int, seed: int,
+def _embedding_bag_backward_cases(torch, cap: int, recorded: list,
                                   parent=None) -> dict:
     """The bag backward against its plain version: synthetic ids on one
-    RM2-width table for each mode (one-table calls), then the grouped call
-    recorded from one full-width train step, 26 tables (the JSON's row).
+    RM2-width table for each mode (one-table calls), then ``recorded``, the
+    grouped call of one full-width train step (RECORDED's "train": 26
+    tables; the JSON's row).
     The plain version on the card is index_add_ of each position's share, a
     table at a time; the library call, where one computes the function
     (sum, L = 1), index_add_ into a zeroed gradient a table. With
@@ -1898,16 +2052,7 @@ def _embedding_bag_backward_cases(torch, cap: int, seed: int,
                 f"{ids_name} {mode}", ([table], ids[None], [g], mode))
     del table, synthetic
     torch.cuda.empty_cache()
-    runs = [r for name, _, r in RECORDED if name == "embedding_bag_backward"]
-    main = None
-    for run in (x for r in runs for x in r):
-        calls = _record_train(torch, cap, seed)
-        require(len(calls) == 1 and len(calls[0][0]) == 26,
-                f"train: {len(calls)} grouped backward calls of "
-                f"{[len(c[0]) for c in calls]} tables, want 1 of 26")
-        inputs[run] = main = measure(f"recorded {run}", calls[0])
-        del calls
-        torch.cuda.empty_cache()
+    inputs["train"] = main = measure("recorded train", recorded[0])
     row = {"name": "embedding_bag_backward", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
            "replaces": "none: no Pallas kernel (the reference's gradient "
@@ -4474,10 +4619,11 @@ def _rank_cells(rank: int, d: Path, job: dict) -> int:
     return 0
 
 
-def phase_dlrm(torch, cap: int, seed: int, results: dict):
+def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
     """DLRM-RM2 serving on the card: each cell through the embedding_bag
-    kernel against the same model through the plain version. Returns the
-    model and each cell's inputs, for the profile phase."""
+    kernel against the same model through the plain version; with
+    ``parent`` (--parent) also through the parent's bags, in turns. Returns
+    the model and each cell's inputs, for the profile phase."""
     import dataclasses
     from unittest import mock
 
@@ -4548,10 +4694,9 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        require(counts["embedding_bag"] == cfg.n_sparse and
-                sum(counts.values()) == cfg.n_sparse,
-                f"dlrm {shape}: launches {counts}, want {cfg.n_sparse} of "
-                f"embedding_bag and nothing else")
+        require(counts["embedding_bag"] == 1 and sum(counts.values()) == 1,
+                f"dlrm {shape}: launches {counts}, want 1 of embedding_bag "
+                f"(all {cfg.n_sparse} tables) and nothing else")
         want = plain(cell.fn, *inputs)
         if shape == "retrieval_cand":
             (vals, idx), (want_vals, want_idx) = got, want
@@ -4576,6 +4721,29 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
             check = "logits and probabilities equal to the plain path's"
         ms = wall_ms(lambda: cell.fn(model, *inputs), steps)
         plain_ms = wall_ms(lambda: plain(cell.fn, *inputs), 3)
+        vs = ""
+        if parent is not None:
+            # the parent's bags (a launch a table) in the same model, in
+            # turns: parent, change, change, parent; the same bits
+            with mock.patch.object(dlrm_mod, "embedding_bags",
+                                   parent.kernels.legacy.embedding_bags):
+                theirs = cell.fn(model, *inputs)
+            pairs = (zip(got, theirs) if shape == "retrieval_cand"
+                     else [(got, theirs)])
+            require(all(torch.equal(a, b) for a, b in pairs),
+                    f"dlrm {shape}: the parent's output differs")
+            turns = {"parent": [], "change": []}
+            for who in ("parent", "change", "change", "parent"):
+                with mock.patch.object(
+                        dlrm_mod, "embedding_bags",
+                        parent.kernels.legacy.embedding_bags
+                        if who == "parent" else dlrm_mod.embedding_bags):
+                    turns[who] += wall_ms(lambda: cell.fn(model, *inputs),
+                                          steps)
+            p50 = {k: pct(sorted(v), 0.5) for k, v in turns.items()}
+            vs = (f"; in turns, {2 * steps} steps each: p50 parent "
+                  f"{p50['parent']:.4f} -> change {p50['change']:.4f} ms "
+                  f"({p50['parent'] / p50['change']:.2f}x), the same bits")
         rate = ""
         if shape == "serve_bulk":
             rate = f"; {B / (sum(ms) / len(ms) / 1e3):.1f} samples/s"
@@ -4589,14 +4757,17 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict):
               f"{sum(ms) / len(ms):.4f} ms{rate}; plain path p50 "
               f"{pct(plain_ms, 0.5):.4f} ms; peak device memory {peak} "
               f"bytes; embedding_bag launches per step "
-              f"{counts['embedding_bag']}; cell meta {cell.meta}")
+              f"{counts['embedding_bag']}; cell meta {cell.meta}{vs}")
     return model, serve_inputs
 
 
-def phase_train(torch, cap: int, seed: int, results: dict, card: str):
+def phase_train(torch, cap: int, seed: int, results: dict, card: str,
+                parent=None):
     """DLRM-RM2's train_batch cell at full width on the card, its
     determinism, the kernels against the plain versions on one step, and
-    launch.train's simulated failure and resume."""
+    launch.train's simulated failure and resume; with ``parent``
+    (--parent) a step through the parent's bags from the same state, the
+    same bits, and steps in turns."""
     import warnings
     from unittest import mock
 
@@ -4681,9 +4852,9 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     want = {k: 0 for k in counts}
-    # one backward call for all the tables (embedding_bags)
-    want.update(embedding_bag=cfg.n_sparse, embedding_bag_backward=1,
-                threefry_bits=3)
+    # one forward launch and one backward call for all the tables
+    # (embedding_bags)
+    want.update(embedding_bag=1, embedding_bag_backward=1, threefry_bits=3)
     require(counts == want, f"train: launches {counts}, want {want}")
     for name in ("embedding_bag_backward", "threefry_bits"):
         results[name]["launches"] = counts[name]
@@ -4743,7 +4914,7 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
           f"{len(named)} ops named without a deterministic kernel"
           + "".join(f"\n[train]   {x[:200]}" for x in named))
     load(model, state, saved)
-    step(model, state, batches[1])
+    ours = float(step(model, state, batches[1])["loss"])
     first = [x.detach().cpu() for x in leaves(model, state)]
     load(model, state, saved)
     step(model, state, batches[1])
@@ -4754,6 +4925,39 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str):
             f"other bits in {same.count(False)} of {len(same)} leaves")
     print(f"[train] one step twice from the same saved state: all "
           f"{len(same)} parameter and moment leaves equal bit for bit")
+    if parent is not None:
+        # the parent's bags (a forward launch a table, its backward) from
+        # the same state and batch: the same loss and leaves, bit for bit;
+        # then steps in turns, parent, change, change, parent
+        theirs_bags = parent.kernels.legacy.embedding_bags
+        load(model, state, saved)
+        with mock.patch.object(dlrm_mod, "embedding_bags", theirs_bags):
+            theirs = float(step(model, state, batches[1])["loss"])
+        torch.cuda.synchronize()
+        same = [torch.equal(x.cpu(), y) for x, y in zip(leaves(model, state),
+                                                        first)]
+        require(theirs == ours and all(same), f"train: the parent's step "
+                f"from the same state gives loss {theirs!r} against "
+                f"{ours!r}, other bits in {same.count(False)} of "
+                f"{len(same)} leaves")
+        turns = {"parent": [], "change": []}
+        for who in ("parent", "change", "change", "parent"):
+            with mock.patch.object(
+                    dlrm_mod, "embedding_bags",
+                    theirs_bags if who == "parent" else dlrm_mod.embedding_bags):
+                for i in range(2, 2 + TRAIN_STEPS // 2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step(model, state, batches[i])
+                    torch.cuda.synchronize()
+                    turns[who].append(time.perf_counter() - t0)
+        p50s = {k: float(np.median(v)) for k, v in turns.items()}
+        print(f"[train] the parent's bags from the same state: loss "
+              f"{theirs!r} and all {len(same)} leaves equal to this step's "
+              f"bit for bit; step wall in turns, {TRAIN_STEPS} steps each: "
+              f"p50 parent {p50s['parent']:.4f} -> change "
+              f"{p50s['change']:.4f} s "
+              f"({p50s['parent'] / p50s['change']:.3f}x); card {card}")
     del model, state, batches, saved, first
     torch.cuda.empty_cache()
 
@@ -4951,10 +5155,39 @@ def phase_profile(torch, g, model, serve_inputs, seed: int, edges, weights,
     _trace_serve_window(torch, server, seed)
     for shape in ("serve_bulk", "serve_p99"):
         inputs = serve_inputs[shape]
-        ops.reset_launch_counts()
-        _trace(torch, f"dlrm-rm2 {shape} B={inputs[0].shape[0]}",
-               lambda: serve_step(model, *inputs))
-        print(f"[profile]   launches {json.dumps(ops.launch_counts())}")
+        _trace_dlrm_step(torch, f"dlrm-rm2 {shape} B={inputs[0].shape[0]}",
+                         lambda: serve_step(model, *inputs), ops)
+
+
+def _trace_dlrm_step(torch, tag: str, fn, ops, top: int = 15) -> None:
+    """One DLRM step traced after a warm one (``_gnn_traced``): wall time,
+    the device's busy share and the ``top`` device operations; taken again,
+    GNN_TRACE_TRIES times at most, until the trace holds the step's
+    embedding_bag launches (a trace can miss a step's first kernels)."""
+    from torch.autograd import DeviceType
+
+    for attempt in range(1, GNN_TRACE_TRIES + 1):
+        prof, wall, counts = _gnn_traced(torch, fn, ops)
+        rows = sorted(((ev.device_time_total, ev.key, ev.count)
+                       for ev in prof.key_averages()
+                       if ev.device_type == DeviceType.CUDA
+                       and not ev.key.startswith("ProfilerStep")),
+                      reverse=True)
+        traced = sum(c for _, k, c in rows if "embedding_bags_kernel" in k)
+        if traced == counts["embedding_bag"]:
+            break
+        print(f"[profile] {tag}: trace {attempt} holds {traced} "
+              f"embedding_bag kernels, the wrapper launched "
+              f"{counts['embedding_bag']}")
+    require(traced == counts["embedding_bag"], f"profile {tag}: the trace "
+            f"holds {traced} embedding_bag kernels, the wrapper launched "
+            f"{counts['embedding_bag']}, in {GNN_TRACE_TRIES} traces")
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"[profile] {tag}: traced wall {wall:.4f} s; device busy "
+          f"{busy:.4f} s ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%; launches {json.dumps(counts)}")
+    for dev_us, key, count in rows[:top]:
+        print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
 
 
 # the CUDA runtime calls at which the host waits for the device
@@ -7773,8 +8006,9 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--parent", type=Path, default=None,
                     help="a parent commit's src/repro_torch (git archive it "
-                         "into build/): the bag backward's cases time its "
-                         "backward too, and the gnn phase its GIN step and "
+                         "into build/): the bag cases time its bag forward "
+                         "and backward too, the dlrm and train phases its "
+                         "steps, and the gnn phase its GIN step and "
                          "segment_sum, in turns")
     ap.add_argument("--ranks", type=int, default=1,
                     help="N > 1: only the placements over N processes, one "
@@ -7877,12 +8111,13 @@ def main() -> int:
         timed("cells", phase_cells, torch, g, expect, args.seed, args.log_n,
               args.log_m, exact, card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
-                                    results)
+                                    results, parent)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
               args.seed, edges, apps["weights"], args.log_m, server)
         del model, serve_inputs  # the train phase holds ~27 GB of its own
         torch.cuda.empty_cache()
-        timed("train", phase_train, torch, cap, args.seed, results, card)
+        timed("train", phase_train, torch, cap, args.seed, results, card,
+              parent)
         timed("lm", phase_lm, torch, args.seed, card)
         torch.cuda.empty_cache()
         timed("lm mesh", phase_lm_mesh, torch, args.seed, card)

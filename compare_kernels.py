@@ -5,6 +5,7 @@ several kernel source trees in turns.
     python3 compare_kernels.py [NAME=]CSRC [[NAME=]CSRC ...]
                                [--log-n 22 --log-m 25] [--paths] [--reps 3]
                                [--only KERNEL ...]
+    python3 compare_kernels.py [NAME=]CSRC [[NAME=]CSRC ...] --bags
 
 Each CSRC is a ``kernels/csrc`` directory (for a parent commit: ``git
 archive`` it into a git-ignored directory of this checkout). Each tree's
@@ -30,8 +31,13 @@ launches), and a tree's time is the mean of its two.
 ``--paths`` also runs every path of ``chip_smoke.PATHS`` ``--reps`` times
 per tree in the same turns (host wall time of a synchronized
 ``connectivity`` call, median), checking that every tree gives the same
-labels, launches and finish rounds. Needs one CUDA card; exits 1 without
-one.
+labels, launches and finish rounds. ``--bags`` times only each tree's
+``embedding_bag.cu`` forward (one launch for T tables), in the same
+turns, on the grouped calls of ``chip_smoke._record_dlrm`` (a full-width
+DLRM-RM2's serve_p99, serve_bulk, retrieval_cand and train_batch bags,
+float32; serve_bulk's also on bfloat16 copies of the tables) and on 26
+tables of zipfian multi-hot ids (L = 8), each tree's output the same bits
+as the first's. Needs one CUDA card; exits 1 without one.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = ("scatter_min", "hook_compress", "edge_relabel", "pointer_jump")
+BAGS = ("embedding_bag",)
 
 
 def main() -> int:
@@ -55,6 +62,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--only", nargs="+", metavar="KERNEL",
                     help="time only these kernels' cases")
+    ap.add_argument("--bags", action="store_true",
+                    help="time only the grouped embedding_bag forward")
     args = ap.parse_args()
 
     import torch
@@ -80,7 +89,8 @@ def main() -> int:
         name = name or f"tree{i}"
         out = ROOT / "build" / "compare" / name
         t0 = time.perf_counter()
-        recs = _build.build_all(Path(path).resolve(), out, names=KERNELS)
+        recs = _build.build_all(Path(path).resolve(), out,
+                                names=BAGS if args.bags else KERNELS)
         print(f"[build] {name} ({path}): {time.perf_counter() - t0:.1f} s")
         trees[name] = {k: _build.open_library(rec) for k, rec in recs.items()}
     names = list(trees)
@@ -89,6 +99,8 @@ def main() -> int:
     def use(tree: str) -> None:
         _build._LIBS.update(trees[tree])
 
+    if args.bags:
+        return _bags(torch, cs, names, turns, use)
     g = cs.phase_graph(torch, args.log_n, args.log_m, 0)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -161,6 +173,50 @@ def main() -> int:
                       + "; ".join(f"{n} " + ",".join(f"{w:.2f}" for w in
                                                      sorted(walls[n]))
                                   for n in names) + ")")
+    return 0
+
+
+def _bags(torch, cs, names, turns, use) -> int:
+    """The grouped embedding_bag forward of each tree on the recorded
+    DLRM-RM2 calls and on 26-table multi-hot ids."""
+    from repro_torch.kernels.legacy.embedding_bag import kernel as bag_kernel
+    from repro_torch.legacy.data import RecsysStream
+
+    recorded, _ = cs._record_dlrm(torch, 1 << 22, 0)
+    tables, idx, _ = recorded["serve_bulk"]
+    halves = [t.to(torch.bfloat16) for t in tables]
+    multi = RecsysStream(batch=65536, n_dense=13, n_sparse=len(tables),
+                         vocab=cs.RM2_VOCAB, multi_hot=8, seed=2).batch_at(
+                             0, device="cuda")["sparse"]
+    multi = multi.transpose(0, 1).contiguous()
+    cases = {**{f"recorded {k} float32": c for k, c in recorded.items()},
+             "recorded serve_bulk bfloat16": (halves, idx, "sum"),
+             **{f"multi_hot {d} {m}": (t, multi, m)
+                for d, t in (("float32", tables), ("bfloat16", halves))
+                for m in ("sum", "max")}}
+    print(f"[bags] ms per case, each tree the mean of its two turns; ratio "
+          f"to {names[0]}")
+    print(f"{'case':40s} " + " ".join(f"{n:>10s}" for n in names))
+    with torch.inference_mode():
+        for label, (tabs, ids, mode) in cases.items():
+            times = {n: [] for n in names}
+            first = None
+            for tree in turns:
+                use(tree)
+
+                def call():
+                    return bag_kernel.embedding_bags(tabs, ids, mode=mode)
+                got = call()
+                if first is None:
+                    first = got
+                cs.require(torch.equal(got, first),
+                           f"{label}: tree {tree} gives other bits")
+                times[tree].append(cs.time_ms(torch, call, iters=30))
+            mean = {n: sum(t) / len(t) for n, t in times.items()}
+            print(f"{label:40s} "
+                  + " ".join(f"{mean[n]:10.4f}" for n in names) + "   "
+                  + " ".join(f"{mean[n] / mean[names[0]]:.3f}"
+                             for n in names[1:]))
     return 0
 
 

@@ -1,19 +1,51 @@
-// embedding_bag: out[b] = reduce over l of table[id(idx[b, l])], by sum,
-// mean or max, for float32 and bfloat16 tables.
+// embedding_bag: for T tables at once, out[t, b] = reduce over l of
+// tables[t][id(idx[t, b, l])], by sum, mean or max, for float32 and
+// bfloat16 tables; and the float32 gradients of those bags (the backward,
+// below).
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/legacy/embedding_bag/kernel.py (embedding_bag /
-// _embedding_bag_kernel). The TPU kernel holds the whole (rows, D) table as
-// one VMEM-resident block and gathers from it; at DLRM-RM2 width a table is
-// 1,000,448 x 64 float32 = 256 MB, which no on-chip memory holds. Here the
-// table stays in device memory and the gathered rows come through L2.
+// _embedding_bag_kernel), one table a call. The TPU kernel holds the whole
+// (rows, D) table as one VMEM-resident block and gathers from it; at
+// DLRM-RM2 width a table is 1,000,448 x 64 float32 = 256 MB, which no
+// on-chip memory holds. Here the tables stay in device memory and the
+// gathered rows come through L2.
 //
-// Layout: a group of G lanes (a power of two, at most a warp) per bag, G
-// just large enough that its lanes cover D with one vector each, so a D=64
-// float32 row is one 256-byte request of 16 lanes x 16 bytes. Each lane
-// loops over the bag's L ids, accumulating its VEC columns in float32
-// registers, and writes its columns once in the table's dtype. Rows wider
-// than G x VEC are covered by an outer loop over column chunks.
+// One launch takes T <= kMaxTables tables of one D and one dtype (their
+// rows may differ), passed by value in BagTables as the backward's are,
+// their ids as one contiguous (T, B, L) int32 tensor, and writes one (T, B,
+// D) output: DLRM's 26 bags of a step are one launch, where a launch a
+// table cost the host ~0.04 ms each.
+//
+// Layout: a group of G lanes (a power of two, at most a warp) covers a row,
+// G just large enough that its lanes cover D with one vector of at most 16
+// bytes each (a D = 64 float32 row: 16 lanes x 16 bytes; bfloat16: 8
+// lanes). A group takes a tile of NB consecutive bags of one table: it
+// reads the ids of U positions of each bag at once, issues all NB x U row
+// loads, then adds them in l order. A bag of L <= kMaxRun positions is one
+// pass, U = L rounded up to a power of two and NB = kInFlight / U, so a
+// one-hot bag (RM2, L = 1) shares the flight with 3 other bags; a longer
+// bag is a tile of its own, kMaxRun positions a pass with a run-time tail.
+// Rows wider than G vectors are covered by an outer loop over column
+// chunks. Tiles are numbered table-major, and blocks start in that order,
+// so the blocks resident at once read one or two tables, whose zipfian
+// heads stay in L2 while their bags run.
+//
+// The flight is small on purpose: the SM hides the row latency with warps,
+// and each load in flight costs registers, so warps. On the recorded
+// DLRM-RM2 calls and 26 tables of multi-hot (L = 8) ids
+// (compare_kernels.py --bags, H100), 8 rows a group in flight took
+// 1.4-2.9x the time of 4 (NB = 4 at L = 1, 2 positions a pass) on the
+// large one-hot calls as 8 bags, 3.3-7.9x on the multi-hot ones as all 8
+// positions of a bag; 2 rows 1.00-1.08x. Bounds of 4 resident blocks an SM
+// for the one-pass tiles and 6 for the passes beat 4 for both by 8-11% on
+// the multi-hot calls, and no bound by 7-9% on the large one-hot ones.
+// Interleaving the tables' tiles cost 13-31% on the large calls.
+//
+// The same bits as a launch a table: each bag accumulates in float32 in l
+// order from 0 (sum, mean) or the dtype's lowest value (max), mean divides
+// by max(#valid, 1) in float32, and the result is rounded once to the
+// table's dtype. No atomics.
 //
 // Id contract (the reference's gather): a negative id wraps once
 // (id + rows), then clamps into [0, rows - 1]; an id counts as valid for
@@ -21,8 +53,8 @@
 // divides the sum over all L rows by max(#valid, 1); max takes the dtype's
 // lowest finite value where an id is not valid.
 //
-// Bound: bytes (B*L gathered rows of D values, B*L ids and B*D outputs,
-// each moved once); the adds are 1 per gathered value.
+// Bound: bytes (each distinct row the bags read once, T*B*L ids and T*B*D
+// outputs); the adds are 1 per gathered value.
 #include <cuda_bf16.h>
 
 #include <cfloat>
@@ -33,6 +65,26 @@
 namespace {
 
 enum Mode : int { kSum = 0, kMean = 1, kMax = 2 };
+
+constexpr int kMaxTables = 64;  // tables a call takes (launch parameters)
+constexpr int kInFlight = 4;  // row loads a forward group has in flight
+constexpr int kMaxRun = 2;    // of them, positions of one bag at most
+
+// Per-table arguments, passed by value with each launch: the forward reads
+// table (of its dtype) and rows, the backward all of them.
+struct BagTables {
+  const void* table[kMaxTables];      // (rows, D); the backward's float32
+  const float* grad_out[kMaxTables];  // (B, D), rows go_stride apart
+  int64_t go_stride[kMaxTables];
+  int64_t rows[kMaxTables];
+  int64_t base[kMaxTables];           // the table's first flat row
+};
+
+// The row an id reads: wrapped once if negative, then clamped.
+__device__ __forceinline__ int64_t bag_row(int raw, int64_t rows) {
+  const int64_t r = raw < 0 ? raw + rows : static_cast<int64_t>(raw);
+  return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -63,53 +115,151 @@ struct alignas(sizeof(T) * VEC) Vec {
   T v[VEC];
 };
 
+// One vector of a table row, through the read-only path.
 template <typename T, int VEC>
-__global__ void embedding_bag_kernel(const T* __restrict__ table,
-                                     const int* __restrict__ idx,
-                                     T* __restrict__ out, int64_t rows,
-                                     int64_t D, int64_t B, int64_t L,
-                                     int mode, int log2_group) {
-  const int group = 1 << log2_group;
-  const int lane = threadIdx.x & (group - 1);
-  const int64_t groups_per_block = blockDim.x >> log2_group;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * groups_per_block;
-  const float init = mode == kMax ? lowest<T>() : 0.0f;
-  for (int64_t b = blockIdx.x * groups_per_block + (threadIdx.x >> log2_group);
-       b < B; b += stride) {
-    const int* ids = idx + b * L;
-    for (int64_t c0 = static_cast<int64_t>(lane) * VEC; c0 < D;
-         c0 += static_cast<int64_t>(group) * VEC) {
-      float acc[VEC];
+__device__ __forceinline__ Vec<T, VEC> load_row(const T* p) {
+  constexpr int bytes = sizeof(Vec<T, VEC>);
+  Vec<T, VEC> x;
+  if constexpr (bytes == 16) {
+    *reinterpret_cast<uint4*>(&x) = __ldg(reinterpret_cast<const uint4*>(p));
+  } else if constexpr (bytes == 8) {
+    *reinterpret_cast<uint2*>(&x) = __ldg(reinterpret_cast<const uint2*>(p));
+  } else if constexpr (bytes == 4) {
+    *reinterpret_cast<unsigned*>(&x) =
+        __ldg(reinterpret_cast<const unsigned*>(p));
+  } else {
+    *reinterpret_cast<unsigned short*>(&x) =
+        __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+  return x;
+}
+
+// The ids and rows of positions [l0, l0 + n) of bags j < nb (n <= U), bag
+// j's ids from ids + j * L: every id load first, then every row load, so
+// that all of them are in flight at once.
+template <typename T, int VEC, int NB, int U>
+__device__ __forceinline__ void load_rows(const T* table, int64_t rows,
+                                          const int* ids, int64_t L,
+                                          int64_t D, int64_t c0, int nb,
+                                          int64_t l0, int n,
+                                          int (&raw)[NB][U],
+                                          Vec<T, VEC> (&x)[NB][U]) {
 #pragma unroll
-      for (int k = 0; k < VEC; ++k) acc[k] = init;
-      int64_t n_valid = 0;
-      for (int64_t l = 0; l < L; ++l) {
-        const int raw = ids[l];
-        int64_t r = raw < 0 ? raw + rows : static_cast<int64_t>(raw);
-        r = r < 0 ? 0 : (r >= rows ? rows - 1 : r);
-        const bool valid = static_cast<int64_t>(raw) < rows - 1;
-        n_valid += valid;
-        const Vec<T, VEC> x =
-            *reinterpret_cast<const Vec<T, VEC>*>(table + r * D + c0);
-        if (mode == kMax) {
-          if (valid) {
+  for (int j = 0; j < NB; ++j) {
 #pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[k] = fmaxf(acc[k], to_float(x.v[k]));
-          }
-        } else {
+    for (int u = 0; u < U; ++u) {
+      raw[j][u] = j < nb && u < n ? __ldg(ids + j * L + l0 + u) : 0;
+    }
+  }
 #pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] += to_float(x.v[k]);
+  for (int j = 0; j < NB; ++j) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j < nb && u < n) {
+        x[j][u] =
+            load_row<T, VEC>(table + bag_row(raw[j][u], rows) * D + c0);
+      }
+    }
+  }
+}
+
+// One bag's loaded positions u < n into acc, in l order: added (sum,
+// mean), or max-ed where the id is valid; n_valid counts the valid ids.
+template <typename T, int VEC, int U>
+__device__ __forceinline__ void add_rows(float (&acc)[VEC], int& n_valid,
+                                         const int (&raw)[U],
+                                         const Vec<T, VEC> (&x)[U], int n,
+                                         int64_t rows, int mode) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (u >= n) break;
+    const bool valid = static_cast<int64_t>(raw[u]) < rows - 1;
+    n_valid += valid;
+    if (mode == kMax) {
+      if (valid) {
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) {
+          acc[k] = fmaxf(acc[k], to_float(x[u].v[k]));
         }
       }
-      if (mode == kMean) {
-        const float cnt = static_cast<float>(n_valid > 0 ? n_valid : 1);
+    } else {
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] /= cnt;
+      for (int k = 0; k < VEC; ++k) acc[k] += to_float(x[u].v[k]);
+    }
+  }
+}
+
+// mean's divide, then one rounding to the table's dtype and one store.
+template <typename T, int VEC>
+__device__ __forceinline__ void store_bag(T* dst, float (&acc)[VEC],
+                                          int n_valid, int mode) {
+  if (mode == kMean) {
+    const float cnt = static_cast<float>(n_valid > 0 ? n_valid : 1);
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) acc[k] /= cnt;
+  }
+  Vec<T, VEC> y;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) y.v[k] = from_float<T>(acc[k]);
+  *reinterpret_cast<Vec<T, VEC>*>(dst) = y;
+}
+
+// Group g of the grid takes tiles g, g + groups, ...; tile i is bags
+// [b0, b0 + NB) of table i / tiles_per_table. Each lane covers columns
+// c0 .. c0 + VEC - 1 of every column chunk. NB > 1 only where L <= U: the
+// tile's bags are one pass of loads, and each bag's sum lives only from its
+// adds to its store; a bag longer than U (NB = 1) takes passes of U. At
+// most 64 registers a thread for the one-pass tiles (4 blocks an SM), 40
+// for the passes (6).
+template <typename T, int VEC, int NB, int U>
+__global__ void __launch_bounds__(connectit::kThreads, NB > 1 ? 4 : 6)
+    embedding_bags_kernel(const BagTables tabs, const int* __restrict__ idx,
+                          T* __restrict__ out, int64_t B, int64_t L,
+                          int64_t D, int64_t tiles_per_table, int64_t tiles,
+                          int mode, int log2_group) {
+  const int64_t group = int64_t{1} << log2_group;
+  const int64_t lane = threadIdx.x & (group - 1);
+  const int64_t groups = static_cast<int64_t>(blockDim.x) >> log2_group;
+  const float init = mode == kMax ? lowest<T>() : 0.0f;
+  for (int64_t tile = blockIdx.x * groups + (threadIdx.x >> log2_group);
+       tile < tiles; tile += gridDim.x * groups) {
+    const int64_t t = tile / tiles_per_table;
+    const int64_t b0 = (tile - t * tiles_per_table) * NB;
+    const int nb = B - b0 < NB ? static_cast<int>(B - b0) : NB;
+    const T* table = static_cast<const T*>(tabs.table[t]);
+    const int64_t rows = tabs.rows[t];
+    const int* ids = idx + (t * B + b0) * L;
+    T* dst = out + (t * B + b0) * D;
+    for (int64_t c0 = lane * VEC; c0 < D; c0 += group * VEC) {
+      int raw[NB][U];
+      Vec<T, VEC> x[NB][U];
+      if constexpr (NB == 1) {
+        float acc[VEC];
+#pragma unroll
+        for (int k = 0; k < VEC; ++k) acc[k] = init;
+        int n_valid = 0;
+        for (int64_t l0 = 0; l0 < L; l0 += U) {
+          const int n = L - l0 < U ? static_cast<int>(L - l0) : U;
+          load_rows<T, VEC, NB, U>(table, rows, ids, L, D, c0, nb, l0, n,
+                                   raw, x);
+          add_rows<T, VEC, U>(acc, n_valid, raw[0], x[0], n, rows, mode);
+        }
+        store_bag<T, VEC>(dst + c0, acc, n_valid, mode);
+      } else {
+        const int n = static_cast<int>(L);
+        load_rows<T, VEC, NB, U>(table, rows, ids, L, D, c0, nb, 0, n, raw,
+                                 x);
+#pragma unroll
+        for (int j = 0; j < NB; ++j) {
+          if (j >= nb) break;
+          float acc[VEC];
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) acc[k] = init;
+          int n_valid = 0;
+          add_rows<T, VEC, U>(acc, n_valid, raw[j], x[j], n, rows, mode);
+          store_bag<T, VEC>(dst + j * D + c0, acc, n_valid, mode);
+        }
       }
-      Vec<T, VEC> y;
-#pragma unroll
-      for (int k = 0; k < VEC; ++k) y.v[k] = from_float<T>(acc[k]);
-      *reinterpret_cast<Vec<T, VEC>*>(out + b * D + c0) = y;
     }
   }
 }
@@ -118,38 +268,116 @@ bool aligned(const void* p, int64_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
 }
 
-// Launch with the widest vector of at most 16 bytes that divides D and
-// keeps every row of the table and of the output aligned.
-template <typename T, int VEC>
-int launch(const void* table, const void* idx, void* out, int64_t rows,
-           int64_t D, int64_t B, int64_t L, int mode, cudaStream_t st) {
-  if constexpr (VEC > 1) {
-    if (D % VEC != 0 || !aligned(table, sizeof(T) * VEC) ||
-        !aligned(out, sizeof(T) * VEC)) {
-      return launch<T, VEC / 2>(table, idx, out, rows, D, B, L, mode, st);
+// The launch arguments of one call: its tables from the host arrays the
+// wrapper passes (T device pointers of tables and, for the backward, of
+// grad_outs and T strides; T row counts), and their total rows.
+int bag_tables(BagTables* tabs, int64_t* total_rows, const void* tables,
+               const void* grad_outs, const void* go_strides,
+               const void* rows, int64_t T) {
+  if (T < 1 || T > kMaxTables) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t* tp = static_cast<const int64_t*>(tables);
+  const int64_t* gp = static_cast<const int64_t*>(grad_outs);
+  const int64_t* sp = static_cast<const int64_t*>(go_strides);
+  const int64_t* rp = static_cast<const int64_t*>(rows);
+  *tabs = BagTables{};
+  int64_t base = 0;
+  for (int64_t t = 0; t < T; ++t) {
+    if (rp[t] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    tabs->table[t] = reinterpret_cast<const void*>(tp[t]);
+    if (gp != nullptr) {
+      tabs->grad_out[t] = reinterpret_cast<const float*>(gp[t]);
+      tabs->go_stride[t] = sp[t];
     }
+    tabs->rows[t] = rp[t];
+    tabs->base[t] = base;
+    base += rp[t];
   }
+  *total_rows = base;
+  return 0;
+}
+
+// NB bags a tile, U positions a bag in flight.
+template <typename T, int VEC, int NB, int U>
+int launch_tiles(const BagTables& tabs, int64_t n_tables, const void* idx,
+                 void* out, int64_t B, int64_t L, int64_t D, int mode,
+                 cudaStream_t st) {
   const int64_t vectors = D / VEC;
   int log2_group = 0;
   while (log2_group < 5 && (int64_t{1} << log2_group) < vectors) ++log2_group;
-  const int64_t groups_per_block = connectit::kThreads >> log2_group;
-  int64_t blocks = (B + groups_per_block - 1) / groups_per_block;
+  const int64_t groups = connectit::kThreads >> log2_group;
+  const int64_t tiles_per_table = (B + NB - 1) / NB;
+  const int64_t tiles = n_tables * tiles_per_table;
+  int64_t blocks = (tiles + groups - 1) / groups;
   if (blocks > connectit::kMaxBlocks) blocks = connectit::kMaxBlocks;
-  embedding_bag_kernel<T, VEC>
+  embedding_bags_kernel<T, VEC, NB, U>
       <<<static_cast<unsigned>(blocks), connectit::kThreads, 0, st>>>(
-          static_cast<const T*>(table), static_cast<const int*>(idx),
-          static_cast<T*>(out), rows, D, B, L, mode, log2_group);
+          tabs, static_cast<const int*>(idx), static_cast<T*>(out), B, L, D,
+          tiles_per_table, tiles, mode, log2_group);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The bags a tile of bags of U <= kMaxRun positions takes in one pass.
+constexpr int bags_for(int u) { return u < kInFlight ? kInFlight / u : 1; }
+
+// Launch with the widest vector of at most 16 bytes that divides D and
+// keeps every row of every table and of the output aligned. A bag of L <=
+// kMaxRun positions is one pass (U the least power of two >= L, NB =
+// kInFlight / U bags a tile); a longer one passes of kMaxRun, a bag a tile.
+template <typename T, int VEC>
+int launch_bags(const BagTables& tabs, int64_t n_tables, const void* idx,
+                void* out, int64_t B, int64_t L, int64_t D, int mode,
+                cudaStream_t st) {
+  if constexpr (VEC > 1) {
+    bool ok = D % VEC == 0 && aligned(out, sizeof(T) * VEC);
+    for (int64_t t = 0; ok && t < n_tables; ++t) {
+      ok = aligned(tabs.table[t], sizeof(T) * VEC);
+    }
+    if (!ok) {
+      return launch_bags<T, VEC / 2>(tabs, n_tables, idx, out, B, L, D, mode,
+                                     st);
+    }
+  }
+  if (L <= 1) {
+    return launch_tiles<T, VEC, bags_for(1), 1>(tabs, n_tables, idx, out, B,
+                                                L, D, mode, st);
+  }
+  if constexpr (kMaxRun >= 2) {
+    if (L <= 2) {
+      return launch_tiles<T, VEC, bags_for(2), 2>(tabs, n_tables, idx, out,
+                                                  B, L, D, mode, st);
+    }
+  }
+  if constexpr (kMaxRun >= 4) {
+    if (L <= 4) {
+      return launch_tiles<T, VEC, bags_for(4), 4>(tabs, n_tables, idx, out,
+                                                  B, L, D, mode, st);
+    }
+  }
+  if constexpr (kMaxRun >= 8) {
+    if (L <= 8) {
+      return launch_tiles<T, VEC, bags_for(8), 8>(tabs, n_tables, idx, out,
+                                                  B, L, D, mode, st);
+    }
+  }
+  return launch_tiles<T, VEC, 1, kMaxRun>(tabs, n_tables, idx, out, B, L, D,
+                                          mode, st);
+}
+
 template <typename T>
-int embedding_bag(const void* table, const void* idx, void* out, int64_t rows,
-                  int64_t D, int64_t B, int64_t L, int mode, void* stream) {
-  if (mode < kSum || mode > kMax || rows < 1 || D < 1 || B < 1 || L < 0) {
+int embedding_bags(const void* tables, const void* rows, int64_t n_tables,
+                   const void* idx, void* out, int64_t B, int64_t L,
+                   int64_t D, int mode, void* stream) {
+  if (mode < kSum || mode > kMax || B < 0 || L < 0 || D < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch<T, 16 / sizeof(T)>(table, idx, out, rows, D, B, L, mode,
-                                   static_cast<cudaStream_t>(stream));
+  BagTables tabs;
+  int64_t total_rows = 0;
+  const int rc =
+      bag_tables(&tabs, &total_rows, tables, nullptr, nullptr, rows, n_tables);
+  if (rc != 0 || B == 0) return rc;
+  return launch_bags<T, 16 / sizeof(T)>(tabs, n_tables, idx, out, B, L, D,
+                                        mode,
+                                        static_cast<cudaStream_t>(stream));
 }
 
 // ---------------------------------------------------------------------------
@@ -208,24 +436,9 @@ int embedding_bag(const void* table, const void* idx, void* out, int64_t rows,
 
 constexpr int kWarp = 32;
 constexpr int kWarps = connectit::kThreads / kWarp;
-constexpr int kMaxTables = 64;   // tables a call takes (launch parameters)
 constexpr int kChunk = 128;      // sorted positions a warp sums
 constexpr int kHoist = 8;        // value loads a warp keeps in flight
 constexpr int kSliceRows = 512;  // gradient rows a zeroing block takes
-
-// Per-table arguments, passed by value with each launch.
-struct BagTables {
-  const float* table[kMaxTables];     // (rows, D), read for max
-  const float* grad_out[kMaxTables];  // (B, D), rows go_stride apart
-  int64_t go_stride[kMaxTables];
-  int64_t rows[kMaxTables];
-  int64_t base[kMaxTables];           // the table's first flat row
-};
-
-__device__ __forceinline__ int64_t bag_row(int raw, int64_t rows) {
-  const int64_t r = raw < 0 ? raw + rows : static_cast<int64_t>(raw);
-  return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
-}
 
 // keys[p] = the flat row position p reads; for mean, count[t * B + b] = max(#valid ids, 1); for
 // max, contrib[p, :] = the gradient that position p passes to its row (0
@@ -264,7 +477,7 @@ __global__ void bag_backward_keys(const BagTables tabs,
   for (int64_t x = first; x < bags * D; x += stride) {
     const int64_t tb = x / D, c = x % D, t = tb / B, b = tb % B;
     const int64_t rows = tabs.rows[t];
-    const float* table = tabs.table[t];
+    const float* table = static_cast<const float*>(tabs.table[t]);
     const int* ids = idx + tb * L;
     float mx = neg;
     for (int64_t l = 0; l < L; ++l) {
@@ -574,32 +787,6 @@ int64_t zeroing_blocks(int64_t slices) {
   return slices < fit ? slices : fit;
 }
 
-// The launch arguments of one call: its tables from the host arrays the
-// wrapper passes (T device pointers of tables and of grad_outs, T strides,
-// T row counts), and their total rows.
-int bag_tables(BagTables* tabs, int64_t* total_rows, const void* tables,
-               const void* grad_outs, const void* go_strides,
-               const void* rows, int64_t T) {
-  if (T < 1 || T > kMaxTables) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t* tp = static_cast<const int64_t*>(tables);
-  const int64_t* gp = static_cast<const int64_t*>(grad_outs);
-  const int64_t* sp = static_cast<const int64_t*>(go_strides);
-  const int64_t* rp = static_cast<const int64_t*>(rows);
-  *tabs = BagTables{};
-  int64_t base = 0;
-  for (int64_t t = 0; t < T; ++t) {
-    if (rp[t] < 1) return static_cast<int>(cudaErrorInvalidValue);
-    tabs->table[t] = reinterpret_cast<const float*>(tp[t]);
-    tabs->grad_out[t] = reinterpret_cast<const float*>(gp[t]);
-    tabs->go_stride[t] = sp[t];
-    tabs->rows[t] = rp[t];
-    tabs->base[t] = base;
-    base += rp[t];
-  }
-  *total_rows = base;
-  return 0;
-}
-
 bool bad_args(int mode, int key_bytes, int64_t B, int64_t L, int64_t D) {
   return mode < kSum || mode > kMax || (key_bytes != 4 && key_bytes != 8) ||
          B < 0 || L < 0 || D < 1;
@@ -677,13 +864,17 @@ int launch_rows(const BagTables& tabs, int64_t T, const void* sorted,
 
 }  // namespace
 
-extern "C" int embedding_bag_f32(const void* table, const void* idx, void* out, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
-  return embedding_bag<float>(table, idx, out, rows, D, B, L, mode, stream);
+// The forward of T tables. tables, rows: host arrays of T int64 (device
+// pointers of the tables, of one dtype and D; their row counts); idx (T, B,
+// L) int32; out (T, B, D) of the tables' dtype.
+extern "C" int embedding_bags_f32(const void* tables, const void* rows, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+  return embedding_bags<float>(tables, rows, T, idx, out, B, L, D, mode,
+                               stream);
 }
 
-extern "C" int embedding_bag_bf16(const void* table, const void* idx, void* out, int64_t rows, int64_t D, int64_t B, int64_t L, int mode, void* stream) {
-  return embedding_bag<__nv_bfloat16>(table, idx, out, rows, D, B, L, mode,
-                                      stream);
+extern "C" int embedding_bags_bf16(const void* tables, const void* rows, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+  return embedding_bags<__nv_bfloat16>(tables, rows, T, idx, out, B, L, D,
+                                       mode, stream);
 }
 
 // Launch 1 of the backward. tables, grad_outs: host arrays of T device

@@ -4,8 +4,9 @@
 device, as ``kernels/ops.py`` does: a CPU tensor takes the plain version, a
 CUDA tensor the hand-written kernel, which raises on what it cannot take.
 Nothing falls back. ``embedding_bags`` is T bags at once, as DLRM takes
-them, a ``torch.autograd.Function``: T forward launches, and where a table
-takes a gradient one backward call for all T gradients,
+them: on the card one forward launch for the T tables, whose bags are views
+of one ``(T, B, D)`` tensor, and where a table takes a gradient (a
+``torch.autograd.Function``) one backward call for all T gradients,
 ``embedding_bags_backward`` (on the CPU, the plain ``index_add_`` of each
 position's share, table by table). ``embedding_bag`` and
 ``embedding_bag_backward`` are their one-table case.
@@ -37,10 +38,13 @@ def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
             for t, i, g in zip(tables, idx, grad_outs, strict=True)]
 
 
-def _bag(table: torch.Tensor, idx: torch.Tensor, mode: str) -> torch.Tensor:
-    if on_cuda(table):
-        return _embedding_bag_kernel.embedding_bag(table, idx, mode=mode)
-    return embedding_bag_ref(table, idx, mode=mode)
+def _bags(tables: Sequence[torch.Tensor], idx: torch.Tensor,
+          mode: str) -> tuple:
+    if on_cuda(tables[0]):
+        return _embedding_bag_kernel.embedding_bags(tables, idx,
+                                                    mode=mode).unbind(0)
+    return tuple(embedding_bag_ref(t, i, mode=mode)
+                 for t, i in zip(tables, idx, strict=True))
 
 
 def _columns_adjacent(g: torch.Tensor) -> torch.Tensor:
@@ -52,8 +56,7 @@ def _columns_adjacent(g: torch.Tensor) -> torch.Tensor:
 class _EmbeddingBags(torch.autograd.Function):
     @staticmethod
     def forward(ctx, idx, mode, *tables):
-        outs = tuple(_bag(t, i, mode) for t, i in zip(tables, idx,
-                                                        strict=True))
+        outs = _bags(tables, idx, mode)
         ctx.save_for_backward(idx, *tables)
         ctx.mode = mode
         return outs
@@ -72,11 +75,14 @@ def embedding_bags(tables: Sequence[torch.Tensor], idx: torch.Tensor, *,
     """T tables ``(rows_t, D)`` (rows may differ), each with its dump row
     last; idx: (T, B, L) int32 → the T bags ``embedding_bag(tables[t],
     idx[t], mode=mode)``, (B, D) each, whose gradients one backward call
-    computes."""
+    computes. Where no table takes a gradient (serving), the autograd
+    function is skipped."""
     if len(tables) != idx.shape[0]:
         raise ValueError(f"embedding_bags: {len(tables)} tables for ids of "
                          f"shape {tuple(idx.shape)}")
-    return list(_EmbeddingBags.apply(idx, mode, *tables))
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
+        return list(_EmbeddingBags.apply(idx, mode, *tables))
+    return list(_bags(tables, idx, mode))
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,

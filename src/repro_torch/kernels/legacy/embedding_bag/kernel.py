@@ -1,16 +1,19 @@
 """Wrappers of the hand-written CUDA embedding_bag and its backward
 (``csrc/embedding_bag.cu``).
 
-``embedding_bag`` takes a contiguous ``(rows, D)`` float32 or bfloat16 table
-and a contiguous ``(B, L)`` int32 id matrix on one CUDA device.
-``embedding_bags_backward`` takes T float32 tables of one width D (read
-for ``max`` only; their shapes set the gradients'), their ids as one
+``embedding_bags`` takes T contiguous ``(rows_t, D)`` tables of one dtype
+(float32 or bfloat16) and one D on one CUDA device, their ids as one
+contiguous ``(T, B, L)`` int32 tensor, and computes the T bags in one
+launch, into one ``(T, B, D)`` tensor; ``embedding_bag`` is its one-table
+case. ``embedding_bags_backward`` takes T float32 tables of one width D
+(read for ``max`` only; their shapes set the gradients'), their ids as one
 contiguous ``(T, B, L)`` int32 tensor and T float32 ``(B, D)`` ``grad_out``
 tensors whose columns are adjacent, and computes the T gradients in one
 call of the backward kernel; ``embedding_bag_backward`` is its one-table
 case. Each raises on anything else. ``.launches`` counts launches:
-``embedding_bag``'s of the forward, ``embedding_bag_backward``'s of the
-backward kernel, one a call through either backward wrapper.
+``embedding_bag``'s of the forward, one a call through either forward
+wrapper; ``embedding_bag_backward``'s of the backward kernel, one a call
+through either backward wrapper.
 """
 
 from __future__ import annotations
@@ -23,29 +26,43 @@ import torch
 from ... import _build
 from .ref import MODES
 
-_ENTRY = {torch.float32: "embedding_bag_f32",
-          torch.bfloat16: "embedding_bag_bf16"}
+_ENTRY = {torch.float32: "embedding_bags_f32",
+          torch.bfloat16: "embedding_bags_bf16"}
+
+
+def embedding_bags(tables: Sequence[torch.Tensor], idx: torch.Tensor, *,
+                   mode: str = "sum") -> torch.Tensor:
+    """The ``(T, B, D)`` bags of T tables reduced by ``mode``, in the tables'
+    dtype: ``[t]`` is ``ref.embedding_bag_ref(tables[t], idx[t], mode)``, the
+    same bits as a launch a table. One check of the arguments, one
+    allocation and one launch, whatever T is."""
+    what = "embedding_bag"
+    if mode not in MODES:
+        raise ValueError(f"unknown embedding_bag mode {mode!r}; have {MODES}")
+    _check_tables(what, tables, idx, tuple(_ENTRY))
+    n, b, l = idx.shape
+    first = tables[0]
+    dtype, d, dev = first.dtype, first.shape[1], first.device
+    out = torch.empty((n, b, d), dtype=dtype, device=dev)
+    if b == 0 or d == 0:
+        return out
+    ptrs = _int64s(t.data_ptr() for t in tables)
+    rows = _int64s(t.shape[0] for t in tables)
+    rc = getattr(_build.load("embedding_bag"), _ENTRY[dtype])(
+        ctypes.addressof(ptrs), ctypes.addressof(rows), n, idx.data_ptr(),
+        out.data_ptr(), b, l, d, MODES.index(mode), _build.stream_of(first))
+    _build.check(rc, what)
+    embedding_bag.launches += 1
+    return out
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
                   mode: str = "sum") -> torch.Tensor:
     """``(B, D)`` bags of ``table`` rows reduced by ``mode``, in the table's
-    dtype (the id contract of ``ref.embedding_bag_ref``)."""
+    dtype (the id contract of ``ref.embedding_bag_ref``): ``embedding_bags``
+    of one table."""
     _build.check_table_args("embedding_bag", table, idx, dtypes=tuple(_ENTRY))
-    if mode not in MODES:
-        raise ValueError(f"unknown embedding_bag mode {mode!r}; have {MODES}")
-    rows, d = table.shape
-    b, l = idx.shape
-    out = torch.empty((b, d), dtype=table.dtype, device=table.device)
-    if b == 0 or d == 0:
-        return out
-    lib = _build.load("embedding_bag")
-    rc = getattr(lib, _ENTRY[table.dtype])(
-        table.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, d, b, l,
-        MODES.index(mode), _build.stream_of(table))
-    _build.check(rc, "embedding_bag")
-    embedding_bag.launches += 1
-    return out
+    return embedding_bags([table], idx[None], mode=mode)[0]
 
 
 embedding_bag.launches = 0
@@ -76,27 +93,10 @@ def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
     what = "embedding_bag_backward"
     if mode not in MODES:
         raise ValueError(f"unknown embedding_bag mode {mode!r}; have {MODES}")
-    tables = list(tables)
-    if not 1 <= len(tables) <= MAX_TABLES:
-        raise ValueError(f"{what}: takes 1 to {MAX_TABLES} tables, got "
-                         f"{len(tables)}")
-    if idx.dim() != 3 or idx.shape[0] != len(tables) \
-            or not idx.is_contiguous():
-        raise ValueError(f"{what}: ids must be a contiguous (T, B, L) tensor "
-                         f"for T = {len(tables)} tables, got shape "
-                         f"{tuple(idx.shape)}")
+    _check_tables(what, tables, idx, (torch.float32,))
     T, b, l = idx.shape
-    _build.check_table_args(what, tables[0], idx[0], dtypes=(torch.float32,))
     d = tables[0].shape[1]
     dev = tables[0].device
-    for table in tables[1:]:
-        if table.dtype != torch.float32 or table.dim() != 2 \
-                or not table.is_contiguous() or table.shape[0] == 0 \
-                or table.shape[1] != d or table.device != dev:
-            raise ValueError(f"{what}: every table must be a contiguous "
-                             f"float32 (rows >= 1, {d}) tensor on {dev}, like "
-                             f"the first, got {table.dtype} "
-                             f"{tuple(table.shape)} on {table.device}")
     grad_outs = list(grad_outs)
     if len(grad_outs) != T or any(
             g.dtype != torch.float32 or tuple(g.shape) != (b, d)
@@ -146,6 +146,41 @@ def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
         contrib.data_ptr(), grad.data_ptr(), n, b, l, d, m, stream), what)
     embedding_bag_backward.launches += 1
     return list(grad.split(rows))
+
+
+def _check_tables(what: str, tables: Sequence[torch.Tensor],
+                  idx: torch.Tensor, dtypes: tuple) -> None:
+    """Raise unless ``tables`` are 1 to MAX_TABLES contiguous 2-D tensors
+    with rows, of one dtype of ``dtypes``, one width and one CUDA device,
+    and ``idx`` is a contiguous ``(T, B, L)`` int32 tensor there. What the
+    CPU's tensors could not take is checked before the device."""
+    n = len(tables)
+    if not 1 <= n <= MAX_TABLES:
+        raise ValueError(f"{what}: takes 1 to {MAX_TABLES} tables, got {n}")
+    first = tables[0]
+    if first.dtype not in dtypes:
+        raise TypeError(f"{what}: the CUDA kernel takes a table of "
+                        f"{[str(d) for d in dtypes]}, got {first.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"{what}: the CUDA kernel takes int32 ids, got "
+                        f"{idx.dtype}")
+    if idx.dim() != 3 or idx.shape[0] != n or not idx.is_contiguous():
+        raise ValueError(f"{what}: ids must be a contiguous (T, B, L) tensor "
+                         f"for T = {n} tables, got shape {tuple(idx.shape)}")
+    like = (first.dtype, first.shape[1:], first.device)
+    for table in tables:
+        if table.dim() != 2 or not table.is_contiguous() \
+                or table.shape[0] == 0 \
+                or (table.dtype, table.shape[1:], table.device) != like:
+            raise ValueError(f"{what}: every table must be a contiguous 2-D "
+                             f"{first.dtype} tensor with rows, of the first's "
+                             f"width {tuple(first.shape[1:])}, on "
+                             f"{first.device}, like the first, got "
+                             f"{table.dtype} {tuple(table.shape)} on "
+                             f"{table.device}")
+    if first.device.type != "cuda" or idx.device != first.device:
+        raise ValueError(f"{what}: needs tensors on one CUDA device, got "
+                         f"tables on {first.device}, ids on {idx.device}")
 
 
 def _int64s(values) -> ctypes.Array:

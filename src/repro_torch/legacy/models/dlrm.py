@@ -2,9 +2,10 @@
 ``repro.legacy.models.dlrm``).
 
 13 dense features → bottom MLP; 26 sparse multi-hot fields → one embedding
-bag per table, through the dispatching ``embedding_bags`` (the hand-written
-CUDA kernel on the card, its plain version on the CPU); dot-product feature
-interaction (strict lower triangle); top MLP → CTR logit.
+bag per table, through the dispatching ``embedding_bags`` (on the card one
+launch of the hand-written CUDA kernel for the 26 tables, on the CPU its
+plain version); dot-product feature interaction (strict lower triangle);
+top MLP → CTR logit.
 
 ``retrieval_score`` is the retrieval_cand cell: one user vector against
 10⁶ candidate embeddings as one GEMV and a top-k.

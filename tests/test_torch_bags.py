@@ -1,18 +1,26 @@
-"""``embedding_bags``: T bags at once, whose T table gradients one backward
-call computes (one launch pair and one sort for all of them on the card).
+"""``embedding_bags``: T bags at once, in one forward launch on the card,
+whose T table gradients one backward call computes (one launch pair and
+one sort for all of them).
 
-  * on the CPU, the grouped function's bags and gradients against
-    ``repro``'s bag and ``jax.grad`` of it, table by table, and against the
-    plain per-table backward, bit for bit: ``sum``, ``mean``, ``max``,
-    tables of unequal rows, bags of several ids, wrapped, clamped and
-    dump-row ids, one table alone; ``DLRM.loss``'s gradients through it
-    equal the per-table route's bit for bit;
-  * what the grouped CUDA wrapper refuses, checked before any CUDA call;
-  * ``gpu``-marked: the grouped kernel against the plain version within the
-    reordering bound of two float32 sums, the same bits on a second call, a
-    hub row, widths that take 8- and 4-byte vectors, ``grad_out`` rows at
-    a stride, gradients past 2^31 flat rows (int64 keys), and the launch
-    counts of a call and of a train step.
+  * on the CPU, the grouped forward's plain path against ``repro``'s Pallas
+    kernel in interpret mode, table by table (T = 1, 3 and 26 tables of
+    unequal rows, each mode, float32 and bfloat16, wrapped and too-large
+    ids); the grouped function's bags and gradients against ``repro``'s bag
+    and ``jax.grad`` of it, table by table, and against the plain
+    per-table backward, bit for bit: ``sum``, ``mean``, ``max``, tables of
+    unequal rows, bags of several ids, wrapped, clamped and dump-row ids,
+    one table alone; ``DLRM.loss``'s gradients through it equal the
+    per-table route's bit for bit;
+  * what the grouped CUDA wrappers (forward and backward) refuse, checked
+    before any CUDA call;
+  * ``gpu``-marked: the grouped forward against the plain version table by
+    table (26 tables at RM2's D = 64 and L = 8 among the shapes), its T = 1
+    case the one-table wrapper's bits, its output views taken by the
+    backward as they are; the grouped backward against the plain version
+    within the reordering bound of two float32 sums, the same bits on a
+    second call, a hub row, widths that take 8- and 4-byte vectors,
+    ``grad_out`` rows at a stride, gradients past 2^31 flat rows (int64
+    keys), and the launch counts of a call and of a train step.
 """
 
 import dataclasses
@@ -23,6 +31,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.legacy.embedding_bag.kernel import (
+    embedding_bag as j_pallas_bag,
+)
 from repro.kernels.legacy.embedding_bag.ref import embedding_bag_ref as j_bag
 from repro_torch.configs import get_arch
 from repro_torch.kernels import ops
@@ -176,6 +187,84 @@ def test_dlrm_loss_gradients_equal_the_per_table_route(monkeypatch):
     assert len(grouped) == len(per_table) == len(leaves)
     for a, b in zip(grouped, per_table):
         assert torch.equal(a, b)
+
+
+# The grouped forward's plain path against the Pallas kernel in interpret
+# mode, table by table, at test_torch_kernels.py's tolerances: rtol = atol =
+# 1e-6 (float32; a one-row bag is a copy, so exact), 3e-2 (bfloat16).
+_BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
+_ROWS = (17, 9, 40, 23)  # cycled over the tables: 4 Pallas compiles a case
+
+
+def _forward_case(T: int, L: int, seed: int):
+    """T float32 tables of unequal rows (the last row zero, DLRM's dump
+    row) and (T, 12, L) ids in [-rows - 3, rows + 4): wrapped negatives,
+    ids past the table and the dump row among them."""
+    rng = np.random.default_rng(seed)
+    tables, idx = [], []
+    for t in range(T):
+        r = _ROWS[t % len(_ROWS)]
+        x = rng.normal(size=(r, 8)).astype(np.float32)
+        x[-1] = 0.0
+        tables.append(x)
+        idx.append(rng.integers(-r - 3, r + 4, (12, L)).astype(np.int32))
+    return tables, np.stack(idx)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("T", [1, 3, 26])
+def test_grouped_forward_plain_path_is_the_pallas_kernel(T, mode, dtype, L):
+    tables, idx = _forward_case(T, L, seed=T * 10 + L)
+    before = ops.launch_counts()
+    outs = embedding_bags([_t(x).to(getattr(torch, dtype)) for x in tables],
+                          _t(idx), mode=mode)
+    assert ops.launch_counts() == before  # the CPU takes the plain version
+    assert len(outs) == T
+    for t, (table, out) in enumerate(zip(tables, outs)):
+        want = np.asarray(j_pallas_bag(
+            jnp.asarray(table, dtype), jnp.asarray(idx[t]), mode=mode,
+            block_b=idx.shape[1], interpret=True), np.float32)
+        assert str(out.dtype) == f"torch.{dtype}"
+        got = out.float().numpy()
+        if dtype == "float32" and L == 1:
+            np.testing.assert_array_equal(got, want)
+        else:
+            np.testing.assert_allclose(got, want, rtol=_BAG_TOL[dtype],
+                                       atol=_BAG_TOL[dtype])
+
+
+def test_grouped_forward_wrapper_refuses_what_it_cannot_take():
+    fn = bag_kernel.embedding_bags
+    before = ops.launch_counts()
+    tables = [torch.zeros(10, 4), torch.zeros(7, 4)]
+    idx = torch.zeros(2, 3, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="unknown embedding_bag mode"):
+        fn(tables, idx, mode="min")
+    with pytest.raises(ValueError, match="1 to 64 tables"):
+        fn([], idx[:0])
+    with pytest.raises(ValueError, match="1 to 64 tables"):
+        fn([torch.zeros(2, 4)] * 65, torch.zeros(65, 1, 1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], torch.zeros(7, 6)], idx)    # mixed D
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], tables[1].to(torch.bfloat16)], idx)  # mixed dtype
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], torch.zeros(4, 7).t()], idx)  # a strided table
+    with pytest.raises(ValueError, match=r"\(T, B, L\)"):
+        fn(tables, idx[0])                         # 2-D ids
+    with pytest.raises(ValueError, match=r"\(T, B, L\)"):
+        fn(tables, torch.zeros(2, 2, 6, dtype=torch.int32)[:, :, ::2])
+    with pytest.raises(ValueError, match=r"\(T, B, L\)"):
+        fn(tables, idx[:1])                        # one table's ids for two
+    with pytest.raises(TypeError, match="int32"):
+        fn(tables, idx.long())
+    with pytest.raises(TypeError, match="table"):
+        fn([x.half() for x in tables], idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fn(tables, idx)                            # right types, on the CPU
+    assert ops.launch_counts() == before
 
 
 def test_grouped_wrapper_refuses_what_it_cannot_take():
@@ -351,7 +440,8 @@ def test_train_step_launches_one_backward(cuda):
     before = ops.launch_counts()
     train_step(model, state, batch["dense"], batch["sparse"], batch["labels"])
     after = ops.launch_counts()
-    assert after["embedding_bag"] - before["embedding_bag"] == 26
+    # one forward launch and one backward call for the 26 tables
+    assert after["embedding_bag"] - before["embedding_bag"] == 1
     assert after["embedding_bag_backward"] - \
         before["embedding_bag_backward"] == 1
 
@@ -370,4 +460,129 @@ def test_grouped_wrapper_refuses_on_card(cuda):
         fn(tables, idx, [g.t().contiguous().t() for g in grad_out])
     with pytest.raises(ValueError, match="grad_out"):
         fn(tables, idx, list(grad_out[:1]))
+    assert counter.launches == before
+
+
+def _forward_card_case(cuda, rows, D, B, L, dtype, seed):
+    tables, idx, _ = _tables_case(rows, D, B, L, hub=0.1, past=True,
+                                  seed=seed)
+    return ([_t(x).to(cuda, getattr(torch, dtype)) for x in tables],
+            _t(idx).to(cuda))
+
+
+def _in_l_order(table, idx, mode):
+    """The bags as the kernel computes them, so its bits: float32 adds (or
+    maxes over the valid ids) position by position in l order from 0 (or
+    the dtype's lowest value), mean's one float32 divide, one rounding to
+    the table's dtype."""
+    g = table[wrap_and_clamp(idx, table.shape[0])].float()  # (B, L, D)
+    valid = (idx < table.shape[0] - 1)[..., None]
+    if mode == "max":
+        acc = torch.full_like(g[:, 0], torch.finfo(table.dtype).min)
+        for l in range(idx.shape[1]):
+            acc = torch.where(valid[:, l], torch.maximum(acc, g[:, l]), acc)
+    else:
+        acc = torch.zeros_like(g[:, 0])
+        for l in range(idx.shape[1]):
+            acc = acc + g[:, l]
+        if mode == "mean":
+            acc = acc / valid.sum(dim=1).clamp(min=1).float()
+    return acc.to(table.dtype)
+
+
+def _reordering(table, idx, mode):
+    """|kernel - plain| per element allowed for a float32 bag: two sums of
+    the same L terms in other orders differ by at most 2 (L - 1) 2^-24
+    sum|term|, mean's divides each round once more; max is exact."""
+    g = table[wrap_and_clamp(idx, table.shape[0])].float()
+    if mode == "max":
+        return torch.zeros_like(g[:, 0])
+    bound = 2 * (idx.shape[1] - 1) * 2.0 ** -24 * g.abs().sum(dim=1)
+    if mode == "mean":
+        cnt = (idx < table.shape[0] - 1).sum(dim=1).clamp(min=1).float()
+        bound = (bound + 2.0 ** -23 * g.abs().sum(dim=1)) / cnt[:, None]
+    return bound
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", [
+    ((70_000, 30_000, 5_000), 64, 65_536, 1),  # RM2-like, 4 bags a tile
+    ((5_000, 3_000), 13, 4_000, 8),            # 4-byte columns, passes of 2
+    ((257, 1_100, 40), 200, 3_000, 3),         # 800-byte rows, two chunks
+    ((4_099, 2_000), 6, 9_000, 2),             # short vectors, 2 bags of 2
+    ((2_000,) * 26, 64, 2_048, 8),             # RM2's 26 tables, D, L = 8
+])
+def test_grouped_forward_matches_plain_on_card(cuda, shape, mode, dtype):
+    rows, D, B, L = shape
+    tables, idx = _forward_card_case(cuda, rows, D, B, L, dtype, seed=B + D)
+    counter = ops.KERNELS["embedding_bag"]
+    before = counter.launches
+    out = bag_kernel.embedding_bags(tables, idx, mode=mode)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1  # one launch, whatever T is
+    assert out.shape == (len(rows), B, D) and out.dtype == tables[0].dtype
+    for t in range(len(rows)):
+        assert torch.equal(out[t], _in_l_order(tables[t], idx[t], mode))
+        want = embedding_bag_ref(tables[t], idx[t], mode)
+        if dtype == "float32":
+            err = (out[t] - want).abs()
+            assert bool((err <= _reordering(tables[t], idx[t], mode)).all())
+        else:
+            torch.testing.assert_close(out[t].float(), want.float(),
+                                       rtol=_BAG_TOL[dtype],
+                                       atol=_BAG_TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", MODES)
+def test_grouped_forward_is_the_one_table_wrapper_table_by_table(
+        cuda, mode, dtype):
+    """Each table of a grouped call (and a call of one table, T = 1) gives
+    the one-table wrapper's bits."""
+    tables, idx = _forward_card_case(cuda, (9_000, 500, 3_000), 64, 20_000,
+                                     1, dtype, seed=3)
+    grouped = bag_kernel.embedding_bags(tables, idx, mode=mode)
+    for t in range(3):
+        alone = bag_kernel.embedding_bags(tables[t:t + 1], idx[t:t + 1],
+                                          mode=mode)
+        one = ops.KERNELS["embedding_bag"](tables[t], idx[t], mode=mode)
+        assert torch.equal(grouped[t], one) and torch.equal(alone[0], one)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", MODES)
+def test_backward_takes_the_forward_views(cuda, mode):
+    """The dispatcher's bags on the card are views of one (T, B, D) tensor;
+    the backward takes them as grad_out as they are."""
+    tables, idx, _ = _card_case(cuda, (3_000, 1_000, 2_000), 64, 4_096, 2,
+                                0.3, seed=5)
+    outs = embedding_bags(tables, idx, mode=mode)
+    base = outs[0].data_ptr()
+    assert [o.data_ptr() - base for o in outs] == \
+        [t * 4_096 * 64 * 4 for t in range(3)]
+    assert all(o.stride() == (64, 1) for o in outs)
+    got = embedding_bags_backward(tables, idx, outs, mode=mode)
+    dense = embedding_bags_backward(tables, idx, [o.clone() for o in outs],
+                                    mode=mode)
+    assert all(torch.equal(a, b) for a, b in zip(got, dense))
+
+
+@pytest.mark.gpu
+def test_grouped_forward_refuses_on_card(cuda):
+    tables, idx = _forward_card_case(cuda, (50, 40), 8, 20, 2, "float32",
+                                     seed=1)
+    fn = bag_kernel.embedding_bags
+    counter = ops.KERNELS["embedding_bag"]
+    before = counter.launches
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], tables[1].to(torch.bfloat16)], idx)
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], tables[1][:, :4].contiguous()], idx)
+    with pytest.raises(ValueError, match="like the first"):
+        fn([tables[0], tables[1].cpu()], idx)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fn(tables, idx.cpu())
     assert counter.launches == before

@@ -225,7 +225,8 @@ def test_dlrm_kernel_path_matches_plain_on_card(cuda, multi_hot, monkeypatch):
                          multi_hot=multi_hot).batch_at(0, device=cuda)
     before = ops.KERNELS["embedding_bag"].launches
     got = serve_step(model, batch["dense"], batch["sparse"])
-    assert ops.KERNELS["embedding_bag"].launches == before + 26
+    # one launch for the 26 tables
+    assert ops.KERNELS["embedding_bag"].launches == before + 1
     monkeypatch.setattr(tdlrm, "embedding_bags",
                         lambda tables, idx, mode="sum": [
                             embedding_bag_ref(t, i, mode)
