@@ -379,7 +379,8 @@ Phases, in order; any failure exits non-zero:
               step), the same bits twice; with --parent the parent's step
               from the same parameters (its first loss against this one's,
               its p50 in turns); (d) ogb_products: each arch's train step at the cell's
-              config (bf16; NequIP with remat), GIN uncut through its cell
+              config (bf16; NequIP with remat, at depth GNN_OGB_LAYERS), GIN uncut
+              through its cell
               (its launches of both segment kernels asserted, no
               index_select gather in its trace), the others with the node
               and edge counts cut by GNN_OGB_CUT: GNN_TIMED_STEPS timed,
@@ -398,6 +399,23 @@ Phases, in order; any failure exits non-zero:
               --parent the parent's segment_sum, or its three-op path, in
               turns), the plain version's, index_add_'s or
               torch.sparse.mm's, and both bytes bounds.
+ 23. gnn mesh the GNN cells on a mesh: GNN_MESH_WORLD processes of this
+              script (--mesh-rank) on a 2 x 2 (data, model) DeviceMesh
+              sharing the card over gloo, each rank drawing the graph from
+              the seed and keeping its blocks (node features over data,
+              edges over both axes): GNN_MESH_RUNS, GIN's ogb_products and
+              ogb_products_spmd cells uncut, PNA's two, EGNN's and
+              NequIP's at the gnn phase's cuts (GNN_OGB_CUT), each arch at
+              its depth GNN_MESH_LAYERS, each through its cell's own step
+              (build_cell at the run's sizes, the published shape's config
+              forced); each run's first cell step against the one-rank
+              cell's step in this process: the loss, the gradient norm and
+              every first moment (bf16: LM_BF16_SMOKE_TOL; NequIP in
+              float32: GNN_MESH_F32_TOL), then one more cell step with its
+              collectives timed (wall, the collectives' seconds and count),
+              the per-rank peak above the inputs and each rank's
+              segment_sum and gather_sum launches (GIN's asserted: 1 and
+              2 x depth - 1).
 
 With --ranks N (N > 1) it runs device, build, graph and oracle, then
 only the placements across N cards: the runs of (a) and the stream of (b)
@@ -413,9 +431,11 @@ elects rank 0's winner, only rank 0's file is written, and every rank's
 labels equal scipy's. Then the two sharded cells at their published sizes
 on a (data, model) mesh of N processes, one rank a card: each rank
 generates only its edge block and label window, and the gathered labels
-pass the planted check on every rank. Last the lm mesh phase on a 2 x 2
-mesh of the N = 4 processes, one rank a card over NCCL, at the same cut
-depths.
+pass the planted check on every rank. Last the lm mesh phase and the gnn
+mesh phase on a 2 x 2 mesh of the N = 4 processes, one rank a card over
+NCCL: the lm mesh at the same cut depths, the gnn mesh uncut but NequIP
+(GNN_MESH_RANKS_CUT; its one-rank checks only for GIN, which one card
+holds).
 
 The whole script reads a tuning cache of its own, an empty file under a
 temporary directory (REPRO_TORCH_TUNE_CACHE, printed first), so every
@@ -568,7 +588,7 @@ BAG_TOL = {"float32": 1e-6, "bfloat16": 3e-2}
 TRAIN_STEPS = 10
 TRAIN_CHECK_VOCAB = 1 << 16
 TRAIN_LEAF_TOL = {"moments": 1e-4, "params": 1e-6}
-TRAIN_CLI = dict(steps=12, every=4, fail=6)
+TRAIN_CLI = dict(steps=8, every=4, fail=6)
 
 
 class SmokeFailure(Exception):
@@ -592,7 +612,8 @@ def time_ms(torch, fn, iters: int, warmup: int = 2,
     A call whose last warm-up took longer than ``budget_ms / iters`` (the
     plain versions and library calls on whole edge lists, 0.1-0.5 s each)
     is timed over fewer calls, at least 3, and a call of half a second or
-    more (the plain versions on the cells' 2^29-2^31 edges) over one."""
+    more (the plain versions on the cells' 2^29-2^31 edges) is that last
+    warm-up's wall, the card synchronized around it."""
     for _ in range(warmup - 1):
         fn()
     torch.cuda.synchronize()
@@ -600,8 +621,9 @@ def time_ms(torch, fn, iters: int, warmup: int = 2,
     fn()
     torch.cuda.synchronize()
     last = (time.perf_counter() - t0) * 1e3
-    iters = max(1 if last >= 500 else 3,
-                min(iters, int(budget_ms / max(last, 1e-3))))
+    if last >= 500:
+        return last
+    iters = max(3, min(iters, int(budget_ms / max(last, 1e-3))))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1366,7 +1388,8 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0,
                 f"version (max_abs_err={err}; -1 is a shape or dtype "
                 f"mismatch)")
         ms = time_ms(torch, lambda: c["kernel"](x), iters=20)
-        plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5)
+        # the check's call above is the plain version's first warm-up
+        plain_ms = time_ms(torch, lambda: c["plain"](x), iters=5, warmup=1)
         lib_ms = None
         lib = c["library"](x) if c["library"] is not None else None
         if lib is not None:
@@ -3709,6 +3732,8 @@ def mesh_rank(rank: int, tmp: str) -> int:
         return _rank_cells(rank, d, job)
     if job.get("lm_mesh"):
         return _rank_lm_mesh(rank, d, job)
+    if job.get("gnn_mesh"):
+        return _rank_gnn_mesh(rank, d, job)
     world, tag = job["world"], f"{job['backend']} {job['world']} ranks "
     arrays = [np.fromfile(d / f"{k}.i32", dtype=np.int32)
               for k in ("senders", "receivers", "indptr", "indices")]
@@ -5277,13 +5302,14 @@ LM_LONG_DECODE = 16
 # since the lm mesh phase (the script's time limit)
 LM_TRAIN_BATCH = 1
 LM_TRAIN_STEPS = 5
-# to leave the gnn phase room in the script's time limit, (a) and (d) run
-# their published widths at a cut depth: qwen3-4b 36 -> LM_SERVE_LAYERS
-# (at full depth its prefill_32k took 28.8 s of the phase's 196.4 on an
-# H100 80GB HBM3 at 700 W), stablelm-3b 32 -> LM_TRAIN_LAYERS (74.3 s
-# there at full depth)
-LM_SERVE_LAYERS = 12
-LM_TRAIN_LAYERS = 8
+# to leave the gnn and gnn mesh phases room in the script's time limit,
+# (a) and (d) run their published widths at a cut depth: qwen3-4b 36 ->
+# LM_SERVE_LAYERS (at full depth its prefill_32k took 28.8 s of the
+# phase's 196.4 on an H100 80GB HBM3 at 700 W; 12 layers until the gnn
+# mesh phase, 4 since), stablelm-3b 32 -> LM_TRAIN_LAYERS (74.3 s there at full
+# depth; 8 layers until the gnn mesh phase)
+LM_SERVE_LAYERS = 4
+LM_TRAIN_LAYERS = 4
 # two bfloat16 paths at full depth (decode against forward): the largest
 # logit difference as a share of the largest |logit|. A bfloat16 rounding
 # is 2^-8 of a value; through 24-36 residual layers the two paths' logits
@@ -6195,7 +6221,9 @@ LM_MESH_PREFILL = (2, 4096)
 LM_MESH_DECODE_STEPS = 8
 LM_MESH_DECODE_BATCH = 8
 # (b) deepseek-moe-16b x train_4k and train_4k_int8a2a at full width, depth
-# cut 28 -> LM_MESH_MOE_LAYERS, batch 256 -> LM_MESH_TRAIN[0]
+# cut 28 -> LM_MESH_MOE_LAYERS, batch 256 -> LM_MESH_TRAIN[0] (depth 1 and
+# 2 x 2048 tokens took as long on an H100: the vocabulary's gathers and
+# the float32 gradients' exchanges set its time, not the depth)
 LM_MESH_MOE_LAYERS = 2
 LM_MESH_TRAIN = (2, 4096)
 # the int8 exchange against the exact one on layer 0's MoE (the
@@ -6466,7 +6494,8 @@ def phase_lm_mesh(torch, seed: int, card: str, world: int = LM_MESH_WORLD,
               f"{LM_MESH_PREFILL[0]} and seq 32768 -> {LM_MESH_PREFILL[1]}, "
               f"decode_32k batch 128 -> {LM_MESH_DECODE_BATCH}; (b) "
               f"deepseek-moe-16b depth 28 -> {LM_MESH_MOE_LAYERS}, batch 256 "
-              f"-> {LM_MESH_TRAIN[0]}; (c) the smoke configs; widths as "
+              f"-> {LM_MESH_TRAIN[0]} and seq 4096 -> {LM_MESH_TRAIN[1]}; "
+              f"(c) the smoke configs; widths as "
               f"published; a {LM_MESH_SHAPE[0]} x {LM_MESH_SHAPE[1]} "
               f"(data, model) mesh of {world} ranks over {backend}")
     finally:
@@ -6869,6 +6898,9 @@ GNN_TIMED_STEPS = 3
 # cut of 4 it peaks at 75.5 GB; EGNN fits at 8 (65.7 GB), NequIP at 16
 # (48.5 GB))
 GNN_OGB_CUT = {"gin-tu": 1, "pna": 8, "egnn": 8, "nequip": 16}
+# (d) NequIP at this depth (published 5): to pay for the gnn mesh phase
+# (at depth 5 its step took 2.55 s, and its run ~23 s, on an H100)
+GNN_OGB_LAYERS = {"nequip": 2}
 # (e) the calls kept from the full-size ogb_products GIN step, each against
 # the plain version: of its one segment_sum, the degree; of its 9
 # gather_sums (the 5 layers' aggregations, then the gradients of layers 4
@@ -7596,6 +7628,8 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
     ``parent`` (--parent) the parent's GIN step from the same parameters,
     its first loss against this one's, its peak, its p50 in turns and its
     trace. Returns each arch's launches a step."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.kernels.segments import Segments
@@ -7615,6 +7649,8 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
         cut = GNN_OGB_CUT[name] * (64 if small else 1)
         spec, dims = _gnn_dims(full, cut)
         cfg = gnn_cell_config(arch, "ogb_products")
+        if name in GNN_OGB_LAYERS:
+            cfg = dataclasses.replace(cfg, n_layers=GNN_OGB_LAYERS[name])
         torch.cuda.empty_cache()
         Segments.clear_cache()
         torch.cuda.synchronize()
@@ -7716,6 +7752,7 @@ def _gnn_ogb(torch, seed: int, records: list, card: str,
         _gnn_repeat(torch, f"(d) ogb_products {name}", model, state, step)
         cut_note = ("uncut" if cut == 1 else
                     f"nodes and edges / {cut}: n {spec['n']}, m {spec['m']}")
+        cut_note += f"; depth {n_layers}"
         print(f"[gnn] (d) ogb_products {name} ({cut_note}; "
               f"{dims['m_pad']} edge slots, n + 1 = {dims['n'] + 1}; dtype "
               f"{getattr(cfg, 'dtype', 'float32')}, remat {cfg.remat}): "
@@ -7993,6 +8030,304 @@ def phase_gnn(torch, seed: int, card: str, results: dict,
         results[entry] = row
 
 
+# ---------------------------------------------------------------------------
+# gnn mesh: the GNN cells on a mesh of processes sharing the card.
+# ---------------------------------------------------------------------------
+
+GNN_MESH_WORLD = 4
+GNN_MESH_SHAPE = (2, 2)
+# the runs: GIN's ogb_products and ogb_products_spmd cells uncut, the other
+# archs cut as in the gnn phase (GNN_OGB_CUT: four processes on one 80 GB
+# card hold no more); with --ranks 4 (a rank a card) uncut but NequIP
+# With --ranks 4 NequIP keeps a cut of nodes and edges: uncut, a rank's
+# float32 edge messages (15.5 M edges of (32, 2l + 1)) lacked memory on an
+# H100 80GB at depth 1
+GNN_MESH_RANKS_CUT = {"nequip": 4}
+GNN_MESH_RUNS = (("gin-tu", "ogb_products"), ("gin-tu", "ogb_products_spmd"),
+                 ("pna", "ogb_products"), ("pna", "ogb_products_spmd"),
+                 ("egnn", "ogb_products"), ("nequip", "ogb_products"))
+# the runs' depth, by arch (widths and sizes as above; a layer's
+# collectives are the run's time over gloo: at full depth GIN's uncut check
+# and three steps took 42 s a run on an H100): GIN and PNA at 2, the least
+# at which a gradient crosses the gather and PNA's mesh max (layer 0 reads
+# the features, which take none); EGNN and NequIP at 1 (their layer 0
+# reads an embedding of the inputs, which takes one)
+GNN_MESH_LAYERS = {"gin-tu": 2, "pna": 2, "egnn": 1, "nequip": 1}
+# against the one-rank step: bf16 runs at the card's bf16 gates (the
+# largest logit's 0.05 for the loss, the largest gradient's 0.1 for every
+# leaf); NequIP (float32) at the LM mesh's float32 gradient gate
+GNN_MESH_F32_TOL = LM_MESH_F32_GRAD_TOL
+
+
+def _gnn_mesh_case(torch, name: str, shape: str, cut: int, seed: int):
+    """A run's cell dims, config, edges (whole) and inputs (whole), drawn on
+    the card from the seed: the same on every rank (and for both cells of
+    an arch)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import gnn_cell_config
+    import dataclasses
+    arch = get_arch(name)
+    spec, dims = _gnn_dims(arch.shapes[shape], cut)
+    cfg = dataclasses.replace(gnn_cell_config(arch, shape),
+                              n_layers=GNN_MESH_LAYERS[name])
+    s0, r0 = gnn_rmat(torch, spec["n"], spec["m"], seed)
+    s = _gnn_padded(torch, s0, dims["m_pad"], dims["n"])
+    r = _gnn_padded(torch, r0, dims["m_pad"], dims["n"])
+    del s0, r0
+    x = _gnn_data(torch, name, cfg, dims, spec["d_feat"], spec["n_classes"],
+                  seed, True)
+    return dims, cfg, s, r, x
+
+
+def _gnn_mesh_cell(name: str, shape: str, cut: int, cfg, mesh=None):
+    """The run's cell through ``build_cell``, on ``mesh`` or at one rank:
+    the shape with its nodes and edges / ``cut`` and the published shape's
+    config at the run's depth (``cfg``: bfloat16 and NequIP's remat past
+    10^6 nodes of the uncut shape), forced where the cell would take its
+    config from the cut sizes."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import steps
+    arch = get_arch(name)
+    spec, _ = _gnn_dims(arch.shapes[shape], cut)
+    arch = dataclasses.replace(arch, shapes={**arch.shapes, shape: spec})
+    published = steps.gnn_cell_config
+    steps.gnn_cell_config = lambda a, s: cfg
+    try:
+        return steps.build_cell(arch, shape, mesh)
+    finally:
+        steps.gnn_cell_config = published
+
+
+def _gnn_mesh_result(torch, info, state) -> dict:
+    """What a run's checked cell step is held to: its loss, gradient norm
+    and first moments (the clipped gradients, scaled)."""
+    from repro_torch.legacy import optim
+    return {"loss": float(info["loss"]),
+            "grad_norm": float(info["grad_norm"]),
+            "mu": [m.detach().double().cpu()
+                   for m in optim.tree_leaves(state.mu)]}
+
+
+def _gnn_mesh_inputs(torch, name: str, shape: str, dims: dict, x: dict,
+                     s, r) -> tuple:
+    """The cell's whole inputs: ``(feats, senders, receivers, targets)``,
+    or the spmd cell's ``(node input, coords, senders, receivers,
+    targets)`` with int targets of n + 1 rows."""
+    import torch.nn.functional as F
+    if not shape.endswith("_spmd"):
+        return ({k: v for k, v in x.items() if k != "targets"}, s, r,
+                x["targets"])
+    n1 = dims["n"] + 1
+    if name == "nequip":
+        return x["species"], x["coords"], s, r, x["targets"]
+    coords = x.get("coords", torch.zeros(n1, 3, device=s.device))
+    return x["feats"], coords, s, r, F.pad(x["targets"], (0, 1))
+
+
+def phase_gnn_mesh(torch, seed: int, card: str, small: bool = False,
+                   world: int = GNN_MESH_WORLD,
+                   backend: str = "gloo") -> None:
+    """The GNN cells on a 2 x 2 (data, model) mesh of ``world`` processes
+    (GNN_MESH_RUNS), each run's first cell step held against the one-rank
+    cell's step in this process where one card holds it (the loss, the
+    gradient norm and every first moment), then one more cell step with
+    its collectives timed: wall, the collectives' share, per-rank peak,
+    launches."""
+    import math
+    import shutil
+    import tempfile
+
+    from repro_torch.legacy import optim
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_gnn_mesh_"))
+    runs = []
+    try:
+        for i, (name, shape) in enumerate(GNN_MESH_RUNS):
+            one_card = backend == "gloo" or name == "gin-tu"
+            cut = (GNN_OGB_CUT[name] if backend == "gloo" else
+                   GNN_MESH_RANKS_CUT.get(name, 1)) * (64 if small else 1)
+            runs.append([name, shape, cut, one_card])
+            if not one_card:
+                continue
+            torch.cuda.empty_cache()
+            dims, cfg, s, r, x = _gnn_mesh_case(torch, name, shape, cut,
+                                                seed)
+            args = _gnn_mesh_inputs(torch, name, shape, dims, x, s, r)
+            cell = _gnn_mesh_cell(name, shape, cut, cfg)
+            model = _gnn_model(torch, name, cfg, seed)
+            t0 = time.perf_counter()
+            _, state, info = cell.fn(model, optim.init_adam(model.params()),
+                                     *args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ref = _gnn_mesh_result(torch, info, state)
+            torch.save(ref, tmp / f"ref{i}.pt")
+            print(f"[gnn mesh] one rank in this process: {name} {shape} "
+                  f"(n + 1 = {dims['n'] + 1}, {dims['m_pad']} edge slots): "
+                  f"the cell's step in {wall:.3f} s (first call), loss "
+                  f"{ref['loss']:.6f}, grad_norm {ref['grad_norm']:.6f}",
+                  flush=True)
+            del model, state, info, cell, s, r, x, args, ref
+            from repro_torch.kernels.segments import Segments
+            Segments.clear_cache()
+        torch.cuda.empty_cache()
+        (tmp / "job.json").write_text(json.dumps(
+            {"gnn_mesh": True, "world": world, "backend": backend,
+             "seed": seed, "runs": runs, "layers": GNN_MESH_LAYERS}))
+        t0 = time.perf_counter()
+        logs = _run_rank_procs(tmp, world, f"gnn mesh {backend}")
+        print(f"[gnn mesh] {world} ranks over {backend}: "
+              f"{time.perf_counter() - t0:.1f} s from start to exit")
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                if line.startswith("[gnn mesh]") and (r == 0 or "peak" in
+                                                       line):
+                    print(f"[gnn mesh] rank {r} of {world}:{line[10:]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(world)]
+        for i, (name, shape, cut, one_card) in enumerate(runs):
+            tag = f"{name} {shape}"
+            got = [x[str(i)] for x in res]
+            loss_rel = max(g.get("loss rel", 0.0) for g in got)
+            grad_rel = max(g.get("grad rel", 0.0) for g in got)
+            bf16 = getattr(_gnn_cfg_of(name, shape), "dtype",
+                           "float32") == "bfloat16"
+            lt = LM_BF16_SMOKE_TOL["logits"] if bf16 else GNN_MESH_F32_TOL
+            gt = LM_BF16_SMOKE_TOL["grads"] if bf16 else GNN_MESH_F32_TOL
+            if one_card:
+                require(loss_rel <= lt and grad_rel <= gt,
+                        f"gnn mesh {tag}: the loss {loss_rel:.3e} and the "
+                        f"gradient norm and first moments {grad_rel:.3e} "
+                        f"from the one-rank cell step's, over {lt} / {gt}")
+            require(all(math.isfinite(g["loss"]) for g in got),
+                    f"gnn mesh {tag}: loss {[g['loss'] for g in got]}")
+            counts = got[0]["launches"]
+            if name == "gin-tu":  # the degree; the aggregations and their
+                # gradients but layer 0's (the features take none)
+                want = {"segment_sum": 1,
+                        "gather_sum": 2 * GNN_MESH_LAYERS[name] - 1}
+                require(all(g["launches"] == want for g in got),
+                        f"gnn mesh {tag}: launches a step "
+                        f"{[g['launches'] for g in got]}")
+            else:
+                require(all(g["launches"]["segment_sum"] > 0 for g in got),
+                        f"gnn mesh {tag}: no segment_sum launched")
+            cut_note = "uncut" if cut == 1 else f"nodes and edges / {cut}"
+            vs = (f"the cell's first step: loss {loss_rel:.3e}, gradient "
+                  f"norm and first moments {grad_rel:.3e} (largest over the "
+                  f"ranks and leaves, each a share of the one-rank cell "
+                  f"step's largest in its leaf) from the one-rank cell's "
+                  f"step" if one_card else
+                  "no one-rank step (it does not fit one card)")
+            cut_note += f", depth {GNN_MESH_LAYERS[name]}"
+            print(f"[gnn mesh] {tag} ({cut_note}) on a {GNN_MESH_SHAPE[0]} x "
+                  f"{GNN_MESH_SHAPE[1]} mesh of {world} ranks over "
+                  f"{backend}: {vs}; a cell step (after the checked one; the card "
+                  f"synchronized around each collective) {got[0]['wall']:.4f}"
+                  f" s, its {got[0]['comm calls']} collectives "
+                  f"{got[0]['comm s']:.4f} s "
+                  f"({got[0]['comm s'] / got[0]['wall']:.3f}); "
+                  f"per-rank step peak "
+                  f"{max(g['peak'] for g in got)} bytes; launches a step "
+                  f"a rank {json.dumps(counts)}; loss {got[0]['loss']:.6f}; "
+                  f"card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _gnn_cfg_of(name: str, shape: str):
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import gnn_cell_config
+    return gnn_cell_config(get_arch(name), shape)
+
+
+def _rank_gnn_mesh(rank: int, d: Path, job: dict) -> int:
+    """One rank of phase_gnn_mesh: each run's checked cell step and one
+    more cell step with its collectives timed; what it measured to
+    rank{rank}.json."""
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.segments import Segments
+    from repro_torch.launch import multihost
+    from repro_torch.launch.shardings import local_block
+    from repro_torch.legacy import optim
+
+    globals().update(GNN_MESH_LAYERS=job["layers"])
+    multihost.initialize(init_method=f"file://{d}/rendezvous",
+                         num_processes=job["world"], process_id=rank,
+                         backend=job["backend"], timeout=600)
+    out = {}
+
+    def blocks(cell, args, mesh):
+        res = []
+        for a, sh in zip(args, cell.in_shardings):
+            if isinstance(a, dict):
+                res.append({k: local_block(v, sh[k], mesh).clone()
+                            for k, v in a.items()})
+            else:
+                res.append(local_block(a, sh, mesh).clone())
+        return res
+
+    case = [None]
+    try:
+        mesh = init_device_mesh("cuda", GNN_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        for i, (name, shape, cut, one_card) in enumerate(job["runs"]):
+            t0 = time.perf_counter()
+            if case[0] != (name, cut):  # the two cells of an arch share it
+                case[:] = [None]
+                torch.cuda.empty_cache()
+                case[:] = [(name, cut), _gnn_mesh_case(torch, name, shape,
+                                                       cut, job["seed"])]
+            dims, cfg, s, r, x = case[1]
+            cell = _gnn_mesh_cell(name, shape, cut, cfg, mesh)
+            args = blocks(cell, _gnn_mesh_inputs(torch, name, shape, dims,
+                                                 x, s, r), mesh)
+            del s, r, x
+            model = _gnn_model(torch, name, cfg, job["seed"])
+            _, state, info = cell.fn(model, optim.init_adam(model.params()),
+                                     *args)
+            got = _gnn_mesh_result(torch, info, state)
+            rec = {"loss": got["loss"]}
+            if one_card:
+                ref = torch.load(d / f"ref{i}.pt")
+                rec["loss rel"] = abs(rec["loss"] - ref["loss"]) / max(
+                    abs(ref["loss"]), 1e-30)
+                rec["grad rel"] = max(
+                    abs(got["grad_norm"] - ref["grad_norm"])
+                    / max(abs(ref["grad_norm"]), 1e-30),
+                    *(float((g - w).abs().max())
+                      / max(float(w.abs().max()), 1e-30)
+                      for g, w in zip(got["mu"], ref["mu"], strict=True)))
+            del got, info
+
+            def step():
+                return cell.fn(model, state, *args)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            rec["wall"], rec["comm s"], rec["comm calls"] = \
+                _comm_share(torch, step)
+            c = ops.launch_counts()
+            rec["launches"] = {e: c[e] for e in ("segment_sum", "gather_sum")}
+            rec["peak"] = torch.cuda.max_memory_allocated() - base
+            out[str(i)] = rec
+            print(f"[gnn mesh] {name} {shape}: {time.perf_counter() - t0:.1f}"
+                  f" s on this rank; its step peak {rec['peak']} bytes",
+                  flush=True)
+            del model, state, args, cell, step
+            Segments.clear_cache()
+    finally:
+        multihost.shutdown()
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
 def _np_tree(tree):
     if isinstance(tree, dict):
         return {k: _np_tree(v) for k, v in tree.items()}
@@ -8078,6 +8413,8 @@ def main() -> int:
             if args.ranks == LM_MESH_WORLD:
                 timed("lm mesh", phase_lm_mesh, torch, args.seed, card,
                       args.ranks, "cpu:gloo,cuda:nccl")
+                timed("gnn mesh", phase_gnn_mesh, torch, args.seed, card,
+                      False, args.ranks, "cpu:gloo,cuda:nccl")
             else:
                 print(f"[lm mesh] not run: its {LM_MESH_SHAPE[0]} x "
                       f"{LM_MESH_SHAPE[1]} mesh takes {LM_MESH_WORLD} "
@@ -8124,6 +8461,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         timed("gnn", phase_gnn, torch, args.seed, card, results,
               args.log_n < DEFAULT_GRAPH[0], parent)
+        torch.cuda.empty_cache()
+        timed("gnn mesh", phase_gnn_mesh, torch, args.seed, card,
+              args.log_n < DEFAULT_GRAPH[0])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -38,8 +38,8 @@ GNN_SHAPES: Dict[str, dict] = {
     "molecule": dict(kind="molecule", nodes=30, edges=64, batch=128,
                      d_feat=16, n_classes=2),
     # the reference's explicit-SPMD variant of ogb_products
-    # (legacy/models/gnn_spmd.py there); on one rank its cell computes the
-    # dense loss, on a mesh it is ROADMAP Queue 1 item 16, third part (b)
+    # (legacy/models/gnn_spmd.py, in both packages): the loss over the real
+    # rows, node state split over the data axes on a mesh
     "ogb_products_spmd": dict(kind="full", n=2449029, m=61859140, d_feat=100,
                               n_classes=47, spmd=True),
 }

@@ -23,21 +23,34 @@ from .containers import Graph, build_graph
 
 def rmat_edges(n: int, m: int, *, a: float = 0.5, b: float = 0.1,
                c: float = 0.1, seed: int = 0) -> np.ndarray:
-    """The ``(m, 2)`` int64 RMAT edge list before symmetrization/dedup."""
+    """The ``(m, 2)`` int64 RMAT edge list before symmetrization/dedup.
+
+    Each level draws ``rng.choice(4, size=m, p=[a, b, c, d])``'s uniforms
+    and takes the quadrant from them by comparison with the cumulative
+    ``p`` (the same draws and quadrants, without the choice's index
+    arrays): the source's bit is quadrant 2 or 3, the destination's
+    quadrant 1 or 3, shifted into the ids most significant bit first."""
     rng = np.random.default_rng(seed)
     scale = int(np.ceil(np.log2(max(n, 2))))
-    src = np.zeros(m, dtype=np.int64)
-    dst = np.zeros(m, dtype=np.int64)
-    d = 1.0 - a - b - c
-    p = np.array([a, b, c, d])
-    for level in range(scale):
-        quad = rng.choice(4, size=m, p=p)
-        bit = 1 << (scale - 1 - level)
-        src += np.where((quad == 2) | (quad == 3), bit, 0)
-        dst += np.where((quad == 1) | (quad == 3), bit, 0)
-    src %= n
-    dst %= n
-    return np.stack([src, dst], 1)
+    cdf = np.array([a, b, c, 1.0 - a - b - c]).cumsum()
+    cdf /= cdf[-1]
+    acc = np.int32 if scale < 31 else np.int64
+    src = np.zeros(m, dtype=acc)
+    dst = np.zeros(m, dtype=acc)
+    u = np.empty(m)
+    hi, odd = np.empty(m, dtype=bool), np.empty(m, dtype=bool)
+    for _ in range(scale):
+        rng.random(out=u)
+        np.greater_equal(u, cdf[1], out=hi)      # quadrant >= 2
+        src <<= 1
+        src |= hi
+        np.greater_equal(u, cdf[0], out=odd)     # quadrant odd: the
+        odd ^= hi                                # parity of the three
+        np.greater_equal(u, cdf[2], out=hi)      # comparisons
+        odd ^= hi
+        dst <<= 1
+        dst |= odd
+    return np.stack([src.astype(np.int64) % n, dst.astype(np.int64) % n], 1)
 
 
 def rmat(n: int, m: int, *, a: float = 0.5, b: float = 0.1, c: float = 0.1,

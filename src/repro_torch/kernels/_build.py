@@ -64,7 +64,7 @@ SIGNATURES = {
     "threefry": {
         "threefry_bits_i64": (_P, _I64, _I64, _I64, _I64, _P),
         "threefry_randint_i32": (
-            _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _P)},
+            _P, _P, _I64, _I64, _I64, _I64, _I64, _I64, _I64, _P)},
 }
 
 

@@ -15,8 +15,9 @@
 //                 exponential) are made from.
 //   randint_i32:  jax.random.randint(key, (n,), minval, maxval) for an
 //                 int32 maxval array: the bits of two keys (split(key)'s)
-//                 reduced modulo the span in wrapping uint32, as
-//                 jax._src.random._randint does.
+//                 at elements start + j, reduced modulo the span in
+//                 wrapping uint32, as jax._src.random._randint does (start
+//                 > 0: a block of a larger draw, as a mesh rank takes it).
 //
 // Bound: operations. Each element runs one (bits) or two (randint)
 // threefry blocks of ~160 32-bit integer operations; the bytes are the
@@ -61,7 +62,8 @@ __global__ void bits_kernel(int64_t* __restrict__ out, int64_t n,
 }
 
 __global__ void randint_kernel(const int* __restrict__ maxval,
-                               int* __restrict__ out, int64_t n, int minval,
+                               int* __restrict__ out, int64_t n,
+                               int64_t start, int minval,
                                uint32_t a0, uint32_t a1, uint32_t b0,
                                uint32_t b1) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
@@ -73,8 +75,8 @@ __global__ void randint_kernel(const int* __restrict__ maxval,
     if (hi <= minval) span = 1u;
     uint32_t mult = 65536u % span;
     mult = (mult * mult) % span;
-    const uint32_t higher = threefry_bits(a0, a1, j);
-    const uint32_t lower = threefry_bits(b0, b1, j);
+    const uint32_t higher = threefry_bits(a0, a1, start + j);
+    const uint32_t lower = threefry_bits(b0, b1, start + j);
     const uint32_t offset = ((higher % span) * mult + lower % span) % span;
     out[j] = static_cast<int>(static_cast<uint32_t>(minval) + offset);
   }
@@ -91,11 +93,11 @@ extern "C" int threefry_bits_i64(void* out, int64_t n, int64_t start, int64_t k0
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int threefry_randint_i32(const void* maxval, void* out, int64_t n, int64_t minval, int64_t a0, int64_t a1, int64_t b0, int64_t b1, void* stream) {
-  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+extern "C" int threefry_randint_i32(const void* maxval, void* out, int64_t n, int64_t start, int64_t minval, int64_t a0, int64_t a1, int64_t b0, int64_t b1, void* stream) {
+  if (n < 1 || start < 0) return static_cast<int>(cudaErrorInvalidValue);
   randint_kernel<<<connectit::grid_for(n), connectit::kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(maxval), static_cast<int*>(out), n,
+      static_cast<const int*>(maxval), static_cast<int*>(out), n, start,
       static_cast<int>(minval), static_cast<uint32_t>(a0),
       static_cast<uint32_t>(a1), static_cast<uint32_t>(b0),
       static_cast<uint32_t>(b1));

@@ -214,13 +214,14 @@ def threefry_bits(out: torch.Tensor, k1: int, k2: int,
 
 
 def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
-                     lower_key: tuple) -> torch.Tensor:
+                     lower_key: tuple, start: int = 0) -> torch.Tensor:
     """``jax.random.randint``'s int32 draw in ``[minval, maxval)`` for each
-    of the int32 ``maxval`` (n,), from ``split(key)``'s two key words."""
+    of the int32 ``maxval`` (n,), from ``split(key)``'s two key words, at
+    elements ``start`` .. ``start + n - 1`` of the draw."""
     if on_cuda(maxval):
         return _threefry_kernel.threefry_randint(maxval, minval, higher_key,
-                                                 lower_key)
-    return threefry_randint_ref(maxval, minval, higher_key, lower_key)
+                                                 lower_key, start)
+    return threefry_randint_ref(maxval, minval, higher_key, lower_key, start)
 
 
 def segment_sum(vals: torch.Tensor, order: torch.Tensor,

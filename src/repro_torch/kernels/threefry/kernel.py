@@ -39,7 +39,7 @@ def threefry_bits(out: torch.Tensor, k1: int, k2: int,
 
 
 def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
-                     lower_key: tuple) -> torch.Tensor:
+                     lower_key: tuple, start: int = 0) -> torch.Tensor:
     """``ref.threefry_randint_ref`` on the card: int32 (n,)."""
     _check("threefry_randint", maxval, torch.int32)
     out = torch.empty_like(maxval)
@@ -47,7 +47,7 @@ def threefry_randint(maxval: torch.Tensor, minval: int, higher_key: tuple,
         return out
     lib = _build.load("threefry")
     _build.check(lib.threefry_randint_i32(
-        maxval.data_ptr(), out.data_ptr(), maxval.numel(), minval,
+        maxval.data_ptr(), out.data_ptr(), maxval.numel(), start, minval,
         *higher_key, *lower_key, _build.stream_of(maxval)),
         "threefry_randint")
     threefry_randint.launches += 1

@@ -54,18 +54,18 @@ def _mul32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def threefry_randint_ref(maxval: torch.Tensor, minval: int, higher_key: tuple,
-                         lower_key: tuple) -> torch.Tensor:
+                         lower_key: tuple, start: int = 0) -> torch.Tensor:
     """``jax.random.randint`` of ``maxval.shape[0]`` int32 elements in
     ``[minval, maxval)`` (``minval`` where ``maxval <= minval``): the bits
-    of ``higher_key`` and ``lower_key`` (``split(key)``'s words) reduced
-    modulo the span in wrapping uint32 (``jax._src.random._randint``).
-    ``maxval`` is int32 (n,), ``minval`` an int32 value."""
-    n = maxval.shape[0]
-    hi = maxval.to(torch.int64)
-    higher = threefry_bits_ref(torch.empty(n, dtype=torch.int64,
+    of ``higher_key`` and ``lower_key`` (``split(key)``'s words) at elements
+    ``start`` .. ``start + n - 1``, reduced modulo the span in wrapping
+    uint32 (``jax._src.random._randint``). ``maxval`` is int32 (n,),
+    ``minval`` an int32 value."""
+    higher = threefry_bits_ref(torch.empty(maxval.shape[0], dtype=torch.int64,
                                            device=maxval.device),
-                               *higher_key, 0)
-    lower = threefry_bits_ref(torch.empty_like(higher), *lower_key, 0)
+                               *higher_key, start)
+    lower = threefry_bits_ref(torch.empty_like(higher), *lower_key, start)
+    hi = maxval.to(torch.int64)
     span = (hi - minval) & MASK
     span = torch.where(hi <= minval, torch.ones_like(span), span)
     multiplier = torch.remainder(torch.full_like(span, 1 << 16), span)

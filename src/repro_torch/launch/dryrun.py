@@ -16,16 +16,16 @@ needed for 256 or 512 ranks. Per cell it reports:
 
 The reference's ``memory_analysis``, ``cost_analysis`` and HLO collective
 columns come from XLA's compiled program and have no counterpart here; they
-are left out. An LM cell is planned per rank on the mesh: its
+are left out. An LM or GNN cell is planned per rank on the mesh: its
 ``arg_bytes`` add the rank's blocks of the model's float32 parameters
-under the reference's specs, and for a train cell of AdamW's two moments
-under the same FSDP specs and its step (the cell's ``state``), to its
-blocks of the batch and of a decode cell's KV cache. The port's DLRM and
-GNN cells run on one card (a mesh is ROADMAP Queue 1 item 17 for DLRM,
-item 16's third part (b) for the GNN family): they are planned at one
-rank, with the parameters (and a train cell's moments and step) among the
-inputs. A cell the port has not built yet would be reported as not
-ported, not as a failure.
+under the reference's specs (a GNN's whole on every rank), and for a
+train cell of AdamW's two moments under the same specs and its step (the
+cell's ``state``), to its blocks of the inputs (a GNN's node features
+over the data axes, its edges over every axis) and of a decode cell's KV
+cache. The port's DLRM cells run on one card (a mesh is ROADMAP Queue 1
+item 17): they are planned at one rank, with the parameters (and a train
+cell's moments and step) among the inputs. A cell the port has not built
+yet would be reported as not ported, not as a failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -65,8 +65,7 @@ def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
 ONE_RANK = ShapeMesh((1,), ("data",))
 # the families whose cells run on one rank only, and the queue item of
 # their cells on a mesh
-ONE_RANK_FAMILIES = {"recsys": "ROADMAP Queue 1 item 17",
-                     "gnn": "ROADMAP Queue 1 item 16, third part (b)"}
+ONE_RANK_FAMILIES = {"recsys": "ROADMAP Queue 1 item 17"}
 
 
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
@@ -93,7 +92,7 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
                      + states * _dlrm_param_bytes(arch.model)
                      + (4 if shape["kind"] == "train" else 0))
     else:  # the connectit inputs; an LM or GNN cell's model and AdamW
-        # state too
+        # state too, per rank
         arg_bytes = local_bytes(cell, plan) + state_bytes(cell, plan)
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev

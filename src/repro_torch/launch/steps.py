@@ -41,7 +41,7 @@ shapes in ``state`` and their specs in ``state_shardings``.
     The specs are the reference's (FSDP for train cells, the experts out
     of it unless ``moe_fsdp``); the step is Megatron TP, EP with one
     all_to_all each way, FSDP (``legacy/models/spmd.py``).
-  * ``gnn``: GIN, PNA, EGNN and NequIP train cells on one rank,
+  * ``gnn``: GIN, PNA, EGNN and NequIP train cells,
     ``fn(model, opt_state, *inputs)`` updating both in place: full-graph
     and molecule shapes ``fn(model, opt_state, feats, senders, receivers,
     targets[, graph_ids])`` (``feats`` a dict: ``{"feats"[, "coords"]}``,
@@ -50,12 +50,16 @@ shapes in ``state`` and their specs in ``state_shardings``.
     reference's neighbour sampling inside the step), and
     ``ogb_products_spmd`` the reference's calling convention ``fn(model,
     opt_state, node_feats, coords, senders, receivers, targets)`` with
-    ``n + 1`` target rows, computing the dense loss over the ``n_real``
-    real rows (which the reference's SPMD loss equals). The segment sums of the step go through the
-    hand-written ``segment_sum`` over each edge array's sorted layout,
-    sorted at the first step on a graph (``kernels/segments.py``). On a
-    mesh of more than one rank they are ROADMAP Queue 1 item 16, third
-    part (b) (refused, not built for one rank).
+    ``n + 1`` target rows, the loss over the ``n_real`` real rows
+    (``legacy/models/gnn_spmd.py``). The segment sums of the step go
+    through the hand-written ``segment_sum`` over each edge array's sorted
+    layout, sorted at the first step on a graph (``kernels/segments.py``).
+    On a mesh of several ranks each rank passes its blocks: node features
+    split over the data axes, edges over every axis, minibatch seeds over
+    the data axes (each rank samples its block's edges), the rest whole;
+    node state is gathered once a layer for the edges and every
+    aggregation reduce-scattered back (``gnn_spmd.GraphShard``), and the
+    parameters' gradients are summed over the data axes.
 """
 
 from __future__ import annotations
@@ -77,10 +81,11 @@ from ..legacy.models import gnn as gnn_mod
 from ..legacy.models import nequip as nequip_mod
 from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRM, DLRMConfig
+from ..legacy.models import spmd
 from ..legacy.models.spmd import spec_leaves
 from ..legacy.tree import leaves as tree_leaves
 from . import shardings as shd
-from .mesh import all_axes, data_axes, make_smoke_mesh
+from .mesh import ShapeMesh, all_axes, data_axes, make_smoke_mesh
 
 
 OPT = optim.OptimizerConfig()
@@ -386,21 +391,27 @@ def _lm_cell(arch: Arch, shape_name: str, mesh) -> Cell:
 
 
 # ---------------------------------------------------------------------------
-# GNN cells (one rank).
+# GNN cells.
 # ---------------------------------------------------------------------------
 
 def gnn_train_step(model, opt_state: optim.AdamState, loss_fn: Callable,
-                   ocfg: optim.OptimizerConfig = OPT):
+                   ocfg: optim.OptimizerConfig = OPT, mesh_shard=None):
     """One step of the reference's GNN ``train_step``: ``loss_fn(params)``,
     its gradient with respect to every parameter (zero for a leaf the loss
     does not reach, as ``jax.grad`` gives: EGNN's last coordinate MLP), and
     ``optim.update`` in place → ``(model, opt_state, {"loss", "lr",
-    "grad_norm"})``."""
+    "grad_norm"})``. On a mesh (``mesh_shard`` a ``MeshShard``) every
+    parameter is whole on every rank: its gradient is summed over the data
+    axes after the backward, so the clip's norm is the global one on every
+    rank."""
     params = model.params()
+    leaves = optim.tree_leaves(params)
     with torch.enable_grad():
         loss = loss_fn(params)
-        grads = torch.autograd.grad(loss, optim.tree_leaves(params),
-                                    allow_unused=True, materialize_grads=True)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+    if mesh_shard is not None:
+        mesh_shard.sync_grads(grads, [()] * len(grads))
     _, opt_state, info = optim.update(
         ocfg, params, optim.tree_unflatten(params, grads), opt_state)
     return model, opt_state, {"loss": loss.detach(), **info}
@@ -444,7 +455,29 @@ def gnn_cell_config(arch: Arch, shape_name: str):
         readout="graph" if spec["kind"] == "molecule" else "node")
 
 
-def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
+def _entry(axes: tuple):
+    return None if not axes else axes[0] if len(axes) == 1 else tuple(axes)
+
+
+def _minibatch_edges(s, r, graph, fill: int) -> tuple:
+    """This model rank's block of a data rank's sampled edges, padded with
+    inert dump edges to split over ``model``."""
+    if not graph.model:
+        return s, r
+    M = shd.extent(graph.mesh, graph.model)
+    pad = (-s.shape[0]) % M
+    s, r = (torch.cat([e, e.new_full((pad,), fill)]) for e in (s, r))
+    per = s.shape[0] // M
+    m = coll.axis_index(graph.mesh, "model")
+    return s[m * per: (m + 1) * per], r[m * per: (m + 1) * per]
+
+
+def _gnn_cell(arch: Arch, shape_name: str, mesh=None) -> Cell:
+    """A GNN train cell. On a mesh of several ranks (the reference's
+    ``in_shardings``): node features split over the data axes, edges over
+    every axis, NequIP's species and every coordinate array whole,
+    minibatch seeds over the data axes, the parameters and AdamW's state
+    whole; each rank passes its blocks."""
     spec = arch.shapes[shape_name]
     kind = spec["kind"]
     is_nequip = arch.name == "nequip"
@@ -461,6 +494,17 @@ def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
     state_specs = (pspecs, optim.AdamState((), pspecs, pspecs))
     meta = dict(model_flops=2 * 3 * m_pad * getattr(mcfg, "d_hidden", 32)
                 * getattr(mcfg, "n_layers", 5), edges=m_pad)
+    on_mesh = mesh is not None and mesh.size() > 1
+    dax = data_axes(mesh) if on_mesh else ()
+    nspec = (_entry(dax), None) if on_mesh else ()
+    espec = (_entry(all_axes(mesh)),) if on_mesh else ()
+    # this rank's node rows and the gradients' sum over the data axes (a
+    # ShapeMesh only plans the cell, which is never called)
+    graph = mshard = None
+    if on_mesh and not isinstance(mesh, ShapeMesh):
+        from ..legacy.models.gnn_spmd import GraphShard
+        graph = GraphShard(mesh, n + 1)
+        mshard = spmd.MeshShard(mesh, batch_split=True)
 
     if is_nequip:
         feats = {"species": _meta((n + 1,), torch.int32),
@@ -472,15 +516,15 @@ def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
             feats["coords"] = _meta((n + 1, 3), torch.float32)
         targets = _meta((n_graphs if kind == "molecule" else n,),
                         torch.int32)
-    fspecs = {k: () for k in feats}
+    fspecs = {k: nspec if k == "feats" else () for k in feats}
 
     def node_mask(like):
         return (torch.arange(n, device=like.device) < n_real).float()
 
-    def cell(fn, args):
-        return Cell(arch.name, shape_name, fn, args,
-                    (fspecs,) + ((),) * (len(args) - 1), donate=(0, 1),
-                    meta=meta, state=state, state_shardings=state_specs)
+    def cell(fn, args, shardings):
+        return Cell(arch.name, shape_name, fn, args, shardings,
+                    donate=(0, 1), meta=meta, state=state,
+                    state_shardings=state_specs)
 
     if kind == "minibatch":
         indptr = _meta((n + 2,), torch.int32)
@@ -491,8 +535,14 @@ def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
 
         def train_step(model, opt_state, feats, indptr, indices, seeds,
                        labels, key):
+            start = 0 if graph is None else (
+                coll.shard_index(graph.mesh, graph.dax) * seeds.shape[0])
             s, r = sample_subgraph(indptr, indices, seeds, key,
-                                   spec["fanout"])
+                                   spec["fanout"], start=start)
+            if graph is not None:
+                s, r = _minibatch_edges(s, r, graph, n)
+                seeds = spmd.gather(seeds, graph.mesh, 0, graph.dax,
+                                    summed=False)
             mask = torch.zeros((n,), dtype=torch.float32, device=s.device)
             mask[seeds.long()] = 1.0
 
@@ -500,63 +550,63 @@ def _gnn_cell(arch: Arch, shape_name: str) -> Cell:
                 if is_nequip:
                     return nequip_mod.nequip_loss(
                         p, mcfg, feats["species"], feats["coords"], s, r,
-                        torch.zeros((1,), device=s.device))
+                        torch.zeros((1,), device=s.device), graph=graph)
                 return gnn_mod.gnn_loss(
                     p, mcfg, feats["feats"], s, r, labels,
-                    coords=feats.get("coords"), label_mask=mask)
+                    coords=feats.get("coords"), label_mask=mask, graph=graph)
 
-            return gnn_train_step(model, opt_state, loss_fn)
+            return gnn_train_step(model, opt_state, loss_fn,
+                                  mesh_shard=mshard)
 
-        return cell(train_step, (feats, indptr, indices, seeds, labels, key))
+        return cell(train_step, (feats, indptr, indices, seeds, labels, key),
+                    (fspecs, (), (), (_entry(dax),) if on_mesh else (), (),
+                     ()))
 
     edges = _meta((m_pad,), torch.int32)
     if spec.get("spmd"):
-        # the reference's convention: every node input whole (n + 1 rows),
-        # int targets of n + 1 rows for the classifiers
+        # the reference's convention: every node input of n + 1 rows (the
+        # features split over the data axes), int targets of n + 1 rows for
+        # the classifiers
+        from ..legacy.models.gnn_spmd import make_spmd_gnn_loss
         a2 = feats["species"] if is_nequip \
             else _meta((n + 1, d_feat), torch.float32)
         targets2 = targets if is_nequip else _meta((n + 1,), torch.int32)
+        loss_fn, _ = make_spmd_gnn_loss(
+            None if graph is None else mesh, mcfg, n1=n + 1, n_real=n_real,
+            dax=dax, n_graphs=n_graphs)
 
         def train_step(model, opt_state, a2, coords, s, r, targets):
-            def loss_fn(p):
-                if is_nequip:
-                    # the reference's SPMD loss sums the energy of the real
-                    # rows only: the padded rows take an id past the one
-                    # graph, which the segment sum drops
-                    real = (torch.arange(n + 1, device=s.device) >= n_real)
-                    return nequip_mod.nequip_loss(
-                        p, mcfg, a2, coords, s, r, targets,
-                        graph_ids=real.to(torch.int32), n_graphs=1)
-                return gnn_mod.gnn_loss(
-                    p, mcfg, a2, s, r, targets[:n],
-                    coords=coords if mcfg.kind == "egnn" else None,
-                    label_mask=node_mask(s))
-
-            return gnn_train_step(model, opt_state, loss_fn)
+            return gnn_train_step(
+                model, opt_state,
+                lambda p: loss_fn(p, a2, coords, s, r, targets),
+                mesh_shard=mshard)
 
         args = (a2, _meta((n + 1, 3), torch.float32), edges, edges, targets2)
-        return Cell(arch.name, shape_name, train_step, args,
-                    ((),) * len(args), donate=(0, 1), meta=meta,
-                    state=state, state_shardings=state_specs)
+        return cell(train_step, args,
+                    (() if is_nequip else nspec, (), espec, espec, ()))
 
     def train_step(model, opt_state, feats, s, r, targets, graph_ids=None):
+
         def loss_fn(p):
             if is_nequip:
                 return nequip_mod.nequip_loss(
                     p, mcfg, feats["species"], feats["coords"], s, r,
-                    targets, graph_ids=graph_ids, n_graphs=n_graphs)
+                    targets, graph_ids=graph_ids, n_graphs=n_graphs,
+                    graph=graph)
             mask = node_mask(s) if mcfg.readout == "node" else None
             return gnn_mod.gnn_loss(
                 p, mcfg, feats["feats"], s, r, targets,
                 coords=feats.get("coords"), graph_ids=graph_ids,
-                n_graphs=n_graphs, label_mask=mask)
+                n_graphs=n_graphs, label_mask=mask, graph=graph)
 
-        return gnn_train_step(model, opt_state, loss_fn)
+        return gnn_train_step(model, opt_state, loss_fn, mesh_shard=mshard)
 
     args = (feats, edges, edges, targets)
+    shardings = (fspecs, espec, espec, ())
     if kind == "molecule":
         args += (_meta((n + 1,), torch.int32),)
-    return cell(train_step, args)
+        shardings += ((),)
+    return cell(train_step, args, shardings)
 
 
 # ---------------------------------------------------------------------------
@@ -626,9 +676,9 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     world, ``launch.mesh.make_smoke_mesh``) and ``device``; on a
     ``ShapeMesh``, pass ``device="meta"``. An ``lm`` cell runs on one rank
     (``mesh`` None or of one rank) or on ``mesh`` (a ``DeviceMesh``; a
-    ``ShapeMesh`` plans it), and takes its inputs' devices. A ``recsys``
-    cell and a ``gnn`` train cell run on one rank and refuse a mesh of
-    more."""
+    ``ShapeMesh`` plans it), and takes its inputs' devices; so does a
+    ``gnn`` train cell. A ``recsys`` cell runs on one rank and refuses a
+    mesh of more."""
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch.name} has no shape {shape_name!r}; have "
                        f"{sorted(arch.shapes)}")
@@ -643,14 +693,7 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     if arch.family == "lm":
         return _lm_cell(arch, shape_name, mesh)
     if arch.family == "gnn":
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                f"{arch.name}: GNN cells on a mesh of {mesh.size()} ranks "
-                f"(node state all-gathered for the edge gather, the "
-                f"aggregation reduce-scattered, gnn_spmd) are not ported yet "
-                f"(ROADMAP Queue 1 item 16, third part (b)); they run on one "
-                f"rank")
-        return _gnn_cell(arch, shape_name)
+        return _gnn_cell(arch, shape_name, mesh)
     if arch.family == "connectit":
         device = torch.device(device)
         if mesh is None:

@@ -18,14 +18,16 @@ lie and never writes the (m, d) messages. PNA's max and min are
 ``scatter_reduce`` ("amax", order-free in value) over the reference's
 ``-1e30`` fill.
 
+On a mesh the same functions run each rank's block of the node rows and
+of the edges (``LocalGraph``'s methods: ``gnn_spmd.GraphShard``).
+
 The parameters are the reference's pytree (``GNN.params()``; ``init_gnn``
 draws the reference's weights from a threefry key, ``GNN.from_params``
 takes the reference's arrays). Arithmetic follows ``jnp``'s dtype
 promotion: under ``dtype="bfloat16"`` PNA's first projection and EGNN's
 edge MLP take float32 weights against bfloat16 activations and so run in
 float32, as the reference's do. ``remat`` checkpoints each layer
-(``torch.utils.checkpoint``). The ``shard`` hints are accepted and ignored
-on one rank.
+(``torch.utils.checkpoint``).
 """
 
 from __future__ import annotations
@@ -46,7 +48,6 @@ from .layers import (
     mlp_apply,
     mlp_params,
     mlp_shapes,
-    no_shard,
 )
 
 
@@ -74,16 +75,18 @@ def segment_sum(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def segment_mean(x: torch.Tensor, idx: torch.Tensor, n: int,
-                 mask: Optional[torch.Tensor] = None) -> tuple:
+                 mask: Optional[torch.Tensor],
+                 graph: "LocalGraph") -> tuple:
     """``(sum / max(count, 1), count)`` over the segments of ``idx``, the
-    entries where ``mask`` is False left out."""
+    entries where ``mask`` is False left out: ``graph``'s rows of the sums
+    over every rank's entries."""
     if mask is None:
         ones = torch.ones(x.shape[:1], dtype=x.dtype, device=x.device)
     else:
         ones = mask.to(x.dtype)
         x = x * mask[:, None].to(x.dtype)
-    tot = segment_sum(x, idx, n)
-    cnt = segment_sum(ones, idx, n)
+    tot = graph.scatter_sum(segment_sum(x, idx, n))
+    cnt = graph.scatter_sum(segment_sum(ones, idx, n))
     return tot / torch.clamp(cnt, min=1.0)[:, None], cnt
 
 
@@ -97,6 +100,85 @@ def segment_max(x: torch.Tensor, idx: torch.Tensor, n: int,
     base = torch.full((n,) + tuple(x.shape[1:]), float(fill), dtype=x.dtype,
                       device=x.device)
     return base.scatter_reduce(0, index, x, "amax", include_self=False)
+
+
+class LocalGraph:
+    """Where a graph's node rows live and how edge work reaches them, on
+    one rank: every node row here, every collective the identity. On a
+    mesh ``gnn_spmd.GraphShard`` takes its place (this rank's block of
+    node rows over the data axes, its block of the edges), with the same
+    methods; the models call them where the reference places a sharding
+    constraint or a collective.
+
+    ``n1`` the global node rows (the dump row ``n1 - 1`` included),
+    ``rows`` and ``off`` this rank's block of them."""
+
+    def __init__(self, n1: int):
+        self.n1 = self.rows = int(n1)
+        self.off = 0
+
+    def block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a whole node array."""
+        return x
+
+    def gather_nodes(self, h: torch.Tensor) -> torch.Tensor:
+        """Every node row of ``h`` for this rank's edges to read."""
+        return h
+
+    def gather_whole(self, x: torch.Tensor) -> torch.Tensor:
+        """Every node row of ``x``, a tensor then kept whole."""
+        return x
+
+    def edge_use(self, x):
+        """A tensor (or a pytree of them) that is whole on every rank, as
+        this rank's edges read it."""
+        return x
+
+    def edge_params(self, tree):
+        """Parameters as this rank's edges use them."""
+        return tree
+
+    def pooled_params(self, tree):
+        """Parameters used after ``pool``: every data rank computes the
+        same there, so the gradients summed over the data axes count it
+        once."""
+        return tree
+
+    def scatter_sum(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of the sum of every rank's ``full`` (n1, ...)."""
+        return full
+
+    def scatter_max(self, vals: torch.Tensor, idx: torch.Tensor,
+                    fill: float) -> torch.Tensor:
+        """This rank's rows of the max of ``vals`` by segment ``idx`` over
+        every rank's edges (``fill`` where none reaches a row)."""
+        return segment_max(vals, idx, self.n1, fill)
+
+    def mean_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` (one value a row) over every node row."""
+        return x.mean()
+
+    def pool(self, x: torch.Tensor, graph_ids: Optional[torch.Tensor],
+             n_graphs: int) -> torch.Tensor:
+        """The sum of ``x``'s rows but the dump row, by graph (``graph_ids``
+        (n1,), an id at or past ``n_graphs`` left out), or of all of them
+        as one graph (``None``; ``x`` one value a row)."""
+        if graph_ids is None:
+            return torch.sum(x[: self.n1 - 1])[None]
+        return segment_sum(x[: self.n1 - 1], graph_ids[: self.n1 - 1],
+                           n_graphs)
+
+    def masked_mean(self, vals: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+        """``sum(vals * mask) / max(sum(mask), 1)`` over every node row but
+        the dump row, ``vals`` this rank's rows, ``mask`` (n1 - 1,)."""
+        return torch.sum(vals * mask) / torch.clamp(mask.sum(), min=1)
+
+
+def graph_of(graph: Optional[LocalGraph], n1: int) -> LocalGraph:
+    """The graph a model runs on: ``graph`` (a mesh's ``GraphShard``), or
+    where it is None one rank's of ``n1`` node rows."""
+    return LocalGraph(n1) if graph is None else graph
 
 
 def _layer_sizes(cfg: GNNConfig, i: int) -> dict:
@@ -152,26 +234,29 @@ def init_params(cfg: GNNConfig, *, key: torch.Tensor,
     return params
 
 
-def _pna_parts(msgs, recv, n, deg, cfg: GNNConfig, valid, shard):
+def _pna_parts(msgs, recv, n, deg, cfg: GNNConfig, valid,
+               graph: Optional[LocalGraph] = None):
     """4 aggregators × 3 degree scalers (PNA, arXiv:2004.05718), yielded one
     (n, d) part at a time: the caller projects each part at once, so the
-    (n, 12·d) concatenation is never built."""
-    mean, cnt = segment_mean(msgs, recv, n, valid)
+    (n, 12·d) concatenation is never built. ``deg`` and the parts are the
+    rows of ``graph`` (``graph_of``)."""
+    graph = graph_of(graph, n)
+    mean, cnt = segment_mean(msgs, recv, n, valid, graph)
     big = torch.tensor(1e30, dtype=msgs.dtype, device=msgs.device)
     v = valid[:, None]
-    mx = segment_max(torch.where(v, msgs, -big), recv, n, -1e30)
-    mn = -segment_max(torch.where(v, -msgs, -big), recv, n, -1e30)
+    mx = graph.scatter_max(torch.where(v, msgs, -big), recv, -1e30)
+    mn = -graph.scatter_max(torch.where(v, -msgs, -big), recv, -1e30)
     zero = torch.zeros((), dtype=msgs.dtype, device=msgs.device)
     mx = torch.where(cnt[:, None] > 0, mx, zero)
     mn = torch.where(cnt[:, None] > 0, mn, zero)
-    sq, _ = segment_mean(msgs * msgs, recv, n, valid)
+    sq, _ = segment_mean(msgs * msgs, recv, n, valid, graph)
     std = torch.sqrt(torch.clamp(sq - mean * mean, min=0.0)
                      + torch.tensor(1e-5, dtype=sq.dtype, device=sq.device))
     agg_map = {"mean": mean, "max": mx, "min": mn, "std": std}
-    delta = torch.log(deg.mean() + 1.0).to(msgs.dtype)
+    delta = torch.log(graph.mean_rows(deg) + 1.0).to(msgs.dtype)
     logd = torch.log(deg + 1.0)[:, None].to(msgs.dtype)
     for a in cfg.aggregators:
-        base = shard(agg_map[a], ("data", None))
+        base = agg_map[a]
         for s in cfg.scalers:
             if s == "identity":
                 yield base
@@ -185,26 +270,38 @@ def gnn_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
                 senders: torch.Tensor, receivers: torch.Tensor, *,
                 coords: Optional[torch.Tensor] = None,
                 graph_ids: Optional[torch.Tensor] = None,
-                n_graphs: int = 1, shard=no_shard) -> tuple:
+                n_graphs: int = 1,
+                graph: Optional[LocalGraph] = None) -> tuple:
     """feats: (n+1, d_in) node features (dump row n). Returns ``(logits,
     coords)``: per-node logits, or per-graph logits (readout="graph"),
-    float32, and EGNN's final coordinates (``coords`` for the others)."""
-    n1 = feats.shape[0]
+    float32, and EGNN's final coordinates (``coords`` for the others).
+
+    On a mesh (``graph`` a ``gnn_spmd.GraphShard``) ``feats`` and the
+    per-node logits are this rank's block of node rows, ``senders`` and
+    ``receivers`` its block of the edges (global ids), ``coords`` and
+    ``graph_ids`` whole: each layer gathers the node state once for the
+    edges, and every aggregation comes back reduce-scattered to the rows'
+    owners, where the reference constrains its node state to the data
+    axes."""
+    graph = graph_of(graph, feats.shape[0])
+    if feats.shape[0] != graph.rows:
+        raise ValueError(f"{feats.shape[0]} node rows for a block of "
+                         f"{graph.rows}")
+    n1 = graph.n1
     valid = senders < n1 - 1
     send, recv = Segments.of(senders, n1), Segments.of(receivers, n1)
     h = feats.to(getattr(torch, cfg.dtype))
     if cfg.kind == "egnn":
         h = mlp_apply(params["embed"], h, act=F.silu)
     x = coords
-    deg = _segment_sum(valid.float(), recv)
+    deg = graph.scatter_sum(_segment_sum(valid.float(), recv))
     v = valid[:, None]
 
     def layer_fn(lp, h, x):
-        hg = shard(h, (None, None))          # transient replicate for gather
+        hg = graph.gather_nodes(h)  # every row, for this rank's edges
         if cfg.kind == "gin":
             # segment_sum(where(valid, hg[senders], 0), receivers)
-            agg = gather_sum(hg, senders, recv, n1 - 1)
-            agg = shard(agg, ("data", None))
+            agg = graph.scatter_sum(gather_sum(hg, senders, recv, n1 - 1))
             h = mlp_apply(lp["mlp"], (1.0 + lp["eps"]).to(h.dtype) * h + agg,
                           act=torch.relu)
             h = torch.relu(h)
@@ -215,27 +312,28 @@ def gnn_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
             acc = matmul(h, w0[:d_part]) + b0  # concat slot 0 is h itself
             off = d_part
             for part in _pna_parts(msgs, receivers, n1, deg, cfg, valid,
-                                   shard):
+                                   graph):
                 acc = acc + matmul(part, w0[off: off + d_part])
                 off += d_part
-            acc = shard(torch.relu(acc), ("data", None))
-            h = matmul(acc, lp["post"]["w1"]) + lp["post"]["b1"]
+            h = matmul(torch.relu(acc), lp["post"]["w1"]) + lp["post"]["b1"]
         elif cfg.kind == "egnn":
-            rel = gather(x, recv) - gather(x, send)
+            xe = graph.edge_use(x)
+            phi_e, phi_x = graph.edge_params((lp["phi_e"], lp["phi_x"]))
+            rel = gather(xe, recv) - gather(xe, send)
             d2 = torch.sum(rel * rel, -1, keepdim=True)
-            m = mlp_apply(lp["phi_e"],
+            m = mlp_apply(phi_e,
                           torch.cat([gather(hg, recv), gather(hg, send), d2],
                                     -1),
                           act=F.silu, final_act=F.silu)
             m = torch.where(v, m, torch.zeros((), dtype=m.dtype,
                                               device=m.device))
-            w = mlp_apply(lp["phi_x"], m, act=F.silu)
-            dx = _segment_sum(rel * w.to(rel.dtype), recv)
-            x = x + dx / torch.clamp(deg, min=1.0)[:, None]
-            magg = shard(_segment_sum(m, recv), ("data", None))
+            w = mlp_apply(phi_x, m, act=F.silu)
+            dx = graph.scatter_sum(_segment_sum(rel * w.to(rel.dtype), recv))
+            x = x + graph.gather_whole(dx / torch.clamp(deg, min=1.0)[:, None])
+            magg = graph.scatter_sum(_segment_sum(m, recv))
             h = h + mlp_apply(lp["phi_h"], torch.cat([h, magg], -1),
                               act=F.silu)
-        return shard(h, ("data", None)), x
+        return h, x
 
     for lp in params["layers"]:
         if cfg.remat:
@@ -247,8 +345,8 @@ def gnn_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
     if cfg.readout == "graph":
         if graph_ids is None:
             raise ValueError(f"{cfg.name}: a graph readout needs graph_ids")
-        pooled = segment_sum(h[: n1 - 1], graph_ids[: n1 - 1], n_graphs)
-        out = mlp_apply(params["head"], pooled, act=torch.relu)
+        out = mlp_apply(graph.pooled_params(params["head"]),
+                        graph.pool(h, graph_ids, n_graphs), act=torch.relu)
     else:
         out = mlp_apply(params["head"], h, act=torch.relu)
     return out.float(), x
@@ -256,19 +354,29 @@ def gnn_forward(params: dict, cfg: GNNConfig, feats: torch.Tensor,
 
 def gnn_loss(params: dict, cfg: GNNConfig, feats, senders, receivers,
              labels, *, coords=None, graph_ids=None, n_graphs: int = 1,
-             label_mask=None, shard=no_shard) -> torch.Tensor:
+             label_mask=None,
+             graph: Optional[LocalGraph] = None) -> torch.Tensor:
     """Mean negative log-likelihood of ``labels`` (over the real nodes, or
-    the graphs), weighted by ``label_mask`` where given."""
+    the graphs), weighted by ``label_mask`` where given. On a mesh
+    ``labels`` and ``label_mask`` are whole (``graph``: ``gnn_forward``)."""
+    graph = graph_of(graph, feats.shape[0])
     logits, _ = gnn_forward(params, cfg, feats, senders, receivers,
                             coords=coords, graph_ids=graph_ids,
-                            n_graphs=n_graphs, shard=shard)
-    if cfg.readout == "node":
+                            n_graphs=n_graphs, graph=graph)
+    if cfg.readout == "node" and graph.rows != graph.n1:
+        # this rank's rows; the dump row (n1 - 1) has no label
+        n = graph.n1 - 1
+        if label_mask is None:
+            label_mask = torch.ones((n,), device=logits.device)
+        pad = (0, 1)
+        labels = graph.block(F.pad(labels, pad))
+        label_mask = graph.block(F.pad(label_mask.float(), pad))
+    elif cfg.readout == "node":
         logits = logits[: feats.shape[0] - 1]
     logp = torch.log_softmax(logits.float(), -1)
     nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     if label_mask is not None:
-        return torch.sum(nll * label_mask) / torch.clamp(label_mask.sum(),
-                                                         min=1)
+        return graph.masked_mean(nll, label_mask)
     return nll.mean()
 
 
@@ -285,11 +393,10 @@ class GNN(ParamTree):
         return cls(cfg, ParamTree.tensors(params, device=device))
 
     def forward(self, feats, senders, receivers, *, coords=None,
-                graph_ids=None, n_graphs: int = 1,
-                shard=no_shard) -> tuple:
+                graph_ids=None, n_graphs: int = 1, graph=None) -> tuple:
         return gnn_forward(self.params(), self.cfg, feats, senders,
                            receivers, coords=coords, graph_ids=graph_ids,
-                           n_graphs=n_graphs, shard=shard)
+                           n_graphs=n_graphs, graph=graph)
 
     def loss(self, feats, senders, receivers, labels, **kw) -> torch.Tensor:
         return gnn_loss(self.params(), self.cfg, feats, senders, receivers,

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from ... import random as trandom
 from ...kernels.segments import Segments, gather
 from ...kernels.segments import segment_sum as _segment_sum
+from .gnn import LocalGraph, graph_of
 from .irreps import allowed_paths, gaunt, sh_torch
 from .layers import (
     ParamTree,
@@ -42,7 +43,6 @@ from .layers import (
     mlp_apply,
     mlp_params,
     mlp_shapes,
-    no_shard,
 )
 
 
@@ -118,10 +118,16 @@ def nequip_forward(params: dict, cfg: NequIPConfig, species: torch.Tensor,
                    coords: torch.Tensor, senders: torch.Tensor,
                    receivers: torch.Tensor, *,
                    graph_ids: Optional[torch.Tensor] = None,
-                   n_graphs: int = 1, shard=no_shard) -> torch.Tensor:
+                   n_graphs: int = 1,
+                   graph: Optional[LocalGraph] = None) -> torch.Tensor:
     """species: (n+1,) int; coords: (n+1, 3). Returns the per-graph energy
-    (n_graphs,), or the whole batch's (1,) without ``graph_ids``."""
-    n1 = species.shape[0]
+    (n_graphs,), or the whole batch's (1,) without ``graph_ids``. On a mesh
+    (``graph`` a ``gnn_spmd.GraphShard``) ``species``, ``coords`` and
+    ``graph_ids`` are whole, the edges this rank's block: the features of
+    this rank's node rows are gathered once a layer for the edges, and each
+    output l's messages come back reduce-scattered (``gnn.gnn_forward``)."""
+    graph = graph_of(graph, species.shape[0])
+    n1 = graph.n1
     valid = senders < n1 - 1
     send, recv = Segments.of(senders, n1), Segments.of(receivers, n1)
     rel = gather(coords, recv) - gather(coords, send)
@@ -133,10 +139,11 @@ def nequip_forward(params: dict, cfg: NequIPConfig, species: torch.Tensor,
     m_edges = senders.shape[0]
     dt, dev = coords.dtype, coords.device
 
+    rows = graph.rows
     feats: Dict[int, torch.Tensor] = {
-        l: torch.zeros((n1, cfg.channels, 2 * l + 1), dtype=dt, device=dev)
+        l: torch.zeros((rows, cfg.channels, 2 * l + 1), dtype=dt, device=dev)
         for l in range(cfg.l_max + 1)}
-    onehot = F.one_hot(species.long(), cfg.n_species).to(dt)
+    onehot = F.one_hot(graph.block(species).long(), cfg.n_species).to(dt)
     feats[0] = (onehot @ params["embed"])[:, :, None]
     paths = allowed_paths(cfg.l_max)
     gaunts = {p: torch.tensor(gaunt(*p), device=dev) for p in paths}
@@ -145,19 +152,21 @@ def nequip_forward(params: dict, cfg: NequIPConfig, species: torch.Tensor,
     def layer_fn(layer, *fs):
         # edge-side accumulation per output l: one segment sum per l
         # instead of one per tensor-product path (3 against 11)
+        hg = [graph.gather_nodes(f) for f in fs]
+        radial = graph.edge_params(layer["radial"])
         edge_msgs = {l: torch.zeros((m_edges, cfg.channels, 2 * l + 1),
                                     dtype=dt, device=dev)
                      for l in range(cfg.l_max + 1)}
         for (l1, l2, l3) in paths:
-            w = mlp_apply(layer["radial"][f"{l1}{l2}{l3}"], rbf,
+            w = mlp_apply(radial[f"{l1}{l2}{l3}"], rbf,
                           act=F.silu)                     # (m, ch)
-            src = gather(fs[l1], send)                    # (m, ch, 2l1+1)
+            src = gather(hg[l1], send)                    # (m, ch, 2l1+1)
             yg = torch.einsum("mj,ijk->mik", Y[l2], gaunts[(l1, l2, l3)])
             m = torch.bmm(src, yg)                        # (m, ch, 2l3+1)
             m = m * w[:, :, None]
             m = torch.where(v, m, 0.0)
             edge_msgs[l3] = edge_msgs[l3] + m
-        msgs = {l: _segment_sum(edge_msgs[l], recv)
+        msgs = {l: graph.scatter_sum(_segment_sum(edge_msgs[l], recv))
                 for l in range(cfg.l_max + 1)}
         # self-interaction + residual + gate
         new = {}
@@ -171,8 +180,7 @@ def nequip_forward(params: dict, cfg: NequIPConfig, species: torch.Tensor,
                 new[0] = F.silu(new[0])
             else:
                 new[l] = new[l] * gates[:, None, l: l + 1]
-        return tuple(shard(new[l], ("data", None, None))
-                     for l in range(cfg.l_max + 1))
+        return tuple(new[l] for l in range(cfg.l_max + 1))
 
     fs = tuple(feats[l] for l in range(cfg.l_max + 1))
     for layer in params["layers"]:
@@ -182,19 +190,17 @@ def nequip_forward(params: dict, cfg: NequIPConfig, species: torch.Tensor,
             fs = layer_fn(layer, *fs)
 
     energy = mlp_apply(params["head"], fs[0][:, :, 0],
-                       act=F.silu)[..., 0]                # (n+1,)
-    energy = energy[: n1 - 1]  # the dump row's energy is left out
-    if graph_ids is None:
-        return torch.sum(energy)[None]
-    return _segment_sum(energy, Segments.of(graph_ids[: n1 - 1], n_graphs))
+                       act=F.silu)[..., 0]                # (rows,)
+    # the dump row's energy is left out
+    return graph.pool(energy, graph_ids, n_graphs)
 
 
 def nequip_loss(params: dict, cfg: NequIPConfig, species, coords, senders,
                 receivers, targets, *, graph_ids=None, n_graphs: int = 1,
-                shard=no_shard) -> torch.Tensor:
+                graph: Optional[LocalGraph] = None) -> torch.Tensor:
     """Mean squared error of the energies against ``targets``."""
     e = nequip_forward(params, cfg, species, coords, senders, receivers,
-                       graph_ids=graph_ids, n_graphs=n_graphs, shard=shard)
+                       graph_ids=graph_ids, n_graphs=n_graphs, graph=graph)
     return torch.mean((e - targets) ** 2)
 
 
@@ -211,10 +217,10 @@ class NequIP(ParamTree):
         return cls(cfg, ParamTree.tensors(params, device=device))
 
     def forward(self, species, coords, senders, receivers, *, graph_ids=None,
-                n_graphs: int = 1, shard=no_shard) -> torch.Tensor:
+                n_graphs: int = 1, graph=None) -> torch.Tensor:
         return nequip_forward(self.params(), self.cfg, species, coords,
                               senders, receivers, graph_ids=graph_ids,
-                              n_graphs=n_graphs, shard=shard)
+                              n_graphs=n_graphs, graph=graph)
 
     def loss(self, species, coords, senders, receivers, targets,
              **kw) -> torch.Tensor:

@@ -39,8 +39,8 @@ from .layers import div
 
 __all__ = ["extent", "spec_axes", "local_shape", "local_block",
            "tree_paths", "tree_rebuild", "spec_leaves", "spec_map",
-           "comm_timer", "enter", "reduce_sum", "gather", "all_to_all",
-           "a2a_int8", "scale_grad", "MeshShard"]
+           "comm_timer", "enter", "reduce_sum", "gather", "gather_rows",
+           "rs_chain", "all_to_all", "a2a_int8", "scale_grad", "MeshShard"]
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +250,18 @@ class _Gather(torch.autograd.Function):
         return _block(g, ctx.mesh, ctx.dim, ctx.axes), None, None, None, None
 
 
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _gather(x, mesh, 0, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        with torch.no_grad():
+            return rs_chain(g, ctx.mesh, ctx.axes, "sum"), None, None
+
+
 class _AllToAll(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -304,6 +316,35 @@ def gather(x: torch.Tensor, mesh, dim: int, axes, *,
     if not x.requires_grad:
         return _gather(x, mesh, dim, tuple(axes))
     return _Gather.apply(x, mesh, dim, tuple(axes), summed)
+
+
+def gather_rows(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The tiled all-gather of row blocks over ``axes`` (blocks in the
+    row-major order of ``axes``, ``local_block``'s); the backward is the
+    reduce-scatter ``rs_chain(g, "sum")``: this rank's block of the
+    gradient summed over ``axes`` (each rank used the gathered rows on a
+    part of its own: the GNN's edge blocks)."""
+    axes = tuple(_live(mesh, axes))
+    if not axes:
+        return x
+    if not x.requires_grad:
+        return _gather(x, mesh, 0, axes)
+    return _GatherRows.apply(x, mesh, axes)
+
+
+def rs_chain(x: torch.Tensor, mesh, axes, combine: str) -> torch.Tensor:
+    """Reduce-scatter of rows over ``axes`` by all_to_all, an axis at a
+    time (the reference's ``_rs_chain``): ``x`` (R, ...) becomes this
+    rank's block of R / extent rows (``gather_rows``' order) of the sum
+    (``combine="sum"``) or the maximum (``"max"``) over the ranks.
+    Differentiable through ``all_to_all`` (a sum's gradient is the
+    all-gather; a maximum's splits a tie evenly, as ``amax``'s)."""
+    for ax in _live(mesh, axes):
+        k = extent(mesh, ax)
+        xs = all_to_all(x.reshape((k, x.shape[0] // k) + tuple(x.shape[1:])),
+                        mesh, ax)
+        x = xs.sum(0) if combine == "sum" else torch.amax(xs, 0)
+    return x
 
 
 def all_to_all(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:

@@ -146,19 +146,21 @@ def _draw(key: torch.Tensor, shape: Shape, finish, dtype) -> torch.Tensor:
 
 
 def randint(key: torch.Tensor, shape: Shape, minval: int, maxval,
-            dtype=torch.int32) -> torch.Tensor:
+            dtype=torch.int32, *, start: int = 0) -> torch.Tensor:
     """``jax.random.randint(key, shape, minval, maxval)`` for int32 output:
     ``minval`` an int, ``maxval`` an int or an int tensor broadcastable to
     ``shape``, both clipped to int32; where ``maxval <= minval`` the draw is
     ``minval``. Two bit draws (``split(key)``'s keys) reduced modulo the
-    span in wrapping uint32."""
+    span in wrapping uint32. ``start`` > 0 draws the elements ``start`` ..
+    ``start + prod(shape) - 1`` of a larger draw under the same key (a
+    rank's block of a draw split over a mesh)."""
     shape = _shape(shape)
     imin, imax = -(1 << 31), (1 << 31) - 1
     lo = min(max(int(minval), imin), imax)
     hi = torch.as_tensor(maxval, device=key.device).to(torch.int64)
     hi = hi.clamp(imin, imax).to(torch.int32).expand(shape).reshape(-1)
     higher, lower = _split_words(_words(key), 2)
-    out = ops.threefry_randint(hi.contiguous(), lo, higher, lower)
+    out = ops.threefry_randint(hi.contiguous(), lo, higher, lower, start)
     return out.reshape(shape).to(dtype)
 
 

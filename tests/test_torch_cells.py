@@ -245,9 +245,10 @@ def test_connectit_shapes_match_repro():
 def test_unported_families_name_item_16(family):
     """The LM family is ported: its train cell builds at one rank and runs
     a step at the smoke config, and builds on a shape-only mesh (item 16's
-    second part (b), done). The GNN family is ported on one rank (item 16's
-    third part (a)): its train cell builds and takes a step at the smoke
-    config; on a production mesh it names item 16's third part (b)."""
+    second part (b), done). The GNN family is ported (item 16's third
+    part): its train cell builds and takes a step at the smoke config, and
+    builds on a production mesh with its node features over the data axes
+    and its edges over every axis."""
     from repro_torch import random as trandom
     from repro_torch.legacy import optim as toptim
     if family == "lm":
@@ -274,10 +275,11 @@ def test_unported_families_name_item_16(family):
         from repro_torch.graphs import generators as tgen
         from repro_torch.legacy.models import gnn as tgnn
         gin = get_arch("gin-tu")
-        with pytest.raises(NotImplementedError,
-                           match=r"Queue 1 item 16, third part \(b\)"):
-            tsteps.build_cell(gin, "ogb_products",
-                              tmesh.make_production_mesh(), device="meta")
+        cell = tsteps.build_cell(gin, "ogb_products",
+                                 tmesh.make_production_mesh(), device="meta")
+        assert cell.in_shardings == ({"feats": ("data", None)},
+                                     (("data", "model"),),
+                                     (("data", "model"),), ())
         cfg = dataclasses.replace(gin.model, **gin.smoke)
         g = tgen.rmat(64, 256, seed=0, device="cpu")
         arch = dataclasses.replace(gin, model=cfg, shapes={
@@ -434,7 +436,7 @@ def test_dryrun_cli_plans_every_cell(tmp_path, capsys):
     text = capsys.readouterr().out
     # the connectit and dlrm-rm2 cells (4 each), the 17 LM cells the archs
     # support (long_500k only on h2o-danube's sliding window) and the 20
-    # GNN cells (4 archs x 5 shapes, at one rank), on both meshes
+    # GNN cells (4 archs x 5 shapes, per rank), on both meshes
     assert "DRY-RUN SUMMARY: 90 ok, 0 not ported, 0 failed" in text
     assert "NOT PORTED" not in text
     rows = out.read_text().splitlines()

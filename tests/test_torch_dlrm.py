@@ -115,6 +115,37 @@ def test_dlrm_matches_jax(name):
     assert ops.launch_counts() == before
 
 
+def test_id_past_the_table_is_nan_in_repro_and_clamped_in_the_port():
+    """By design (ROADMAP Queue 3): one id equal to ``table_rows(v)`` in
+    one table turns ``repro``'s logits to NaN (its bags are ``jnp.take``,
+    whose default mode fills out-of-range rows with NaN); the port follows
+    the Pallas kernel's clamp contract
+    (``src/repro/kernels/legacy/embedding_bag/kernel.py:47``) and reads
+    the table's last row, as the id ``table_rows(v) - 1`` does."""
+    cfg = CONFIGS["rm2_smoke"]
+    jcfg = _jax_cfg(cfg)
+    params = _j_init(jax.random.PRNGKey(9), jcfg)
+    model = tdlrm.dlrm_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                device="cpu")
+    rng = np.random.default_rng(11)
+    dense = rng.normal(size=(1, cfg.n_dense)).astype(np.float32)
+    sparse = rng.integers(0, cfg.vocab_sizes[0],
+                          (1, cfg.n_sparse, cfg.multi_hot)).astype(np.int32)
+    rows = tdlrm.table_rows(cfg.vocab_sizes[3])
+    past, last = sparse.copy(), sparse.copy()
+    past[0, 3, 0], last[0, 3, 0] = rows, rows - 1
+    want = np.asarray(_j_forward(params, jnp.asarray(dense),
+                                 jnp.asarray(past), jcfg))
+    assert np.isnan(want).all()
+    assert np.isfinite(np.asarray(_j_forward(
+        params, jnp.asarray(dense), jnp.asarray(last), jcfg))).all()
+    with torch.no_grad():
+        got = model(torch.from_numpy(dense), torch.from_numpy(past))
+        clamped = model(torch.from_numpy(dense), torch.from_numpy(last))
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, clamped)
+
+
 def test_init_dlrm_pads_tables_with_zero_rows():
     assert tdlrm.table_rows(1_000_000) == 1_000_448
     assert [tdlrm.table_rows(v) for v in (511, 512, 1000)] == [512, 1024,

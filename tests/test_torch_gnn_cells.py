@@ -10,10 +10,11 @@ against ``jax.ops.segment_sum``:
     with the reference's meta and argument shapes; at the smoke configs a
     step of each kind of cell (full graph, molecule, minibatch, the
     one-rank ``spmd`` shape) matches the reference's jitted cell; on a mesh
-    of more than one rank the cell names item 16's third part (b);
+    of more than one rank the cell builds with the reference's layout;
   * ``build_trainable``: three steps of each GNN arch within TOL of the
     reference's losses;
-  * the dry run's plan of ``gin-tu × ogb_products``, worked out by hand;
+  * the dry run's per-rank plan of ``gin-tu × ogb_products``, worked out
+    by hand;
   * ``segment_sum`` (the plain version and ``Segments``) against
     ``jax.ops.segment_sum``, ids out of range dropped; on the card (``gpu``)
     the kernel within the float32 reordering bound of the plain version,
@@ -169,13 +170,35 @@ def test_cell_meta_and_shapes_match_repro(name):
 
 
 def test_cells_on_a_mesh_name_item_16_part_b():
+    """Item 16's third part (b) is done: every GNN cell builds on both
+    production meshes with the reference's layout (node features over the
+    data axes, edges over every axis, NequIP's species and coordinates
+    whole, minibatch seeds over the data axes), and plans per rank; the
+    cells run on spawned meshes in tests/test_torch_gnn_mesh.py."""
     for multi in (False, True):
         mesh = tmesh.make_production_mesh(multi_pod=multi)
+        dax = ("pod", "data") if multi else "data"
+        every = ("pod", "data", "model") if multi else ("data", "model")
         for name in GNN_ARCHS:
-            with pytest.raises(NotImplementedError,
-                               match=r"Queue 1 item 16, third part \(b\)"):
-                tsteps.build_cell(get_arch(name), "ogb_products", mesh,
-                                  device="meta")
+            for shape in get_arch(name).shape_names():
+                cell = tsteps.build_cell(get_arch(name), shape, mesh,
+                                         device="meta")
+                feats, *rest = cell.in_shardings
+                kind = get_arch(name).shapes[shape]
+                if kind.get("spmd"):  # the features as one array
+                    assert feats == (() if name == "nequip" else (dax, None))
+                elif name == "nequip":
+                    assert feats == {"species": (), "coords": ()}
+                else:
+                    assert feats["feats"] == (dax, None)
+                if kind["kind"] == "minibatch":
+                    assert rest[2] == (dax,) and rest[0] == rest[1] == ()
+                elif kind.get("spmd"):
+                    assert rest[1:3] == [(every,), (every,)]
+                else:
+                    assert rest[:2] == [(every,), (every,)]
+                assert all(sp == () for sp in tsteps.spec_leaves(
+                    cell.state_shardings[0]))
 
 
 SMOKE_SHAPES = {
@@ -330,25 +353,27 @@ def test_train_cli_runs_a_gnn_arch(tmp_path, capsys):
 # ---------------------------------------------------------------------------
 
 def test_dryrun_plans_gin_ogb_products_by_hand():
-    """gin-tu × ogb_products at one rank: n = round_up(2,449,029 + 1, 512)
-    - 1 = 2,449,407 node rows plus the dump, m_pad = round_up(61,859,140,
-    8,192) = 61,865,984 edge slots. Inputs: float32 features (n + 1) x 100,
-    two int32 edge arrays, int32 targets (n,). State: the parameters (five
-    layers, 100 -> 64 -> 64 then four of 64 -> 64 -> 64, each with eps; the
-    head 64 -> 64 -> 47), AdamW's two moments of them, the int32 step.
-    model_flops = 6 m_pad · 64 · 5."""
+    """gin-tu × ogb_products per rank: n = round_up(2,449,029 + 1, 512) - 1
+    = 2,449,407 node rows plus the dump, m_pad = round_up(61,859,140,
+    8,192) = 61,865,984 edge slots. A rank's inputs: its block of the
+    float32 features (n + 1) x 100 over the data axes (16, or 2 x 16), its
+    block of the two int32 edge arrays over every rank (256, or 512), the
+    int32 targets (n,) whole. State, whole on every rank: the parameters
+    (five layers, 100 -> 64 -> 64 then four of 64 -> 64 -> 64, each with
+    eps; the head 64 -> 64 -> 47), AdamW's two moments of them, the int32
+    step. model_flops = 6 m_pad · 64 · 5 over the ranks."""
     n, m_pad = 2_449_407, 61_865_984
-    inputs = 4 * ((n + 1) * 100 + 2 * m_pad + n)
     layer0 = 100 * 64 + 64 + 64 * 64 + 64 + 1
     layer = 64 * 64 + 64 + 64 * 64 + 64 + 1
     head = 64 * 64 + 64 + 64 * 47 + 47
     n_params = layer0 + 4 * layer + head
-    for mesh_kind in ("single", "multi"):
+    for mesh_kind, gd, world in (("single", 16, 256), ("multi", 32, 512)):
         rec = dryrun.run_cell("gin-tu", "ogb_products", mesh_kind,
                               verbose=False)
-        assert rec["status"] == "ok" and rec["devices"] == 1
+        assert rec["status"] == "ok" and rec["devices"] == world
+        inputs = 4 * ((n + 1) // gd * 100 + 2 * m_pad // world + n)
         assert rec["arg_bytes"] == inputs + 3 * 4 * n_params + 4
-        flops = 6 * m_pad * 64 * 5
+        flops = 6 * m_pad * 64 * 5 / world
         assert rec["model_flops_per_dev"] == flops
         assert rec["bytes_per_dev"] == inputs
         assert rec["compute_term_s"] == pytest.approx(

@@ -219,6 +219,22 @@ def test_randint_with_an_array_maxval_matches_jax(seed):
 
 
 @pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("start", [1, 250, 996])
+def test_randint_from_an_offset_is_a_block_of_the_whole_draw(seed, start):
+    """``randint(..., start=s)`` over the maxval block ``[s, s + F)`` is that
+    block of the whole draw: a mesh rank's share of a split draw."""
+    jk, tk = _key(seed)
+    deg = np.random.default_rng(seed & 0xFF).integers(0, 40, 997).astype(
+        np.int32)
+    deg[::50] = 0
+    want = np.asarray(jax.random.randint(jk, (997,), 0, jnp.asarray(deg)))
+    block = deg[start: start + 300]
+    got = trandom.randint(tk, block.shape, 0, torch.from_numpy(block),
+                          start=start)
+    np.testing.assert_array_equal(got.numpy(), want[start: start + 300])
+
+
+@pytest.mark.parametrize("seed", SEEDS)
 def test_normal_and_exponential_within_their_ulps(seed):
     jk, tk = _key(seed)
     shape = (1 << 14,)
@@ -369,8 +385,8 @@ def test_card_draws_equal_the_cpus(cuda, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("start", [0, 5, 2**32 - 3])
 def test_threefry_kernels_match_plain_on_card(cuda, start):
-    """Each kernel against its plain version, bit for bit: bits from an
-    offset (across the counter's high word), randint over spans of 0, 1,
+    """Each kernel against its plain version, bit for bit, from an offset
+    (across the counter's high word): bits, and randint over spans of 0, 1,
     and up to 2^31 - 1 with a negative minval."""
     from repro_torch.kernels.threefry.ref import (
         threefry_bits_ref,
@@ -390,7 +406,7 @@ def test_threefry_kernels_match_plain_on_card(cuda, start):
     maxval[:100] = torch.arange(100, dtype=torch.int32) % 3 - 1
     for minval in (0, -7):
         keys = ((0xDEADBEEF, 7), (3, 0xFFFFFFFF))
-        got = rint(maxval.to(cuda), minval, *keys)
+        got = rint(maxval.to(cuda), minval, *keys, start)
         assert torch.equal(got.cpu(), threefry_randint_ref(maxval, minval,
-                                                           *keys))
+                                                           *keys, start))
     assert (bits.launches, rint.launches) == (before[0] + 1, before[1] + 2)
