@@ -6,9 +6,10 @@
     python3 chip_smoke.py --log-n 14 --log-m 17   # a short compile check
                                                   # (DLRM vocab, batches and
                                                   # candidates cut to 2^14)
-    python3 chip_smoke.py --ranks 4               # only the placements and
-                                                  # the sharded cells, on 4
-                                                  # cards, a rank each
+    python3 chip_smoke.py --ranks 4               # only the placements, the
+                                                  # sharded cells and the
+                                                  # lm, gnn and dlrm meshes,
+                                                  # on 4 cards, a rank each
     python3 chip_smoke.py --parent build/parent/src/repro_torch
                                                   # also time a parent's bag
                                                   # forward and backward, DLRM
@@ -292,8 +293,8 @@ Phases, in order; any failure exits non-zero:
               3 threefry_bits, nothing else), TRAIN_STEPS
               timed steps (step wall p50, samples/s, the peak above the
               model and optimizer state, first and last loss, finite), one
-              traced step; one step twice from the same state (saved to the
-              host), the parameters and moments equal bit for bit, after a
+              traced step; one step twice from the same state (kept on the
+              card), the parameters and moments equal bit for bit, after a
               diagnostic step under torch.use_deterministic_algorithms
               (warn_only) that names any op without a deterministic kernel;
               with --parent the same step through the parent's bags equal
@@ -305,6 +306,22 @@ Phases, in order; any failure exits non-zero:
               --device cuda stopped by --simulate-failure and rerun, its
               final checkpoint equal leaf for leaf to an uninterrupted
               run's.
+ 19b. dlrm mesh the four DLRM-RM2 cells uncut on a 2 x 2 (data, model)
+              mesh (DLRM_MESH_SHAPE): DLRM_MESH_WORLD processes of this
+              script sharing the card over gloo, each drawing its rows of
+              every table from PRNGKey(seed) (init_dlrm(mesh=, specs=):
+              3.33 GB a rank) and its block of the batch (retrieval: its
+              block of the candidates), each cell through its own fn:
+              serve_p99's and serve_bulk's logits within DLRM_MESH_TOL of
+              the dlrm phase's largest, retrieval_cand's top-100 indices
+              equal and values within DLRM_MESH_SCORE_TOL, train_batch's
+              first step (loss, gradient norm, every first moment of the
+              rank's table rows and of the MLPs) within DLRM_MESH_TOL of
+              the train phase's; one windowed embedding_bag launch a step
+              a rank, one embedding_bag_backward call a train step; each
+              cell's step wall with its collectives timed (spmd.comm_timer:
+              seconds and count), the small cells' uninstrumented p50, the
+              per-rank peak above the model.
 
  20. lm       the LM family (LM_ARCHS) on the card, each run listing its
               cuts: (e) the five smoke configs in float32, TF32 off,
@@ -431,11 +448,13 @@ elects rank 0's winner, only rank 0's file is written, and every rank's
 labels equal scipy's. Then the two sharded cells at their published sizes
 on a (data, model) mesh of N processes, one rank a card: each rank
 generates only its edge block and label window, and the gathered labels
-pass the planted check on every rank. Last the lm mesh phase and the gnn
-mesh phase on a 2 x 2 mesh of the N = 4 processes, one rank a card over
-NCCL: the lm mesh at the same cut depths, the gnn mesh uncut but NequIP
-(GNN_MESH_RANKS_CUT; its one-rank checks only for GIN, which one card
-holds).
+pass the planted check on every rank. Last the lm mesh phase, the gnn
+mesh phase and the dlrm mesh phase on a 2 x 2 mesh of the N = 4
+processes, one rank a card over NCCL: the lm mesh at the same cut depths,
+the gnn mesh uncut but NequIP (GNN_MESH_RANKS_CUT; its one-rank checks
+only for GIN, which one card holds), the dlrm mesh uncut against one-rank
+results this process computes first (the dlrm and train phases do not
+run).
 
 The whole script reads a tuning cache of its own, an empty file under a
 temporary directory (REPRO_TORCH_TUNE_CACHE, printed first), so every
@@ -1445,6 +1464,7 @@ def phase_kernels(torch, g, cap: int, log_m: int, seed: int = 0,
     results["embedding_bag"] = _embedding_bag_cases(torch, cap, bags, parent)
     results["embedding_bag_backward"] = _embedding_bag_backward_cases(
         torch, cap, backward, parent)
+    _embedding_bag_window_cases(torch, bags, backward, results)
     del bags, backward
     torch.cuda.empty_cache()
     results.update(_threefry_cases(torch, g))
@@ -1783,10 +1803,14 @@ def _bag_backward_tol(torch, table, idx, grad_out, mode: str):
     return 2 * (k[:, None] - 1).clamp(min=0) * 2.0 ** -24 * mag
 
 
-def _plain_bags(tables, idx, mode: str = "sum") -> list:
-    """DLRM's grouped bags through the plain version, table by table."""
+def _plain_bags(tables, idx, mode: str = "sum", windows=None) -> list:
+    """DLRM's grouped bags through the plain version, table by table
+    (``windows``: each table's ``(row_lo, rows_global)``)."""
     from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
-    return [embedding_bag_ref(t, i, mode) for t, i in zip(tables, idx)]
+    kw = [{}] * len(tables) if windows is None else [
+        dict(row_lo=lo, rows_global=whole) for lo, whole in windows]
+    return [embedding_bag_ref(t, i, mode, **k)
+            for t, i, k in zip(tables, idx, kw)]
 
 
 def load_package(name: str, path: Path):
@@ -1835,17 +1859,17 @@ class _BagRecorder:
         fwd = self._module.embedding_bags
         bwd = self._module.embedding_bags_backward
 
-        def forward(tables, idx, *, mode="sum"):
+        def forward(tables, idx, *, mode="sum", windows=None):
             self.forward.setdefault(self.tag, []).append(
                 (list(tables), idx.clone(), mode))
-            return fwd(tables, idx, mode=mode)
+            return fwd(tables, idx, mode=mode, windows=windows)
 
-        def backward(tables, idx, grad_outs, *, mode="sum"):
+        def backward(tables, idx, grad_outs, *, mode="sum", windows=None):
             # grad_outs are the rows of the interaction's input, a stride
             # apart: the clones are contiguous
             self.backward.append((list(tables), idx.clone(),
                                   [g.clone() for g in grad_outs], mode))
-            return bwd(tables, idx, grad_outs, mode=mode)
+            return bwd(tables, idx, grad_outs, mode=mode, windows=windows)
         legacy._embedding_bag_kernel = SimpleNamespace(
             **{**vars(self._module), "embedding_bags": forward,
                "embedding_bags_backward": backward})
@@ -2089,6 +2113,151 @@ def _embedding_bag_backward_cases(torch, cap: int, recorded: list,
     if parent is not None:
         row["parent_ms"] = main["parent_ms"]
     return row
+
+
+# the dlrm mesh phase's mesh: (data, model) extents, and its ranks
+DLRM_MESH_SHAPE = (2, 2)
+DLRM_MESH_WORLD = 4
+
+
+def _embedding_bag_window_cases(torch, bags: dict, backward: list,
+                                results: dict) -> None:
+    """The recorded RM2 bag calls (RECORDED's "bags" and "train") cut as
+    the dlrm mesh phase's DLRM_MESH_SHAPE mesh cuts them: each table's rows
+    into ``model`` windows, each forward call's batch into ``data`` blocks
+    (retrieval's one query whole), the train step's backward over the
+    whole batch (the mesh gathers it) a window at a time. Each rank's
+    forward call is the windowed plain version's bits, and the windows'
+    bags sum to the whole-table call's; each window's backward is the
+    chunked restatement of the kernel's order bit for bit, within the
+    reordering bound of the windowed plain version, the same bits twice.
+    Each with its kernel and plain ms and its bytes bound, into the
+    kernels' "inputs" rows as "window ..." entries."""
+    from repro_torch.kernels.legacy.embedding_bag import kernel as bag_kernel
+    from repro_torch.kernels.legacy.embedding_bag.ref import (
+        embedding_bag_backward_ref,
+        embedding_bags_backward_chunked_ref,
+        wrap_and_clamp,
+    )
+    n_data, n_model = DLRM_MESH_SHAPE
+
+    def cut(tables, m):
+        rows = tables[0].shape[0]
+        per = rows // n_model
+        return ([t[m * per:(m + 1) * per] for t in tables],
+                [(m * per, rows)] * len(tables))
+
+    def bytes_of(tables, idx, windows, backward: bool) -> int:
+        T, B, L = idx.shape
+        D = tables[0].shape[1]
+        io = T * B * L * 4 + T * B * D * 4
+        if backward:  # the window's gradient written whole
+            return io + sum(t.numel() * 4 for t in tables)
+        distinct = 0
+        for t, i, (lo, whole) in zip(tables, idx, windows):
+            r = wrap_and_clamp(i, whole) - lo
+            distinct += int(torch.unique(r[(r >= 0) & (r < t.shape[0])])
+                            .numel())
+        return io + distinct * D * 4
+
+    fwd_rows = results["embedding_bag"]["inputs"]
+    with torch.inference_mode():
+        for step, (tables, idx, mode) in bags.items():
+            whole = bag_kernel.embedding_bags(tables, idx, mode=mode)
+            B = idx.shape[1]
+            split = n_data if B % n_data == 0 else 1
+            per_b = B // split
+            for d in range(split):
+                ids = idx[:, d * per_b:(d + 1) * per_b].contiguous()
+                total = None
+                for m in range(n_model):
+                    blocks, wins = cut(tables, m)
+                    got = bag_kernel.embedding_bags(blocks, ids, mode=mode,
+                                                    windows=wins)
+                    want = _plain_bags(blocks, ids, mode, wins)
+                    for t, w in enumerate(want):
+                        require(torch.equal(got[t], w),
+                                f"embedding_bag window {step} d{d} m{m}: "
+                                f"table {t} is not the windowed plain "
+                                f"version's bits")
+                    total = got if total is None else total + got
+                    ms = time_ms(torch, lambda: bag_kernel.embedding_bags(
+                        blocks, ids, mode=mode, windows=wins), iters=10)
+                    plain = time_ms(torch, lambda: _plain_bags(
+                        blocks, ids, mode, wins), iters=3)
+                    nbytes = bytes_of(blocks, ids, wins, False)
+                    b_ms, b_by = bound_ms(nbytes, ids.numel() *
+                                          tables[0].shape[1])
+                    key = f"window {step} data {d} model {m}"
+                    fwd_rows[key] = {
+                        "max_abs_err": 0.0, "ms": ms, "plain_ms": plain,
+                        "library_ms": None, "bound_ms": b_ms,
+                        "bound_by": b_by}
+                    print(f"[kernels] embedding_bag {key}: {len(blocks)} x "
+                          f"rows {tuple(blocks[0].shape)} from row "
+                          f"{wins[0][0]} of {wins[0][1]}, ids "
+                          f"{tuple(ids.shape)}: the windowed plain "
+                          f"version's bits; kernel_ms={ms:.4f} plain_ms="
+                          f"{plain:.4f} bound_ms={b_ms:.4f} ({b_by}, "
+                          f"{nbytes} bytes) kernel/bound={ms / b_ms:.2f}")
+                require(torch.equal(total, whole[:, d * per_b:
+                                                 (d + 1) * per_b]),
+                        f"embedding_bag window {step} data {d}: the "
+                        f"windows' bags do not sum to the whole tables'")
+            del whole, total, got, want
+    bwd_rows = results["embedding_bag_backward"]["inputs"]
+    tables, idx, gs, mode = backward[0]
+    for m in range(n_model):
+        blocks, wins = cut(tables, m)
+        got = bag_kernel.embedding_bags_backward(blocks, idx, gs, mode=mode,
+                                                 windows=wins)
+        again = bag_kernel.embedding_bags_backward(blocks, idx, gs,
+                                                   mode=mode, windows=wins)
+        chunked = embedding_bags_backward_chunked_ref(blocks, idx, gs, wins)
+        err = 0.0
+        for t, (blk, (lo, wh)) in enumerate(zip(blocks, wins)):
+            require(torch.equal(got[t], again[t]) and
+                    torch.equal(got[t], chunked[t]),
+                    f"embedding_bag_backward window model {m}: table {t} "
+                    f"is not the chunked restatement's bits, or two runs "
+                    f"differ")
+            want = embedding_bag_backward_ref(blk, idx[t], gs[t], mode,
+                                              row_lo=lo, rows_global=wh)
+            mag = embedding_bag_backward_ref(blk, idx[t], gs[t].abs(), mode,
+                                             row_lo=lo, rows_global=wh)
+            r = wrap_and_clamp(idx[t], wh) - lo
+            r = torch.where((r >= 0) & (r < blk.shape[0]), r, blk.shape[0])
+            k = torch.bincount(r.flatten(), minlength=blk.shape[0] + 1)[
+                :-1].to(torch.float32)
+            over = (got[t] - want).abs() - 2 * (k[:, None] - 1).clamp(
+                min=0) * 2.0 ** -24 * mag
+            require(bool((over <= 0).all()), f"embedding_bag_backward "
+                    f"window model {m}: table {t} beyond the reordering "
+                    f"bound of the windowed plain version")
+            err = max(err, float((got[t] - want).abs().max()))
+            del want, mag
+        del got, again, chunked
+        ms = time_ms(torch, lambda: bag_kernel.embedding_bags_backward(
+            blocks, idx, gs, mode=mode, windows=wins), iters=10)
+        plain = time_ms(torch, lambda: [
+            embedding_bag_backward_ref(b, i, g, mode, row_lo=lo,
+                                       rows_global=wh)
+            for b, i, g, (lo, wh) in zip(blocks, idx, gs, wins)], iters=3)
+        nbytes = bytes_of(blocks, idx, wins, True)
+        b_ms, b_by = bound_ms(nbytes, idx.numel() * tables[0].shape[1])
+        key = f"window train model {m}"
+        bwd_rows[key] = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                         "library_ms": None, "bound_ms": b_ms,
+                         "bound_by": b_by}
+        print(f"[kernels] embedding_bag_backward {key}: {len(blocks)} x rows "
+              f"{tuple(blocks[0].shape)} from row {wins[0][0]} of "
+              f"{wins[0][1]}, the whole batch's ids {tuple(idx.shape)}: the "
+              f"chunked restatement's bits, within the reordering bound of "
+              f"the plain version (max_abs_err={err:.3e}), the same bits "
+              f"twice; kernel_ms={ms:.4f} plain_ms={plain:.4f} bound_ms="
+              f"{b_ms:.4f} ({b_by}, {nbytes} bytes) kernel/bound="
+              f"{ms / b_ms:.2f}")
+    torch.cuda.empty_cache()
 
 
 def phase_small(torch) -> None:
@@ -2752,24 +2921,29 @@ def serve_static(torch, g, session, seed: int, card: str, pre: str, *,
             f"pointer_jump above 0")
     edges = np.stack([np.concatenate([c[1] for c in log.commits]),
                       np.concatenate([c[2] for c in log.commits])], 1)
-    t0 = time.perf_counter()
-    oracle = {}  # scipy's labels by prefix size: the last epoch's is final
-
-    def prefix_labels(size):
-        if size not in oracle:
-            oracle[size] = _scipy_labels(n, edges[:size])[1]
-        return oracle[size]
-
-    require(np.array_equal(canonical(server.store.labels.cpu().numpy()),
-                           canonical(prefix_labels(len(edges)))),
-            f"{pre} the final labels' partition differs from scipy's on "
-            f"every committed edge")
     seen = sorted({a[0] for a in log.answers if a[0] > len(pre_walls)})
     picks = sorted({seen[round(i * (len(seen) - 1) / (epochs - 1))]
                     for i in range(epochs)})
+    t0 = time.perf_counter()
+    # scipy's labels by prefix size (the last epoch's is final), the
+    # shortest prefix whole and each longer one from the one before: its
+    # components merged by the edges between, scipy on the component graph
+    oracle, prev = {}, 0
+    for size in sorted({len(edges)} | {int(sizes[e]) for e in picks}):
+        if not oracle:
+            lab = _scipy_labels(n, edges[:size])[1]
+        else:
+            lab = oracle[prev]
+            lab = _scipy_labels(int(lab.max()) + 1,
+                                lab[edges[prev:size]])[1][lab]
+        oracle[size], prev = lab, size
+    require(np.array_equal(canonical(server.store.labels.cpu().numpy()),
+                           canonical(oracle[len(edges)])),
+            f"{pre} the final labels' partition differs from scipy's on "
+            f"every committed edge")
     checked = 0
     for e in picks:
-        lab = prefix_labels(int(sizes[e]))
+        lab = oracle[int(sizes[e])]
         for epoch, qa, qb, ans in log.answers:
             if epoch == e:
                 require(np.array_equal(ans.cpu().numpy(),
@@ -2782,7 +2956,7 @@ def serve_static(torch, g, session, seed: int, card: str, pre: str, *,
     print(f"{pre} checks: epochs 1..{len(epoch_order)} in commit order; "
           f"{submitted} edges submitted == committed; final partition == "
           f"scipy's; {checked} answers at epochs {picks} == scipy on their "
-          f"prefixes ({len(oracle)} scipy runs, "
+          f"prefixes ({len(oracle)} scipy runs, one on a whole prefix, "
           f"{time.perf_counter() - t0:.2f} s)")
     return server
 
@@ -3734,6 +3908,8 @@ def mesh_rank(rank: int, tmp: str) -> int:
         return _rank_lm_mesh(rank, d, job)
     if job.get("gnn_mesh"):
         return _rank_gnn_mesh(rank, d, job)
+    if job.get("dlrm_mesh"):
+        return _rank_dlrm_mesh(rank, d, job)
     world, tag = job["world"], f"{job['backend']} {job['world']} ranks "
     arrays = [np.fromfile(d / f"{k}.i32", dtype=np.int32)
               for k in ("senders", "receivers", "indptr", "indices")]
@@ -4644,19 +4820,35 @@ def _rank_cells(rank: int, d: Path, job: dict) -> int:
     return 0
 
 
-def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
+def dlrm_candidates(torch, seed: int, n: int, d: int, start: int = 0,
+                    count: int = None):
+    """Rows ``start`` .. ``start + count`` of the retrieval cell's ``n``
+    candidates (float32 normal draws of PRNGKey(seed + 1), drawn on the
+    card): a mesh rank draws its block alone."""
+    from repro_torch import random as trandom
+    count = n - start if count is None else count
+    return trandom.normal(trandom.PRNGKey(seed + 1, device="cuda"),
+                          (count, d), start=start * d)
+
+
+def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None,
+               refs: Path = None):
     """DLRM-RM2 serving on the card: each cell through the embedding_bag
     kernel against the same model through the plain version; with
-    ``parent`` (--parent) also through the parent's bags, in turns. Returns
-    the model and each cell's inputs, for the profile phase."""
+    ``parent`` (--parent) also through the parent's bags, in turns. The
+    model is init_dlrm(key=PRNGKey(seed)); the serve cells' logits and the
+    top-100 go to ``refs`` for the dlrm mesh phase. Returns the model and
+    each cell's inputs, for the profile phase."""
     import dataclasses
     from unittest import mock
 
+    from repro_torch import random as trandom
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import build_cell
     from repro_torch.legacy.data import RecsysStream
     from repro_torch.legacy.models import dlrm as dlrm_mod
+    from repro_torch.legacy.models.layers import top_k as lax_top_k
 
     arch = get_arch("dlrm-rm2")
     cfg = arch.model
@@ -4666,17 +4858,15 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
     precision = torch.get_float32_matmul_precision()
     require(precision == "highest" and not torch.backends.cuda.matmul.allow_tf32,
             f"float32 matmuls must run in full float32, got {precision!r}")
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = dlrm_mod.init_dlrm(cfg, generator=gen, device="cuda")
+    model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(seed, device="cuda"))
     torch.cuda.synchronize()
     table_bytes = sum(t.numel() * t.element_size() for t in model.tables)
     print(f"[dlrm] {cfg.name}: {cfg.n_sparse} tables of "
           f"{tuple(model.tables[0].shape)} float32 = {table_bytes} bytes, "
-          f"built on the card from seed {seed} in "
+          f"drawn on the card from PRNGKey({seed}) in "
           f"{time.perf_counter() - t0:.2f} s; float32 matmul precision "
           f"{precision!r}, TF32 off")
 
@@ -4710,8 +4900,7 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
         inputs = [batch["dense"], batch["sparse"]]
         if shape == "retrieval_cand":
             n_cand = min(cell.args[2].shape[0], cap)
-            inputs.append(torch.randn(n_cand, cfg.embed_dim, generator=gen,
-                                      device="cuda"))
+            inputs.append(dlrm_candidates(torch, seed, n_cand, cfg.embed_dim))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
@@ -4734,6 +4923,22 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
             require(err <= 1e-6, f"dlrm {shape}: top-100 values differ by "
                     f"{err}")
             check = f"top-100 indices equal, values within {err}"
+            if refs is not None:
+                torch.save({"vals": vals.cpu(), "idx": idx.cpu()},
+                           refs / f"{shape}.pt")
+            # the top-k alone on this query's scores: lax.top_k's order (a
+            # stable descending sort) beside torch.topk (no order for ties)
+            with torch.inference_mode():
+                q = model.bot(inputs[0]) + sum(model.bags(inputs[1]))
+                scores = (inputs[2] @ q[0]).float()
+            sort_ms = time_ms(torch, lambda: lax_top_k(scores, 100), iters=20)
+            topk_ms = time_ms(torch, lambda: torch.topk(scores, 100),
+                              iters=20)
+            check += (f"; the top-100 of {scores.shape[0]} scores alone "
+                      f"{sort_ms:.4f} ms (stable descending sort, "
+                      f"lax.top_k's tie order) against torch.topk's "
+                      f"{topk_ms:.4f} ms")
+            del scores, q
         else:
             require(got.shape == (B,) and bool(torch.isfinite(got).all())
                     and bool(((got >= 0) & (got <= 1)).all()),
@@ -4744,6 +4949,8 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
             require(torch.equal(logits, want_logits) and torch.equal(got, want),
                     f"dlrm {shape}: logits differ from the plain path's at L=1")
             check = "logits and probabilities equal to the plain path's"
+            if refs is not None:
+                torch.save({"logits": logits.cpu()}, refs / f"{shape}.pt")
         ms = wall_ms(lambda: cell.fn(model, *inputs), steps)
         plain_ms = wall_ms(lambda: plain(cell.fn, *inputs), 3)
         vs = ""
@@ -4786,13 +4993,31 @@ def phase_dlrm(torch, cap: int, seed: int, results: dict, parent=None):
     return model, serve_inputs
 
 
+def _save_train_ref(torch, state, info, refs: Path) -> None:
+    """What the dlrm mesh phase holds its train step to, from the one-rank
+    cell's first step: the loss, the gradient norm, the MLPs' first moments
+    and each table's nonzero first-moment rows (the rows the batch read)
+    with their indices."""
+    from repro_torch.legacy import optim
+    tables = []
+    for t in state.mu["tables"]:
+        rows = torch.nonzero(t.abs().amax(dim=1) > 0).flatten()
+        tables.append((rows.cpu(), t[rows].cpu()))
+    torch.save({"loss": float(info["loss"]),
+                "grad_norm": float(info["grad_norm"]), "tables": tables,
+                "mlp": [x.cpu() for k in ("bot", "top")
+                        for x in optim.tree_leaves(state.mu[k])]},
+               refs / "train_batch.pt")
+
+
 def phase_train(torch, cap: int, seed: int, results: dict, card: str,
-                parent=None):
+                parent=None, refs: Path = None):
     """DLRM-RM2's train_batch cell at full width on the card, its
     determinism, the kernels against the plain versions on one step, and
     launch.train's simulated failure and resume; with ``parent``
     (--parent) a step through the parent's bags from the same state, the
-    same bits, and steps in turns."""
+    same bits, and steps in turns. The first step's loss, norm and first
+    moments go to ``refs`` for the dlrm mesh phase."""
     import warnings
     from unittest import mock
 
@@ -4869,7 +5094,11 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str,
           f"{cell.meta}, donate {cell.donate}")
     batches = [stream.batch_at(i, device="cuda")
                for i in range(TRAIN_STEPS + 2)]
-    losses = [float(step(model, state, batches[0])["loss"])]  # warm
+    first = step(model, state, batches[0])  # warm
+    losses = [float(first["loss"])]
+    if refs is not None:
+        _save_train_ref(torch, state[0], first, refs)
+    del first
     # the counted step draws its batch too (batches[1] again): RecsysStream's
     # normal and two uniforms, a threefry_bits launch each
     ops.reset_launch_counts()
@@ -4922,8 +5151,10 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str,
           f"bytes at 3.35 TB/s)")
     del grads, params
 
-    # the same step twice from one state saved to the host: the same bits
-    saved = [x.detach().cpu() for x in leaves(model, state)]
+    # the same step twice from one state: the same bits (the state and the
+    # first result kept on the card: 2 x 20 GB beside the model's 20, where
+    # four 20 GB round trips through pageable host memory took ~30 s)
+    saved = [x.detach().clone() for x in leaves(model, state)]
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.use_deterministic_algorithms(True, warn_only=True)
@@ -4940,12 +5171,11 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str,
           + "".join(f"\n[train]   {x[:200]}" for x in named))
     load(model, state, saved)
     ours = float(step(model, state, batches[1])["loss"])
-    first = [x.detach().cpu() for x in leaves(model, state)]
+    first = [x.detach().clone() for x in leaves(model, state)]
     load(model, state, saved)
     step(model, state, batches[1])
     torch.cuda.synchronize()
-    same = [torch.equal(x.cpu(), y) for x, y in zip(leaves(model, state),
-                                                    first)]
+    same = [torch.equal(x, y) for x, y in zip(leaves(model, state), first)]
     require(all(same), f"train: one step twice from the same state gives "
             f"other bits in {same.count(False)} of {len(same)} leaves")
     print(f"[train] one step twice from the same saved state: all "
@@ -4959,8 +5189,8 @@ def phase_train(torch, cap: int, seed: int, results: dict, card: str,
         with mock.patch.object(dlrm_mod, "embedding_bags", theirs_bags):
             theirs = float(step(model, state, batches[1])["loss"])
         torch.cuda.synchronize()
-        same = [torch.equal(x.cpu(), y) for x, y in zip(leaves(model, state),
-                                                        first)]
+        same = [torch.equal(x, y) for x, y in zip(leaves(model, state),
+                                                  first)]
         require(theirs == ours and all(same), f"train: the parent's step "
                 f"from the same state gives loss {theirs!r} against "
                 f"{ours!r}, other bits in {same.count(False)} of "
@@ -5104,8 +5334,9 @@ def _trace(torch, tag: str, fn, top: int = 15) -> dict:
         wall = time.perf_counter() - t0
     # device-side events only (kernels, copies, fills): the CPU ops that
     # launched them report the same time again
+    averages = prof.key_averages()  # one pass over the trace's events
     rows = sorted(((ev.device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
+                   for ev in averages
                    if ev.device_type == DeviceType.CUDA), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
     print(f"[profile] {tag}: traced wall {wall:.4f} s; device busy "
@@ -5117,7 +5348,7 @@ def _trace(torch, tag: str, fn, top: int = 15) -> dict:
               f"ms of device time in {sum(r[2] for r in nccl)} NCCL kernels")
     for dev_us, key, count in rows[:top]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  x{count:<5d} {key[:90]}")
-    return {ev.key: ev.count for ev in prof.key_averages()
+    return {ev.key: ev.count for ev in averages
             if ev.device_type != DeviceType.CUDA}
 
 
@@ -8328,6 +8559,271 @@ def _rank_gnn_mesh(rank: int, d: Path, job: dict) -> int:
     return 0
 
 
+# the dlrm mesh phase's gates against the one-rank cells: logits, the
+# train step's loss and gradient norm, and each first-moment leaf, each a
+# share of the one-rank result's largest magnitude; the top-100 values
+DLRM_MESH_TOL = 1e-5
+DLRM_MESH_SCORE_TOL = 1e-6
+# uninstrumented steps timed for the small cells (serve_p99, retrieval);
+# serve_bulk and the train step time one warm and one timed step
+DLRM_MESH_SMALL_STEPS = 10
+
+
+def _dlrm_mesh_refs(torch, cap: int, seed: int, refs: Path) -> None:
+    """The one-rank results the dlrm mesh phase is held to, where the dlrm
+    and train phases did not run (--ranks): serve_p99's and serve_bulk's
+    logits, retrieval_cand's top-100 and the train step's first step, from
+    the same model, batches and candidates as those phases'."""
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models import dlrm as dlrm_mod
+
+    arch = get_arch("dlrm-rm2")
+    cfg = _rm2_config(cap)
+    model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(seed, device="cuda"))
+    for shape in DLRM_STEPS:
+        cell = build_cell(arch, shape)
+        b = RecsysStream(batch=min(cell.args[0].shape[0], cap),
+                         n_dense=cfg.n_dense, n_sparse=cfg.n_sparse,
+                         vocab=cfg.vocab_sizes[0], multi_hot=cfg.multi_hot,
+                         seed=seed).batch_at(0, device="cuda")
+        if shape == "train_batch":
+            _, state, info = cell.fn(model, optim.init_adam(model.params()),
+                                     b["dense"], b["sparse"], b["labels"])
+            _save_train_ref(torch, state, info, refs)
+            del state, info
+        elif shape == "retrieval_cand":
+            cand = dlrm_candidates(torch, seed, min(cell.args[2].shape[0],
+                                                    cap), cfg.embed_dim)
+            vals, idx = cell.fn(model, b["dense"], b["sparse"], cand)
+            torch.save({"vals": vals.cpu(), "idx": idx.cpu()},
+                       refs / f"{shape}.pt")
+            del cand
+        else:
+            with torch.inference_mode():
+                logits = model(b["dense"], b["sparse"])
+            torch.save({"logits": logits.cpu()}, refs / f"{shape}.pt")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_dlrm_mesh(torch, seed: int, card: str, cap: int, refs: Path,
+                    world: int = DLRM_MESH_WORLD,
+                    backend: str = "gloo") -> None:
+    """The four DLRM-RM2 cells on a DLRM_MESH_SHAPE (data, model) mesh of
+    ``world`` processes of this script, each rank's blocks of each table's
+    rows drawn from PRNGKey(seed), each cell through its own ``fn``, held
+    against the one-rank results in ``refs`` (the dlrm and train phases'):
+    logits, the top-100, the train step's loss, gradient norm and first
+    moments; one windowed embedding_bag launch a step a rank and one
+    backward call a train step; each cell's step wall, its collectives'
+    seconds and count, and the per-rank peak."""
+    import shutil
+    import tempfile
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_dlrm_mesh_"))
+    try:
+        torch.cuda.empty_cache()
+        (tmp / "job.json").write_text(json.dumps(
+            {"dlrm_mesh": True, "world": world, "backend": backend,
+             "seed": seed, "cap": cap, "refs": str(refs), "card": card}))
+        t0 = time.perf_counter()
+        logs = _run_rank_procs(tmp, world, f"dlrm mesh {backend}")
+        print(f"[dlrm mesh] {world} ranks over {backend}: "
+              f"{time.perf_counter() - t0:.1f} s from start to exit")
+        for r, log in enumerate(logs):
+            for line in log.splitlines():
+                if line.startswith("[dlrm mesh]") and (r == 0 or "peak" in
+                                                        line):
+                    print(f"[dlrm mesh] rank {r} of {world}:{line[11:]}")
+        res = [json.loads((tmp / f"rank{r}.json").read_text())
+               for r in range(world)]
+        for shape in DLRM_STEPS:
+            got = [x[shape] for x in res]
+            worst = {k: max(g[k] for g in got) for k in got[0]
+                     if k.endswith(" rel") or k == "score err"}
+            for k, v in worst.items():
+                tol = DLRM_MESH_SCORE_TOL if k == "score err" \
+                    else DLRM_MESH_TOL
+                require(v <= tol, f"dlrm mesh {shape}: {k} {v:.3e} over "
+                        f"{tol} (the largest over the ranks)")
+            want = ({"embedding_bag": 1, "embedding_bag_backward": 1}
+                    if shape == "train_batch" else {"embedding_bag": 1})
+            require(all(g["launches"] == want for g in got),
+                    f"dlrm mesh {shape}: launches a step a rank "
+                    f"{[g['launches'] for g in got]}, want {want}")
+            small = (f"; {DLRM_MESH_SMALL_STEPS} uninstrumented steps p50 "
+                     f"{got[0]['p50']:.4f} s" if "p50" in got[0] else "")
+            print(f"[dlrm mesh] {shape} (B={got[0]['batch']} on a "
+                  f"{DLRM_MESH_SHAPE[0]} x {DLRM_MESH_SHAPE[1]} mesh of "
+                  f"{world} ranks over {backend}): against the one-rank "
+                  f"cell: " + ", ".join(f"{k} {v:.3e}" for k, v in
+                                        worst.items())
+                  + (" (top-100 indices equal)" if shape == "retrieval_cand"
+                     else "")
+                  + f"; a step with its collectives timed (the card "
+                  f"synchronized around each) {got[0]['wall']:.4f} s, its "
+                  f"{got[0]['comm calls']} collectives "
+                  f"{got[0]['comm s']:.4f} s "
+                  f"({got[0]['comm s'] / got[0]['wall']:.3f}){small}; "
+                  f"per-rank step peak {max(g['peak'] for g in got)} bytes; "
+                  f"launches a step a rank {json.dumps(want)}; card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rank_dlrm_mesh(rank: int, d: Path, job: dict) -> int:
+    """One rank of phase_dlrm_mesh: its blocks of the model and of each
+    cell's inputs, each cell's checked (and counted) step and one step with
+    its collectives timed; what it measured to rank{rank}.json."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch import random as trandom
+    from repro_torch.configs import get_arch
+    from repro_torch.core import collectives as coll
+    from repro_torch.kernels import ops
+    from repro_torch.launch import multihost
+    from repro_torch.launch.shardings import local_block
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.legacy import optim
+    from repro_torch.legacy.data import RecsysStream
+    from repro_torch.legacy.models import dlrm as dlrm_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    seed, cap, refs = job["seed"], job["cap"], Path(job["refs"])
+    multihost.initialize(init_method=f"file://{d}/rendezvous",
+                         num_processes=job["world"], process_id=rank,
+                         backend=job["backend"], timeout=600)
+    out = {}
+    try:
+        mesh = init_device_mesh("cuda", DLRM_MESH_SHAPE,
+                                mesh_dim_names=("data", "model"))
+        cfg = _rm2_config(cap)
+        arch = dataclasses.replace(get_arch("dlrm-rm2"), model=cfg)
+        cells = {x: build_cell(arch, x, mesh) for x in DLRM_STEPS}
+        specs = cells["train_batch"].state_shardings[0]
+        t0 = time.perf_counter()
+        model = dlrm_mod.init_dlrm(cfg, key=trandom.PRNGKey(
+            seed, device="cuda"), mesh=mesh, specs=specs)
+        torch.cuda.synchronize()
+        lo, rows = model.windows[0]
+        print(f"[dlrm mesh] rows [{lo}, {lo + model.tables[0].shape[0]}) "
+              f"of each table's {rows} drawn from PRNGKey({seed}) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        M = coll.axis_size(mesh, "model")
+        m = coll.axis_index(mesh, "model")
+
+        def rel(got, want) -> float:
+            scale = float(want.abs().max())
+            diff = float((got.float() - want.float()).abs().max())
+            return diff / scale if scale else diff
+
+        def counted(fn):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            res = fn()
+            torch.cuda.synchronize()
+            c = ops.launch_counts()
+            return res, {k: v for k, v in c.items() if v}
+
+        for shape in DLRM_STEPS:
+            cell = cells[shape]
+            B = min(cell.args[0].shape[0], cap)
+            b = RecsysStream(batch=B, n_dense=cfg.n_dense,
+                             n_sparse=cfg.n_sparse, vocab=cfg.vocab_sizes[0],
+                             multi_hot=cfg.multi_hot,
+                             seed=seed).batch_at(0, device="cuda")
+            ref = torch.load(refs / f"{shape}.pt")
+            names = ("dense", "sparse") + (
+                ("labels",) if shape == "train_batch" else ())
+            blocks = [local_block(b[k], sh, mesh)
+                      for k, sh in zip(names, cell.in_shardings)]
+            rec = {"batch": B}
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            if shape == "train_batch":
+                state = optim.init_adam(model.params())
+                (_, state, info), rec["launches"] = counted(
+                    lambda: cell.fn(model, state, *blocks))
+                rec["loss rel"] = abs(float(info["loss"]) - ref["loss"]) \
+                    / abs(ref["loss"])
+                rec["grad_norm rel"] = abs(
+                    float(info["grad_norm"]) - ref["grad_norm"]) \
+                    / abs(ref["grad_norm"])
+                worst = 0.0
+                for t, mu in enumerate(state.mu["tables"]):
+                    idx, vals = ref["tables"][t]
+                    lo, n = model.windows[t][0], mu.shape[0]
+                    sel = (idx >= lo) & (idx < lo + n)
+                    want = torch.zeros_like(mu)
+                    want[(idx[sel] - lo).cuda()] = vals[sel].cuda()
+                    worst = max(worst, rel(mu, want))
+                rec["table moments rel"] = worst
+                mlp = [x for k in ("bot", "top")
+                       for x in optim.tree_leaves(state.mu[k])]
+                rec["mlp moments rel"] = max(
+                    rel(x, w.cuda()) for x, w in zip(mlp, ref["mlp"],
+                                                     strict=True))
+                del info, mlp
+
+                def step():
+                    return cell.fn(model, state, *blocks)
+            elif shape == "retrieval_cand":
+                n_cand = min(cell.args[2].shape[0], cap)
+                per = n_cand // M
+                cand = dlrm_candidates(torch, seed, n_cand, cfg.embed_dim,
+                                       start=m * per, count=per)
+                args = blocks[:2] + [cand]
+                (vals, idx), rec["launches"] = counted(
+                    lambda: cell.fn(model, *args))
+                require(torch.equal(idx.cpu(), ref["idx"]),
+                        f"rank {rank}: dlrm mesh retrieval_cand: the "
+                        f"top-100 indices differ from the one-rank cell's")
+                rec["score err"] = float((vals.cpu() - ref["vals"]).abs()
+                                         .max())
+
+                def step():
+                    return cell.fn(model, *args)
+            else:
+                with torch.inference_mode():
+                    logits = model(*blocks)
+                want = local_block(ref["logits"].cuda(),
+                                   cell.in_shardings[0][:1], mesh)
+                rec["logits rel"] = float((logits - want).abs().max()) \
+                    / float(ref["logits"].abs().max())
+                p, rec["launches"] = counted(lambda: cell.fn(model, *blocks))
+                require(p.shape == want.shape
+                        and bool(((p >= 0) & (p <= 1)).all()),
+                        f"rank {rank}: dlrm mesh {shape}: probabilities "
+                        f"{tuple(p.shape)}")
+                del logits, want, p
+
+                def step():
+                    return cell.fn(model, *blocks)
+            if shape in ("serve_p99", "retrieval_cand"):
+                walls = [_sync_time(torch, step)[1]
+                         for _ in range(DLRM_MESH_SMALL_STEPS)]
+                rec["p50"] = sorted(walls)[len(walls) // 2]
+            rec["wall"], rec["comm s"], rec["comm calls"] = \
+                _comm_share(torch, step)
+            rec["peak"] = torch.cuda.max_memory_allocated() - base
+            out[shape] = rec
+            print(f"[dlrm mesh] {shape}: its step peak {rec['peak']} bytes "
+                  f"above the model", flush=True)
+            del step, blocks, b, ref
+    finally:
+        multihost.shutdown()
+    (d / f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
 def _np_tree(tree):
     if isinstance(tree, dict):
         return {k: _np_tree(v) for k, v in tree.items()}
@@ -8390,6 +8886,9 @@ def main() -> int:
     # a tuning cache of the script's own, empty: a cache in the home
     # directory must not change the launch shapes between two runs
     cache_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cache_")
+    # the dlrm and train phases' one-rank results, for the dlrm mesh phase
+    dlrm_refs = tempfile.TemporaryDirectory(prefix="chip_smoke_dlrm_refs_")
+    refs = Path(dlrm_refs.name)
     os.environ[tune.ENV_VAR] = os.path.join(cache_dir.name, "tune.json")
     open(os.environ[tune.ENV_VAR], "w").close()
     tune.reset_default_cache()
@@ -8415,6 +8914,11 @@ def main() -> int:
                       args.ranks, "cpu:gloo,cuda:nccl")
                 timed("gnn mesh", phase_gnn_mesh, torch, args.seed, card,
                       False, args.ranks, "cpu:gloo,cuda:nccl")
+                cap = 1 << args.log_n
+                timed("dlrm mesh refs", _dlrm_mesh_refs, torch, cap,
+                      args.seed, refs)
+                timed("dlrm mesh", phase_dlrm_mesh, torch, args.seed, card,
+                      cap, refs, args.ranks, "cpu:gloo,cuda:nccl")
             else:
                 print(f"[lm mesh] not run: its {LM_MESH_SHAPE[0]} x "
                       f"{LM_MESH_SHAPE[1]} mesh takes {LM_MESH_WORLD} "
@@ -8448,13 +8952,16 @@ def main() -> int:
         timed("cells", phase_cells, torch, g, expect, args.seed, args.log_n,
               args.log_m, exact, card)
         model, serve_inputs = timed("dlrm", phase_dlrm, torch, cap, args.seed,
-                                    results, parent)
+                                    results, parent, refs)
         timed("profile", phase_profile, torch, g, model, serve_inputs,
               args.seed, edges, apps["weights"], args.log_m, server)
         del model, serve_inputs  # the train phase holds ~27 GB of its own
         torch.cuda.empty_cache()
         timed("train", phase_train, torch, cap, args.seed, results, card,
-              parent)
+              parent, refs)
+        torch.cuda.empty_cache()
+        timed("dlrm mesh", phase_dlrm_mesh, torch, args.seed, card, cap,
+              refs)
         timed("lm", phase_lm, torch, args.seed, card)
         torch.cuda.empty_cache()
         timed("lm mesh", phase_lm_mesh, torch, args.seed, card)
@@ -8469,6 +8976,7 @@ def main() -> int:
         return 1
     finally:
         cache_dir.cleanup()
+        dlrm_refs.cleanup()
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": device}))
     return 0

@@ -44,17 +44,17 @@ SIGNATURES = {
         "edge_relabel_i32": (_P, _P, _P, _P, _I64, _I64, _P),
         "edge_rewrite_i32": (_P, _P, _P, _P, _P, _I64, _I64, _P)},
     "embedding_bag": {
-        # tables and rows, host arrays of T int64 (csrc's bag_tables), T,
-        # idx, out, B, L, D, mode, stream
-        **{name: (_P, _P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P)
+        # tables, rows, row_lo and rows_global, host arrays of T int64
+        # (csrc's bag_tables), T, idx, out, B, L, D, mode, stream
+        **{name: (_P, _P, _P, _P, _I64, _P, _P, _I64, _I64, _I64, _I32, _P)
            for name in ("embedding_bags_f32", "embedding_bags_bf16")},
-        # the backward's first four: host arrays of T int64 (bag_tables)
+        # the backward's first six: host arrays of T int64 (bag_tables)
         "embedding_bag_backward_keys_f32": (
-            _P, _P, _P, _P, _I64, _P, _P, _I32, _P, _P, _I64, _I64, _I64, _I32,
-            _P),
+            _P, _P, _P, _P, _P, _P, _I64, _P, _P, _I32, _P, _P, _I64, _I64,
+            _I64, _I32, _P),
         "embedding_bag_backward_f32": (
-            _P, _P, _P, _P, _I64, _P, _I32, _P, _P, _P, _P, _P, _P, _I64, _I64,
-            _I64, _I64, _I32, _P)},
+            _P, _P, _P, _P, _P, _P, _I64, _P, _I32, _P, _P, _P, _P, _P, _P,
+            _I64, _I64, _I64, _I64, _I32, _P)},
     "segment": {
         # values, the sorted positions' ids, out, the address of the plan's
         # Layout, d, stream

@@ -53,6 +53,12 @@
 // divides the sum over all L rows by max(#valid, 1); max takes the dtype's
 // lowest finite value where an id is not valid.
 //
+// Row windows (a rank's block of a table row-sharded over a mesh, see
+// BagTables): rows counts the whole table's rows in the contract above; a
+// row outside the window adds nothing to a sum bag, so the sum of the
+// windows' bags over the ranks is the whole table's bag. At a window of the
+// whole table every call gives the bits it gave before windows existed.
+//
 // Bound: bytes (each distinct row the bags read once, T*B*L ids and T*B*D
 // outputs); the adds are 1 per gathered value.
 #include <cuda_bf16.h>
@@ -71,12 +77,23 @@ constexpr int kInFlight = 4;  // row loads a forward group has in flight
 constexpr int kMaxRun = 2;    // of them, positions of one bag at most
 
 // Per-table arguments, passed by value with each launch: the forward reads
-// table (of its dtype) and rows, the backward all of them.
+// table (of its dtype) and its window, the backward all of them.
+//
+// A table may be a window of rows of a larger one, as a rank of a mesh
+// holds its block of a row-sharded table: it holds the rows_global-row
+// table's rows [row_lo, row_lo + rows). An id's row is found in the whole
+// table (wrapped once against rows_global, then clamped into it), and a
+// row outside the window contributes nothing: the forward reads it as
+// zeros (sum only; the wrapper refuses a window for mean and max), the
+// backward gives its position no gradient row. A table that is whole has
+// row_lo = 0 and rows_global = rows.
 struct BagTables {
   const void* table[kMaxTables];      // (rows, D); the backward's float32
   const float* grad_out[kMaxTables];  // (B, D), rows go_stride apart
   int64_t go_stride[kMaxTables];
-  int64_t rows[kMaxTables];
+  int64_t rows[kMaxTables];           // the rows this table holds
+  int64_t row_lo[kMaxTables];         // the first of them in the whole table
+  int64_t rows_global[kMaxTables];    // the whole table's rows
   int64_t base[kMaxTables];           // the table's first flat row
 };
 
@@ -84,6 +101,13 @@ struct BagTables {
 __device__ __forceinline__ int64_t bag_row(int raw, int64_t rows) {
   const int64_t r = raw < 0 ? raw + rows : static_cast<int64_t>(raw);
   return r < 0 ? 0 : (r >= rows ? rows - 1 : r);
+}
+
+// The row of table t that an id reads, counted from the window's first
+// row: in [0, rows[t]) where the id's row lies in the window.
+__device__ __forceinline__ int64_t window_row(const BagTables& tabs, int t,
+                                              int raw) {
+  return bag_row(raw, tabs.rows_global[t]) - tabs.row_lo[t];
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -137,8 +161,13 @@ __device__ __forceinline__ Vec<T, VEC> load_row(const T* p) {
 // The ids and rows of positions [l0, l0 + n) of bags j < nb (n <= U), bag
 // j's ids from ids + j * L: every id load first, then every row load, so
 // that all of them are in flight at once.
+//
+// A row outside the table's window reads as zeros, which leave a sum's
+// bits as they are: it starts at +0 and, rounding to nearest, never holds
+// -0, so adding +0 changes nothing.
 template <typename T, int VEC, int NB, int U>
 __device__ __forceinline__ void load_rows(const T* table, int64_t rows,
+                                          int64_t rows_global, int64_t row_lo,
                                           const int* ids, int64_t L,
                                           int64_t D, int64_t c0, int nb,
                                           int64_t l0, int n,
@@ -156,15 +185,21 @@ __device__ __forceinline__ void load_rows(const T* table, int64_t rows,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (j < nb && u < n) {
-        x[j][u] =
-            load_row<T, VEC>(table + bag_row(raw[j][u], rows) * D + c0);
+        const int64_t r = bag_row(raw[j][u], rows_global) - row_lo;
+        if (r >= 0 && r < rows) {
+          x[j][u] = load_row<T, VEC>(table + r * D + c0);
+        } else {
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) x[j][u].v[k] = from_float<T>(0.0f);
+        }
       }
     }
   }
 }
 
 // One bag's loaded positions u < n into acc, in l order: added (sum,
-// mean), or max-ed where the id is valid; n_valid counts the valid ids.
+// mean), or max-ed where the id is valid (below the whole table's dump
+// row, rows - 1); n_valid counts the valid ids.
 template <typename T, int VEC, int U>
 __device__ __forceinline__ void add_rows(float (&acc)[VEC], int& n_valid,
                                          const int (&raw)[U],
@@ -228,6 +263,8 @@ __global__ void __launch_bounds__(connectit::kThreads, NB > 1 ? 4 : 6)
     const int nb = B - b0 < NB ? static_cast<int>(B - b0) : NB;
     const T* table = static_cast<const T*>(tabs.table[t]);
     const int64_t rows = tabs.rows[t];
+    const int64_t rows_global = tabs.rows_global[t];
+    const int64_t row_lo = tabs.row_lo[t];
     const int* ids = idx + (t * B + b0) * L;
     T* dst = out + (t * B + b0) * D;
     for (int64_t c0 = lane * VEC; c0 < D; c0 += group * VEC) {
@@ -240,15 +277,16 @@ __global__ void __launch_bounds__(connectit::kThreads, NB > 1 ? 4 : 6)
         int n_valid = 0;
         for (int64_t l0 = 0; l0 < L; l0 += U) {
           const int n = L - l0 < U ? static_cast<int>(L - l0) : U;
-          load_rows<T, VEC, NB, U>(table, rows, ids, L, D, c0, nb, l0, n,
-                                   raw, x);
-          add_rows<T, VEC, U>(acc, n_valid, raw[0], x[0], n, rows, mode);
+          load_rows<T, VEC, NB, U>(table, rows, rows_global, row_lo, ids, L,
+                                   D, c0, nb, l0, n, raw, x);
+          add_rows<T, VEC, U>(acc, n_valid, raw[0], x[0], n, rows_global,
+                              mode);
         }
         store_bag<T, VEC>(dst + c0, acc, n_valid, mode);
       } else {
         const int n = static_cast<int>(L);
-        load_rows<T, VEC, NB, U>(table, rows, ids, L, D, c0, nb, 0, n, raw,
-                                 x);
+        load_rows<T, VEC, NB, U>(table, rows, rows_global, row_lo, ids, L, D,
+                                 c0, nb, 0, n, raw, x);
 #pragma unroll
         for (int j = 0; j < NB; ++j) {
           if (j >= nb) break;
@@ -256,7 +294,8 @@ __global__ void __launch_bounds__(connectit::kThreads, NB > 1 ? 4 : 6)
 #pragma unroll
           for (int k = 0; k < VEC; ++k) acc[k] = init;
           int n_valid = 0;
-          add_rows<T, VEC, U>(acc, n_valid, raw[j], x[j], n, rows, mode);
+          add_rows<T, VEC, U>(acc, n_valid, raw[j], x[j], n, rows_global,
+                              mode);
           store_bag<T, VEC>(dst + j * D + c0, acc, n_valid, mode);
         }
       }
@@ -270,25 +309,33 @@ bool aligned(const void* p, int64_t bytes) {
 
 // The launch arguments of one call: its tables from the host arrays the
 // wrapper passes (T device pointers of tables and, for the backward, of
-// grad_outs and T strides; T row counts), and their total rows.
+// grad_outs and T strides; T row counts, and each table's window: its
+// first row and the whole table's rows), and their total rows.
 int bag_tables(BagTables* tabs, int64_t* total_rows, const void* tables,
                const void* grad_outs, const void* go_strides,
-               const void* rows, int64_t T) {
+               const void* rows, const void* row_lo, const void* rows_global,
+               int64_t T) {
   if (T < 1 || T > kMaxTables) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t* tp = static_cast<const int64_t*>(tables);
   const int64_t* gp = static_cast<const int64_t*>(grad_outs);
   const int64_t* sp = static_cast<const int64_t*>(go_strides);
   const int64_t* rp = static_cast<const int64_t*>(rows);
+  const int64_t* lp = static_cast<const int64_t*>(row_lo);
+  const int64_t* wp = static_cast<const int64_t*>(rows_global);
   *tabs = BagTables{};
   int64_t base = 0;
   for (int64_t t = 0; t < T; ++t) {
-    if (rp[t] < 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (rp[t] < 1 || lp[t] < 0 || wp[t] < lp[t] + rp[t]) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     tabs->table[t] = reinterpret_cast<const void*>(tp[t]);
     if (gp != nullptr) {
       tabs->grad_out[t] = reinterpret_cast<const float*>(gp[t]);
       tabs->go_stride[t] = sp[t];
     }
     tabs->rows[t] = rp[t];
+    tabs->row_lo[t] = lp[t];
+    tabs->rows_global[t] = wp[t];
     tabs->base[t] = base;
     base += rp[t];
   }
@@ -364,7 +411,8 @@ int launch_bags(const BagTables& tabs, int64_t n_tables, const void* idx,
 }
 
 template <typename T>
-int embedding_bags(const void* tables, const void* rows, int64_t n_tables,
+int embedding_bags(const void* tables, const void* rows, const void* row_lo,
+                   const void* rows_global, int64_t n_tables,
                    const void* idx, void* out, int64_t B, int64_t L,
                    int64_t D, int mode, void* stream) {
   if (mode < kSum || mode > kMax || B < 0 || L < 0 || D < 1) {
@@ -372,8 +420,8 @@ int embedding_bags(const void* tables, const void* rows, int64_t n_tables,
   }
   BagTables tabs;
   int64_t total_rows = 0;
-  const int rc =
-      bag_tables(&tabs, &total_rows, tables, nullptr, nullptr, rows, n_tables);
+  const int rc = bag_tables(&tabs, &total_rows, tables, nullptr, nullptr,
+                            rows, row_lo, rows_global, n_tables);
   if (rc != 0 || B == 0) return rc;
   return launch_bags<T, 16 / sizeof(T)>(tabs, n_tables, idx, out, B, L, D,
                                         mode,
@@ -394,7 +442,10 @@ int embedding_bags(const void* tables, const void* rows, int64_t n_tables,
 //   max:  grad_out_t[b] / (#ties of the bag's max on that column), where
 //         the position's id is valid and its row equals the max there
 // with rows read through the forward's id contract (wrap once, clamp). The
-// T gradients are one flat (sum of rows_t, D) buffer, table after table.
+// T gradients are one flat (sum of rows_t, D) buffer, table after table. A
+// table that is a window of rows (BagTables) gets the gradient of its rows
+// alone: a position whose row lies outside the window takes the sentinel
+// key total_rows, which sorts after every row, and passes nothing.
 //
 // Bound: bytes. Every gradient written once, zeros included (rows_t * D
 // floats each), the ids and grad_out read once, and for max the table rows
@@ -440,16 +491,18 @@ constexpr int kChunk = 128;      // sorted positions a warp sums
 constexpr int kHoist = 8;        // value loads a warp keeps in flight
 constexpr int kSliceRows = 512;  // gradient rows a zeroing block takes
 
-// keys[p] = the flat row position p reads; for mean, count[t * B + b] = max(#valid ids, 1); for
-// max, contrib[p, :] = the gradient that position p passes to its row (0
-// where it is not a max).
+// keys[p] = the flat row position p reads (total_rows where the row lies
+// outside its table's window); for mean, count[t * B + b] = max(#valid ids,
+// 1); for max, contrib[p, :] = the gradient that position p passes to its
+// row (0 where it is not a max). mean and max take whole tables.
 template <typename K>
 __global__ void bag_backward_keys(const BagTables tabs,
                                   const int* __restrict__ idx,
                                   K* __restrict__ keys,
                                   float* __restrict__ count,
                                   float* __restrict__ contrib, int64_t T,
-                                  int64_t B, int64_t L, int64_t D, int mode) {
+                                  int64_t B, int64_t L, int64_t D, int mode,
+                                  int64_t total_rows) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int64_t first =
       blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
@@ -458,11 +511,13 @@ __global__ void bag_backward_keys(const BagTables tabs,
     // p < 2^31 (the wrapper's limit): 32-bit divisions
     const uint32_t t = static_cast<uint32_t>(p) / static_cast<uint32_t>(L) /
                        static_cast<uint32_t>(B);
-    keys[p] = static_cast<K>(tabs.base[t] + bag_row(idx[p], tabs.rows[t]));
+    const int64_t r = window_row(tabs, t, idx[p]);
+    keys[p] = static_cast<K>(r >= 0 && r < tabs.rows[t] ? tabs.base[t] + r
+                                                        : total_rows);
   }
   if (mode == kMean) {
     for (int64_t tb = first; tb < bags; tb += stride) {
-      const int64_t rows = tabs.rows[tb / B];
+      const int64_t rows = tabs.rows_global[tb / B];
       int64_t n_valid = 0;
       for (int64_t l = 0; l < L; ++l) {
         n_valid += static_cast<int64_t>(idx[tb * L + l]) < rows - 1;
@@ -499,11 +554,12 @@ __global__ void bag_backward_keys(const BagTables tabs,
   }
 }
 
-// touched: a bit a flat row, set for the rows the sorted keys hold. A
-// warp's 32 keys are neighbours, so their bits fall in few words: the lanes
-// of one word set it with one atomic.
+// touched: a bit a flat row, set for the rows the sorted keys hold (not
+// the sentinel total_rows). A warp's 32 keys are neighbours, so their bits
+// fall in few words: the lanes of one word set it with one atomic.
 template <typename K>
 __global__ void bag_backward_mark(const K* __restrict__ sorted, int64_t N,
+                                  int64_t total_rows,
                                   unsigned* __restrict__ touched) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   const int lane = threadIdx.x % kWarp;
@@ -513,7 +569,8 @@ __global__ void bag_backward_mark(const K* __restrict__ sorted, int64_t N,
        i0 < N; i0 += stride) {
     const int64_t i = i0 + lane;
     // the first position of each run of one row (-1 elsewhere)
-    const int64_t key = i < N && (i == 0 || sorted[i - 1] != sorted[i])
+    const int64_t key = i < N && (i == 0 || sorted[i - 1] != sorted[i]) &&
+                                static_cast<int64_t>(sorted[i]) < total_rows
                             ? static_cast<int64_t>(sorted[i])
                             : -1;
     const unsigned same = __match_any_sync(~0u, key >> 5);
@@ -601,6 +658,8 @@ __device__ void arrive(const K* __restrict__ sorted,
 
 // Warp c sums sorted positions [c * kChunk, (c + 1) * kChunk), one at a
 // time in order, its lanes over columns col..col + VEC - 1 of each pass.
+// The positions outside their windows (the sentinel key total_rows, sorted
+// last) are left out: the chunk ends at the first of them.
 template <typename K, int VEC>
 __device__ void sum_chunk(const BagTables& tabs, const K* __restrict__ sorted,
                           const int64_t* __restrict__ perm,
@@ -609,9 +668,14 @@ __device__ void sum_chunk(const BagTables& tabs, const K* __restrict__ sorted,
                           int* __restrict__ arrivals,
                           float* __restrict__ pieces, float* __restrict__ grad,
                           int64_t N, int64_t B, int64_t L, int64_t D,
-                          int mode, int64_t c, int lane) {
+                          int mode, int64_t c, int lane, int64_t total_rows) {
   const int64_t c0 = c * kChunk;
-  const int64_t c1 = c0 + kChunk < N ? c0 + kChunk : N;
+  int64_t c1 = c0 + kChunk < N ? c0 + kChunk : N;
+  const K sentinel = static_cast<K>(total_rows);
+  if (sorted[c0] >= sentinel) return;
+  if (sorted[c1 - 1] >= sentinel) {
+    c1 = c0 + warp_lower_bound(sorted + c0, c1 - c0, sentinel, lane);
+  }
   const bool head_open = c0 > 0 && sorted[c0 - 1] == sorted[c0];
   const bool tail_open = c1 < N && sorted[c1] == sorted[c1 - 1];
   const int64_t passes = (D + kWarp * VEC - 1) / (kWarp * VEC);
@@ -747,7 +811,8 @@ __global__ void __launch_bounds__(connectit::kThreads)
         static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / kWarp;
     if (c * kChunk < N) {
       sum_chunk<K, VEC>(tabs, sorted, perm, count, contrib, arrivals, pieces,
-                        grad, N, B, L, D, mode, c, threadIdx.x % kWarp);
+                        grad, N, B, L, D, mode, c, threadIdx.x % kWarp,
+                        total_rows);
     }
     return;
   }
@@ -821,7 +886,8 @@ int launch_rows(const BagTables& tabs, const void* sorted, const void* perm,
   unsigned* touched = reinterpret_cast<unsigned*>(next_slice + 1 + chunks);
   if (N > 0) {
     bag_backward_mark<K><<<connectit::grid_for(N), connectit::kThreads, 0,
-                           st>>>(static_cast<const K*>(sorted), N, touched);
+                           st>>>(static_cast<const K*>(sorted), N, total_rows,
+                                 touched);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -864,32 +930,33 @@ int launch_rows(const BagTables& tabs, int64_t T, const void* sorted,
 
 }  // namespace
 
-// The forward of T tables. tables, rows: host arrays of T int64 (device
-// pointers of the tables, of one dtype and D; their row counts); idx (T, B,
-// L) int32; out (T, B, D) of the tables' dtype.
-extern "C" int embedding_bags_f32(const void* tables, const void* rows, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
-  return embedding_bags<float>(tables, rows, T, idx, out, B, L, D, mode,
-                               stream);
+// The forward of T tables. tables, rows, row_lo, rows_global: host arrays
+// of T int64 (device pointers of the tables, of one dtype and D; their row
+// counts; their windows, BagTables); idx (T, B, L) int32; out (T, B, D) of
+// the tables' dtype.
+extern "C" int embedding_bags_f32(const void* tables, const void* rows, const void* row_lo, const void* rows_global, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+  return embedding_bags<float>(tables, rows, row_lo, rows_global, T, idx, out,
+                               B, L, D, mode, stream);
 }
 
-extern "C" int embedding_bags_bf16(const void* tables, const void* rows, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
-  return embedding_bags<__nv_bfloat16>(tables, rows, T, idx, out, B, L, D,
-                                       mode, stream);
+extern "C" int embedding_bags_bf16(const void* tables, const void* rows, const void* row_lo, const void* rows_global, int64_t T, const void* idx, void* out, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+  return embedding_bags<__nv_bfloat16>(tables, rows, row_lo, rows_global, T,
+                                       idx, out, B, L, D, mode, stream);
 }
 
 // Launch 1 of the backward. tables, grad_outs: host arrays of T device
-// pointers; go_strides, rows: host arrays of T int64; idx (T, B, L) int32;
-// keys (T*B*L,) of key_bytes (4: int32, 8: int64); count (T*B,) float32
-// for mean; contrib (T*B*L, D) float32 for max. tables are read for max
-// only.
-extern "C" int embedding_bag_backward_keys_f32(const void* tables, const void* grad_outs, const void* go_strides, const void* rows, int64_t T, const void* idx, void* keys, int key_bytes, void* count, void* contrib, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+// pointers; go_strides, rows, row_lo, rows_global: host arrays of T int64;
+// idx (T, B, L) int32; keys (T*B*L,) of key_bytes (4: int32, 8: int64);
+// count (T*B,) float32 for mean; contrib (T*B*L, D) float32 for max.
+// tables are read for max only.
+extern "C" int embedding_bag_backward_keys_f32(const void* tables, const void* grad_outs, const void* go_strides, const void* rows, const void* row_lo, const void* rows_global, int64_t T, const void* idx, void* keys, int key_bytes, void* count, void* contrib, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
   if (bad_args(mode, key_bytes, B, L, D)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   BagTables tabs;
   int64_t total_rows = 0;
   const int rc = bag_tables(&tabs, &total_rows, tables, grad_outs, go_strides,
-                            rows, T);
+                            rows, row_lo, rows_global, T);
   if (rc != 0) return rc;
   int64_t work = T * B * L;
   if (mode == kMax && T * B * D > work) work = T * B * D;
@@ -900,13 +967,13 @@ extern "C" int embedding_bag_backward_keys_f32(const void* tables, const void* g
                              0, st>>>(
         tabs, static_cast<const int*>(idx), static_cast<int*>(keys),
         static_cast<float*>(count), static_cast<float*>(contrib), T, B, L, D,
-        mode);
+        mode, total_rows);
   } else {
     bag_backward_keys<int64_t><<<connectit::grid_for(work),
                                  connectit::kThreads, 0, st>>>(
         tabs, static_cast<const int*>(idx), static_cast<int64_t*>(keys),
         static_cast<float*>(count), static_cast<float*>(contrib), T, B, L, D,
-        mode);
+        mode, total_rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -915,7 +982,7 @@ extern "C" int embedding_bag_backward_keys_f32(const void* tables, const void* g
 // keys; counters (1 + ceil(N / 128) + ceil(sum of rows / 32),) int32
 // zeroed; pieces (2 * ceil(N / 128), D) float32 scratch; grad the flat (sum
 // of rows, D) float32 gradient, 16-byte aligned, written whole.
-extern "C" int embedding_bag_backward_f32(const void* tables, const void* grad_outs, const void* go_strides, const void* rows, int64_t T, const void* sorted, int key_bytes, const void* perm, void* counters, void* pieces, const void* count, const void* contrib, void* grad, int64_t N, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
+extern "C" int embedding_bag_backward_f32(const void* tables, const void* grad_outs, const void* go_strides, const void* rows, const void* row_lo, const void* rows_global, int64_t T, const void* sorted, int key_bytes, const void* perm, void* counters, void* pieces, const void* count, const void* contrib, void* grad, int64_t N, int64_t B, int64_t L, int64_t D, int mode, void* stream) {
   if (bad_args(mode, key_bytes, B, L, D) || N != T * B * L ||
       N > INT32_MAX || !aligned(grad, 16) || !aligned(pieces, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -923,7 +990,7 @@ extern "C" int embedding_bag_backward_f32(const void* tables, const void* grad_o
   BagTables tabs;
   int64_t total_rows = 0;
   const int rc = bag_tables(&tabs, &total_rows, tables, grad_outs, go_strides,
-                            rows, T);
+                            rows, row_lo, rows_global, T);
   if (rc != 0) return rc;
   if (key_bytes == 4 && total_rows > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);

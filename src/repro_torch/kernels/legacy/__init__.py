@@ -10,6 +10,12 @@ of one ``(T, B, D)`` tensor, and where a table takes a gradient (a
 ``embedding_bags_backward`` (on the CPU, the plain ``index_add_`` of each
 position's share, table by table). ``embedding_bag`` and
 ``embedding_bag_backward`` are their one-table case.
+
+``windows`` (``sum`` only): for each table ``(row_lo, rows_global)``, the
+table being those rows of a larger one, as a rank of a mesh holds its
+block of a row-sharded table; both routes take it (``embedding_bag/ref.py``,
+``embedding_bag/kernel.py``), and the autograd function keeps it for the
+backward. ``None`` is every table whole, the one-rank call.
 """
 
 from __future__ import annotations
@@ -26,25 +32,37 @@ __all__ = ["embedding_bag", "embedding_bag_backward", "embedding_bags",
            "embedding_bags_backward"]
 
 
+def _each(windows, tables) -> list:
+    """Each table's window as keywords of the plain versions."""
+    if windows is None:
+        return [{}] * len(tables)
+    if len(windows) != len(tables):
+        raise ValueError(f"embedding_bags: {len(windows)} windows for "
+                         f"{len(tables)} tables")
+    return [dict(row_lo=lo, rows_global=whole) for lo, whole in windows]
+
+
 def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
                             grad_outs: Sequence[torch.Tensor], *,
-                            mode: str = "sum") -> list:
+                            mode: str = "sum", windows=None) -> list:
     """The T dense ``(rows_t, D)`` gradients of ``embedding_bags`` with
     respect to ``tables`` given ``grad_outs`` (T of (B, D))."""
     if on_cuda(tables[0]):
         return _embedding_bag_kernel.embedding_bags_backward(
-            tables, idx, grad_outs, mode=mode)
-    return [embedding_bag_backward_ref(t, i, g, mode=mode)
-            for t, i, g in zip(tables, idx, grad_outs, strict=True)]
+            tables, idx, grad_outs, mode=mode, windows=windows)
+    return [embedding_bag_backward_ref(t, i, g, mode=mode, **w)
+            for t, i, g, w in zip(tables, idx, grad_outs,
+                                  _each(windows, tables), strict=True)]
 
 
 def _bags(tables: Sequence[torch.Tensor], idx: torch.Tensor,
-          mode: str) -> tuple:
+          mode: str, windows=None) -> tuple:
     if on_cuda(tables[0]):
-        return _embedding_bag_kernel.embedding_bags(tables, idx,
-                                                    mode=mode).unbind(0)
-    return tuple(embedding_bag_ref(t, i, mode=mode)
-                 for t, i in zip(tables, idx, strict=True))
+        return _embedding_bag_kernel.embedding_bags(
+            tables, idx, mode=mode, windows=windows).unbind(0)
+    return tuple(embedding_bag_ref(t, i, mode=mode, **w)
+                 for t, i, w in zip(tables, idx, _each(windows, tables),
+                                    strict=True))
 
 
 def _columns_adjacent(g: torch.Tensor) -> torch.Tensor:
@@ -55,10 +73,10 @@ def _columns_adjacent(g: torch.Tensor) -> torch.Tensor:
 
 class _EmbeddingBags(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, idx, mode, *tables):
-        outs = _bags(tables, idx, mode)
+    def forward(ctx, idx, mode, windows, *tables):
+        outs = _bags(tables, idx, mode, windows)
         ctx.save_for_backward(idx, *tables)
-        ctx.mode = mode
+        ctx.mode, ctx.windows = mode, windows
         return outs
 
     @staticmethod
@@ -66,23 +84,26 @@ class _EmbeddingBags(torch.autograd.Function):
         idx, *tables = ctx.saved_tensors
         grads = embedding_bags_backward(
             tables, idx, [_columns_adjacent(g) for g in grad_outs],
-            mode=ctx.mode)
-        return (None, None, *grads)
+            mode=ctx.mode, windows=ctx.windows)
+        return (None, None, None, *grads)
 
 
 def embedding_bags(tables: Sequence[torch.Tensor], idx: torch.Tensor, *,
-                   mode: str = "sum") -> list:
+                   mode: str = "sum", windows=None) -> list:
     """T tables ``(rows_t, D)`` (rows may differ), each with its dump row
     last; idx: (T, B, L) int32 → the T bags ``embedding_bag(tables[t],
     idx[t], mode=mode)``, (B, D) each, whose gradients one backward call
-    computes. Where no table takes a gradient (serving), the autograd
-    function is skipped."""
+    computes. ``windows``: each table's ``(row_lo, rows_global)`` where it
+    is a block of rows of a larger table (its share of the bags). Where no
+    table takes a gradient (serving), the autograd function is skipped."""
     if len(tables) != idx.shape[0]:
         raise ValueError(f"embedding_bags: {len(tables)} tables for ids of "
                          f"shape {tuple(idx.shape)}")
+    if windows is not None:
+        windows = tuple((int(lo), int(whole)) for lo, whole in windows)
     if torch.is_grad_enabled() and any(t.requires_grad for t in tables):
-        return list(_EmbeddingBags.apply(idx, mode, *tables))
-    return list(_bags(tables, idx, mode))
+        return list(_EmbeddingBags.apply(idx, mode, windows, *tables))
+    return list(_bags(tables, idx, mode, windows))
 
 
 def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,

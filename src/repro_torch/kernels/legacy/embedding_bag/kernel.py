@@ -10,7 +10,17 @@ case. ``embedding_bags_backward`` takes T float32 tables of one width D
 contiguous ``(T, B, L)`` int32 tensor and T float32 ``(B, D)`` ``grad_out``
 tensors whose columns are adjacent, and computes the T gradients in one
 call of the backward kernel; ``embedding_bag_backward`` is its one-table
-case. Each raises on anything else. ``.launches`` counts launches:
+case. Each raises on anything else.
+
+Both grouped wrappers take ``windows``: for each table ``(row_lo,
+rows_global)``, the table being rows ``[row_lo, row_lo + rows)`` of a
+``rows_global``-row table (a rank's block of a table row-sharded over a
+mesh). Ids are read against the whole table, and a row outside the window
+adds nothing (``sum`` only): the forward's bags are this window's share of
+the whole table's, the backward's gradients the window's rows. ``None`` is
+every table whole (``(0, rows)``).
+
+``.launches`` counts launches:
 ``embedding_bag``'s of the forward, one a call through either forward
 wrapper; ``embedding_bag_backward``'s of the backward kernel, one a call
 through either backward wrapper.
@@ -31,15 +41,17 @@ _ENTRY = {torch.float32: "embedding_bags_f32",
 
 
 def embedding_bags(tables: Sequence[torch.Tensor], idx: torch.Tensor, *,
-                   mode: str = "sum") -> torch.Tensor:
+                   mode: str = "sum", windows=None) -> torch.Tensor:
     """The ``(T, B, D)`` bags of T tables reduced by ``mode``, in the tables'
-    dtype: ``[t]`` is ``ref.embedding_bag_ref(tables[t], idx[t], mode)``, the
-    same bits as a launch a table. One check of the arguments, one
-    allocation and one launch, whatever T is."""
+    dtype: ``[t]`` is ``ref.embedding_bag_ref(tables[t], idx[t], mode)``
+    (with ``windows``, at ``row_lo=`` and ``rows_global=``), the same bits
+    as a launch a table. One check of the arguments, one allocation and one
+    launch, whatever T is."""
     what = "embedding_bag"
     if mode not in MODES:
         raise ValueError(f"unknown embedding_bag mode {mode!r}; have {MODES}")
     _check_tables(what, tables, idx, tuple(_ENTRY))
+    row_lo, rows_global = _windows(what, tables, windows, mode)
     n, b, l = idx.shape
     first = tables[0]
     dtype, d, dev = first.dtype, first.shape[1], first.device
@@ -49,8 +61,10 @@ def embedding_bags(tables: Sequence[torch.Tensor], idx: torch.Tensor, *,
     ptrs = _int64s(t.data_ptr() for t in tables)
     rows = _int64s(t.shape[0] for t in tables)
     rc = getattr(_build.load("embedding_bag"), _ENTRY[dtype])(
-        ctypes.addressof(ptrs), ctypes.addressof(rows), n, idx.data_ptr(),
-        out.data_ptr(), b, l, d, MODES.index(mode), _build.stream_of(first))
+        ctypes.addressof(ptrs), ctypes.addressof(rows),
+        ctypes.addressof(row_lo), ctypes.addressof(rows_global), n,
+        idx.data_ptr(), out.data_ptr(), b, l, d, MODES.index(mode),
+        _build.stream_of(first))
     _build.check(rc, what)
     embedding_bag.launches += 1
     return out
@@ -82,18 +96,21 @@ def embedding_bag_backward(table: torch.Tensor, idx: torch.Tensor,
 
 def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
                             grad_outs: Sequence[torch.Tensor], *,
-                            mode: str = "sum") -> list:
+                            mode: str = "sum", windows=None) -> list:
     """The T dense float32 gradients, ``(rows_t, D)`` each, of the bags
     ``embedding_bag(tables[t], idx[t], mode=mode)`` given ``grad_outs[t]``
-    (``ref.embedding_bag_backward_ref`` of each table, on the card), the
-    same bits from run to run. They are views of one ``(sum of rows_t, D)``
-    tensor that the kernel writes whole: three launches and one stable
-    sort of the T * B * L positions by (table, row), whatever T is, and a
-    memset of a bit a row and a counter a chunk of 128 positions."""
+    (``ref.embedding_bag_backward_ref`` of each table, on the card; with
+    ``windows``, the window's rows), the same bits from run to run. They
+    are views of one ``(sum of rows_t, D)`` tensor that the kernel writes
+    whole: three launches and one stable sort of the T * B * L positions by
+    (table, row), a position outside its window after every row, whatever T
+    is, and a memset of a bit a row and a counter a chunk of 128
+    positions."""
     what = "embedding_bag_backward"
     if mode not in MODES:
         raise ValueError(f"unknown embedding_bag mode {mode!r}; have {MODES}")
     _check_tables(what, tables, idx, (torch.float32,))
+    row_lo, rows_global = _windows(what, tables, windows, mode)
     T, b, l = idx.shape
     d = tables[0].shape[1]
     dev = tables[0].device
@@ -123,7 +140,8 @@ def embedding_bags_backward(tables: Sequence[torch.Tensor], idx: torch.Tensor,
                           device=dev)
     per_table = [_int64s(x.data_ptr() for x in tables),
                  _int64s(g.data_ptr() for g in grad_outs),
-                 _int64s(g.stride(0) for g in grad_outs), _int64s(rows)]
+                 _int64s(g.stride(0) for g in grad_outs), _int64s(rows),
+                 row_lo, rows_global]
     args = [ctypes.addressof(a) for a in per_table] + [T]
     lib = _build.load("embedding_bag")
     stream = _build.stream_of(tables[0])
@@ -181,6 +199,29 @@ def _check_tables(what: str, tables: Sequence[torch.Tensor],
     if first.device.type != "cuda" or idx.device != first.device:
         raise ValueError(f"{what}: needs tensors on one CUDA device, got "
                          f"tables on {first.device}, ids on {idx.device}")
+
+
+def _windows(what: str, tables: Sequence[torch.Tensor], windows,
+             mode: str) -> tuple:
+    """Each table's ``(row_lo, rows_global)`` as two C arrays, checked:
+    the window lies in ``[0, rows_global)``, and a window that is not the
+    whole table takes ``sum`` bags only."""
+    rows = [t.shape[0] for t in tables]
+    if windows is None:
+        return _int64s([0] * len(rows)), _int64s(rows)
+    windows = [(int(lo), int(whole)) for lo, whole in windows]
+    if len(windows) != len(rows):
+        raise ValueError(f"{what}: {len(windows)} windows for "
+                         f"{len(rows)} tables")
+    for r, (lo, whole) in zip(rows, windows):
+        if lo < 0 or lo + r > whole:
+            raise ValueError(f"{what}: a window of {r} rows from row {lo} "
+                             f"does not lie in a table of {whole} rows")
+        if mode != "sum" and (lo, whole) != (0, r):
+            raise ValueError(f"{what}: a window of rows takes sum bags only, "
+                             f"got mode {mode!r}")
+    return (_int64s(lo for lo, _ in windows),
+            _int64s(whole for _, whole in windows))
 
 
 def _int64s(values) -> ctypes.Array:

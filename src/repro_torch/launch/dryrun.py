@@ -16,16 +16,16 @@ needed for 256 or 512 ranks. Per cell it reports:
 
 The reference's ``memory_analysis``, ``cost_analysis`` and HLO collective
 columns come from XLA's compiled program and have no counterpart here; they
-are left out. An LM or GNN cell is planned per rank on the mesh: its
+are left out. An LM, GNN or DLRM cell is planned per rank on the mesh: its
 ``arg_bytes`` add the rank's blocks of the model's float32 parameters
-under the reference's specs (a GNN's whole on every rank), and for a
-train cell of AdamW's two moments under the same specs and its step (the
-cell's ``state``), to its blocks of the inputs (a GNN's node features
-over the data axes, its edges over every axis) and of a decode cell's KV
-cache. The port's DLRM cells run on one card (a mesh is ROADMAP Queue 1
-item 17): they are planned at one rank, with the parameters (and a train
-cell's moments and step) among the inputs. A cell the port has not built
-yet would be reported as not ported, not as a failure.
+under the reference's specs (a GNN's whole on every rank, a DLRM's tables
+by rows over ``model`` and its MLPs whole), and for a train cell of
+AdamW's two moments under the same specs and its step (the cell's
+``state``), to its blocks of the inputs (a GNN's node features over the
+data axes, its edges over every axis; a DLRM's batch over the data axes,
+retrieval's candidates over ``model``) and of a decode cell's KV cache. A
+cell the port has not built yet would be reported as not ported, not as a
+failure.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch connectit --shape static_1b_edges
@@ -40,39 +40,19 @@ import time
 import traceback
 
 from ..configs import all_archs, get_arch
-from ..legacy.models.dlrm import DLRMConfig, table_rows
 from .mesh import (
     HBM_BW,
     HBM_BYTES,
     PEAK_FLOPS_BF16,
-    ShapeMesh,
     make_production_mesh,
 )
 from .steps import build_cell, local_bytes, state_bytes
 
 
-def _dlrm_param_bytes(cfg: DLRMConfig) -> int:
-    """float32 tables and MLP weights and biases of a DLRM config."""
-    tables = sum(table_rows(v) * cfg.embed_dim for v in cfg.vocab_sizes)
-    mlp = 0
-    for widths in ((cfg.n_dense,) + cfg.bot_mlp,
-                   (cfg.n_interactions + cfg.embed_dim,) + cfg.top_mlp):
-        mlp += sum(a * b + b for a, b in zip(widths[:-1], widths[1:]))
-    return 4 * (tables + mlp)
-
-
-# a one-card cell's plan: one rank
-ONE_RANK = ShapeMesh((1,), ("data",))
-# the families whose cells run on one rank only, and the queue item of
-# their cells on a mesh
-ONE_RANK_FAMILIES = {"recsys": "ROADMAP Queue 1 item 17"}
-
-
 def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
              verbose: bool = True) -> dict:
     arch = get_arch(arch_name)
-    mesh = make_production_mesh(multi_pod=(mesh_kind == "multi"))
-    plan = ONE_RANK if arch.family in ONE_RANK_FAMILIES else mesh
+    plan = make_production_mesh(multi_pod=(mesh_kind == "multi"))
     t0 = time.time()
     try:
         cell = build_cell(arch, shape_name, plan, device="meta")
@@ -82,18 +62,10 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
                   f"({e}) ==")
         return dict(arch=arch_name, shape=shape_name, mesh=mesh_kind,
                     status=f"not ported ({e})")
-    shape = arch.shapes[shape_name]
     build_s = time.time() - t0
-    if arch.family == "recsys":  # one card: the parameters are inputs too
-        # training also holds AdamW's mu and nu (one each per parameter)
-        # and its int32 step
-        states = 3 if shape["kind"] == "train" else 1
-        arg_bytes = (local_bytes(cell, plan)
-                     + states * _dlrm_param_bytes(arch.model)
-                     + (4 if shape["kind"] == "train" else 0))
-    else:  # the connectit inputs; an LM or GNN cell's model and AdamW
-        # state too, per rank
-        arg_bytes = local_bytes(cell, plan) + state_bytes(cell, plan)
+    # the inputs; an LM, GNN or DLRM cell's model and AdamW state too, per
+    # rank
+    arg_bytes = local_bytes(cell, plan) + state_bytes(cell, plan)
     n_dev = plan.size()
     model_flops = cell.meta.get("model_flops", 0) / n_dev
     touched = cell.meta.get("bytes_touched", local_bytes(cell, plan) * n_dev)
@@ -117,9 +89,6 @@ def run_cell(arch_name: str, shape_name: str, mesh_kind: str,
               f"({'fits' if rec['fits'] else 'DOES NOT FIT'})")
         print(f"  roofline: compute={compute_t:.4e}s memory={memory_t:.4e}s "
               f"→ dominant={dom}")
-        if arch.family in ONE_RANK_FAMILIES:
-            print(f"  planned at one rank; the {mesh_kind} mesh's per-rank "
-                  f"plan is {ONE_RANK_FAMILIES[arch.family]}")
     return rec
 
 

@@ -22,12 +22,17 @@ shapes in ``state`` and their specs in ``state_shardings``.
     label axis under the sharded placement. Built on a real mesh the cell
     runs; built on a ``launch.mesh.ShapeMesh`` with ``device="meta"`` it
     only plans (``launch/dryrun.py``).
-  * ``recsys``: DLRM training, serving and retrieval on one device;
+  * ``recsys``: DLRM training, serving and retrieval;
     ``fn(model, *inputs)``, and for training ``fn(model, opt_state,
     *inputs)``, which updates the model and the optimizer state in place
-    (the reference donates both).
-    On a mesh of more than one rank they are ROADMAP Queue 1 item 17
-    (refused, not built for one rank).
+    (the reference donates both). On a mesh of several ranks each rank
+    passes its blocks: the model laid out by ``state_shardings[0]``
+    (``init_dlrm`` / ``dlrm_from_jax`` with ``mesh=`` and ``specs=``: each
+    table's rows over ``model``, the MLPs whole), AdamW's moments by
+    ``state_shardings[1]``, the batch over the data axes, retrieval's
+    candidates over ``model`` (its query whole); serving returns this
+    rank's block of the probabilities, retrieval the whole top-k on every
+    rank (``legacy/models/dlrm.py``).
   * ``lm``: the transformer's ``train`` / ``prefill`` / ``decode`` cells,
     the same calling convention: ``fn(model, opt_state, tokens, labels)``,
     ``fn(model, tokens)`` and ``fn(model, cache, tok)`` (the cache is
@@ -81,6 +86,7 @@ from ..legacy.models import gnn as gnn_mod
 from ..legacy.models import nequip as nequip_mod
 from ..legacy.models import transformer as tfm
 from ..legacy.models.dlrm import DLRM, DLRMConfig
+from ..legacy.models.dlrm import param_shapes as dlrm_param_shapes
 from ..legacy.models import spmd
 from ..legacy.models.spmd import spec_leaves
 from ..legacy.tree import leaves as tree_leaves
@@ -164,17 +170,29 @@ def serve_step(model: DLRM, dense: torch.Tensor,
 
 def train_step(model: DLRM, opt_state: optim.AdamState, dense: torch.Tensor,
                sparse: torch.Tensor, labels: torch.Tensor,
-               ocfg: optim.OptimizerConfig = OPT):
+               ocfg: optim.OptimizerConfig = OPT, shard=None):
     """One step of the reference's DLRM ``train_step``: the loss, its
     gradient with respect to every parameter, and ``optim.update``, in place
     on ``model``'s parameters and ``opt_state``'s moments → ``(model,
-    opt_state, {"loss", "lr", "grad_norm"})``."""
+    opt_state, {"loss", "lr", "grad_norm"})``. On a mesh (``shard`` a
+    ``MeshShard``) each rank steps its blocks: the MLPs' gradients are
+    summed over the data axes, and the clip's norm counts each table row
+    once (over ``model``)."""
     params = model.params()
     with torch.enable_grad():
-        loss = model.loss(dense, sparse, labels)
+        if shard is None:
+            loss = model.loss(dense, sparse, labels)
+        else:
+            loss = model.loss(dense, sparse, labels, shard)
         grads = torch.autograd.grad(loss, optim.tree_leaves(params))
+    norm_sq = None
+    if shard is not None:
+        model.mesh_grads(grads, shard)
+        specs = spec_leaves(shard.specs)
+        norm_sq = lambda sq: shard.norm_sq(sq, specs)  # noqa: E731
     _, opt_state, info = optim.update(
-        ocfg, params, optim.tree_unflatten(params, grads), opt_state)
+        ocfg, params, optim.tree_unflatten(params, grads), opt_state,
+        norm_sq=norm_sq)
     return model, opt_state, {"loss": loss.detach(), **info}
 
 
@@ -185,27 +203,70 @@ def retrieve(model: DLRM, dense: torch.Tensor, sparse: torch.Tensor,
         return model.retrieval_score(dense, sparse, cand, top_k=top_k)
 
 
-def _dlrm_cell(arch: Arch, shape_name: str, cfg: DLRMConfig) -> Cell:
+def _dlrm_cell(arch: Arch, shape_name: str, mesh=None) -> Cell:
+    """A DLRM cell: at one rank, whole inputs; on a mesh of several ranks
+    the reference's ``in_shardings`` (the batch over the data axes where
+    they divide it, retrieval's query whole and its candidates over
+    ``model``) and state (the tables' rows over ``model``, the MLPs whole;
+    AdamW's moments as the parameters)."""
+    cfg: DLRMConfig = arch.model
     spec = arch.shapes[shape_name]
     kind = spec["kind"]
     B = spec["batch"]
     dense = _meta((B, cfg.n_dense), torch.float32)
     sparse = _meta((B, cfg.n_sparse, cfg.multi_hot), torch.int32)
-    if kind == "serve":
-        return Cell(arch.name, shape_name, serve_step, (dense, sparse),
-                    ((), ()), meta=dict(model_flops=_dlrm_model_flops(cfg, B), batch=B))
+    meta = dict(model_flops=_dlrm_model_flops(cfg, B), batch=B)
     if kind == "retrieval":
         n_cand = spec["n_candidates"]
         cand = _meta((n_cand, cfg.embed_dim), torch.float32)
-        return Cell(arch.name, shape_name, retrieve, (dense, sparse, cand),
-                    ((), (), ()), meta=dict(model_flops=2 * n_cand * cfg.embed_dim,
-                              batch=1))
-    if kind == "train":
+        meta = dict(model_flops=2 * n_cand * cfg.embed_dim, batch=1)
+    elif kind == "train":
         labels = _meta((B,), torch.int32)
-        return Cell(arch.name, shape_name, train_step, (dense, sparse, labels),
-                    ((), (), ()), donate=(0, 1),
-                    meta=dict(model_flops=_dlrm_model_flops(cfg, B), batch=B))
-    raise ValueError(f"{arch.name}: unknown shape kind {kind!r}")
+    elif kind != "serve":
+        raise ValueError(f"{arch.name}: unknown shape kind {kind!r}")
+    if mesh is None or mesh.size() <= 1:
+        if kind == "serve":
+            return Cell(arch.name, shape_name, serve_step, (dense, sparse),
+                        ((), ()), meta=meta)
+        if kind == "retrieval":
+            return Cell(arch.name, shape_name, retrieve,
+                        (dense, sparse, cand), ((), (), ()), meta=meta)
+        return Cell(arch.name, shape_name, train_step,
+                    (dense, sparse, labels), ((), (), ()), donate=(0, 1),
+                    meta=meta)
+
+    pshapes = _meta_tree(dlrm_param_shapes(cfg))
+    pspecs = shd.param_specs(pshapes, "recsys", mesh)
+    shard = _LazyShard(mesh, pspecs, B)
+    if kind == "serve":
+        def serve(model, dense, sparse):
+            shard(model)
+            return serve_step(model, dense, sparse)
+
+        return Cell(arch.name, shape_name, serve, (dense, sparse),
+                    tuple(shd.batch_spec(tuple(x.shape), mesh)
+                          for x in (dense, sparse)), meta=meta,
+                    state=(pshapes,), state_shardings=(pspecs,))
+    if kind == "retrieval":
+        def retrieval(model, dense, sparse, cand, top_k: int = 100):
+            shard(model)
+            return retrieve(model, dense, sparse, cand, top_k)
+
+        return Cell(arch.name, shape_name, retrieval, (dense, sparse, cand),
+                    ((), (), ("model", None)), meta=meta, state=(pshapes,),
+                    state_shardings=(pspecs,))
+
+    def train(model, opt_state, dense, sparse, labels):
+        return train_step(model, opt_state, dense, sparse, labels,
+                          shard=shard(model))
+
+    ostate = optim.AdamState(_meta((), torch.int32), pshapes, pshapes)
+    ospecs = optim.AdamState((), pspecs, pspecs)
+    return Cell(arch.name, shape_name, train, (dense, sparse, labels),
+                tuple(shd.batch_spec(tuple(x.shape), mesh)
+                      for x in (dense, sparse, labels)), donate=(0, 1),
+                meta=meta, state=(pshapes, ostate),
+                state_shardings=(pspecs, ospecs))
 
 
 # ---------------------------------------------------------------------------
@@ -677,19 +738,12 @@ def build_cell(arch: Arch, shape_name: str, mesh=None, *,
     ``ShapeMesh``, pass ``device="meta"``. An ``lm`` cell runs on one rank
     (``mesh`` None or of one rank) or on ``mesh`` (a ``DeviceMesh``; a
     ``ShapeMesh`` plans it), and takes its inputs' devices; so does a
-    ``gnn`` train cell. A ``recsys`` cell runs on one rank and refuses a
-    mesh of more."""
+    ``gnn`` train cell and a ``recsys`` cell."""
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch.name} has no shape {shape_name!r}; have "
                        f"{sorted(arch.shapes)}")
     if arch.family == "recsys":
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                f"{arch.name}: DLRM cells on a mesh of {mesh.size()} ranks "
-                f"(row-sharded tables, data-parallel MLPs, candidates over "
-                f"model) are not ported yet (ROADMAP Queue 1 item 17); "
-                f"they run on one rank")
-        return _dlrm_cell(arch, shape_name, arch.model)
+        return _dlrm_cell(arch, shape_name, mesh)
     if arch.family == "lm":
         return _lm_cell(arch, shape_name, mesh)
     if arch.family == "gnn":

@@ -137,6 +137,14 @@ def mlp_apply(params: Mapping, x: torch.Tensor, *,
     return x
 
 
+def top_k(x: torch.Tensor, k: int) -> tuple:
+    """``jax.lax.top_k``: ``(values, indices)`` of the ``k`` largest along
+    the last axis, largest first, ties to the lower index (a stable
+    descending sort; ``torch.topk`` promises no order for ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` in the two operands' promoted dtype, as ``jnp`` promotes a
     bfloat16 activation against a float32 weight (to float32)."""

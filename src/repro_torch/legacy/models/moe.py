@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ... import random as trandom
-from .layers import dense_init, div, no_shard, normal
+from .layers import dense_init, div, no_shard, normal, top_k
 from .spmd import a2a_int8, all_to_all, extent, reduce_sum, scale_grad
 
 
@@ -93,13 +93,6 @@ def swiglu(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     at its use."""
     h = F.silu(x @ wg.to(x.dtype)) * (x @ wu.to(x.dtype))
     return h @ wd.to(x.dtype)
-
-
-def top_k(probs: torch.Tensor, k: int) -> tuple:
-    """``jax.lax.top_k``: the ``k`` largest along the last axis, largest
-    first, ties to the lower index (a stable descending sort)."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _dispatch(x: torch.Tensor, gidx: torch.Tensor, gval: torch.Tensor,

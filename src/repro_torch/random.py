@@ -132,8 +132,10 @@ def bits(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
 _SLICE = 1 << 22
 
 
-def _draw(key: torch.Tensor, shape: Shape, finish, dtype) -> torch.Tensor:
-    """``finish(bits)`` of each element of ``shape``, in flat slices."""
+def _draw(key: torch.Tensor, shape: Shape, finish, dtype,
+          start: int = 0) -> torch.Tensor:
+    """``finish(bits)`` of each element of ``shape``, in flat slices; the
+    elements ``start`` .. ``start + prod(shape) - 1`` of a larger draw."""
     shape = _shape(shape)
     n = math.prod(shape)
     k1, k2 = _words(key)
@@ -141,7 +143,8 @@ def _draw(key: torch.Tensor, shape: Shape, finish, dtype) -> torch.Tensor:
     for lo in range(0, n, _SLICE):
         b = torch.empty(min(_SLICE, n - lo), dtype=torch.int64,
                         device=key.device)
-        out[lo: lo + b.shape[0]] = finish(ops.threefry_bits(b, k1, k2, lo))
+        out[lo: lo + b.shape[0]] = finish(
+            ops.threefry_bits(b, k1, k2, start + lo))
     return out.reshape(shape)
 
 
@@ -218,12 +221,15 @@ def erfinv(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x.abs() == 1.0, x * math.inf, out)
 
 
-def normal(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:
+def normal(key: torch.Tensor, shape: Shape = (), *,
+           start: int = 0) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` (float32): ``sqrt(2) *
-    erfinv(u)`` for ``u = uniform(key, shape, nextafter(-1, 0), 1)``."""
+    erfinv(u)`` for ``u = uniform(key, shape, nextafter(-1, 0), 1)``.
+    ``start`` > 0 draws the elements ``start`` .. ``start + prod(shape) -
+    1`` of a larger draw under the same key (a rank's block of rows)."""
     return _draw(key, shape, lambda b: erfinv(
         _scale(_unit_floats(b), _NORMAL_LO, 1.0)) * np.float32(np.sqrt(2)),
-        torch.float32)
+        torch.float32, start)
 
 
 def exponential(key: torch.Tensor, shape: Shape = ()) -> torch.Tensor:

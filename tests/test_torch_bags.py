@@ -20,7 +20,14 @@ one sort for all of them).
     within the reordering bound of two float32 sums, the same bits on a
     second call, a hub row, widths that take 8- and 4-byte vectors,
     ``grad_out`` rows at a stride, gradients past 2^31 flat rows (int64
-    keys), and the launch counts of a call and of a train step.
+    keys), and the launch counts of a call and of a train step; row
+    windows (a rank's block of a row-sharded table): each shard's forward
+    the windowed plain version's bits (float32 adds in l order at L > 1)
+    and the shards' bags summing to the whole table's, each shard's
+    gradient the chunked restatement of the kernel's order bit for bit and
+    within the reordering bound of the windowed plain backward, on windows
+    that cut the tables mid-range and on the shard holding the clamped last
+    row; a whole-table window the call without one, bits and launches.
 """
 
 import dataclasses
@@ -46,6 +53,7 @@ from repro_torch.kernels.legacy.embedding_bag import kernel as bag_kernel
 from repro_torch.kernels.legacy.embedding_bag.ref import (
     embedding_bag_backward_ref,
     embedding_bag_ref,
+    embedding_bags_backward_chunked_ref,
     wrap_and_clamp,
 )
 from repro_torch.legacy.models import dlrm as tdlrm
@@ -586,3 +594,116 @@ def test_grouped_forward_refuses_on_card(cuda):
     with pytest.raises(ValueError, match="CUDA device"):
         fn(tables, idx.cpu())
     assert counter.launches == before
+
+
+# ---------------------------------------------------------------------------
+# Row windows on the card (a rank's block of a row-sharded table).
+# ---------------------------------------------------------------------------
+
+def _bag_case(rows: int, D: int, B: int, L: int, seed: int) -> tuple:
+    """A float32 table with tied rows, ids with wrapped negatives, the dump
+    row, ids at and past the table and below -rows (the clamp), and the
+    (B, D) cotangent."""
+    rng = np.random.default_rng(seed)
+    table = np.round(rng.normal(size=(rows, D)), 1).astype(np.float32)
+    table[3] = table[rows - 7]
+    idx = rng.integers(-rows, rows, size=(B, L)).astype(np.int32)
+    idx[0, 0], idx[1, 0], idx[2, 0] = rows - 1, rows, rows + 9
+    idx[3, 0], idx[4, 0] = -rows - 5, -1
+    g = rng.normal(size=(B, D)).astype(np.float32)
+    return (torch.from_numpy(table), torch.from_numpy(idx),
+            torch.from_numpy(g))
+
+
+def _card_windows(cuda, rows, D, B, L, cuts, seed):
+    """T tables of ``rows`` rows each cut at ``cuts`` (one window a table
+    per shard), their (T, B, L) ids (wrapped, clamped, past the table) and
+    cotangents, on the card."""
+    cases = [_bag_case(r, D, B, L, seed + t) for t, r in enumerate(rows)]
+    tables = [c[0].to(cuda) for c in cases]
+    idx = torch.stack([c[1] for c in cases]).to(cuda)
+    g = [c[2].to(cuda) for c in cases]
+    shards = []
+    for k in range(len(cuts) - 1):
+        lo = [int(c * r) for c, r in zip([cuts[k]] * len(rows), rows)]
+        hi = [int(cuts[k + 1] * r) for r in rows]
+        shards.append(([t[a:b].contiguous() for t, a, b in zip(tables, lo,
+                                                               hi)],
+                       [(a, r) for a, r in zip(lo, rows)]))
+    return tables, idx, g, shards
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("L", [1, 3])
+@pytest.mark.parametrize("cuts", [(0, 0.37, 1.0), (0, 0.25, 0.5, 0.75, 1.0)])
+def test_windowed_kernel_is_the_windowed_plain_version(cuda, cuts, L):
+    """Each shard's kernel bags are the windowed plain version's bits at
+    L = 1 (float32 adds in l order at L > 1), and sum over the shards to
+    the whole table's kernel bags; each shard's gradient is the chunked
+    restatement's bits and within the reordering bound of the windowed
+    plain backward, the same bits twice. The last shard holds the clamped
+    last row."""
+    rows = (70_001, 30_000, 5_003)
+    tables, idx, g, shards = _card_windows(cuda, rows, 64, 20_000, L, cuts,
+                                           seed=L)
+    whole = bag_kernel.embedding_bags(tables, idx)
+    total = torch.zeros_like(whole)
+    for blocks, wins in shards:
+        out = bag_kernel.embedding_bags(blocks, idx, windows=wins)
+        total += out
+        for t, (blk, (lo, wh)) in enumerate(zip(blocks, wins)):
+            want = embedding_bag_ref(blk, idx[t], row_lo=lo, rows_global=wh)
+            if L == 1:
+                assert torch.equal(out[t], want)
+            else:
+                read = wrap_and_clamp(idx[t], wh) - lo
+                inside = ((read >= 0) & (read < blk.shape[0]))[..., None]
+                rows_ = torch.where(inside, blk[read.clamp(0, blk.shape[0]
+                                                           - 1)], 0.0)
+                acc = torch.zeros_like(out[t])
+                for l in range(L):
+                    acc = acc + rows_[:, l]
+                assert torch.equal(out[t], acc)
+        grads = bag_kernel.embedding_bags_backward(blocks, idx, g,
+                                                   windows=wins)
+        again = bag_kernel.embedding_bags_backward(blocks, idx, g,
+                                                   windows=wins)
+        chunked = embedding_bags_backward_chunked_ref(blocks, idx, g, wins)
+        for t, (blk, (lo, wh)) in enumerate(zip(blocks, wins)):
+            assert torch.equal(grads[t], again[t])
+            assert torch.equal(grads[t], chunked[t])
+            want = embedding_bag_backward_ref(blk, idx[t], g[t], row_lo=lo,
+                                              rows_global=wh)
+            mag = embedding_bag_backward_ref(blk, idx[t], g[t].abs(),
+                                             row_lo=lo, rows_global=wh)
+            read = wrap_and_clamp(idx[t], wh) - lo
+            n = blk.shape[0]
+            read = torch.where((read >= 0) & (read < n), read, n)
+            k = torch.bincount(read.flatten(), minlength=n + 1)[:-1].float()
+            bound = 2 * (k[:, None] - 1).clamp(min=0) * 2.0 ** -24 * mag
+            assert bool(((grads[t] - want).abs() <= bound).all())
+    if L == 1:
+        assert torch.equal(total, whole)
+    # the clamped last row (ids rows and rows + 9) is in the last shard
+    last_blocks, last_wins = shards[-1]
+    assert last_wins[0][0] + last_blocks[0].shape[0] == rows[0]
+
+
+@pytest.mark.gpu
+def test_whole_window_is_the_one_rank_call_on_card(cuda):
+    """A window of the whole table gives the call without windows, bits and
+    launches alike."""
+    tables, idx, g, _ = _card_windows(cuda, (9_000, 500), 64, 4_096, 2,
+                                      (0, 1.0), seed=9)
+    wins = [(0, t.shape[0]) for t in tables]
+    counts = ops.launch_counts()
+    a = bag_kernel.embedding_bags(tables, idx)
+    b = bag_kernel.embedding_bags(tables, idx, windows=wins)
+    ga = bag_kernel.embedding_bags_backward(tables, idx, g)
+    gb = bag_kernel.embedding_bags_backward(tables, idx, g, windows=wins)
+    after = ops.launch_counts()
+    assert torch.equal(a, b)
+    assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+    assert after["embedding_bag"] - counts["embedding_bag"] == 2
+    assert after["embedding_bag_backward"] - \
+        counts["embedding_bag_backward"] == 2

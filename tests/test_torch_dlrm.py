@@ -24,8 +24,9 @@ from repro.legacy.models import dlrm as jdlrm
 from repro_torch.configs import all_archs, get_arch
 from repro_torch.kernels import ops
 from repro_torch.kernels.legacy.embedding_bag.ref import embedding_bag_ref
-from repro_torch.launch.steps import build_cell, retrieve, serve_step, \
-    train_step
+from repro_torch.launch.mesh import ShapeMesh
+from repro_torch.launch.steps import build_cell, local_bytes, retrieve, \
+    serve_step, train_step
 from repro_torch.legacy.data import RecsysStream
 from repro_torch.legacy.models import dlrm as tdlrm
 
@@ -115,6 +116,39 @@ def test_dlrm_matches_jax(name):
     assert ops.launch_counts() == before
 
 
+@pytest.mark.parametrize("ties", ["zero_rows", "equal_rows"])
+def test_retrieval_ties_take_lax_top_k_order(ties):
+    """Tied scores come out in ascending index order, as ``lax.top_k``
+    gives them (``torch.topk`` promises no order for ties): 50 random
+    candidates among 200 zero rows (score 0), or one row repeated at 30
+    places among random ones (one score at all of them)."""
+    cfg = CONFIGS["rm2_smoke"]
+    jcfg = _jax_cfg(cfg)
+    params = _j_init(jax.random.PRNGKey(0), jcfg)
+    model = tdlrm.dlrm_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                device="cpu")
+    rng = np.random.default_rng(12)
+    dense = rng.normal(size=(1, cfg.n_dense)).astype(np.float32)
+    sparse = rng.integers(0, 1000, (1, cfg.n_sparse, 1)).astype(np.int32)
+    if ties == "zero_rows":
+        cand = np.zeros((250, cfg.embed_dim), np.float32)
+        cand[rng.choice(250, 50, replace=False)] = rng.normal(
+            size=(50, cfg.embed_dim))
+    else:
+        cand = rng.normal(size=(250, cfg.embed_dim)).astype(np.float32)
+        cand[rng.choice(250, 30, replace=False)] = 1.0
+    vals, idx = retrieve(model, torch.from_numpy(dense),
+                         torch.from_numpy(sparse), torch.from_numpy(cand),
+                         top_k=100)
+    jvals, jidx = _j_retrieval(params, jnp.asarray(dense), jnp.asarray(sparse),
+                               jnp.asarray(cand), jcfg, top_k=100)
+    jvals, jidx = np.asarray(jvals), np.asarray(jidx)
+    _, counts = np.unique(jvals, return_counts=True)
+    assert counts.max() >= 20  # the top-100 holds a run of ties
+    np.testing.assert_array_equal(idx.numpy(), jidx)
+    np.testing.assert_allclose(vals.numpy(), jvals, **TOL)
+
+
 def test_id_past_the_table_is_nan_in_repro_and_clamped_in_the_port():
     """By design (ROADMAP Queue 3): one id equal to ``table_rows(v)`` in
     one table turns ``repro``'s logits to NaN (its bags are ``jnp.take``,
@@ -197,7 +231,9 @@ def test_cell_shapes_and_flops_match_jax(shape):
 def test_train_cell_is_not_ported_yet():
     """The train cell is built: the reference's ``_dlrm_cell`` meta and
     input shapes for ``train_batch``, the model and optimizer state donated
-    (updated in place); an unknown shape still raises."""
+    (updated in place), at one rank and on a 2 x 2 mesh (the batch over
+    ``data``, each table's rows over ``model``, AdamW's moments as the
+    parameters); an unknown shape still raises."""
     spec = J_RECSYS_SHAPES["train_batch"]
     B = spec["batch"]
     serve = build_cell(ARCH, "serve_bulk")
@@ -211,6 +247,16 @@ def test_train_cell_is_not_ported_yet():
     assert [a.dtype for a in cell.args] == [torch.float32, torch.int32,
                                             torch.int32]
     assert all(a.device.type == "meta" for a in cell.args)
+    mesh = ShapeMesh((2, 2), ("data", "model"))
+    on_mesh = build_cell(ARCH, "train_batch", mesh, device="meta")
+    assert on_mesh.donate == (0, 1) and on_mesh.meta == cell.meta
+    assert on_mesh.in_shardings == (("data", None), ("data", None, None),
+                                    ("data",))
+    params, state = on_mesh.state_shardings
+    assert params["tables"] == [("model", None)] * 26
+    assert params["bot"]["w0"] == (None, None)
+    assert (state.step, state.mu, state.nu) == ((), params, params)
+    assert local_bytes(on_mesh, mesh) == B // 2 * (13 + 26 + 1) * 4
     with pytest.raises(KeyError, match="no shape"):
         build_cell(ARCH, "decode_32k")
 

@@ -9,7 +9,9 @@
     production meshes against the sum of the local blocks under
     ``repro``'s specs (the parameters, a train cell's AdamW state, the
     batch, a decode cell's cache);
-  * a DLRM cell on a mesh is refused, naming Queue 1 item 17;
+  * every DLRM cell builds on a mesh with ``repro``'s specs (the tables'
+    rows over ``model``, the batch over the data axes, the candidates over
+    ``model``), and at one rank as before;
   * a 4-rank gloo world (``tests/torch_lm_mesh_worker.py``, started before
     the first test so that it runs beside them) on a 2 x 2 and a 1 x 4
     ``(data, model)`` mesh, at the smoke configs of qwen3-4b,
@@ -287,18 +289,41 @@ def test_dryrun_arg_bytes_match_repro_specs(name, shape, mesh_kind):
 
 @pytest.mark.parametrize("mesh", ["2x2", "16x16"])
 def test_recsys_cell_on_a_mesh_names_item_17(mesh):
-    """The DLRM cells on a mesh are refused (they used to be built for one
-    rank, whole inputs on every rank); at one rank they build as before."""
+    """The DLRM cells on a mesh (ROADMAP Queue 1 item 17, done) build with
+    the reference's specs: the parameters' and AdamW's by ``param_specs``
+    (each table's rows over ``model``, the MLPs whole), the batch by
+    ``batch_sharding``, retrieval's query whole and its candidates over
+    ``model``; every input and state leaf splits over the mesh. At one rank
+    they build as before, whole inputs on every rank."""
     arch = get_arch("dlrm-rm2")
+    shape_, names = MESHES[mesh]
+    tm, jm = ShapeMesh(shape_, names), _JMesh(shape_, names)
+    dax = tuple(a for a in names if a in ("pod", "data"))
+    want_p = [tuple(w) for w in _spec_list(jshd.param_specs(
+        _jshapes("dlrm-rm2"), "recsys", jm))]
     for shape in arch.shape_names():
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP Queue 1 item 17"):
-            tsteps.build_cell(arch, shape, ShapeMesh(*MESHES[mesh]),
-                              device="meta")
-        cell = tsteps.build_cell(arch, shape, device="meta")
-        assert all(sh == () for sh in cell.in_shardings)
+        spec = arch.shapes[shape]
+        cell = tsteps.build_cell(arch, shape, tm, device="meta")
+        assert tsteps.spec_leaves(cell.state_shardings[0]) == want_p
+        if spec["kind"] == "train":
+            step, mu, nu = tsteps.spec_leaves(cell.state_shardings[1])[:1], \
+                *[tsteps.spec_leaves(x) for x in cell.state_shardings[1][1:]]
+            assert step == [()] and mu == nu == want_p
+        if spec["kind"] == "retrieval":
+            assert cell.in_shardings == ((), (), ("model", None))
+        else:
+            B = spec["batch"]
+            entry = dax[0] if len(dax) == 1 else dax
+            assert B % prod(tm.shape[names.index(a)] for a in dax) == 0
+            assert all(sh == (entry,) + (None,) * (len(a.shape) - 1)
+                       for a, sh in zip(cell.args, cell.in_shardings))
+        for a, sh in zip(cell.args, cell.in_shardings):
+            tshd.local_shape(tuple(a.shape), sh, tm)  # splits
+        assert tsteps.state_bytes(cell, tm) > 0
+        one = tsteps.build_cell(arch, shape, device="meta")
+        assert all(sh == () for sh in one.in_shardings)
     rec = dryrun.run_cell("dlrm-rm2", "train_batch", "single", verbose=False)
-    assert (rec["status"], rec["devices"]) == ("ok", 1)
+    assert (rec["status"], rec["devices"]) == ("ok", 256)
 
 
 # ---------------------------------------------------------------------------
